@@ -209,7 +209,11 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         fused=conf.get_bool("knn.fused", True))
     delim = conf.get("field.delim.out", ",")
     test_rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
-    test = fz.transform(test_rows, with_labels=validation)
+    # with the chunked feed the test table stays on the host and streams
+    # to the device chunk by chunk
+    test_device = "cpu" if cfg.feed_chunk_rows > 0 else device
+    test = fz.transform(test_rows, with_labels=validation,
+                        device=test_device)
 
     feature_post = _knn_feature_post(train, cfg)
     pred = knn.classify(train, test, cfg, feature_post=feature_post)

@@ -58,7 +58,8 @@ class KnnConfig:
     # whole test table at once
     feed_chunk_rows: int = 0                 # feed.chunk.rows
     # knn.fused: on the chunked feed, hand RAW chunks to the fused
-    # normalize→distance→top-k kernel (K3); off normalizes on the host
+    # normalize→distance→top-k kernel (K3); off normalizes the test table
+    # where it lies, before chunking
     fused: bool = True                       # knn.fused
 
 
@@ -70,39 +71,31 @@ def _num_cat_idx(table: EncodedTable):
     return num_idx, cat_idx
 
 
-def _split_features(table: EncodedTable
+def _split_features(table: EncodedTable, raw: bool = False
                     ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor],
                                int]:
-    """(numeric [N, Fn] normalized, categorical codes [N, Fc], max cat
-    bins), on the table's device."""
+    """(numeric [N, Fn], categorical codes [N, Fc], max cat bins), on the
+    table's device. Numeric features are range-normalized, or with ``raw``
+    stay on the fit scale (the fused kernel normalizes them itself)."""
     num_idx, cat_idx = _num_cat_idx(table)
-    norm = normalize_numeric(table)
-    x_num = norm[:, num_idx] if num_idx else None
+    numeric = table.numeric if raw else normalize_numeric(table)
+    x_num = numeric[:, num_idx] if num_idx else None
     x_cat = table.binned[:, cat_idx] if cat_idx else None
     n_cat_bins = max((table.bins_per_feature[i] for i in cat_idx), default=0)
     return x_num, x_cat, n_cat_bins
 
 
-def _split_features_host(table: EncodedTable, raw: bool = False):
-    """Host (numpy) split for the chunked feed: ``(x_num, x_cat, mins,
-    span)``. With ``raw`` the numeric features stay on the fit scale and
-    ``mins``/``span`` (zero width → 1, ``None`` when the table records no
-    range) return for the fused kernel; else they arrive normalized with
-    the same IEEE f32 ops as :func:`normalize_numeric`, and ``mins``/``span``
-    are ``None``."""
-    num_idx, cat_idx = _num_cat_idx(table)
-    numeric = table.numeric.cpu().numpy()
-    mins = span = None
-    if table.norm_min:
-        mins_all, span_all = norm_range(table)
-        if raw:
-            if num_idx:
-                mins, span = mins_all[num_idx], span_all[num_idx]
-        else:
-            numeric = (numeric - mins_all) / span_all
-    x_num = numeric[:, num_idx] if num_idx else None
-    x_cat = table.binned.cpu().numpy()[:, cat_idx] if cat_idx else None
-    return x_num, x_cat, mins, span
+def _numeric_range(table: EncodedTable, device: torch.device
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """The fit-time (mins, span) of the numeric features on ``device``
+    (zero width → 1), or ``(None, None)`` when the table records no range
+    or has no numeric feature."""
+    num_idx, _ = _num_cat_idx(table)
+    if not (table.norm_min and num_idx):
+        return None, None
+    mins, span = norm_range(table)
+    return (torch.from_numpy(mins[num_idx]).to(device),
+            torch.from_numpy(span[num_idx]).to(device))
 
 
 def validate_config(config: KnnConfig) -> None:
@@ -123,7 +116,8 @@ def validate_config(config: KnnConfig) -> None:
 def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(distances [M, k] scaled int32, train ids [M, k] int32) on the train
-    table's device.
+    table's device. The test table may lie on the host: the chunked feed
+    moves its rows to the train table's device.
 
     Euclidean fast-mode jobs with k ≤ 128 and an encoded width ≤ 512 go
     through the kernel family: K2, or K3 when ``feed_chunk_rows`` chunks
@@ -140,14 +134,10 @@ def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
         algorithm=config.algorithm, k=config.top_match_count,
         mode=config.mode, encoded_width=encoded_width)
     use_fused = feed_active and use_kernel and config.fused
-    mins = span = None
-    if feed_active:
-        te_num, te_cat, mins, span = _split_features_host(test, raw=use_fused)
-        if mins is not None:
-            mins = torch.from_numpy(mins).to(dev)
-            span = torch.from_numpy(span).to(dev)
-    else:
-        te_num, te_cat, _ = _split_features(test)
+    # the test table stays where the caller put it: on the host it streams
+    # to the card chunk by chunk, on the card the chunks are slices of it
+    te_num, te_cat, _ = _split_features(test, raw=use_fused)
+    mins, span = _numeric_range(test, dev) if use_fused else (None, None)
 
     def run(xn, xc):
         if use_fused:
@@ -166,7 +156,7 @@ def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
             mode=config.mode)
 
     if not feed_active:
-        return run(te_num, te_cat)
+        return run(*(None if t is None else t.to(dev) for t in (te_num, te_cat)))
     parts = [run(*chunk) for chunk in
              iter_chunks((te_num, te_cat), config.feed_chunk_rows, dev)]
     return (torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts]))

@@ -80,12 +80,14 @@ def _check_operands(**tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
-def launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, k: int,
-                mins: Optional[torch.Tensor] = None,
-                span: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
+                 k: int, mins: Optional[torch.Tensor] = None,
+                 span: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K2 (or K3 when ``mins``/``span`` are given) on the current
-    stream: ``[M, D]`` × ``[N, D]`` → (metric [M, k], ids [M, k])."""
+    stream: ``[M, D]`` × ``[N, D]`` → (metric [M, k], ids [M, k]). Only
+    the wrappers ``topk_raw`` and ``fused_topk_raw`` call it; each counts
+    its own launches."""
     dev = _check_operands(x=x, y=y, y2=y2, mins=mins, span=span)
     if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must be "
@@ -137,7 +139,7 @@ def topk_raw(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, k: int
     int32), ``k ≤ N``."""
     if x.device.type == "cpu":
         return topk_raw_plain(x, y, y2, k)
-    out = launch_topk(x, y, y2, k)
+    out = _launch_topk(x, y, y2, k)
     if x.shape[0]:
         topk_raw.launches += 1
     return out

@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from avenir_tpu_torch.ops.cuda_distance import (
-    finalize, launch_topk, topk_raw_plain)
+    finalize, _launch_topk, topk_raw_plain)
 from avenir_tpu_torch.ops.distance import encode_mixed, row_sq_norm
 
 
@@ -65,7 +65,7 @@ def fused_topk_raw(x_raw: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
     ``[D]`` × normalized train ``[N, D]`` → (metric ``[M, k]``, ids)."""
     if x_raw.device.type == "cpu":
         return fused_topk_raw_plain(x_raw, y, y2, mins, span, k)
-    out = launch_topk(x_raw, y, y2, k, mins=mins, span=span)
+    out = _launch_topk(x_raw, y, y2, k, mins=mins, span=span)
     if x_raw.shape[0]:
         fused_topk_raw.launches += 1
     return out

@@ -258,11 +258,12 @@ class Featurizer:
                 labels[r] = class_index[token]
         return binned, numeric, labels, ids
 
-    def table_from_arrays(self, binned, numeric, labels,
-                          ids: List[str]) -> EncodedTable:
-        """Wrap featurized arrays, on this featurizer's device, with its
-        schema metadata."""
-        dev = self.device
+    def table_from_arrays(self, binned, numeric, labels, ids: List[str],
+                          device: Optional[DeviceLike] = None
+                          ) -> EncodedTable:
+        """Wrap featurized arrays, on ``device`` (default: this
+        featurizer's), with its schema metadata."""
+        dev = self.device if device is None else resolve_device(device)
         return EncodedTable(
             binned=torch.as_tensor(binned, dtype=torch.int32, device=dev),
             numeric=torch.as_tensor(numeric, dtype=torch.float32, device=dev),
@@ -279,10 +280,12 @@ class Featurizer:
         )
 
     def transform(self, rows: Sequence[Sequence[str]],
-                  with_labels: bool = True) -> EncodedTable:
+                  with_labels: bool = True,
+                  device: Optional[DeviceLike] = None) -> EncodedTable:
         binned, numeric, labels, ids = self.transform_arrays(
             rows, with_labels=with_labels)
-        return self.table_from_arrays(binned, numeric, labels, ids)
+        return self.table_from_arrays(binned, numeric, labels, ids,
+                                      device=device)
 
     @staticmethod
     def _bin_labels(enc: FieldEncoder) -> List[str]:

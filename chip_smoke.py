@@ -14,9 +14,12 @@ Phases (one line each; any failure exits non-zero):
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
    the global-atomics variant; K2 (staged top-k) at 8,192 test x 65,536
    train x 9 (the bench shape) and 65,536 test x 1,048,576 train x 9, with
-   small k=128 and width-512 cases — ids equal except counted near-ties
-   (metrics within 1e-5 relative), scaled ints within 1; K3 (fused top-k)
-   bit-identical to K2 on the host-normalized rows;
+   small k=128 and width-512 cases; K3 (fused top-k) bit-identical to K2
+   on the normalized rows. The top-k gate (``compare_topk``): the ids are
+   distinct train rows carrying the metrics reported, the metrics equal
+   the plain version's within 1e-5 relative, every id that differs sits
+   in a near-tie of the plain list (the (k+1)-th included), and the scaled
+   ints are within 1;
 3. the CLI path, in-process through ``avenir_tpu_torch.cli.main.main`` on
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
@@ -24,7 +27,10 @@ Phases (one line each; any failure exits non-zero):
    byte-identical outputs, NearestNeighbor on churn with class-conditional
    weighting (K1 + K2), and small card-vs-CPU runs that must agree. Each
    job's validation accuracy must clear the tutorials' planted-signal bar,
-   and each kernel must have launched in this phase.
+   and each kernel must have launched in this phase. Every kernel call a
+   job makes is recorded and held against its plain version on the same
+   operands — the job's own shapes, each 4,096-row chunk and the ragged
+   tail — and timed there.
 
 Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -34,6 +40,7 @@ checkout of the repo, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import inspect
 import io
 import json
 import os
@@ -144,30 +151,85 @@ def check_k1(dev, rng):
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
-def compare_topk(got, want, x2, n_attrs, label, max_frac=0.01):
-    """Kernel vs plain (metric, id) lists: ids equal except rows whose
-    metrics agree within 1e-5 relative (near-ties the f32 summation order
-    may swap), scaled ints within 1. Returns (rows differing, max |scaled
-    int| difference)."""
+def compare_topk(label, got, plain, x, y, y2, n_attrs):
+    """Hold a kernel's top-k (metric [M, k], ids [M, k]) against its plain
+    version on the same (normalized) operands. ``plain`` carries one column
+    more than ``got`` wherever the train rows allow it: the (k+1)-th, for
+    the near-tie rule. The tolerance of a row is 1e-5 relative to the scale
+    of its terms, ``|x|² + |metric|``. Required:
+
+    - the kernel's ids are distinct train rows, and the metric it reports
+      for each is that row's metric recomputed here;
+    - its metrics equal the plain version's, position by position;
+    - every position where its id differs from the plain id is a near-tie
+      of the plain list (within tolerance of the plain metric before or
+      after it), and a row whose id set differs has its plain k-th and
+      (k+1)-th metrics within tolerance;
+    - the finalized scaled ints are within 1.
+
+    Returns the counts of rows with other ids and with another id set, the
+    max |metric| difference and the max |scaled int| difference."""
     from avenir_tpu_torch.ops.cuda_distance import finalize
+    from avenir_tpu_torch.ops.distance import row_sq_norm
     kd, ki = got
-    pd, pi = want
+    k = kd.shape[1]
+    pd_all, pi_all = plain
+    pd, pi = pd_all[:, :k], pi_all[:, :k]
+    x2 = row_sq_norm(x)
+    tol = 1e-5 * (x2.reshape(-1, 1) + pd_all.abs())
     if not torch.isfinite(kd).all():
         raise AssertionError(f"{label}: non-finite kernel metrics")
-    if (ki < 0).any():
-        raise AssertionError(f"{label}: kernel left empty slots")
-    tol = 1e-5 * (pd.abs() + 1.0)
-    if not ((kd - pd).abs() <= tol).all():
+    if ((ki < 0) | (ki >= y.shape[0])).any():
+        raise AssertionError(f"{label}: kernel ids outside the train rows")
+    ids_sorted = ki.sort(dim=1).values
+    if (ids_sorted[:, 1:] == ids_sorted[:, :-1]).any():
+        raise AssertionError(f"{label}: a kernel id repeats within a row")
+    rows = ki.long()
+    recomputed = y2[rows] - 2.0 * (y[rows] * x.unsqueeze(1)).sum(-1)
+    if not ((kd - recomputed).abs() <= tol[:, :k]).all():
+        raise AssertionError(f"{label}: kernel metrics are not those of "
+                             "its ids")
+    if not ((kd - pd).abs() <= tol[:, :k]).all():
         raise AssertionError(f"{label}: metrics beyond 1e-5 relative")
-    rows_diff = int((ki != pi).any(dim=1).sum())
-    if rows_diff > max_frac * ki.shape[0]:
-        raise AssertionError(f"{label}: {rows_diff} rows with other ids")
+    inf = torch.full_like(pd[:, :1], float("inf"))
+    gap_prev = torch.cat([inf, pd[:, 1:] - pd[:, :-1]], dim=1)
+    gap_next = (pd_all[:, 1:k + 1] - pd if pd_all.shape[1] > k else
+                torch.cat([pd[:, 1:] - pd[:, :-1], inf], dim=1))
+    tied = (gap_prev <= tol[:, :k]) | (gap_next <= tol[:, :k])
+    differ = ki != pi
+    if (differ & ~tied).any():
+        raise AssertionError(
+            f"{label}: {int((differ & ~tied).any(dim=1).sum())} rows with "
+            "other ids where the plain metrics are no near-tie")
+    set_differ = (ids_sorted != pi.sort(dim=1).values).any(dim=1)
+    if set_differ.any():
+        if pd_all.shape[1] == k:
+            raise AssertionError(f"{label}: other id set with k = N")
+        boundary = (pd_all[:, k] - pd_all[:, k - 1]) <= tol[:, k]
+        if (set_differ & ~boundary).any():
+            raise AssertionError(
+                f"{label}: {int((set_differ & ~boundary).sum())} rows with "
+                "another id set where the plain k-th and (k+1)-th metrics "
+                "are no near-tie")
     ks, _ = finalize(kd, ki, x2, n_attrs, 1000)
     ps, _ = finalize(pd, pi, x2, n_attrs, 1000)
     err = int((ks - ps).abs().max())
     if err > 1:
         raise AssertionError(f"{label}: scaled ints differ by {err}")
-    return rows_diff, err
+    return {"rows": int(differ.any(dim=1).sum()),
+            "sets": int(set_differ.sum()),
+            "metric_err": float((kd - pd).abs().max()), "int_err": err}
+
+
+def summary(c) -> str:
+    return (f"{c['rows']} rows with other ids, all near-ties ({c['sets']} "
+            f"with another id set), metric err {c['metric_err']:.3g}, "
+            f"scaled-int err {c['int_err']}")
+
+
+def plain_with_next(fn, x, y, y2, k, *scales):
+    """A plain top-k with the (k+1)-th column where N allows it."""
+    return fn(x, y, y2, *scales, min(k + 1, y.shape[0]))
 
 
 def check_k2_k3(dev):
@@ -185,9 +247,9 @@ def check_k2_k3(dev):
     # bench shape: 8,192 test x 65,536 train
     m, n = 8192, 65536
     x, y, y2 = operands(m, n)
-    got = D.topk_raw(x, y, y2, k)
-    want = D.topk_raw_plain(x, y, y2, k)
-    rows_diff, err2 = compare_topk(got, want, D.row_sq_norm(x), d, "K2 bench")
+    c2 = compare_topk("K2 bench", D.topk_raw(x, y, y2, k),
+                      plain_with_next(D.topk_raw_plain, x, y, y2, k),
+                      x, y, y2, d)
     ms = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
     plain_ms = cuda_ms(lambda: D.topk_raw_plain(x, y, y2, k), 3)
 
@@ -197,18 +259,17 @@ def check_k2_k3(dev):
     library_ms = cuda_ms(library, 5)
     flops = 2.0 * m * n * d
     bound, by = bound_ms((m * d + n * d + n) * 4 + m * k * 8, flops)
-    log(f"phase 2 K2 bench shape m={m} n={n} d={d} k={k}: {rows_diff} "
-        f"near-tie rows, scaled-int err {err2}; kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, cdist+topk {library_ms:.3f} ms, bound "
-        f"{bound:.3f} ms ({by})")
+    log(f"phase 2 K2 bench shape m={m} n={n} d={d} k={k}: {summary(c2)}; "
+        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+topk "
+        f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by})")
     results["K2"] = {"name": "topk_staged (K2)", "route": "cuda",
                      "source": "avenir_tpu_torch/csrc/topk.cu",
                      "replaces": "avenir_tpu/ops/pallas_distance.py:165",
-                     "max_abs_err": err2, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": c2["metric_err"], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": library_ms}
 
-    # K3 on raw rows against K2 on the host-normalized rows: bit-identical
+    # K3 on raw rows against K2 on the normalized rows: bit-identical
     mins = torch.rand(d, generator=gen, device=dev) * 50.0
     span = torch.rand(d, generator=gen, device=dev) * 200.0 + 1.0
     raw = torch.round(x * span + mins)
@@ -218,22 +279,22 @@ def check_k2_k3(dev):
     if not (torch.equal(fd, sd) and torch.equal(fi, si)):
         raise AssertionError("K3 on raw rows is not bit-identical to K2 on "
                              "normalized rows")
-    want3 = F.fused_topk_raw_plain(raw, y, y2, mins, span, k)
-    rows3, err3 = compare_topk((fd, fi), want3, D.row_sq_norm(staged), d,
-                               "K3 bench")
+    c3 = compare_topk("K3 bench", (fd, fi),
+                      plain_with_next(F.fused_topk_raw_plain, raw, y, y2, k,
+                                      mins, span), staged, y, y2, d)
     ms3 = cuda_ms(lambda: F.fused_topk_raw(raw, y, y2, mins, span, k), 20)
     plain3 = cuda_ms(lambda: F.fused_topk_raw_plain(raw, y, y2, mins, span,
                                                     k), 3)
     bound3, by3 = bound_ms((m * d + n * d + n + 2 * d) * 4 + m * k * 8,
                            flops + 2.0 * m * d)
     log(f"phase 2 K3 bench shape: bit-identical to K2 on normalized rows; "
-        f"{rows3} near-tie rows vs plain, scaled-int err {err3}; kernel "
-        f"{ms3:.3f} ms, plain {plain3:.3f} ms, bound {bound3:.3f} ms ({by3})")
+        f"vs plain {summary(c3)}; kernel {ms3:.3f} ms, plain {plain3:.3f} "
+        f"ms, bound {bound3:.3f} ms ({by3})")
     results["K3"] = {"name": "topk_fused (K3)", "route": "cuda",
                      "source": "avenir_tpu_torch/csrc/topk.cu",
                      "replaces": "avenir_tpu/ops/pallas_fused.py:52",
-                     "max_abs_err": err3, "ms": ms3, "plain_ms": plain3,
-                     "bound_ms": bound3, "bound_by": by3,
+                     "max_abs_err": c3["metric_err"], "ms": ms3,
+                     "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
                      "library_ms": None}
 
     # deployment scale: 65,536 test x 1,048,576 train
@@ -241,27 +302,25 @@ def check_k2_k3(dev):
     x, y, y2 = operands(m, n)
     got = D.topk_raw(x, y, y2, k)
     t0 = time.perf_counter()
-    want = D.topk_raw_plain(x, y, y2, k)
+    want = plain_with_next(D.topk_raw_plain, x, y, y2, k)
     torch.cuda.synchronize()
     plain_big = (time.perf_counter() - t0) * 1e3
-    rows_diff, err = compare_topk(got, want, D.row_sq_norm(x), d, "K2 big")
+    c = compare_topk("K2 big", got, want, x, y, y2, d)
     ms_big = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 3)
     bound_big, _ = bound_ms((m * d + n * d + n) * 4 + m * k * 8,
                             2.0 * m * n * d)
-    log(f"phase 2 K2 scale m={m} n={n} d={d} k={k}: {rows_diff} near-tie "
-        f"rows, scaled-int err {err}; kernel {ms_big:.2f} ms, plain (one "
-        f"call, host clock) {plain_big:.0f} ms, bound {bound_big:.2f} ms "
-        "(operations)")
+    log(f"phase 2 K2 scale m={m} n={n} d={d} k={k}: {summary(c)}; kernel "
+        f"{ms_big:.2f} ms, plain (one call, host clock) {plain_big:.0f} ms, "
+        f"bound {bound_big:.2f} ms (operations)")
     del x, y, y2, got, want
 
     # the edges of the supported range: k = 128, encoded width 512
     for m, n, width, kk in ((2048, 16384, d, 128), (1024, 8192, 512, 5),
                             (1024, 8192, 512, 128)):
         x, y, y2 = operands(m, n, width)
-        rows_diff, err = compare_topk(
-            D.topk_raw(x, y, y2, kk), D.topk_raw_plain(x, y, y2, kk),
-            D.row_sq_norm(x), width, f"K2 k={kk} width={width}",
-            max_frac=0.05)
+        c = compare_topk(f"K2 k={kk} width={width}", D.topk_raw(x, y, y2, kk),
+                         plain_with_next(D.topk_raw_plain, x, y, y2, kk),
+                         x, y, y2, width)
         mins = torch.rand(width, generator=gen, device=dev)
         span = torch.rand(width, generator=gen, device=dev) + 0.5
         raw = x * span + mins
@@ -269,8 +328,8 @@ def check_k2_k3(dev):
         staged = D.topk_raw(F.normalize(raw, mins, span), y, y2, kk)
         if not all(torch.equal(a, b) for a, b in zip(fused, staged)):
             raise AssertionError(f"K3 != K2 at k={kk} width={width}")
-        log(f"phase 2 K2/K3 m={m} n={n} width={width} k={kk}: {rows_diff} "
-            f"near-tie rows, scaled-int err {err}, K3 bit-identical to K2")
+        log(f"phase 2 K2/K3 m={m} n={n} width={width} k={kk}: {summary(c)}"
+            "; K3 bit-identical to K2")
     return results
 
 
@@ -295,6 +354,137 @@ def run_cli(args):
     return json.loads(lines[-1]) if lines else {}
 
 
+@contextlib.contextmanager
+def recording(calls):
+    """Record every call of the three kernel wrappers while the main path
+    runs — its operands and the result the path went on with — so that
+    each can be held against its plain version afterwards. The wrappers
+    themselves run unchanged and count their launches: they count through
+    their module-level name, which names the stand-in meanwhile, so the
+    stand-in carries the count and hands it back on exit."""
+    from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
+    sites = [(cuda_histogram, "class_feature_bin_counts", "K1"),
+             (cuda_distance, "topk_raw", "K2"),
+             (cuda_fused, "fused_topk_raw", "K3")]
+    originals = [getattr(module, attr) for module, attr, _ in sites]
+
+    def recorder(fn, name):
+        signature = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            bound = signature.bind(*args, **kwargs)
+            bound.apply_defaults()
+            calls.append((name, dict(bound.arguments), out))
+            return out
+        call.launches = fn.launches
+        return call
+
+    stand_ins = [recorder(fn, name)
+                 for (_, _, name), fn in zip(sites, originals)]
+    for (module, attr, _), stand_in in zip(sites, stand_ins):
+        setattr(module, attr, stand_in)
+    try:
+        yield
+    finally:
+        for (module, attr, _), fn, stand_in in zip(sites, originals,
+                                                   stand_ins):
+            fn.launches = stand_in.launches
+            setattr(module, attr, fn)
+
+
+def host_ms(fn):
+    """Wall time of one call of ``fn``, the card synchronized around it,
+    and its result."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def hold_main_path(label, calls, n_attrs):
+    """Hold each kernel call a job made against the plain version on the
+    same operands (K1 exact, K2/K3 by ``compare_topk``, K3 also
+    bit-identical to K2 on the normalized chunk), and time the kernels at
+    the job's own shapes."""
+    from avenir_tpu_torch.ops import cuda_distance as D
+    from avenir_tpu_torch.ops import cuda_fused as F
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    for name in ("K1", "K2", "K3"):
+        mine = [(a, out) for n, a, out in calls if n == name]
+        if not mine:
+            continue
+        ms = plain_ms = n_bytes = n_ops = 0.0
+        shapes, checks = [], []
+        for a, out in mine:
+            if name == "K1":
+                n, f = a["bins"].shape
+                cells = f * a["n_classes"] * a["n_bins"]
+                n_bytes += n * (f + 1) * 4 + cells * 4
+                n_ops += n * f
+                w = a["weights"]
+                plain_t, want = host_ms(
+                    lambda: H.class_feature_bin_counts_plain(
+                        a["bins"], a["labels"], a["n_classes"], a["n_bins"],
+                        w))
+                exact = w is None or bool(((w == 0) | (w == 1)).all())
+                same = (torch.equal(out, want) if exact else
+                        torch.allclose(out, want, rtol=1e-5, atol=0.0))
+                if not same:
+                    raise AssertionError(f"{label}: K1 counts differ from "
+                                         "plain on the path's operands")
+                ms += cuda_ms(lambda: H.class_feature_bin_counts(
+                    a["bins"], a["labels"], a["n_classes"], a["n_bins"], w),
+                    5)
+                shapes.append("x".join(map(str, a["bins"].shape)))
+                checks.append("exact" if exact else "rtol 1e-5")
+                plain_ms += plain_t
+                continue
+            y, y2, k = a["y"], a["y2"], a["k"]
+            if name == "K2":
+                x = a["x"]
+                plain_t, want = host_ms(lambda: plain_with_next(
+                    D.topk_raw_plain, x, y, y2, k))
+                ms += cuda_ms(lambda: D.topk_raw(x, y, y2, k), 5)
+            else:
+                raw, mins, span = a["x_raw"], a["mins"], a["span"]
+                x = F.normalize(raw, mins, span)
+                if not all(torch.equal(p, q) for p, q in
+                           zip(out, D.topk_raw(x, y, y2, k))):
+                    raise AssertionError(f"{label}: K3 is not bit-identical"
+                                         " to K2 on the normalized chunk")
+                plain_t, want = host_ms(lambda: plain_with_next(
+                    F.fused_topk_raw_plain, raw, y, y2, k, mins, span))
+                ms += cuda_ms(lambda: F.fused_topk_raw(raw, y, y2, mins,
+                                                       span, k), 5)
+            plain_ms += plain_t
+            checks.append(compare_topk(f"{label} {name}", out, want, x, y,
+                                       y2, n_attrs))
+            (m, d), n = x.shape, y.shape[0]
+            n_bytes += (m * d + n * d + n) * 4 + m * k * 8
+            n_ops += 2.0 * m * n * d
+            if name == "K3":
+                n_bytes += 2 * d * 4
+                n_ops += 2.0 * m * d
+            shapes.append(f"{m}x{n}x{d}")
+        if name == "K1":
+            verdict = ", ".join(sorted(set(checks)))
+        else:
+            verdict = summary({
+                "rows": sum(c["rows"] for c in checks),
+                "sets": sum(c["sets"] for c in checks),
+                "metric_err": max(c["metric_err"] for c in checks),
+                "int_err": max(c["int_err"] for c in checks)})
+            if name == "K3":
+                verdict += "; bit-identical to K2 on each normalized chunk"
+        bound, by = bound_ms(n_bytes, n_ops)
+        log(f"phase 3 {label}: {name} on the path's operands, {len(mine)} "
+            f"call(s) [{', '.join(shapes)}]: {verdict}; kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms (host clock), bound {bound:.3f} ms "
+            f"({by})")
+
+
 def cli_phase(work: str):
     from avenir_tpu_torch.datagen import generators as G
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
@@ -303,11 +493,13 @@ def cli_phase(work: str):
                 "K3": cuda_fused.fused_topk_raw}
     totals = {name: 0 for name in counters}
 
-    def job(label, args, bar, must_launch):
+    def job(label, args, bar, must_launch, n_attrs=None):
+        calls = []
         for fn in counters.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        report = run_cli(args + ["--device", "cuda"])
+        with recording(calls):
+            report = run_cli(args + ["--device", "cuda"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         counts = {name: fn.launches for name, fn in counters.items()}
@@ -321,6 +513,7 @@ def cli_phase(work: str):
             raise AssertionError(f"{label}: accuracy {acc} not above {bar}")
         log(f"phase 3 {label}: {secs:.2f} s, launches {counts}"
             + (f", accuracy {acc:.4f} (bar {bar})" if bar else ""))
+        hold_main_path(label, calls, n_attrs)
         return report
 
     p = lambda name: os.path.join(work, name)  # noqa: E731
@@ -349,6 +542,11 @@ def cli_phase(work: str):
                  "top.match.count=5\nkernel.function=none\n"
                  "distance.scale=1000\nvalidation.mode=true\n"
                  "positive.class.value=fail\n")
+    from avenir_tpu_torch.utils.schema import FeatureSchema
+    churn_attrs = len(FeatureSchema.from_json(
+        G._CHURN_SCHEMA_JSON).get_feature_fields())
+    elearn_attrs = len(FeatureSchema.from_json(
+        G.elearn_schema_json()).get_feature_fields())
     churn_conf = ["--conf", p("churn.properties")]
     knn_conf = ["--conf", p("knn.properties")]
 
@@ -362,11 +560,11 @@ def cli_phase(work: str):
     shape = f"{ELEARN_TRAIN}x{ELEARN_TEST}"
     job(f"NearestNeighbor elearn {shape} staged",
         ["NearestNeighbor", p("elearn_test.csv"), p("knn_staged.txt")]
-        + knn_conf, 0.8, ["K2"])
+        + knn_conf, 0.8, ["K2"], n_attrs=elearn_attrs)
     job(f"NearestNeighbor elearn {shape} feed.chunk.rows={FEED_CHUNK_ROWS}",
         ["NearestNeighbor", p("elearn_test.csv"), p("knn_fused.txt")]
         + knn_conf + ["-D", f"feed.chunk.rows={FEED_CHUNK_ROWS}"], 0.8,
-        ["K3"])
+        ["K3"], n_attrs=elearn_attrs)
     with open(p("knn_staged.txt"), "rb") as a, \
             open(p("knn_fused.txt"), "rb") as b:
         if a.read() != b.read():
@@ -377,7 +575,7 @@ def cli_phase(work: str):
         "class.condtion.weighted",
         ["NearestNeighbor", p("churn_test.csv"), p("knn_churn.txt")]
         + churn_conf + ["-D", "class.condtion.weighted=true"], 0.75,
-        ["K1", "K2"])
+        ["K1", "K2"], n_attrs=churn_attrs)
 
     # card against CPU on a small input: same files
     small = G.elearn_rows(2500, seed=SEED + 1)

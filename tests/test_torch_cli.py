@@ -174,7 +174,7 @@ def _imports(path: Path):
 def test_port_never_imports_jax_or_the_jax_package():
     files = [path for path in sorted(PORT.rglob("*.py"))
              if "_build" not in path.parts]   # build outputs, not sources
-    files += [REPO / "chip_smoke.py", REPO / "topk_ab.py"]
+    files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
     for path in files:
         for name in _imports(path):
@@ -227,8 +227,7 @@ def test_module_entry_point_runs_on_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("name,alone", [("chip_smoke.py", False),
-                                        ("chip_smoke.py", True),
-                                        ("topk_ab.py", False)])
+                                        ("chip_smoke.py", True)])
 def test_card_scripts_fail_without_a_card(tmp_path, name, alone):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -242,3 +241,115 @@ def test_card_scripts_fail_without_a_card(tmp_path, name, alone):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout and '"kernels"' not in out.stdout
+
+
+def _chip_smoke():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  REPO / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+# x = 0, so each train row's metric is |y|²: rows 0, 1 tie at 1, rows 2, 3
+# tie at 4, rows 4, 5 tie at 9; the plain top-4 is ids 0..3
+_GATE_Y = torch.tensor([[1., 0.], [0., 1.], [2., 0.], [0., 2.], [3., 0.],
+                        [0., 3.]])
+
+
+@pytest.mark.parametrize("ids,metrics,match", [
+    ([0, 1, 2], [1., 1., 4.], None),              # the plain answer
+    ([1, 0, 2], [1., 1., 4.], None),              # swapped within a tie
+    ([0, 1, 3], [1., 1., 4.], None),              # other set, boundary tie
+    ([0, 1, 4], [1., 1., 4.], "not those of its ids"),
+    ([0, 1, 4], [1., 1., 9.], "beyond 1e-5 relative"),
+    ([0, 0, 2], [1., 1., 4.], "repeats"),
+    ([0, 1, 6], [1., 1., 4.], "outside the train rows"),
+])
+def test_smoke_topk_gate(ids, metrics, match):
+    """The card's top-k gate takes the plain answer and near-tie swaps,
+    and refuses ids whose metrics are not the ones reported."""
+    smoke = _chip_smoke()
+    from avenir_tpu_torch.ops import cuda_distance
+    x = torch.zeros((1, 2))
+    y2 = (_GATE_Y * _GATE_Y).sum(1)
+    plain = smoke.plain_with_next(cuda_distance.topk_raw_plain, x, _GATE_Y,
+                                  y2, 3)
+    assert plain[1].tolist() == [[0, 1, 2, 3]]
+    got = (torch.tensor([metrics]), torch.tensor([ids], dtype=torch.int32))
+    if match is None:
+        check = smoke.compare_topk("gate", got, plain, x, _GATE_Y, y2, 2)
+        assert check["rows"] == (ids != [0, 1, 2])
+        assert check["sets"] == (ids == [0, 1, 3])
+    else:
+        with pytest.raises(AssertionError, match=match):
+            smoke.compare_topk("gate", got, plain, x, _GATE_Y, y2, 2)
+
+
+@pytest.mark.parametrize("chunk", [0, 128])
+def test_smoke_records_the_main_path(tmp_path, chunk):
+    """The recorder sees each kernel call of a CLI job — one K2 call, or
+    one K3 call per chunk with the ragged tail — with operands that pass
+    the gate, and puts the wrappers back afterwards."""
+    smoke = _chip_smoke()
+    from avenir_tpu_torch.ops import cuda_distance, cuda_fused
+    write_fixture(tmp_path, "elearn", 1000, 300)
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "feed.chunk.rows": chunk})
+    wrappers = (cuda_distance.topk_raw, cuda_fused.fused_topk_raw)
+    calls = []
+    with smoke.recording(calls):
+        tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
+               str(tmp_path / "out.txt"), "--conf", props, "--device", "cpu"])
+    assert (cuda_distance.topk_raw, cuda_fused.fused_topk_raw) == wrappers
+    names = {name for name, _, _ in calls}
+    assert names == ({"K3"} if chunk else {"K2"})
+    rows = [a["x_raw" if chunk else "x"].shape[0] for _, a, _ in calls]
+    assert rows == ([128, 128, 44] if chunk else [300])
+    for name, a, out in calls:
+        if name == "K2":
+            x = a["x"]
+            plain = smoke.plain_with_next(cuda_distance.topk_raw_plain, x,
+                                          a["y"], a["y2"], a["k"])
+        else:
+            x = cuda_fused.normalize(a["x_raw"], a["mins"], a["span"])
+            plain = smoke.plain_with_next(
+                cuda_fused.fused_topk_raw_plain, a["x_raw"], a["y"], a["y2"],
+                a["k"], a["mins"], a["span"])
+        check = smoke.compare_topk(name, out, plain, x, a["y"], a["y2"], 9)
+        assert check["int_err"] == 0
+
+
+@pytest.mark.parametrize("module_name,wrapper,label", [
+    ("cuda_distance", "topk_raw", "K2"),
+    ("cuda_fused", "fused_topk_raw", "K3")])
+def test_smoke_recording_keeps_the_launch_counts(monkeypatch, module_name,
+                                                 wrapper, label):
+    """A wrapper that launches while the recorder stands in for it still
+    counts the launch, on the wrapper itself once the recorder exits. The
+    launch is faked on meta tensors, which take the wrapper's launch
+    branch as CUDA tensors do."""
+    import importlib
+    smoke = _chip_smoke()
+    module = importlib.import_module(f"avenir_tpu_torch.ops.{module_name}")
+    fn = getattr(module, wrapper)
+    monkeypatch.setattr(fn, "launches", fn.launches)
+
+    def fake_launch(x, y, y2, k, **scales):
+        return (torch.empty((x.shape[0], k), device="meta"),
+                torch.empty((x.shape[0], k), dtype=torch.int32,
+                            device="meta"))
+
+    monkeypatch.setattr(module, "_launch_topk", fake_launch)
+    before = fn.launches
+    meta = lambda *shape: torch.empty(shape, device="meta")  # noqa: E731
+    scales = (meta(3), meta(3)) if label == "K3" else ()
+    calls = []
+    with smoke.recording(calls):
+        getattr(module, wrapper)(meta(4, 3), meta(8, 3), meta(8), *scales, 2)
+    assert getattr(module, wrapper) is fn
+    assert [name for name, _, _ in calls] == [label]
+    assert fn.launches == before + 1

@@ -181,7 +181,8 @@ def test_logger_level_override(monkeypatch):
 def test_iter_chunks_cover_rows_in_order(chunk):
     a = np.arange(150, dtype=np.float32).reshape(50, 3)
     b = np.arange(50, dtype=np.int32).reshape(50, 1)
-    parts = list(iter_chunks((a, None, b), chunk, torch.device("cpu")))
+    parts = list(iter_chunks((torch.from_numpy(a), None, torch.from_numpy(b)),
+                             chunk, torch.device("cpu")))
     assert all(p[1] is None for p in parts)
     assert np.array_equal(torch.cat([p[0] for p in parts]).numpy(), a)
     assert np.array_equal(torch.cat([p[2] for p in parts]).numpy(), b)
