@@ -3,16 +3,19 @@
     python -m avenir_tpu_torch BayesianDistribution IN OUT --conf P [-D k=v]
     python -m avenir_tpu_torch BayesianPredictor    IN OUT --conf P
     python -m avenir_tpu_torch NearestNeighbor      IN OUT --conf P
+    python -m avenir_tpu_torch MutualInformation    IN OUT --conf P
+    python -m avenir_tpu_torch CramerCorrelation    IN OUT --conf P
+    python -m avenir_tpu_torch HeterogeneityReductionCorrelation IN OUT ...
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
-``_knn_feature_post`` and the hand-wired bodies of the three verbs), with
-the same ``.properties`` keys, schemas and output files. ``--device
-{cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
-``--device cpu`` the job raises.
+``_knn_feature_post``, ``_emit_mi_scores`` and the hand-wired bodies of
+the six verbs), with the same ``.properties`` keys, schemas and output
+files. ``--device {cuda,cpu}`` (default cuda) picks where the job runs;
+with no GPU and no ``--device cpu`` the job raises.
 
-Keys that select something this port does not carry yet raise a
-ValueError naming the key and the later work that ports it; nothing is
-silently ignored.
+Keys that select something this port does not carry yet, and the JAX
+CLI's other verbs, raise a ValueError naming the key or verb and the later
+work that ports it; nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -40,14 +43,49 @@ _LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
 _LATER_KNN = {"plan.enable": _PLAN, "knn.quantized": _QUANT,
               "knn.ann": _IVF, "knn.sharded": _MULTI,
               "job.resume": _STREAM_NB}
+_SHARD_MI = "per-shard journaled MI (ROADMAP queue A item 6)"
+_LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
+             "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
 _LATER_PREFIXES = {"knn.ann.": _IVF, "knn.quantized.": _QUANT}
 # observability keys of the JAX CLI (ROADMAP queue A item 13): refused
 # when set, like their flags
 _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
               "obs.flight.path", "alerts.enable")
+# the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
+# item that ports them
+_SIMILARITY = "ROADMAP queue A item 7"
+_TREES = "ROADMAP queue A item 9"
+_EXPLORE = "ROADMAP queue A item 10"
+_SEQUENCES = "ROADMAP queue A item 11"
+_BANDITS = "ROADMAP queue A item 12"
 _LATER_VERBS = {
-    "SameTypeSimilarity": "ROADMAP queue A item 7",
-    "FeatureCondProbJoiner": "ROADMAP queue A item 7",
+    "SameTypeSimilarity": _SIMILARITY,
+    "FeatureCondProbJoiner": _SIMILARITY,
+    "ClassPartitionGenerator": _TREES,
+    "SplitGenerator": _TREES,
+    "DataPartitioner": _TREES,
+    "TreeBuilder": _TREES,
+    "TreePredictor": _TREES,
+    "RandomForestBuilder": _TREES,
+    "RandomForestPredictor": _TREES,
+    "GradientBoostBuilder": _TREES,
+    "GradientBoostPredictor": _TREES,
+    "Projection": _EXPLORE,
+    "WordCounter": _EXPLORE,
+    "UnderSamplingBalancer": _EXPLORE,
+    "BaggingSampler": _EXPLORE,
+    "LogisticRegressionJob": _EXPLORE,
+    "FisherDiscriminant": _EXPLORE,
+    "MarkovStateTransitionModel": _SEQUENCES,
+    "MarkovModelClassifier": _SEQUENCES,
+    "HiddenMarkovModelBuilder": _SEQUENCES,
+    "ViterbiStatePredictor": _SEQUENCES,
+    "GreedyRandomBandit": _BANDITS,
+    "AuerDeterministic": _BANDITS,
+    "SoftMaxBandit": _BANDITS,
+    "RandomFirstGreedyBandit": _BANDITS,
+    "ReinforcementLearnerTopology": _BANDITS,
+    "Lifecycle": _BANDITS,
 }
 
 
@@ -231,10 +269,97 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         print(cm.report().to_json())
 
 
+def run_mutual_information(conf: JobConfig, in_path: str, out_path: str,
+                           device: torch.device) -> None:
+    """All MI distribution families + feature-selection scores (reference
+    MutualInformation job). Output: per-feature class MI lines, pair MI
+    lines, then each selection algorithm's ranking (``mi.score.algorithms``
+    names match the reference registry)."""
+    from avenir_tpu_torch.explore import mutual_information as mi
+    _check_keys(conf, _LATER_MI)
+    if "mesh.shape" in conf:
+        _refuse("mesh.shape", _MULTI)
+    fz, rows = _load_table(conf, in_path, device)
+    dists = mi.compute_distributions(fz.transform(rows))
+    _emit_mi_scores(conf, out_path, mi.compute_scores(dists, device=device))
+
+
+def _emit_mi_scores(conf: JobConfig, out_path: str, scores) -> None:
+    """The MI output file: the score lines, then each selection
+    algorithm's ranking."""
+    from avenir_tpu_torch.explore import mutual_information as mi
+    delim = conf.get("field.delim.out", ",")
+    # the reference's key/value names (MutualInformation.java:452-455,
+    # resource/hosp.properties) with this build's camelCase names as aliases
+    # explicit None checks: an explicitly-empty value suppresses rankings,
+    # only a truly absent key falls back
+    algos = conf.get_list("mutual.info.score.algorithms")
+    if algos is None:
+        algos = conf.get_list("mi.score.algorithms")
+    if algos is None:
+        algos = ["mutual.info.maximization"]
+    rf = conf.get_float("mutual.info.redundancy.factor",
+                        conf.get_float("mi.redundancy.factor", 1.0))
+    output_mi = conf.get_bool("output.mutual.info", True)
+    with open(out_path, "w") as fh:
+        if output_mi:
+            for ordinal, value in sorted(scores.feature_class_mi.items()):
+                fh.write(delim.join(["featureClass", str(ordinal),
+                                     repr(value)]) + "\n")
+            for (a, b), value in sorted(scores.feature_pair_mi.items()):
+                fh.write(delim.join(["featurePair", str(a), str(b),
+                                     repr(value)]) + "\n")
+            for (a, b), value in sorted(
+                    scores.feature_pair_class_mi.items()):
+                fh.write(delim.join(["featurePairClass", str(a), str(b),
+                                     repr(value)]) + "\n")
+            for (a, b), value in sorted(scores.class_cond_pair_mi.items()):
+                fh.write(delim.join(["classCondPair", str(a), str(b),
+                                     repr(value)]) + "\n")
+        for algo in algos:
+            ranked = mi.SCORE_ALGORITHMS[algo](scores, redundancy_factor=rf)
+            for rank, (ordinal, value) in enumerate(ranked):
+                fh.write(delim.join([algo, str(rank), str(ordinal),
+                                     repr(value)]) + "\n")
+
+
+def run_correlation(conf: JobConfig, in_path: str, out_path: str,
+                    device: torch.device,
+                    default_stat: str = "cramerIndex") -> None:
+    """Categorical correlation (reference CramerCorrelation /
+    HeterogeneityReductionCorrelation). ``correlation.attr.pairs`` lists
+    srcOrd:dstOrd pairs (default: every pair of categorical features);
+    output ``src,dst,stat``."""
+    from avenir_tpu_torch.explore import correlation as C
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    pair_spec = conf.get_list("correlation.attr.pairs")
+    if pair_spec:
+        pairs = [tuple(int(v) for v in p.split(":")) for p in pair_spec]
+    else:
+        ords = [f.ordinal for f in table.feature_fields if f.is_categorical]
+        pairs = [(a, b) for i, a in enumerate(ords) for b in ords[i + 1:]]
+    algo = conf.get("correlation.algorithm", default_stat)
+    try:
+        class_ordinal = fz.schema.find_class_attr_field().ordinal
+    except ValueError:
+        class_ordinal = None
+    out = C.correlate_pairs(table, pairs, algo, class_ordinal=class_ordinal)
+    delim = conf.get("field.delim.out", ",")
+    with open(out_path, "w") as fh:
+        for (a, b), value in out.items():
+            fh.write(delim.join([str(a), str(b), repr(value)]) + "\n")
+
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
     "NearestNeighbor": run_nearest_neighbor,
+    "MutualInformation": run_mutual_information,
+    "CramerCorrelation": lambda c, i, o, d: run_correlation(
+        c, i, o, d, "cramerIndex"),
+    "HeterogeneityReductionCorrelation": lambda c, i, o, d: run_correlation(
+        c, i, o, d, "concentrationCoeff"),
 }
 
 

@@ -1,6 +1,7 @@
-// K1: Naive Bayes joint counts on Hopper (sm_90a).
+// K1 (Naive Bayes joint counts) and K4 (pair contingency counts) on Hopper
+// (sm_90a). K4's note is above its kernel, further down.
 //
-// Replaces the TPU kernel `_cfb_kernel` (avenir_tpu/ops/pallas_histogram.py:57,
+// K1 replaces the TPU kernel `_cfb_kernel` (avenir_tpu/ops/pallas_histogram.py:57,
 // launched from `class_feature_bin_counts` at :114). It computes, over rows n,
 // the joint count of (feature f, class label, bin) for every valid
 // (label, bin) pair:
@@ -121,9 +122,117 @@ cudaError_t launch(const int* bins, const int* labels, const float* weights,
   return cudaGetLastError();
 }
 
+// K4: pair contingency counts.
+//
+// Replaces the TPU kernel `_pair_kernel` (avenir_tpu/ops/pallas_histogram.py
+// :133, launched from `pair_counts` at :178). Over rows n:
+//
+//     out[a(n)][b(n)] += weight(n)      (1 when unweighted)
+//
+// Rows whose a id lies outside [0, n_a) or whose b id lies outside [0, n_b)
+// drop out, as the compare-against-iota one-hots of the TPU kernel drop them.
+//
+// What bounds it on an H100: bytes. It reads 2 * N * 4 bytes (plus N * 4 for
+// weights) at 3.35 TB/s and writes n_a * n_b cells; one compare and one add
+// per row.
+//
+// Design:
+// - The TPU contracted two one-hots on its matrix unit; on Hopper that
+//   would be a product of mostly zeros. Each block walks rows in a
+//   grid-stride loop and adds into a private shared-memory histogram of the
+//   n_a * n_b cells, then flushes one global atomic per nonzero cell.
+// - The cells are few on the callers' paths (6 for churn x status, 162 at
+//   the widest hospital MI pair), so the 256 threads of a block would
+//   hammer a handful of shared addresses. Each warp gets its own copy of the
+//   histogram (8 copies x 162 cells x 4 B = 5 KB), or as many copies as fit
+//   in 227 KB; the flush sums the copies.
+// - Where not even one copy fits in 227 KB, a variant adds straight into
+//   the global array with global atomics.
+// - Unweighted counts accumulate in int32, exact in any atomic order; the
+//   wrapper casts once to f32. Weighted counts accumulate f32.
+template <typename Acc, bool kWeighted>
+__global__ void __launch_bounds__(kThreads)
+pair_counts_kernel(const int* __restrict__ a, const int* __restrict__ b,
+                   const float* __restrict__ weights, int n, int n_a, int n_b,
+                   int copies, Acc* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int cells = n_a * n_b;
+  Acc* hist = copies > 0 ? reinterpret_cast<Acc*>(smem_raw) : out;
+  if (copies > 0) {
+    for (int i = threadIdx.x; i < copies * cells; i += blockDim.x) {
+      hist[i] = Acc(0);
+    }
+    __syncthreads();
+    hist += ((threadIdx.x / 32) % copies) * cells;
+  }
+  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  for (size_t row = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       row < static_cast<size_t>(n); row += stride) {
+    const int ia = a[row];
+    const int ib = b[row];
+    if (ia < 0 || ia >= n_a || ib < 0 || ib >= n_b) continue;
+    atomicAdd(&hist[ia * n_b + ib],
+              kWeighted ? static_cast<Acc>(weights[row]) : Acc(1));
+  }
+  if (copies > 0) {
+    __syncthreads();
+    const Acc* base = reinterpret_cast<const Acc*>(smem_raw);
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      Acc v = Acc(0);
+      for (int c = 0; c < copies; ++c) v += base[c * cells + i];
+      if (v != Acc(0)) atomicAdd(&out[i], v);
+    }
+  }
+}
+
+template <typename Acc, bool kWeighted>
+cudaError_t launch_pair(const int* a, const int* b, const float* weights,
+                        int n, int n_a, int n_b, Acc* out, int device,
+                        cudaStream_t stream) {
+  const size_t cells = static_cast<size_t>(n_a) * n_b;
+  cudaError_t err = cudaMemsetAsync(out, 0, cells * sizeof(Acc), stream);
+  if (err != cudaSuccess) return err;
+  const long long want = (static_cast<long long>(n) + kThreads - 1) / kThreads;
+  const long long cap = static_cast<long long>(sm_count(device)) * kBlocksPerSm;
+  const int blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
+  const size_t fit = kMaxSharedBytes / (cells * sizeof(Acc));
+  const int copies = static_cast<int>(fit < kThreads / 32 ? fit : kThreads / 32);
+  const size_t smem = static_cast<size_t>(copies) * cells * sizeof(Acc);
+  auto kernel = pair_counts_kernel<Acc, kWeighted>;
+  if (smem > kDefaultSharedBytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<blocks, kThreads, smem, stream>>>(a, b, weights, n, n_a, n_b,
+                                             copies, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
+
+// K4: a, b [n] int32 ids, weights [n] f32 or null; out [n_a, n_b], int32
+// unweighted or f32 weighted, zeroed here on `stream`.
+int avt_pair_counts(const void* a, const void* b, const void* weights, int n,
+                    int n_a, int n_b, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (weights != nullptr) {
+    err = launch_pair<float, true>(static_cast<const int*>(a),
+                                   static_cast<const int*>(b),
+                                   static_cast<const float*>(weights), n, n_a,
+                                   n_b, static_cast<float*>(out), device, s);
+  } else {
+    err = launch_pair<int, false>(static_cast<const int*>(a),
+                                  static_cast<const int*>(b), nullptr, n, n_a,
+                                  n_b, static_cast<int*>(out), device, s);
+  }
+  return static_cast<int>(err);
+}
 
 int avt_cfb_counts(const void* bins, const void* labels, const void* weights,
                    int n, int f, int c, int b, void* out, int device,

@@ -1,12 +1,16 @@
-// K2 and K3: brute-force distance top-k on Hopper (sm_90a).
+// K2, K3 and K5: brute-force distance top-k on Hopper (sm_90a).
 //
 // K2 replaces the TPU kernel `_topk_kernel` (avenir_tpu/ops/pallas_distance.py
 // :165, launched from `_pallas_topk_raw` at :221; public entry
 // `pairwise_topk_pallas` :377). K3 replaces `_fused_topk_kernel`
 // (avenir_tpu/ops/pallas_fused.py:52, launched at :102): the same kernel
 // with the range normalize x = (x - mins) / span applied to the RAW test
-// tile as it is loaded. Both are one template here, K3 being the
-// compile-time flag kFused.
+// tile as it is loaded. K5 replaces `_tpose_tag_kernel`
+// (avenir_tpu/ops/pallas_distance.py:256, launched from
+// `_pallas_topk_tpose_raw` at :324, selected by
+// `pairwise_topk_pallas(layout="tpose")`): K2's function over operands that
+// arrive feature-major, xt [D, M] and yt [D, N]. All three are one template
+// here, K3 being the compile-time flag kFused and K5 the flag kTpose.
 //
 // What it computes: for every test row x_r, the k train rows j with the
 // smallest metric y2[j] - 2 * <x_r, y_j>, ordered by (metric, j), so ties go
@@ -53,6 +57,16 @@
 //   --use_fast_math), and K3's division is IEEE (-prec-div=true, nvcc's
 //   default), so K3 on raw rows is bit-identical to K2 on rows the host
 //   normalized with the same IEEE ops.
+// - K5: K2 transposes each tile into d-major shared memory as it stages it,
+//   a div/mod per element and stores strided by the tile width. K5's
+//   operands are d-major already, so its staging is a straight copy of D
+//   row segments: 16-byte loads where the row length and the segment start
+//   allow them, scalar loads otherwise. Everything after the staging (the
+//   sweep, the register tiling, the insertion, the split merge) is K2's
+//   code on the same shared-memory tiles, so K5's output is bit-identical to
+//   K2's. The TPU kernel's scalar-tag fold is a register trick for its
+//   approximate lane-bucket fold; this top-k is exact and has no
+//   counterpart of it.
 //
 // Interface: plain C, bound from Python with ctypes. The caller allocates
 // every buffer: out [M, k] (metric, id) and, when avt_topk_splits() > 1,
@@ -121,11 +135,42 @@ Config pick_config(int m, int n, int d, int device) {
   return {1, 128, 256};
 }
 
-// Train rows per split of a launch with these sizes.
+// Train rows per split of a launch with these sizes, rounded up to a
+// multiple of 4 so that K5's splits start on the 16-byte grid of its
+// feature-major rows. The result does not depend on where splits start.
 int split_rows(int m, int n, int d, int device) {
   const Config cfg = pick_config(m, n, d, device);
   const long long splits = split_count(cfg, m, n, device);
-  return static_cast<int>((n + splits - 1) / splits);
+  const long long rows = (n + splits - 1) / splits;
+  return static_cast<int>((rows + 3) / 4 * 4);
+}
+
+// K5's staging: columns [col0, col0 + width) of the d rows of the d-major
+// matrix src [d][len] into dst [d][width], zero from column `valid` on.
+// width is a multiple of 4; the 16-byte loads need a 16-byte-aligned
+// segment start, which holds where len, col0 and src's address allow it.
+__device__ __forceinline__ void stage_dmajor(float* dst,
+                                             const float* __restrict__ src,
+                                             int d, int len, int col0,
+                                             int width, int valid) {
+  const int quads = width / 4;
+  const bool vec = len % 4 == 0 && col0 % 4 == 0 &&
+                   (reinterpret_cast<size_t>(src) & 15) == 0;
+  for (int e = threadIdx.x; e < d * quads; e += blockDim.x) {
+    const int c = e / quads;
+    const int j = (e - c * quads) * 4;
+    const float* s = src + static_cast<size_t>(c) * len + col0 + j;
+    float4 v;
+    if (vec && j + 3 < valid) {
+      v = *reinterpret_cast<const float4*>(s);
+    } else {
+      v.x = j < valid ? s[0] : 0.f;
+      v.y = j + 1 < valid ? s[1] : 0.f;
+      v.z = j + 2 < valid ? s[2] : 0.f;
+      v.w = j + 3 < valid ? s[3] : 0.f;
+    }
+    *reinterpret_cast<float4*>(dst + static_cast<size_t>(c) * width + j) = v;
+  }
 }
 
 // Insert (v, id) into the sorted list bd/bi of length k, dropping its last
@@ -143,7 +188,7 @@ __device__ __noinline__ void insert_sorted(float* bd, int* bi, int k,
   bi[p] = id;
 }
 
-template <bool kFused, int kRm, int kCap, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kCap, int kDx>
 __global__ void __launch_bounds__(128)
 topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
             const float* __restrict__ y2, const float* __restrict__ mins,
@@ -160,17 +205,22 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const int j_begin = blockIdx.y * rows_per_split;
   const int j_end = min(n, j_begin + rows_per_split);
 
-  // test tile, transposed to d-major; K3 normalizes the raw values here
-  for (int e = tid; e < tm * d; e += blockDim.x) {
-    const int r = e / d;
-    const int c = e - r * d;
-    const int gr = row0 + r;
-    float v = 0.f;
-    if (gr < m) {
-      v = x[static_cast<size_t>(gr) * d + c];
-      if (kFused) v = (v - mins[c]) / span[c];
+  if constexpr (kTpose) {
+    // K5: the test tile is d-major already, x being xt [d][m]
+    stage_dmajor(xs, x, d, m, row0, tm, m - row0);
+  } else {
+    // test tile, transposed to d-major; K3 normalizes the raw values here
+    for (int e = tid; e < tm * d; e += blockDim.x) {
+      const int r = e / d;
+      const int c = e - r * d;
+      const int gr = row0 + r;
+      float v = 0.f;
+      if (gr < m) {
+        v = x[static_cast<size_t>(gr) * d + c];
+        if (kFused) v = (v - mins[c]) / span[c];
+      }
+      xs[static_cast<size_t>(c) * tm + r] = v;
     }
-    xs[static_cast<size_t>(c) * tm + r] = v;
   }
 
   // kDx > 0: this thread's test rows stay in registers for the sweep
@@ -202,11 +252,15 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int t0 = j_begin; t0 < j_end; t0 += tile_n) {
     const int tn = min(tile_n, j_end - t0);
     __syncthreads();  // the previous tile (or the x tile) is fully read
-    for (int e = tid; e < tile_n * d; e += blockDim.x) {
-      const int j = e / d;
-      const int c = e - j * d;
-      ys[static_cast<size_t>(c) * tile_n + j] =
-          j < tn ? y[static_cast<size_t>(t0 + j) * d + c] : 0.f;
+    if constexpr (kTpose) {
+      stage_dmajor(ys, y, d, n, t0, tile_n, tn);  // y being yt [d][n]
+    } else {
+      for (int e = tid; e < tile_n * d; e += blockDim.x) {
+        const int j = e / d;
+        const int c = e - j * d;
+        ys[static_cast<size_t>(c) * tile_n + j] =
+            j < tn ? y[static_cast<size_t>(t0 + j) * d + c] : 0.f;
+      }
     }
     for (int j = tid; j < tile_n; j += blockDim.x) {
       // a padded column's metric is +inf: it never passes a threshold
@@ -347,13 +401,13 @@ __global__ void merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-template <bool kFused, int kRm, int kCap, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kCap, int kDx>
 cudaError_t launch_sweep(const Config& cfg, dim3 grid, size_t smem,
                          cudaStream_t stream, const float* x, const float* y,
                          const float* y2, const float* mins, const float* span,
                          int m, int n, int d, int k, int rows_per_split,
                          float* out_d, int* out_i) {
-  auto kernel = topk_kernel<kFused, kRm, kCap, kDx>;
+  auto kernel = topk_kernel<kFused, kTpose, kRm, kCap, kDx>;
   if (smem > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -366,23 +420,23 @@ cudaError_t launch_sweep(const Config& cfg, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <bool kFused, int kRm, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kDx>
 cudaError_t dispatch_cap(const Config& cfg, dim3 grid, size_t smem,
                          cudaStream_t stream, const float* x, const float* y,
                          const float* y2, const float* mins, const float* span,
                          int m, int n, int d, int k, int rows_per_split,
                          float* out_d, int* out_i) {
 #define AVT_SWEEP(CAP)                                                      \
-  launch_sweep<kFused, kRm, CAP, kDx>(cfg, grid, smem, stream, x, y, y2,     \
-                                 mins, span, m, n, d, k, rows_per_split,     \
-                                 out_d, out_i)
+  launch_sweep<kFused, kTpose, kRm, CAP, kDx>(cfg, grid, smem, stream, x, y, \
+                                              y2, mins, span, m, n, d, k,     \
+                                              rows_per_split, out_d, out_i)
   if (k <= 8) return AVT_SWEEP(8);
   if (k <= 32) return AVT_SWEEP(32);
   return AVT_SWEEP(128);
 #undef AVT_SWEEP
 }
 
-template <bool kFused>
+template <bool kFused, bool kTpose>
 cudaError_t run_topk(const float* x, const float* y, const float* y2,
                      const float* mins, const float* span, int m, int n, int d,
                      int k, float* part_d, int* part_i, float* out_d,
@@ -403,8 +457,9 @@ cudaError_t run_topk(const float* x, const float* y, const float* y2,
   int* sweep_i = splits > 1 ? part_i : out_i;
   cudaError_t err;
 #define AVT_DISPATCH(RM, DX)                                                \
-  dispatch_cap<kFused, RM, DX>(cfg, grid, smem, stream, x, y, y2, mins, span, \
-                               m, n, d, k, rows, sweep_d, sweep_i)
+  dispatch_cap<kFused, kTpose, RM, DX>(cfg, grid, smem, stream, x, y, y2,   \
+                                       mins, span, m, n, d, k, rows, sweep_d, \
+                                       sweep_i)
   // one test row per thread keeps it in registers up to width 32; four rows
   // per thread would need 4x the registers and measured slower
   if (cfg.rm == 4) {
@@ -437,8 +492,23 @@ int avt_topk_staged(const void* x, const void* y, const void* y2, int m,
                     void* out_d, void* out_i, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_topk<false>(
+  err = run_topk<false, false>(
       static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(y2), nullptr, nullptr, m, n, d, k,
+      static_cast<float*>(part_d), static_cast<int*>(part_i),
+      static_cast<float*>(out_d), static_cast<int*>(out_i), device,
+      static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K5: xt [d, m] and yt [d, n], the normalized encoded matrices feature-major.
+int avt_topk_tpose(const void* xt, const void* yt, const void* y2, int m,
+                   int n, int d, int k, void* part_d, void* part_i,
+                   void* out_d, void* out_i, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run_topk<false, true>(
+      static_cast<const float*>(xt), static_cast<const float*>(yt),
       static_cast<const float*>(y2), nullptr, nullptr, m, n, d, k,
       static_cast<float*>(part_d), static_cast<int*>(part_i),
       static_cast<float*>(out_d), static_cast<int*>(out_i), device,
@@ -453,7 +523,7 @@ int avt_topk_fused(const void* x, const void* y, const void* y2,
                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = run_topk<true>(
+  err = run_topk<true, false>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(y2), static_cast<const float*>(mins),
       static_cast<const float*>(span), m, n, d, k, static_cast<float*>(part_d),

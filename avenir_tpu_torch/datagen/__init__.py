@@ -1,4 +1,5 @@
 """Seeded synthetic data generators with planted ground truth."""
 
 from avenir_tpu_torch.datagen.generators import (  # noqa: F401
-    churn_rows, churn_schema, elearn_rows, elearn_schema, elearn_schema_json)
+    churn_rows, churn_schema, elearn_rows, elearn_schema, elearn_schema_json,
+    hosp_readmit_rows, hosp_readmit_schema)

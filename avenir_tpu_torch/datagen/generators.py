@@ -1,7 +1,8 @@
-"""Seeded workload generators with planted signal: the churn (Naive Bayes)
-and elearn (KNN) tutorials.
+"""Seeded workload generators with planted signal: the churn (Naive Bayes,
+Cramér correlation), elearn (KNN) and hospital-readmission (mutual
+information) tutorials.
 
-A copy of the churn and elearn sections of
+A copy of the churn, elearn and hospital-readmission sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -128,4 +129,105 @@ def elearn_rows(n: int, seed: int = 7, fail_rate: float = 0.25
             row.append(str(v))
         row.append("fail" if fail[i] else "pass")
         rows.append(row)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# hospital readmission (MI tutorial: resource/hosp_readmit.rb,
+# tutorial_hospital_readmit.txt — 20,000 records)
+# --------------------------------------------------------------------------
+
+_HOSP_SCHEMA_JSON = {
+    "fields": [
+        {"name": "patID", "ordinal": 0, "id": True, "dataType": "string"},
+        {"name": "age", "ordinal": 1, "dataType": "int",
+         "min": 10, "max": 90, "bucketWidth": 10, "feature": True},
+        {"name": "weight", "ordinal": 2, "dataType": "int",
+         "min": 130, "max": 250, "bucketWidth": 20, "feature": True},
+        {"name": "height", "ordinal": 3, "dataType": "int",
+         "min": 50, "max": 75, "bucketWidth": 5, "feature": True},
+        {"name": "employment", "ordinal": 4, "dataType": "categorical",
+         "cardinality": ["employed", "unemployed", "retired"],
+         "feature": True},
+        {"name": "familyStatus", "ordinal": 5, "dataType": "categorical",
+         "cardinality": ["alone", "with partner"], "feature": True},
+        {"name": "diet", "ordinal": 6, "dataType": "categorical",
+         "cardinality": ["poor", "average", "good"], "feature": True},
+        {"name": "exercise", "ordinal": 7, "dataType": "categorical",
+         "cardinality": ["low", "average", "high"], "feature": True},
+        {"name": "followUp", "ordinal": 8, "dataType": "categorical",
+         "cardinality": ["low", "average", "high"], "feature": True},
+        {"name": "smoking", "ordinal": 9, "dataType": "categorical",
+         "cardinality": ["non smoker", "smoker"], "feature": True},
+        {"name": "alcohol", "ordinal": 10, "dataType": "categorical",
+         "cardinality": ["low", "average", "high"], "feature": True},
+        {"name": "readmitted", "ordinal": 11, "dataType": "categorical",
+         "classAttribute": True, "cardinality": ["Y", "N"]},
+    ]
+}
+
+
+def hosp_readmit_schema() -> FeatureSchema:
+    return FeatureSchema.from_json(_HOSP_SCHEMA_JSON)
+
+
+def hosp_readmit_rows(n: int, seed: int = 13) -> List[List[str]]:
+    """Readmission probability is a base rate plus planted bumps for old age,
+    obesity, unemployment/retirement, poor diet and low follow-up — the
+    additive-risk structure hosp_readmit.rb plants, so mutual-information
+    selection ranks age/diet/followUp above the noise fields."""
+    rng = np.random.default_rng(seed)
+
+    def cat(options, weights):
+        w = np.asarray(weights, float)
+        return options[int(rng.choice(len(options), p=w / w.sum()))]
+
+    rows = []
+    for i in range(n):
+        prob = 0.20
+        age = int(rng.choice(
+            [15, 25, 35, 45, 55, 65, 75, 85],
+            p=np.array([2, 3, 6, 10, 14, 19, 25, 21]) / 100))
+        age += int(rng.integers(-4, 5))
+        if age > 80:
+            prob += 0.10
+        elif age > 70:
+            prob += 0.05
+        elif age > 60:
+            prob += 0.03
+        weight = int(rng.integers(130, 251))
+        height = int(rng.integers(50, 76))
+        if weight > 200 and height < 70:
+            prob += 0.05
+        elif weight > 180 and height < 60:
+            prob += 0.03
+        emp = cat(["employed", "unemployed", "retired"], [10, 1, 3])
+        if age > 68 and rng.integers(0, 10) < 8:
+            emp = "retired"
+        if emp == "unemployed":
+            prob += 0.06
+        elif emp == "retired":
+            prob += 0.04
+        family = cat(["alone", "with partner"], [10, 15])
+        if family == "alone":
+            prob += 0.04
+        diet = cat(["average", "poor", "good"], [10, 4, 2])
+        if diet == "poor":
+            prob += 0.06
+        exercise = cat(["average", "low", "high"], [10, 12, 4])
+        if exercise == "low":
+            prob += 0.04
+        follow_up = cat(["average", "low", "high"], [10, 14, 3])
+        if follow_up == "low":
+            prob += 0.08
+        smoking = cat(["non smoker", "smoker"], [10, 3])
+        if smoking == "smoker":
+            prob += 0.05
+        alcohol = cat(["average", "low", "high"], [10, 16, 4])
+        if alcohol == "high":
+            prob += 0.04
+        readmitted = "Y" if rng.random() < prob else "N"
+        rows.append([f"H{i:010d}", str(age), str(weight), str(height), emp,
+                     family, diet, exercise, follow_up, smoking, alcohol,
+                     readmitted])
     return rows

@@ -1,11 +1,16 @@
 """Device kernels and the plain PyTorch ops around them:
 
 - ``histogram``      — one-hot/segment count reductions (class, feature and
-  joint counts, per-class moments); the joint counts go through K1
+  joint counts, per-class moments, pair counts); the joint counts go
+  through K1, the pair counts through K4
+- ``infotheory``     — entropy and mutual information over count tensors
 - ``distance``       — blocked pairwise distance + top-k in plain PyTorch
   (what the JAX package leaves to XLA)
-- ``cuda_histogram`` — K1, the NB joint-count kernel (``csrc/hist.cu``)
-- ``cuda_distance``  — K2, the staged distance top-k (``csrc/topk.cu``)
+- ``cuda_histogram`` — K1, the NB joint-count kernel, and K4, the pair
+  contingency-count kernel (``csrc/hist.cu``)
+- ``cuda_distance``  — K2, the staged distance top-k (``csrc/topk.cu``),
+  and K5, the same over feature-major operands (same source, tpose flag;
+  ``pairwise_topk_cuda(layout="tpose")``)
 - ``cuda_fused``     — K3, the fused normalize→distance→top-k (same source,
   fused flag)
 - ``_build``         — builds ``csrc/*.cu`` with nvcc and loads them

@@ -1,12 +1,15 @@
-"""K2: the staged distance top-k — the CUDA kernel's wrapper, its plain
-PyTorch twin, and the public entry around them.
+"""K2 and K5: the staged distance top-k, over row-major (K2) or
+feature-major (K5) operands — the CUDA kernels' wrappers, their plain
+PyTorch twins, and the public entry around them.
 
 Replaces ``avenir_tpu/ops/pallas_distance.py`` (``supported``,
-``_tile_plan``, ``pairwise_topk_pallas``; the kernel and its design note
-are in ``csrc/topk.cu``). The kernel returns, per test row, the k smallest
-``y² − 2x·y`` with their train ids, ties to the lowest id; the wrapper
-adds ``|x|²``, divides by ``n_attrs``, takes the sqrt and scales to the
-reference's int, as the JAX package does outside its kernel.
+``_tile_plan``, ``pairwise_topk_pallas`` with its ``layout=``; the
+kernels and their design note are in ``csrc/topk.cu``). K5 is K2 over
+operands that arrive transposed, ``xt`` ``[D, M]`` and ``yt`` ``[D, N]``,
+and gives K2's result bit for bit. The kernel returns, per test row, the
+k smallest ``y² − 2x·y`` with their train ids, ties to the lowest id; the
+wrapper adds ``|x|²``, divides by ``n_attrs``, takes the sqrt and scales
+to the reference's int, as the JAX package does outside its kernel.
 
 A CPU tensor takes the plain version (f32 metric, stable sort); a CUDA
 tensor launches the kernel or raises. The two agree up to the f32
@@ -82,18 +85,21 @@ def _check_operands(**tensors: Optional[torch.Tensor]) -> torch.device:
 
 def _launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
                  k: int, mins: Optional[torch.Tensor] = None,
-                 span: Optional[torch.Tensor] = None
+                 span: Optional[torch.Tensor] = None, tpose: bool = False
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (or K3 when ``mins``/``span`` are given) on the current
-    stream: ``[M, D]`` × ``[N, D]`` → (metric [M, k], ids [M, k]). Only
-    the wrappers ``topk_raw`` and ``fused_topk_raw`` call it; each counts
-    its own launches."""
+    """Launch K2 (K3 when ``mins``/``span`` are given, K5 when ``tpose``)
+    on the current stream: ``[M, D]`` × ``[N, D]`` (K5: ``[D, M]`` ×
+    ``[D, N]``) → (metric [M, k], ids [M, k]). Only the wrappers
+    ``topk_raw``, ``topk_raw_tpose`` and ``fused_topk_raw`` call it; each
+    counts its own launches."""
     dev = _check_operands(x=x, y=y, y2=y2, mins=mins, span=span)
-    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != y.shape[1]:
+    feat = 0 if tpose else 1
+    if x.dim() != 2 or y.dim() != 2 or x.shape[feat] != y.shape[feat]:
+        want = "[D, M] and [D, N]" if tpose else "[M, D] and [N, D]"
         raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must be "
-                         "[M, D] and [N, D]")
-    m, d = x.shape
-    n = y.shape[0]
+                         f"{want}")
+    d = x.shape[feat]
+    m, n = x.shape[1 - feat], y.shape[1 - feat]
     if y2.shape != (n,):
         raise ValueError(f"y2 must be [{n}], got {tuple(y2.shape)}")
     for name, t in (("mins", mins), ("span", span)):
@@ -120,9 +126,9 @@ def _launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     if mins is None:
-        err = lib.avt_topk_staged(ptr(x), ptr(y), ptr(y2), m, n, d, k,
-                                  ptr(part_d), ptr(part_i), ptr(out_d),
-                                  ptr(out_i), dev.index, stream)
+        launch = lib.avt_topk_tpose if tpose else lib.avt_topk_staged
+        err = launch(ptr(x), ptr(y), ptr(y2), m, n, d, k, ptr(part_d),
+                     ptr(part_i), ptr(out_d), ptr(out_i), dev.index, stream)
     else:
         err = lib.avt_topk_fused(ptr(x), ptr(y), ptr(y2), ptr(mins),
                                  ptr(span), m, n, d, k, ptr(part_d),
@@ -148,6 +154,31 @@ def topk_raw(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, k: int
 topk_raw.launches = 0
 
 
+def topk_raw_tpose_plain(xt: torch.Tensor, yt: torch.Tensor,
+                         y2: torch.Tensor, k: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K5: K2's plain version on the operands transposed
+    back to row-major."""
+    return topk_raw_plain(xt.T.contiguous(), yt.T.contiguous(), y2, k)
+
+
+def topk_raw_tpose(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor,
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5 wrapper: normalized encoded test ``[D, M]`` × train ``[D, N]``
+    (``y2 = |y|²``, ``[N]``) → (metric ``[M, k]`` f32, ids ``[M, k]``
+    int32), ``k ≤ N``; bit-identical to ``topk_raw`` on ``xt.T``,
+    ``yt.T``."""
+    if xt.device.type == "cpu":
+        return topk_raw_tpose_plain(xt, yt, y2, k)
+    out = _launch_topk(xt, yt, y2, k, tpose=True)
+    if xt.shape[1]:
+        topk_raw_tpose.launches += 1
+    return out
+
+
+topk_raw_tpose.launches = 0
+
+
 def finalize(raw_d: torch.Tensor, raw_i: torch.Tensor, x2: torch.Tensor,
              n_attrs: int, distance_scale: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -165,10 +196,15 @@ def pairwise_topk_cuda(x_num: Optional[torch.Tensor],
                        x_cat: Optional[torch.Tensor] = None,
                        y_cat: Optional[torch.Tensor] = None,
                        *, k: int, n_cat_bins: int = 0,
-                       distance_scale: int = 1000
+                       distance_scale: int = 1000, layout: str = "lane"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-in for ``ops.distance.pairwise_topk`` (euclidean, fast mode)
-    through K2: (scaled-int distances [M, min(k, N)], train ids)."""
+    through K2: (scaled-int distances [M, min(k, N)], train ids).
+    ``layout="tpose"`` transposes the encoded operands to feature-major and
+    goes through K5 instead, with the same result bit for bit — the
+    counterpart of ``pairwise_topk_pallas(layout=)``."""
+    if layout not in ("lane", "tpose"):
+        raise ValueError(f"layout must be 'lane' or 'tpose', got {layout!r}")
     x = encode_mixed(x_num, x_cat, n_cat_bins)
     y = encode_mixed(y_num, y_cat, n_cat_bins)
     n_attrs = ((x_num.shape[1] if x_num is not None else 0) +
@@ -178,5 +214,9 @@ def pairwise_topk_cuda(x_num: Optional[torch.Tensor],
         empty = torch.empty((x.shape[0], 0), dtype=torch.int32,
                             device=x.device)
         return empty, empty.clone()
-    raw_d, raw_i = topk_raw(x, y, row_sq_norm(y), k_eff)
+    if layout == "tpose":
+        raw_d, raw_i = topk_raw_tpose(x.T.contiguous(), y.T.contiguous(),
+                                      row_sq_norm(y), k_eff)
+    else:
+        raw_d, raw_i = topk_raw(x, y, row_sq_norm(y), k_eff)
     return finalize(raw_d, raw_i, row_sq_norm(x), n_attrs, distance_scale)

@@ -2,15 +2,16 @@
 
 Counterpart of ``avenir_tpu/ops/histogram.py`` (``class_counts``,
 ``feature_bin_counts``, ``class_feature_bin_counts``,
-``per_class_moments``). Every counting MR job of the reference is a
-map-side emit of small count keys + a keyed shuffle + a reduce-side sum;
-here each is one reduction over the row axis.
+``per_class_moments``, ``pair_counts``). Every counting MR job of the
+reference is a map-side emit of small count keys + a keyed shuffle + a
+reduce-side sum; here each is one reduction over the row axis.
 
 Ids outside their range drop out (the one-hot behavior), and integer
 counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
-counts — goes through K1 (``ops/cuda_histogram.py``), whose wrapper takes
-its plain version for CPU tensors and launches the kernel for CUDA ones.
-All functions take an optional per-row ``weights`` vector.
+counts — goes through K1 and ``pair_counts`` — the contingency counts of
+MI and correlation — through K4 (``ops/cuda_histogram.py``), whose
+wrappers take their plain versions for CPU tensors and launch the kernels
+for CUDA ones. All functions take an optional per-row ``weights`` vector.
 """
 
 from __future__ import annotations
@@ -60,6 +61,17 @@ def class_feature_bin_counts(bins: torch.Tensor, labels: torch.Tensor,
     return cuda_histogram.class_feature_bin_counts(
         bins.to(torch.int32).contiguous(), labels.to(torch.int32).contiguous(),
         n_classes, n_bins,
+        None if weights is None
+        else weights.to(torch.float32).contiguous())
+
+
+def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
+                weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[N] × [N] ids -> [n_a, n_b] contingency counts (Cramér and the MI
+    pairs reduce to this), through K4. Weights fold into the ``a`` side."""
+    return cuda_histogram.pair_counts(
+        a.to(torch.int32).contiguous(), b.to(torch.int32).contiguous(),
+        n_a, n_b,
         None if weights is None
         else weights.to(torch.float32).contiguous())
 

@@ -12,38 +12,56 @@ Phases (one line each; any failure exits non-zero):
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
-   the global-atomics variant; K2 (staged top-k) at 8,192 test x 65,536
-   train x 9 (the bench shape) and 65,536 test x 1,048,576 train x 9, with
-   small k=128 and width-512 cases; K3 (fused top-k) bit-identical to K2
-   on the normalized rows. The top-k gate (``compare_topk``): the ids are
-   distinct train rows carrying the metrics reported, the metrics equal
-   the plain version's within 1e-5 relative, every id that differs sits
-   in a near-tie of the plain list (the (k+1)-th included), and the scaled
-   ints are within 1;
+   the global-atomics variant; K4 (pair contingency counts) at 1,048,576
+   and 16,777,216 rows of (9, 18) ids, the widest hospital MI pair, with
+   ids -1 and n_a / n_b that drop out — unweighted and 0/1-weighted counts
+   exactly equal, float weights within rtol 1e-5 — plus N = 0 and the
+   global-atomics variant at 256 x 512 cells; K2 (staged top-k) at 8,192
+   test x 65,536 train x 9 (the bench shape) and 65,536 test x 1,048,576
+   train x 9, with small k=128 and width-512 cases; K3 (fused top-k)
+   bit-identical to K2 on the normalized rows; K5 (top-k over
+   feature-major operands) bit-identical to K2 at every top-k shape, plus
+   a ragged shape that takes its scalar loads, and driven once through
+   ``pairwise_topk_cuda(layout="tpose")``, its entry point. The top-k gate
+   (``compare_topk``): the ids are distinct train rows carrying the
+   metrics reported, the metrics equal the plain version's within 1e-5
+   relative, every id that differs sits in a near-tie of the plain list
+   (the (k+1)-th included), and the scaled ints are within 1;
 3. the CLI path, in-process through ``avenir_tpu_torch.cli.main.main`` on
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
    on elearn (100,000 / 20,000) staged (K2) and chunked (K3) with
    byte-identical outputs, NearestNeighbor on churn with class-conditional
-   weighting (K1 + K2), and small card-vs-CPU runs that must agree. Each
-   job's validation accuracy must clear the tutorials' planted-signal bar,
-   and each kernel must have launched in this phase. Every kernel call a
-   job makes is recorded and held against its plain version on the same
-   operands — the job's own shapes, each 4,096-row chunk and the ragged
-   tail — and timed there.
+   weighting (K1 + K2), MutualInformation on 100,000 hospital-readmission
+   rows with all five selection algorithms (K4, F² = 100 launches),
+   CramerCorrelation and HeterogeneityReductionCorrelation on the churn
+   train file (K4), and small card-vs-CPU runs that must agree (MI count
+   families equal and MI values within rtol 1e-5, correlation files
+   byte-identical). Each job must clear the tutorials' planted-signal bar
+   (validation accuracy, MI and Cramér rankings), and each kernel of the
+   path must have launched in this phase. Every kernel call a job makes is
+   recorded and held against its plain version on the same operands — the
+   job's own shapes, each 4,096-row chunk and the ragged tail, each MI
+   pair — and timed there. The MI job runs once more under
+   ``torch.profiler`` for its device time and busy share.
 
-Then one JSON line of per-kernel numbers, the ``nvidia-smi`` line, and
+Then one JSON line of per-kernel numbers (K1-K4 launches from the CLI
+phase, K5's from its entry-point run in phase 2: no CLI key selects the
+tpose layout), the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import inspect
 import io
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -61,7 +79,11 @@ SEED = 20261016
 # the CLI phase's data sizes
 CHURN_TRAIN, CHURN_TEST = 200_000, 50_000
 ELEARN_TRAIN, ELEARN_TEST = 100_000, 20_000
+HOSP_ROWS = 100_000          # 5x the MI tutorial's 20,000 records
 FEED_CHUNK_ROWS = 4096
+MI_ALGORITHMS = ("mutualInfoMaximizer,mutualInfoFeatureSelection,"
+                 "jointMutualInfo,doubleInputSymmetricalRelevance,"
+                 "minRedundancyMaxRelevance")
 
 
 def log(msg: str) -> None:
@@ -74,6 +96,28 @@ def nvidia_smi_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_registers(build_log: str) -> str:
+    """Registers per thread of each kernel instantiation, from the
+    ``-Xptxas -v`` lines of nvcc's build log, names demangled by
+    ``c++filt`` where the toolchain has it."""
+    entries, name = [], None
+    for line in build_log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            entries.append((name, found.group(1)))
+            name = None
+    names = [n for n, _ in entries]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    return "; ".join(f"{re.sub(r'[(].*', '', n.split('::')[-1])} {regs}"
+                     for n, (_, regs) in zip(names, entries))
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -149,6 +193,70 @@ def check_k1(dev, rng):
             "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+
+
+def pair_flat(a, b, n_a, n_b):
+    """The masked combined ids ``a·n_b + b`` that ``torch.bincount``
+    counts: the library call that computes K4's unweighted function."""
+    valid = (a >= 0) & (a < n_a) & (b >= 0) & (b < n_b)
+    return (a.long() * n_b + b.long())[valid]
+
+
+def check_k4(dev, rng):
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    n_a, n_b = 9, 18          # the widest hospital pair: 9 bins x 9 bins * 2
+    entry = None
+    for n in (1_048_576, 16_777_216):
+        # ids -1 and n_a / n_b drop out
+        a = torch.from_numpy(rng.integers(-1, n_a + 1, size=n)
+                             .astype(np.int32)).to(dev)
+        b = torch.from_numpy(rng.integers(-1, n_b + 1, size=n)
+                             .astype(np.int32)).to(dev)
+        w01 = torch.from_numpy((rng.random(n) < 0.7).astype(np.float32)) \
+            .to(dev)
+        wf = torch.from_numpy(rng.random(n).astype(np.float32)).to(dev)
+        for name, w in (("unweighted", None), ("0/1 weights", w01)):
+            got = H.pair_counts(a, b, n_a, n_b, w)
+            if not torch.equal(got, H.pair_counts_plain(a, b, n_a, n_b, w)):
+                raise AssertionError(f"K4 {name} counts differ from plain "
+                                     f"at n={n}")
+        got = H.pair_counts(a, b, n_a, n_b, wf)
+        want = H.pair_counts_plain(a, b, n_a, n_b, wf)
+        # f32 atomics in any order against one f64 sum rounded to f32
+        if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+            raise AssertionError(f"K4 float-weighted counts beyond rtol 1e-5 "
+                                 f"at n={n}")
+        err = float((got - want).abs().max())
+        ms = cuda_ms(lambda: H.pair_counts(a, b, n_a, n_b), 20)
+        plain_ms = cuda_ms(lambda: H.pair_counts_plain(a, b, n_a, n_b), 5)
+        flat = pair_flat(a, b, n_a, n_b)
+        library_ms = cuda_ms(lambda: torch.bincount(flat,
+                                                    minlength=n_a * n_b), 20)
+        bound, by = bound_ms(2 * n * 4 + n_a * n_b * 4, n)
+        log(f"phase 2 K4 pair counts n={n} cells {n_a}x{n_b}: exact "
+            f"(unweighted, 0/1), float weights max abs err {err:.3g} (rtol "
+            f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bincount "
+            f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{bound / ms:.1%} of bound")
+        entry = {"name": "pair_counts (K4)", "route": "cuda",
+                 "source": "avenir_tpu_torch/csrc/hist.cu",
+                 "replaces": "avenir_tpu/ops/pallas_histogram.py:133",
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+        del a, b, w01, wf, flat
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    if not torch.equal(H.pair_counts(empty, empty, n_a, n_b),
+                       torch.zeros((n_a, n_b), device=dev)):
+        raise AssertionError("K4 with N = 0 is not all zeros")
+    # the global-atomics variant: 256 * 512 int32 cells exceed 227 KB
+    ga = torch.randint(-1, 257, (200_000,), dtype=torch.int32, device=dev)
+    gb = torch.randint(-1, 513, (200_000,), dtype=torch.int32, device=dev)
+    if not torch.equal(H.pair_counts(ga, gb, 256, 512),
+                       H.pair_counts_plain(ga, gb, 256, 512)):
+        raise AssertionError("K4 global-atomics variant differs from plain")
+    log("phase 2 K4: N = 0 gives zeros; global-atomics variant (256 x 512 "
+        "cells) exact")
+    return entry
 
 
 def compare_topk(label, got, plain, x, y, y2, n_attrs):
@@ -232,6 +340,18 @@ def plain_with_next(fn, x, y, y2, k, *scales):
     return fn(x, y, y2, *scales, min(k + 1, y.shape[0]))
 
 
+def check_k5(label, got_k2, x, y, y2, k, plain):
+    """K5 on the transposed operands: bit-identical to K2's result
+    ``got_k2`` on the row-major ones, and through the top-k gate against
+    the plain version ``plain`` (with the (k+1)-th column)."""
+    from avenir_tpu_torch.ops import cuda_distance as D
+    xt, yt = x.T.contiguous(), y.T.contiguous()
+    got = D.topk_raw_tpose(xt, yt, y2, k)
+    if not all(torch.equal(p, q) for p, q in zip(got, got_k2)):
+        raise AssertionError(f"K5 {label}: not bit-identical to K2")
+    return compare_topk(f"K5 {label}", got, plain, x, y, y2, x.shape[1])
+
+
 def check_k2_k3(dev):
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.ops import cuda_fused as F
@@ -247,7 +367,8 @@ def check_k2_k3(dev):
     # bench shape: 8,192 test x 65,536 train
     m, n = 8192, 65536
     x, y, y2 = operands(m, n)
-    c2 = compare_topk("K2 bench", D.topk_raw(x, y, y2, k),
+    got2 = D.topk_raw(x, y, y2, k)
+    c2 = compare_topk("K2 bench", got2,
                       plain_with_next(D.topk_raw_plain, x, y, y2, k),
                       x, y, y2, d)
     ms = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
@@ -268,6 +389,40 @@ def check_k2_k3(dev):
                      "max_abs_err": c2["metric_err"], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": library_ms}
+
+    # K5: the same function over feature-major operands
+    xt, yt = x.T.contiguous(), y.T.contiguous()
+    c5 = check_k5("bench", got2, x, y, y2, k,
+                  plain_with_next(D.topk_raw_tpose_plain, xt, yt, y2, k))
+    ms5 = cuda_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), 20)
+    # K2 once more, so that K5 sits between two K2 timings
+    ms2_after = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
+    plain5 = cuda_ms(lambda: D.topk_raw_tpose_plain(xt, yt, y2, k), 3)
+    log(f"phase 2 K5 bench shape: bit-identical to K2; vs plain "
+        f"{summary(c5)}; kernel {ms5:.3f} ms (K2 before and after "
+        f"{ms:.3f}, {ms2_after:.3f} ms), plain "
+        f"{plain5:.3f} ms, cdist+topk {library_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({by})")
+    results["K5"] = {"name": "topk_tpose (K5)", "route": "cuda",
+                     "source": "avenir_tpu_torch/csrc/topk.cu",
+                     "replaces": "avenir_tpu/ops/pallas_distance.py:256",
+                     "max_abs_err": c5["metric_err"], "ms": ms5,
+                     "plain_ms": plain5, "bound_ms": bound, "bound_by": by,
+                     "library_ms": library_ms}
+    # K5's entry point, its launches counted from 0: the same distances
+    # and ids as the lane layout
+    D.topk_raw_tpose.launches = 0
+    tpose = D.pairwise_topk_cuda(x, y, k=k, layout="tpose")
+    results["K5_launches"] = D.topk_raw_tpose.launches
+    if results["K5_launches"] < 1:
+        raise AssertionError("pairwise_topk_cuda(layout='tpose') did not "
+                             "launch K5")
+    if not all(torch.equal(p, q) for p, q in
+               zip(tpose, D.pairwise_topk_cuda(x, y, k=k))):
+        raise AssertionError("layout='tpose' differs from layout='lane'")
+    log(f"phase 2 K5 path pairwise_topk_cuda(layout='tpose') {m}x{n}x{d}: "
+        f"{results['K5_launches']} launch(es), equal to layout='lane'")
+    del xt, yt
 
     # K3 on raw rows against K2 on the normalized rows: bit-identical
     mins = torch.rand(d, generator=gen, device=dev) * 50.0
@@ -312,15 +467,38 @@ def check_k2_k3(dev):
     log(f"phase 2 K2 scale m={m} n={n} d={d} k={k}: {summary(c)}; kernel "
         f"{ms_big:.2f} ms, plain (one call, host clock) {plain_big:.0f} ms, "
         f"bound {bound_big:.2f} ms (operations)")
-    del x, y, y2, got, want
+    xt, yt = x.T.contiguous(), y.T.contiguous()
+    t0 = time.perf_counter()
+    want5 = plain_with_next(D.topk_raw_tpose_plain, xt, yt, y2, k)
+    torch.cuda.synchronize()
+    plain5_big = (time.perf_counter() - t0) * 1e3
+    c5 = check_k5("scale", got, x, y, y2, k, want5)
+    ms5_big = cuda_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), 3)
+    ms2_after = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 3)
+    log(f"phase 2 K5 scale: bit-identical to K2; vs plain {summary(c5)}; "
+        f"kernel {ms5_big:.2f} ms (K2 before and after {ms_big:.2f}, "
+        f"{ms2_after:.2f} ms), plain (one call, host clock) "
+        f"{plain5_big:.0f} ms, bound {bound_big:.2f} ms (operations)")
+    del x, y, y2, got, want, xt, yt, want5
+
+    # K5's scalar loads: M and N not multiples of 4, splits off the
+    # 16-byte grid
+    x, y, y2 = operands(2051, 16383)
+    plain = plain_with_next(D.topk_raw_plain, x, y, y2, k)
+    c5 = check_k5("ragged 2051x16383", D.topk_raw(x, y, y2, k), x, y, y2, k,
+                  plain)
+    log(f"phase 2 K5 m=2051 n=16383 d={d} k={k} (scalar loads): "
+        f"bit-identical to K2; vs plain {summary(c5)}")
 
     # the edges of the supported range: k = 128, encoded width 512
     for m, n, width, kk in ((2048, 16384, d, 128), (1024, 8192, 512, 5),
                             (1024, 8192, 512, 128)):
         x, y, y2 = operands(m, n, width)
-        c = compare_topk(f"K2 k={kk} width={width}", D.topk_raw(x, y, y2, kk),
-                         plain_with_next(D.topk_raw_plain, x, y, y2, kk),
-                         x, y, y2, width)
+        got2 = D.topk_raw(x, y, y2, kk)
+        plain = plain_with_next(D.topk_raw_plain, x, y, y2, kk)
+        c = compare_topk(f"K2 k={kk} width={width}", got2, plain, x, y, y2,
+                         width)
+        check_k5(f"k={kk} width={width}", got2, x, y, y2, kk, plain)
         mins = torch.rand(width, generator=gen, device=dev)
         span = torch.rand(width, generator=gen, device=dev) + 0.5
         raw = x * span + mins
@@ -328,8 +506,8 @@ def check_k2_k3(dev):
         staged = D.topk_raw(F.normalize(raw, mins, span), y, y2, kk)
         if not all(torch.equal(a, b) for a, b in zip(fused, staged)):
             raise AssertionError(f"K3 != K2 at k={kk} width={width}")
-        log(f"phase 2 K2/K3 m={m} n={n} width={width} k={kk}: {summary(c)}"
-            "; K3 bit-identical to K2")
+        log(f"phase 2 K2/K3/K5 m={m} n={n} width={width} k={kk}: "
+            f"{summary(c)}; K3 and K5 bit-identical to K2")
     return results
 
 
@@ -356,7 +534,7 @@ def run_cli(args):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Record every call of the three kernel wrappers while the main path
+    """Record every call of the four kernel wrappers while the main path
     runs — its operands and the result the path went on with — so that
     each can be held against its plain version afterwards. The wrappers
     themselves run unchanged and count their launches: they count through
@@ -365,7 +543,8 @@ def recording(calls):
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
     sites = [(cuda_histogram, "class_feature_bin_counts", "K1"),
              (cuda_distance, "topk_raw", "K2"),
-             (cuda_fused, "fused_topk_raw", "K3")]
+             (cuda_fused, "fused_topk_raw", "K3"),
+             (cuda_histogram, "pair_counts", "K4")]
     originals = [getattr(module, attr) for module, attr, _ in sites]
 
     def recorder(fn, name):
@@ -403,21 +582,73 @@ def host_ms(fn):
     return (time.perf_counter() - t0) * 1e3, out
 
 
+def profile_job(label, args, kernel):
+    """One more run of a CLI job under ``torch.profiler`` (launch counts
+    untouched): its wall time, the device time of each kernel the card
+    ran, their sum over the wall time (the device's busy share) and the
+    launches and device time of ``kernel``. Prints "not measured" where
+    the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_cli(args + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not device:
+        log(f"phase 3 {label} under torch.profiler: wall {wall:.1f} ms; "
+            "device time not measured (the profiler recorded none)")
+        return
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    mine = [e for e in device if kernel in e.key]
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:4]
+    log(f"phase 3 {label} under torch.profiler: wall {wall:.1f} ms, device "
+        f"busy {busy:.3f} ms ({busy / wall:.3%}); {kernel} "
+        f"{sum(e.count for e in mine)} launches, "
+        f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms on the "
+        "device; largest: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+            for e in top))
+
+
 def hold_main_path(label, calls, n_attrs):
     """Hold each kernel call a job made against the plain version on the
-    same operands (K1 exact, K2/K3 by ``compare_topk``, K3 also
+    same operands (K1 and K4 exact, K2/K3 by ``compare_topk``, K3 also
     bit-identical to K2 on the normalized chunk), and time the kernels at
     the job's own shapes."""
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.ops import cuda_fused as F
     from avenir_tpu_torch.ops import cuda_histogram as H
-    for name in ("K1", "K2", "K3"):
+    for name in ("K1", "K2", "K3", "K4"):
         mine = [(a, out) for n, a, out in calls if n == name]
         if not mine:
             continue
         ms = plain_ms = n_bytes = n_ops = 0.0
         shapes, checks = [], []
         for a, out in mine:
+            if name == "K4":
+                n = a["a"].shape[0]
+                w = a["weights"]
+                n_bytes += (2 + (w is not None)) * n * 4 \
+                    + a["n_a"] * a["n_b"] * 4
+                n_ops += n
+                plain_t, want = host_ms(lambda: H.pair_counts_plain(
+                    a["a"], a["b"], a["n_a"], a["n_b"], w))
+                exact = w is None or bool(((w == 0) | (w == 1)).all())
+                same = (torch.equal(out, want) if exact else
+                        torch.allclose(out, want, rtol=1e-5, atol=0.0))
+                if not same:
+                    raise AssertionError(f"{label}: K4 counts differ from "
+                                         "plain on the path's operands")
+                ms += cuda_ms(lambda: H.pair_counts(
+                    a["a"], a["b"], a["n_a"], a["n_b"], w), 5)
+                shapes.append(f"{n}:{a['n_a']}x{a['n_b']}")
+                checks.append("exact" if exact else "rtol 1e-5")
+                plain_ms += plain_t
+                continue
             if name == "K1":
                 n, f = a["bins"].shape
                 cells = f * a["n_classes"] * a["n_bins"]
@@ -468,8 +699,10 @@ def hold_main_path(label, calls, n_attrs):
                 n_bytes += 2 * d * 4
                 n_ops += 2.0 * m * d
             shapes.append(f"{m}x{n}x{d}")
-        if name == "K1":
+        if name in ("K1", "K4"):
             verdict = ", ".join(sorted(set(checks)))
+            shapes = [f"{c} x {s}" if c > 1 else s
+                      for s, c in sorted(collections.Counter(shapes).items())]
         else:
             verdict = summary({
                 "rows": sum(c["rows"] for c in checks),
@@ -481,8 +714,63 @@ def hold_main_path(label, calls, n_attrs):
         bound, by = bound_ms(n_bytes, n_ops)
         log(f"phase 3 {label}: {name} on the path's operands, {len(mine)} "
             f"call(s) [{', '.join(shapes)}]: {verdict}; kernel {ms:.3f} ms, "
-            f"plain {plain_ms:.1f} ms (host clock), bound {bound:.3f} ms "
+            f"plain {plain_ms:.1f} ms (host clock), bound {bound:.4g} ms "
             f"({by})")
+
+
+def mi_card_vs_cpu(p, hosp_conf, churn_conf):
+    """MI and correlation on small inputs, card against CPU: the MI count
+    families equal, the MI output values within rtol 1e-5 (f32 logs of
+    the two devices differ in the last ulps; atol 1e-6 for values near 0,
+    where cancellation leaves no relative precision), the correlation
+    files byte-identical (numpy statistics over equal counts)."""
+    from avenir_tpu_torch.cli.main import main
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.explore import mutual_information as mi
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    from avenir_tpu_torch.utils.schema import FeatureSchema
+    rows = [line.split(",") for line in
+            open(p("hosp_small.csv")).read().splitlines()]
+    schema = FeatureSchema.from_json(G._HOSP_SCHEMA_JSON)
+    dists = {dev: mi.compute_distributions(
+        Featurizer(schema, device=dev).fit(rows).transform(rows))
+        for dev in ("cuda", "cpu")}
+    for family in ("class_counts", "feature", "feature_class",
+                   "feature_pair", "feature_pair_class"):
+        if not np.array_equal(getattr(dists["cuda"], family),
+                              getattr(dists["cpu"], family)):
+            raise AssertionError(f"MI {family} differs card vs CPU")
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(["MutualInformation", p("hosp_small.csv"), p(f"mi_{dev}.txt"),
+                  *hosp_conf, "--device", dev])
+            for verb in ("CramerCorrelation",
+                         "HeterogeneityReductionCorrelation"):
+                main([verb, p("churn_small.csv"), p(f"{verb}_{dev}.txt"),
+                      *churn_conf, "-D", "correlation.attr.pairs=3:6,2:6,1:2",
+                      "--device", dev])
+        outs[dev] = {name: open(p(f"{name}_{dev}.txt")).read() for name in
+                     ("mi", "CramerCorrelation",
+                      "HeterogeneityReductionCorrelation")}
+    mi_err = 0.0
+    card_lines = outs["cuda"]["mi"].splitlines()
+    cpu_lines = outs["cpu"]["mi"].splitlines()
+    if len(card_lines) != len(cpu_lines):
+        raise AssertionError("MI output line counts differ card vs CPU")
+    for a, b in zip(card_lines, cpu_lines):
+        fa, fb = a.split(","), b.split(",")
+        va, vb = float(fa[-1]), float(fb[-1])
+        if fa[:-1] != fb[:-1] or not abs(va - vb) <= 1e-6 + 1e-5 * abs(vb):
+            raise AssertionError(f"MI output differs card vs CPU: {a} / {b}")
+        mi_err = max(mi_err, abs(va - vb))
+    for verb in ("CramerCorrelation", "HeterogeneityReductionCorrelation"):
+        if outs["cuda"][verb] != outs["cpu"][verb]:
+            raise AssertionError(f"{verb} output differs card vs CPU")
+    log(f"phase 3 card vs CPU (hosp 3000-row MI, churn 2000-row "
+        f"correlation): MI families equal, {len(card_lines)} MI lines in the "
+        f"same order, max abs diff {mi_err:.3g}; correlation files "
+        "byte-identical")
 
 
 def cli_phase(work: str):
@@ -490,10 +778,11 @@ def cli_phase(work: str):
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
     counters = {"K1": cuda_histogram.class_feature_bin_counts,
                 "K2": cuda_distance.topk_raw,
-                "K3": cuda_fused.fused_topk_raw}
+                "K3": cuda_fused.fused_topk_raw,
+                "K4": cuda_histogram.pair_counts}
     totals = {name: 0 for name in counters}
 
-    def job(label, args, bar, must_launch, n_attrs=None):
+    def job(label, args, bar, must_launch, n_attrs=None, launches=None):
         calls = []
         for fn in counters.values():
             fn.launches = 0
@@ -508,6 +797,10 @@ def cli_phase(work: str):
         missing = [name for name in must_launch if counts[name] < 1]
         if missing:
             raise AssertionError(f"{label}: {missing} not launched")
+        for name, want in (launches or {}).items():
+            if counts[name] != want:
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{counts[name]} times, not {want}")
         acc = report.get("Validation.Accuracy")
         if bar is not None and not (acc is not None and acc > bar):
             raise AssertionError(f"{label}: accuracy {acc} not above {bar}")
@@ -577,6 +870,68 @@ def cli_phase(work: str):
         + churn_conf + ["-D", "class.condtion.weighted=true"], 0.75,
         ["K1", "K2"], n_attrs=churn_attrs)
 
+    # mutual information and categorical correlation (K4)
+    hosp = G.hosp_readmit_rows(HOSP_ROWS, seed=SEED)
+    write_csv(p("hosp.csv"), hosp)
+    write_csv(p("hosp_small.csv"), hosp[:3000])
+    with open(p("hosp.json"), "w") as fh:
+        json.dump(G._HOSP_SCHEMA_JSON, fh)
+    with open(p("hosp.properties"), "w") as fh:
+        fh.write(f"field.delim.regex=,\n"
+                 f"feature.schema.file.path={p('hosp.json')}\n"
+                 f"mi.score.algorithms={MI_ALGORITHMS}\n")
+    hosp_conf = ["--conf", p("hosp.properties")]
+    n_hosp = len(FeatureSchema.from_json(
+        G._HOSP_SCHEMA_JSON).get_feature_fields())
+    job(f"MutualInformation hosp {HOSP_ROWS} rows",
+        ["MutualInformation", p("hosp.csv"), p("mi.txt")] + hosp_conf, None,
+        ["K4"], launches={"K4": n_hosp * n_hosp})
+    mi_lines = [line.split(",") for line in
+                open(p("mi.txt")).read().splitlines()]
+    fc = {int(f[1]): float(f[2]) for f in mi_lines if f[0] == "featureClass"}
+    ranked = collections.Counter(f[0] for f in mi_lines
+                                 if f[0] in MI_ALGORITHMS.split(","))
+    # followUp (ordinal 8, planted +0.08) over height (3, interaction only)
+    if not (len(fc) == n_hosp and fc[8] > fc[3]
+            and all(math.isfinite(v) for v in fc.values())):
+        raise AssertionError(f"MI planted signal missing: featureClass {fc}")
+    if sorted(ranked.values()) != [n_hosp] * 5:
+        raise AssertionError(f"MI rankings incomplete: {dict(ranked)}")
+    log(f"phase 3 MI planted signal: featureClass followUp(8) "
+        f"{fc[8]:.6g} > height(3) {fc[3]:.6g}; five rankings of {n_hosp}")
+    profile_job(f"MutualInformation hosp {HOSP_ROWS} rows",
+                ["MutualInformation", p("hosp.csv"), p("mi_prof.txt")]
+                + hosp_conf, "pair_counts_kernel")
+
+    job(f"CramerCorrelation churn {CHURN_TRAIN} rows pairs 3:6,2:6",
+        ["CramerCorrelation", p("churn_train.csv"), p("cramer.txt")]
+        + churn_conf + ["-D", "correlation.attr.pairs=3:6,2:6"], None,
+        ["K4"], launches={"K4": 2})
+    corr = {tuple(int(v) for v in line.split(",")[:2]):
+            float(line.split(",")[2])
+            for line in open(p("cramer.txt")).read().splitlines()}
+    # CSCalls's planted shift is stronger than dataUsed's
+    if not (0 <= corr[(2, 6)] <= 1 and 0 <= corr[(3, 6)] <= 1
+            and corr[(3, 6)] > corr[(2, 6)] > 0.05):
+        raise AssertionError(f"Cramer planted signal missing: {corr}")
+    log(f"phase 3 Cramer planted signal: corr(3,6) {corr[(3, 6)]:.6g} > "
+        f"corr(2,6) {corr[(2, 6)]:.6g} > 0.05")
+    n_churn = len(FeatureSchema.from_json(
+        G._CHURN_SCHEMA_JSON).get_feature_fields())
+    n_pairs = n_churn * (n_churn - 1) // 2
+    job(f"HeterogeneityReductionCorrelation churn {CHURN_TRAIN} rows, "
+        f"{n_pairs} pairs",
+        ["HeterogeneityReductionCorrelation", p("churn_train.csv"),
+         p("hetero.txt")] + churn_conf, None, ["K4"],
+        launches={"K4": n_pairs})
+    hetero = [float(line.split(",")[2])
+              for line in open(p("hetero.txt")).read().splitlines()]
+    # Goodman-Kruskal tau lies in [0, 1]; f32 rounding may put an
+    # independent pair a few ulps below 0
+    if len(hetero) != n_pairs or not all(
+            math.isfinite(v) and -1e-6 <= v <= 1 + 1e-6 for v in hetero):
+        raise AssertionError(f"heterogeneity output malformed: {hetero}")
+
     # card against CPU on a small input: same files
     small = G.elearn_rows(2500, seed=SEED + 1)
     write_csv(p("small_train.csv"), small[:2000])
@@ -600,6 +955,7 @@ def cli_phase(work: str):
                              f"model equal {outs['cuda'][1] == outs['cpu'][1]}")
     log(f"phase 3 card vs CPU (elearn 2000x500 KNN, churn 2000-row NB): "
         f"KNN rows differing {n_diff}, NB model files identical")
+    mi_card_vs_cpu(p, hosp_conf, churn_conf)
     log(f"kernels {json.dumps(totals)}")
     return totals
 
@@ -620,9 +976,12 @@ def main() -> int:
     _build.load_library()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib_path.name} "
         f"from {len(_build.sources())} sources, sm_90a)")
+    log("phase 1 registers per thread (ptxas): " + kernel_registers(
+        (lib_path.parent / "build.log").read_text()))
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(dev, rng)
+    k4 = check_k4(dev, rng)
     k23 = check_k2_k3(dev)
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
@@ -630,8 +989,10 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    launches["K5"] = k23["K5_launches"]
     kernels = []
-    for name, entry in (("K1", k1), ("K2", k23["K2"]), ("K3", k23["K3"])):
+    for name, entry in (("K1", k1), ("K2", k23["K2"]), ("K3", k23["K3"]),
+                        ("K4", k4), ("K5", k23["K5"])):
         entry = dict(entry)
         entry["launches"] = launches[name]
         kernels.append(entry)

@@ -150,8 +150,20 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
 
 
 @pytest.mark.parametrize("args,match", [
-    (["SameTypeSimilarity"], "SameTypeSimilarity"),
-    (["FeatureCondProbJoiner"], "FeatureCondProbJoiner"),
+    (["SameTypeSimilarity"], "SameTypeSimilarity.*item 7"),
+    (["FeatureCondProbJoiner"], "FeatureCondProbJoiner.*item 7"),
+    (["TreeBuilder"], "TreeBuilder.*item 9"),
+    (["ClassPartitionGenerator"], "ClassPartitionGenerator.*item 9"),
+    (["GradientBoostPredictor"], "GradientBoostPredictor.*item 9"),
+    (["LogisticRegressionJob"], "LogisticRegressionJob.*item 10"),
+    (["UnderSamplingBalancer"], "UnderSamplingBalancer.*item 10"),
+    (["WordCounter"], "WordCounter.*item 10"),
+    (["MarkovStateTransitionModel"], "MarkovStateTransitionModel.*item 11"),
+    (["ViterbiStatePredictor"], "ViterbiStatePredictor.*item 11"),
+    (["GreedyRandomBandit"], "GreedyRandomBandit.*item 12"),
+    (["ReinforcementLearnerTopology"],
+     "ReinforcementLearnerTopology.*item 12"),
+    (["Lifecycle"], "Lifecycle.*item 12"),
     (["NearestNeighbor", "--metrics-out", "m.jsonl"], "--metrics-out"),
     (["NearestNeighbor", "--obs-port", "0"], "--obs-port"),
     (["NearestNeighbor", "--resume"], "--resume")])
@@ -160,6 +172,15 @@ def test_cli_refuses_later_verbs_and_flags(tmp_path, args, match):
     with pytest.raises(ValueError, match=match):
         tmain([args[0], "in.csv", "out.txt", "--conf", props, *args[1:],
                "--device", "cpu"])
+
+
+def test_cli_knows_every_verb_of_the_jax_cli():
+    """Each verb of the JAX CLI is ported or refused by name; none fails
+    in argparse as an invalid choice."""
+    from avenir_tpu.cli.main import VERBS as JVERBS
+    from avenir_tpu_torch.cli.main import _LATER_VERBS, VERBS
+    assert not set(VERBS) & set(_LATER_VERBS)
+    assert set(VERBS) | set(_LATER_VERBS) == set(JVERBS)
 
 
 def _imports(path: Path):

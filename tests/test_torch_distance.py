@@ -1,5 +1,5 @@
-"""K2 and K3 plain versions and the plain top-k against the JAX package:
-the exact XLA path, and the Pallas kernels in interpret mode."""
+"""K2, K3 and K5 plain versions and the plain top-k against the JAX
+package: the exact XLA path, and the Pallas kernels in interpret mode."""
 
 import numpy as np
 import pytest
@@ -230,3 +230,56 @@ def test_fused_topk_dispatch():
                               _t(x_cat), _t(y_cat), k=5, n_cat_bins=3,
                               mode="exact")
     assert all(torch.equal(a, b) for a, b in zip(got, staged))
+
+
+@pytest.mark.parametrize("n_num,n_cat,m,n,k", [
+    (9, 0, 257, 3001, 5), (4, 3, 100, 900, 7), (0, 5, 64, 600, 5),
+    (9, 0, 20, 3, 5)])
+def test_tpose_layout_equals_lane_layout(n_num, n_cat, m, n, k):
+    x_num, y_num, x_cat, y_cat = _inputs(12, m, n, n_num, n_cat, n_bins=3)
+    args = (_t(x_num), _t(y_num), _t(x_cat), _t(y_cat))
+    lane = cuda_distance.pairwise_topk_cuda(*args, k=k, n_cat_bins=3)
+    tpose = ops.pairwise_topk_cuda(*args, k=k, n_cat_bins=3, layout="tpose")
+    assert all(torch.equal(a, b) for a, b in zip(lane, tpose))
+    x = td.encode_mixed(args[0], args[2], 3)
+    y = td.encode_mixed(args[1], args[3], 3)
+    y2 = td.row_sq_norm(y)
+    kk = min(k, n)
+    assert all(torch.equal(a, b) for a, b in zip(
+        cuda_distance.topk_raw_tpose(x.T.contiguous(), y.T.contiguous(), y2,
+                                     kk),
+        cuda_distance.topk_raw(x, y, y2, kk)))
+
+
+def test_tpose_plain_passes_bench_gates_vs_pallas():
+    # as test_plain_passes_bench_gates_vs_pallas, against the JAX package's
+    # transposed-operand kernel (_tpose_tag_kernel) in interpret mode
+    rng = np.random.default_rng(13)
+    m, n, k = 256, 2048, 5
+    y = rng.random((n, 9), dtype=np.float32)
+    x = rng.random((m, 9), dtype=np.float32)
+    labels = (y[:, 0] > 0.5).astype(np.int64)
+    pd, pi = pairwise_topk_pallas(jnp.asarray(x), jnp.asarray(y), k=k,
+                                  interpret=True, tile_m=128, tile_n=512,
+                                  mode="exact", layout="tpose")
+    before = cuda_distance.topk_raw_tpose.launches
+    td_, ti = cuda_distance.pairwise_topk_cuda(
+        torch.from_numpy(x), torch.from_numpy(y), k=k, layout="tpose")
+    assert cuda_distance.topk_raw_tpose.launches == before   # CPU: plain
+    pd, pi, td_, ti = map(np.asarray, (pd, pi, td_, ti))
+    recall, err, agree = _gates(pi, pd, ti, td_, labels)
+    assert recall >= 0.985 and err <= 25 and agree >= 0.99, (recall, err,
+                                                             agree)
+
+
+def test_unknown_layout_and_cuda_only_launch_raise():
+    x = torch.rand(8, 9)
+    with pytest.raises(ValueError, match="layout"):
+        cuda_distance.pairwise_topk_cuda(x, x, k=2, layout="lanes")
+    # a tensor that is not on the CPU takes the launch branch, which takes
+    # CUDA tensors only: no fallback to the plain version
+    meta = torch.empty((9, 8), device="meta")
+    with pytest.raises(ValueError, match="expected CUDA"):
+        cuda_distance.topk_raw_tpose(meta, meta, torch.empty(8,
+                                                             device="meta"),
+                                     2)
