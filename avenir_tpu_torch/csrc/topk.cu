@@ -68,6 +68,17 @@
 //   approximate lane-bucket fold; this top-k is exact and has no
 //   counterpart of it.
 //
+// - Two ablations of K2 take one part of its work out and keep everything
+//   else (the launch, the tiles, the splits, the merge), so that the KNN
+//   decomposition (avenir_tpu_torch/scripts/roofline_knn.py) can time K2's
+//   parts alone: kNoProduct folds the metric |y2[j] - sum_d x[r][d]|, with no
+//   product and y never read, into K2's top-k lists; kNoSelect sweeps K2's
+//   product and keeps one running minimum per test row, with no list and no
+//   insertion. kNoProduct's metric orders the columns differently for each
+//   row, as K2's does, so that the rows of a warp insert at different
+//   columns; a broadcast y2[j] + s[r] would give every row the same order
+//   and the same insertions.
+//
 // Interface: plain C, bound from Python with ctypes. The caller allocates
 // every buffer: out [M, k] (metric, id) and, when avt_topk_splits() > 1,
 // the per-split lists part [S, M, k].
@@ -84,6 +95,12 @@ constexpr int kRn = 8;          // train rows per register tile
 constexpr int kMaxSplits = 64;  // per-split lists a merge walks
 constexpr int kBlocksPerSm = 4;
 constexpr size_t kDefaultSharedBytes = 48 * 1024;
+
+// What a sweep does: K2's whole work, or one of its two ablations
+constexpr int kWhole = 0;
+constexpr int kNoProduct = 1;  // the selection alone
+constexpr int kNoSelect = 2;   // the product sweep alone
+constexpr int kPartMaxK = 8;   // the ablations' list capacity
 
 struct Config {
   int rm;       // test rows per thread
@@ -188,7 +205,7 @@ __device__ __noinline__ void insert_sorted(float* bd, int* bi, int k,
   bi[p] = id;
 }
 
-template <bool kFused, bool kTpose, int kRm, int kCap, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kCap, int kDx, int kPart>
 __global__ void __launch_bounds__(128)
 topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
             const float* __restrict__ y2, const float* __restrict__ mins,
@@ -237,6 +254,19 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
   }
 
+  // kNoProduct: each test row's feature sum, in feature order
+  float s[kRm];
+  if constexpr (kPart == kNoProduct) {
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kRm; ++r) {
+      s[r] = 0.f;
+      for (int c = 0; c < d; ++c) {
+        s[r] += xs[static_cast<size_t>(c) * tm + tid * kRm + r];
+      }
+    }
+  }
+
   float bd[kRm][kCap];
   int bi[kRm][kCap];
   float thr[kRm];
@@ -252,7 +282,9 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
   for (int t0 = j_begin; t0 < j_end; t0 += tile_n) {
     const int tn = min(tile_n, j_end - t0);
     __syncthreads();  // the previous tile (or the x tile) is fully read
-    if constexpr (kTpose) {
+    if constexpr (kPart == kNoProduct) {
+      // y is not read
+    } else if constexpr (kTpose) {
       stage_dmajor(ys, y, d, n, t0, tile_n, tn);  // y being yt [d][n]
     } else {
       for (int e = tid; e < tile_n * d; e += blockDim.x) {
@@ -275,7 +307,9 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
         for (int q = 0; q < kRn; ++q) acc[r][q] = 0.f;
       }
-      if constexpr (kDx > 0) {
+      if constexpr (kPart == kNoProduct) {
+        // no product
+      } else if constexpr (kDx > 0) {
 #pragma unroll
         for (int c = 0; c < kDx; ++c) {
           if (c >= d) break;
@@ -331,12 +365,15 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
         float best = CUDART_INF_F;
 #pragma unroll
         for (int q = 0; q < kRn; ++q) {
-          v[q] = y2v[q] - 2.f * acc[r][q];
+          v[q] = kPart == kNoProduct ? fabsf(y2v[q] - s[r])
+                                     : y2v[q] - 2.f * acc[r][q];
           best = fminf(best, v[q]);
         }
-        // one compare per row and chunk; the candidates, in ascending
-        // train id, only when one of them beats the k-th best
-        if (best < thr[r]) {
+        if constexpr (kPart == kNoSelect) {
+          thr[r] = fminf(thr[r], best);  // a padded column's metric is +inf
+        } else if (best < thr[r]) {
+          // one compare per row and chunk; the candidates, in ascending
+          // train id, only when one of them beats the k-th best
 #pragma unroll
           for (int q = 0; q < kRn; ++q) {
             if (v[q] < thr[r] && jj + q < tn) {
@@ -355,9 +392,15 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
     if (gr < m) {
       const size_t base =
           (static_cast<size_t>(blockIdx.y) * m + gr) * static_cast<size_t>(k);
-      for (int p = 0; p < k; ++p) {
-        out_d[base + p] = bd[r][p];
-        out_i[base + p] = bi[r][p];
+      if constexpr (kPart == kNoSelect) {
+        // the row's minimum, k = 1; id 0 lets the merge take it as found
+        out_d[base] = thr[r];
+        out_i[base] = 0;
+      } else {
+        for (int p = 0; p < k; ++p) {
+          out_d[base + p] = bd[r][p];
+          out_i[base + p] = bi[r][p];
+        }
       }
     }
   }
@@ -401,13 +444,13 @@ __global__ void merge_kernel(const float* __restrict__ part_d,
   }
 }
 
-template <bool kFused, bool kTpose, int kRm, int kCap, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kCap, int kDx, int kPart>
 cudaError_t launch_sweep(const Config& cfg, dim3 grid, size_t smem,
                          cudaStream_t stream, const float* x, const float* y,
                          const float* y2, const float* mins, const float* span,
                          int m, int n, int d, int k, int rows_per_split,
                          float* out_d, int* out_i) {
-  auto kernel = topk_kernel<kFused, kTpose, kRm, kCap, kDx>;
+  auto kernel = topk_kernel<kFused, kTpose, kRm, kCap, kDx, kPart>;
   if (smem > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -420,28 +463,33 @@ cudaError_t launch_sweep(const Config& cfg, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
-template <bool kFused, bool kTpose, int kRm, int kDx>
+template <bool kFused, bool kTpose, int kRm, int kDx, int kPart>
 cudaError_t dispatch_cap(const Config& cfg, dim3 grid, size_t smem,
                          cudaStream_t stream, const float* x, const float* y,
                          const float* y2, const float* mins, const float* span,
                          int m, int n, int d, int k, int rows_per_split,
                          float* out_d, int* out_i) {
 #define AVT_SWEEP(CAP)                                                      \
-  launch_sweep<kFused, kTpose, kRm, CAP, kDx>(cfg, grid, smem, stream, x, y, \
-                                              y2, mins, span, m, n, d, k,     \
-                                              rows_per_split, out_d, out_i)
-  if (k <= 8) return AVT_SWEEP(8);
-  if (k <= 32) return AVT_SWEEP(32);
-  return AVT_SWEEP(128);
+  launch_sweep<kFused, kTpose, kRm, CAP, kDx, kPart>(                       \
+      cfg, grid, smem, stream, x, y, y2, mins, span, m, n, d, k,             \
+      rows_per_split, out_d, out_i)
+  if constexpr (kPart != kWhole) {
+    return AVT_SWEEP(kPartMaxK);
+  } else {
+    if (k <= 8) return AVT_SWEEP(8);
+    if (k <= 32) return AVT_SWEEP(32);
+    return AVT_SWEEP(128);
+  }
 #undef AVT_SWEEP
 }
 
-template <bool kFused, bool kTpose>
+template <bool kFused, bool kTpose, int kPart = kWhole>
 cudaError_t run_topk(const float* x, const float* y, const float* y2,
                      const float* mins, const float* span, int m, int n, int d,
                      int k, float* part_d, int* part_i, float* out_d,
                      int* out_i, int device, cudaStream_t stream) {
-  if (m <= 0 || n <= 0 || d <= 0 || k <= 0 || k > 128 || d > 512) {
+  if (m <= 0 || n <= 0 || d <= 0 || k <= 0 || d > 512 ||
+      k > (kPart == kWhole ? 128 : kPartMaxK)) {
     return cudaErrorInvalidValue;
   }
   const Config cfg = pick_config(m, n, d, device);
@@ -457,9 +505,9 @@ cudaError_t run_topk(const float* x, const float* y, const float* y2,
   int* sweep_i = splits > 1 ? part_i : out_i;
   cudaError_t err;
 #define AVT_DISPATCH(RM, DX)                                                \
-  dispatch_cap<kFused, kTpose, RM, DX>(cfg, grid, smem, stream, x, y, y2,   \
-                                       mins, span, m, n, d, k, rows, sweep_d, \
-                                       sweep_i)
+  dispatch_cap<kFused, kTpose, RM, DX, kPart>(cfg, grid, smem, stream, x, y, \
+                                              y2, mins, span, m, n, d, k,     \
+                                              rows, sweep_d, sweep_i)
   // one test row per thread keeps it in registers up to width 32; four rows
   // per thread would need 4x the registers and measured slower
   if (cfg.rm == 4) {
@@ -529,6 +577,37 @@ int avt_topk_fused(const void* x, const void* y, const void* y2,
       static_cast<const float*>(span), m, n, d, k, static_cast<float*>(part_d),
       static_cast<int*>(part_i), static_cast<float*>(out_d),
       static_cast<int*>(out_i), device, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K2 without its product: the k <= 8 smallest |y2[j] - sum_d x[r][d]| per
+// test row of x [m, d], y2 [n], through K2's lists, splits and merge.
+int avt_topk_nodot(const void* x, const void* y2, int m, int n, int d, int k,
+                   void* part_d, void* part_i, void* out_d, void* out_i,
+                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run_topk<false, false, kNoProduct>(
+      static_cast<const float*>(x), nullptr, static_cast<const float*>(y2),
+      nullptr, nullptr, m, n, d, k, static_cast<float*>(part_d),
+      static_cast<int*>(part_i), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), device, static_cast<cudaStream_t>(stream));
+  return static_cast<int>(err);
+}
+
+// K2 without its selection: out_d [m, 1] holds each test row's smallest
+// y2[j] - 2 * <x_r, y_j> (out_i [m, 1] zeros); part [S, m, 1].
+int avt_topk_sweep(const void* x, const void* y, const void* y2, int m, int n,
+                   int d, void* part_d, void* part_i, void* out_d,
+                   void* out_i, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = run_topk<false, false, kNoSelect>(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(y2), nullptr, nullptr, m, n, d, 1,
+      static_cast<float*>(part_d), static_cast<int*>(part_i),
+      static_cast<float*>(out_d), static_cast<int*>(out_i), device,
+      static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

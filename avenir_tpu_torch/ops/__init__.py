@@ -13,6 +13,12 @@
   ``pairwise_topk_cuda(layout="tpose")``)
 - ``cuda_fused``     — K3, the fused normalize→distance→top-k (same source,
   fused flag)
+- ``fold``           — the lane-bucket fold of the KNN experiment kernels
+  in plain PyTorch (bucket fold, k extraction, the four metrics)
+- ``cuda_fold``      — K6-K9, the fold kernels of ``scripts/exp_fold.py``
+  and ``scripts/roofline_knn.py`` (``csrc/fold.cu``): indexed fold
+  (``acc_fold``), lane minima (``dotmin``), fold without a product
+  (``nodot_fold``), fold over feature-major operands (``tpose_fold``)
 - ``_build``         — builds ``csrc/*.cu`` with nvcc and loads them
 
 Each kernel wrapper takes its plain version for CPU tensors only; a CUDA

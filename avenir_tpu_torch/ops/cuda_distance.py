@@ -15,6 +15,13 @@ A CPU tensor takes the plain version (f32 metric, stable sort); a CUDA
 tensor launches the kernel or raises. The two agree up to the f32
 summation order of the dot: ids are equal except where two metrics lie
 within a few ulps, and scaled ints within 1.
+
+Two ablations of K2 serve the KNN decomposition
+(``scripts/roofline_knn.py``): :func:`topk_nodot_raw` runs K2 with the
+product taken out (the metric ``|y2[j] − Σ_d x[r, d]|``, the selection
+alone), :func:`topk_sweep_min` runs K2's product sweep with the selection
+taken out (each row's smallest metric, no list). Neither is a path of the
+CLI.
 """
 
 from __future__ import annotations
@@ -26,9 +33,14 @@ import torch
 from avenir_tpu_torch.ops import _build
 from avenir_tpu_torch.ops.distance import (
     INT_BIG, encode_mixed, row_sq_norm, stable_merge_topk)
+from avenir_tpu_torch.ops.fold import row_sum
 
 MAX_K = 128
 MAX_ENCODED_WIDTH = 512
+#: the list capacity of K2's ablations
+MAX_PART_K = 8
+#: the plain versions' metric blocks: 8,192 × 65,536 f32, 2 GB
+_PLAIN_ROWS, _PLAIN_COLS = 8192, 65536
 
 
 def supported(*, algorithm: str, k: int, mode: str,
@@ -40,28 +52,56 @@ def supported(*, algorithm: str, k: int, mode: str,
 
 
 def topk_raw_plain(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
-                   k: int, block_rows: int = 8192, block_cols: int = 65536
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel: the f32 metric ``y2 − 2·x@yᵀ`` in
     blocks, k smallest by a stable sort (lowest id on ties)."""
-    m, n = x.shape[0], y.shape[0]
+    return _plain_topk(
+        x.shape[0], y.shape[0], k, x.device,
+        lambda r0, r1, c0, c1: y2[c0:c1].reshape(1, -1)
+        - 2.0 * (x[r0:r1] @ y[c0:c1].T))
+
+
+def _plain_topk(m: int, n: int, k: int, device: torch.device, metric
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest of ``metric(r0, r1, c0, c1)`` (the ``[r1 − r0,
+    c1 − c0]`` block of an ``[m, n]`` metric) per row, by a stable sort
+    over blocks: (values [m, k], ids [m, k] int32), lowest id on ties."""
     k = min(k, n)
-    out_d = torch.empty((m, k), dtype=torch.float32, device=x.device)
-    out_i = torch.empty((m, k), dtype=torch.int32, device=x.device)
-    for r0 in range(0, m, block_rows):
-        xb = x[r0:r0 + block_rows]
-        mb = xb.shape[0]
-        best_d = torch.empty((mb, 0), dtype=torch.float32, device=x.device)
-        best_i = torch.empty((mb, 0), dtype=torch.int32, device=x.device)
-        for c0 in range(0, n, block_cols):
-            c1 = min(n, c0 + block_cols)
-            metric = y2[c0:c1].reshape(1, -1) - 2.0 * (xb @ y[c0:c1].T)
-            ids = torch.arange(c0, c1, dtype=torch.int32, device=x.device) \
-                .reshape(1, -1).expand(mb, c1 - c0)
-            best_d, best_i = stable_merge_topk(best_d, best_i, metric, ids, k)
-        out_d[r0:r0 + mb] = best_d
-        out_i[r0:r0 + mb] = best_i
+    out_d = torch.empty((m, k), dtype=torch.float32, device=device)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=device)
+    for r0 in range(0, m, _PLAIN_ROWS):
+        r1 = min(m, r0 + _PLAIN_ROWS)
+        best_d = torch.empty((r1 - r0, 0), dtype=torch.float32, device=device)
+        best_i = torch.empty((r1 - r0, 0), dtype=torch.int32, device=device)
+        for c0 in range(0, n, _PLAIN_COLS):
+            c1 = min(n, c0 + _PLAIN_COLS)
+            ids = torch.arange(c0, c1, dtype=torch.int32, device=device) \
+                .reshape(1, -1).expand(r1 - r0, c1 - c0)
+            best_d, best_i = stable_merge_topk(
+                best_d, best_i, metric(r0, r1, c0, c1), ids, k)
+        out_d[r0:r1] = best_d
+        out_i[r0:r1] = best_i
     return out_d, out_i
+
+
+def topk_nodot_plain(x: torch.Tensor, y2: torch.Tensor, k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2's no-product ablation: the k smallest
+    ``|y2[j] − Σ_d x[r, d]|`` per test row (the sum in feature order),
+    lowest id on ties."""
+    s = row_sum(x).reshape(-1, 1)
+    return _plain_topk(x.shape[0], y2.shape[0], k, x.device,
+                       lambda r0, r1, c0, c1: torch.abs(
+                           y2[c0:c1].reshape(1, -1) - s[r0:r1]))
+
+
+def topk_sweep_plain(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor
+                     ) -> torch.Tensor:
+    """Plain version of K2's no-selection ablation: each test row's
+    smallest ``y2 − 2·x@yᵀ``, ``[M]``."""
+    return torch.cat([(y2.reshape(1, -1) - 2.0 * (x[r0:r0 + _PLAIN_ROWS]
+                                                   @ y.T)).min(dim=1).values
+                      for r0 in range(0, x.shape[0], _PLAIN_ROWS)])
 
 
 def _check_operands(**tensors: Optional[torch.Tensor]) -> torch.device:
@@ -83,30 +123,35 @@ def _check_operands(**tensors: Optional[torch.Tensor]) -> torch.device:
     return dev
 
 
-def _launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
-                 k: int, mins: Optional[torch.Tensor] = None,
-                 span: Optional[torch.Tensor] = None, tpose: bool = False
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (K3 when ``mins``/``span`` are given, K5 when ``tpose``)
-    on the current stream: ``[M, D]`` × ``[N, D]`` (K5: ``[D, M]`` ×
-    ``[D, N]``) → (metric [M, k], ids [M, k]). Only the wrappers
-    ``topk_raw``, ``topk_raw_tpose`` and ``fused_topk_raw`` call it; each
-    counts its own launches."""
+def _launch_topk(x: torch.Tensor, y: Optional[torch.Tensor],
+                 y2: torch.Tensor, k: int,
+                 mins: Optional[torch.Tensor] = None,
+                 span: Optional[torch.Tensor] = None, tpose: bool = False,
+                 part: str = "") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K2 (K3 when ``mins``/``span`` are given, K5 when ``tpose``,
+    an ablation when ``part`` is ``"nodot"`` — y None — or ``"sweep"`` —
+    k 1) on the current stream: ``[M, D]`` × ``[N, D]`` (K5: ``[D, M]`` ×
+    ``[D, N]``) → (metric [M, k], ids [M, k]). Only the wrappers call it;
+    each counts its own launches."""
     dev = _check_operands(x=x, y=y, y2=y2, mins=mins, span=span)
     feat = 0 if tpose else 1
-    if x.dim() != 2 or y.dim() != 2 or x.shape[feat] != y.shape[feat]:
+    if x.dim() != 2 or (y is not None and (
+            y.dim() != 2 or x.shape[feat] != y.shape[feat])):
         want = "[D, M] and [D, N]" if tpose else "[M, D] and [N, D]"
-        raise ValueError(f"x {tuple(x.shape)} and y {tuple(y.shape)} must be "
+        raise ValueError(f"x {tuple(x.shape)} and y "
+                         f"{None if y is None else tuple(y.shape)} must be "
                          f"{want}")
     d = x.shape[feat]
-    m, n = x.shape[1 - feat], y.shape[1 - feat]
+    m = x.shape[1 - feat]
+    n = y2.shape[0] if y is None else y.shape[1 - feat]
     if y2.shape != (n,):
         raise ValueError(f"y2 must be [{n}], got {tuple(y2.shape)}")
     for name, t in (("mins", mins), ("span", span)):
         if t is not None and t.shape != (d,):
             raise ValueError(f"{name} must be [{d}], got {tuple(t.shape)}")
-    if not 1 <= k <= min(MAX_K, n):
-        raise ValueError(f"k must be in [1, min({MAX_K}, N={n})], got {k}")
+    most = MAX_PART_K if part else MAX_K
+    if not 1 <= k <= min(most, n):
+        raise ValueError(f"k must be in [1, min({most}, N={n})], got {k}")
     if not 1 <= d <= MAX_ENCODED_WIDTH:
         raise ValueError(f"encoded width must be in [1, {MAX_ENCODED_WIDTH}]"
                          f", got {d}")
@@ -125,7 +170,15 @@ def _launch_topk(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    if mins is None:
+    if part == "nodot":
+        err = lib.avt_topk_nodot(ptr(x), ptr(y2), m, n, d, k, ptr(part_d),
+                                 ptr(part_i), ptr(out_d), ptr(out_i),
+                                 dev.index, stream)
+    elif part == "sweep":
+        err = lib.avt_topk_sweep(ptr(x), ptr(y), ptr(y2), m, n, d,
+                                 ptr(part_d), ptr(part_i), ptr(out_d),
+                                 ptr(out_i), dev.index, stream)
+    elif mins is None:
         launch = lib.avt_topk_tpose if tpose else lib.avt_topk_staged
         err = launch(ptr(x), ptr(y), ptr(y2), m, n, d, k, ptr(part_d),
                      ptr(part_i), ptr(out_d), ptr(out_i), dev.index, stream)
@@ -152,6 +205,37 @@ def topk_raw(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, k: int
 
 
 topk_raw.launches = 0
+
+
+def topk_nodot_raw(x: torch.Tensor, y2: torch.Tensor, k: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 without its product: (metric ``[M, k]``, ids ``[M, k]``) of the
+    k ≤ 8 smallest ``|y2[j] − Σ_d x[r, d]|``, through K2's lists, splits
+    and merge; see :func:`topk_nodot_plain`."""
+    if x.device.type == "cpu":
+        return topk_nodot_plain(x, y2, k)
+    out = _launch_topk(x, None, y2, k, part="nodot")
+    if x.shape[0]:
+        topk_nodot_raw.launches += 1
+    return out
+
+
+topk_nodot_raw.launches = 0
+
+
+def topk_sweep_min(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor
+                   ) -> torch.Tensor:
+    """K2 without its selection: each test row's smallest ``y2 − 2·x·y``,
+    ``[M]``, from K2's product sweep; see :func:`topk_sweep_plain`."""
+    if x.device.type == "cpu":
+        return topk_sweep_plain(x, y, y2)
+    out_d, _ = _launch_topk(x, y, y2, 1, part="sweep")
+    if x.shape[0]:
+        topk_sweep_min.launches += 1
+    return out_d[:, 0]
+
+
+topk_sweep_min.launches = 0
 
 
 def topk_raw_tpose_plain(xt: torch.Tensor, yt: torch.Tensor,

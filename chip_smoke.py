@@ -22,11 +22,26 @@ Phases (one line each; any failure exits non-zero):
    bit-identical to K2 on the normalized rows; K5 (top-k over
    feature-major operands) bit-identical to K2 at every top-k shape, plus
    a ragged shape that takes its scalar loads, and driven once through
-   ``pairwise_topk_cuda(layout="tpose")``, its entry point. The top-k gate
+   ``pairwise_topk_cuda(layout="tpose")``, its entry point; K2's two
+   ablations at the bench shape (``csrc/topk.cu``: without the product,
+   bit-identical to its plain version; without the selection, row minima
+   within 1e-5 relative). The top-k gate
    (``compare_topk``): the ids are distinct train rows carrying the
    metrics reported, the metrics equal the plain version's within 1e-5
    relative, every id that differs sits in a near-tie of the plain list
-   (the (k+1)-th included), and the scaled ints are within 1;
+   (the (k+1)-th included), and the scaled ints are within 1. K1 and K4
+   are timed twice: per call with CUDA events around it (the wrapper's
+   host work included), and as device time by the chained timing of
+   ``avenir_tpu_torch/scripts/_timing.py``, which the kernels line
+   reports. K6-K9, the fold kernels of the KNN experiments
+   (``csrc/fold.cu``), against their plain versions at the bench shape
+   (K6 at each of the five (n_acc, tile_n) configurations of the JAX
+   experiment, bf16 rounding on and off), at a ragged N below the bucket
+   count (1,000 × 300), at 2,051 × 16,383 and at k = 128. The fold gate
+   (``compare_fold``): empty slots (BIG, -1) where the plain version has
+   them, metrics within 1e-5 relative, the kernel's columns distinct and
+   carrying the metrics reported, so that a column that differs from the
+   plain one is a near-tie of it;
 3. the CLI path, in-process through ``avenir_tpu_torch.cli.main.main`` on
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
@@ -43,11 +58,21 @@ Phases (one line each; any failure exits non-zero):
    recorded and held against its plain version on the same operands — the
    job's own shapes, each 4,096-row chunk and the ragged tail, each MI
    pair — and timed there. The MI job runs once more under
-   ``torch.profiler`` for its device time and busy share.
+   ``torch.profiler`` for its device time and busy share;
+4. the KNN experiment slice, in-process on the card at the JAX
+   experiments' shape (8,192 test × 65,536 train × 9):
+   ``avenir_tpu_torch.scripts.exp_fold.main`` (K6 at five
+   configurations, recall against K2's exact top-k with and without bf16
+   rounding) and ``avenir_tpu_torch.scripts.roofline_knn.main`` (K2 beside
+   its two ablations, K7, K8, K9, the plain path and cdist + topk, against
+   the card's ceilings). K2's ablations and K6-K9 must each have launched
+   in this phase.
 
 Then one JSON line of per-kernel numbers (K1-K4 launches from the CLI
 phase, K5's from its entry-point run in phase 2: no CLI key selects the
-tpose layout), the ``nvidia-smi`` line, and
+tpose layout; K2's ablations' and K6-K9's from phase 4; each bound the
+larger of the bytes over 3.35 TB/s and the operations at the card's rate
+for their type), the ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result.
 """
@@ -72,8 +97,10 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16
+# on the tensor cores (f32 sums), HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 20261016
 # the CLI phase's data sizes
@@ -143,6 +170,25 @@ def bound_ms(n_bytes: float, n_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def pair_bound_ms(dev, m, n, d, n_bytes, product, ops_per_pair):
+    """Bound of a kernel over m × n (row, column) pairs: the larger of the
+    bytes over the memory rate and its operations at their units' rates.
+    ``product`` is the dot's type: "bf16" (bf16-rounded operands, f32 sums:
+    2·m·n·d on the tensor cores, beside the CUDA cores), "f32" (2·m·n·d on
+    the CUDA cores, which also run the per-pair instructions) or None.
+    ``ops_per_pair`` f32 instructions a pair on the CUDA cores: the metric,
+    then the compare and selects or the minimum that consume it, at SMs ×
+    128 lanes × the maximum SM clock."""
+    from avenir_tpu_torch.scripts.roofline_knn import lane_ops_per_s
+    t_pairs = m * n * ops_per_pair / lane_ops_per_s(dev)
+    t_dot = 2.0 * m * n * d / (PEAK_BF16_FLOPS if product == "bf16"
+                               else PEAK_F32_FLOPS)
+    t_ops = (max(t_dot, t_pairs) if product == "bf16" else
+             t_dot + t_pairs if product == "f32" else t_pairs) * 1e3
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 # --------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
@@ -175,7 +221,9 @@ def check_k1(dev, rng):
                        H.class_feature_bin_counts_plain(gb, gl, 8, 128)):
         raise AssertionError("K1 global-atomics variant differs from plain")
 
-    ms = cuda_ms(lambda: H.class_feature_bin_counts(tb, tl, c, b), 20)
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    per_call = cuda_ms(lambda: H.class_feature_bin_counts(tb, tl, c, b), 20)
+    ms = chain_ms(lambda: H.class_feature_bin_counts(tb, tl, c, b), dev)
     plain_ms = cuda_ms(lambda: H.class_feature_bin_counts_plain(tb, tl, c, b),
                        5)
     combined = (torch.arange(f, device=dev).reshape(1, f) * (c * b)
@@ -186,7 +234,8 @@ def check_k1(dev, rng):
     bound, by = bound_ms(n * (f + 1) * 4 + f * c * b * 4, n * f)
     log(f"phase 2 K1 counts n={n} f={f} c={c} b={b}: exact (unweighted, 0/1),"
         f" float weights max abs err {err:.3g} (rtol 1e-5), global variant "
-        f"exact; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bincount "
+        f"exact; kernel {ms:.4f} ms device (chained), {per_call:.4f} ms per "
+        f"call host included, plain {plain_ms:.4f} ms, bincount "
         f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"name": "cfb_counts (K1)", "route": "cuda",
             "source": "avenir_tpu_torch/csrc/hist.cu",
@@ -204,6 +253,7 @@ def pair_flat(a, b, n_a, n_b):
 
 def check_k4(dev, rng):
     from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
     n_a, n_b = 9, 18          # the widest hospital pair: 9 bins x 9 bins * 2
     entry = None
     for n in (1_048_576, 16_777_216):
@@ -227,7 +277,8 @@ def check_k4(dev, rng):
             raise AssertionError(f"K4 float-weighted counts beyond rtol 1e-5 "
                                  f"at n={n}")
         err = float((got - want).abs().max())
-        ms = cuda_ms(lambda: H.pair_counts(a, b, n_a, n_b), 20)
+        per_call = cuda_ms(lambda: H.pair_counts(a, b, n_a, n_b), 20)
+        ms = chain_ms(lambda: H.pair_counts(a, b, n_a, n_b), dev)
         plain_ms = cuda_ms(lambda: H.pair_counts_plain(a, b, n_a, n_b), 5)
         flat = pair_flat(a, b, n_a, n_b)
         library_ms = cuda_ms(lambda: torch.bincount(flat,
@@ -235,7 +286,8 @@ def check_k4(dev, rng):
         bound, by = bound_ms(2 * n * 4 + n_a * n_b * 4, n)
         log(f"phase 2 K4 pair counts n={n} cells {n_a}x{n_b}: exact "
             f"(unweighted, 0/1), float weights max abs err {err:.3g} (rtol "
-            f"1e-5); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bincount "
+            f"1e-5); kernel {ms:.4f} ms device (chained), {per_call:.4f} ms "
+            f"per call host included, plain {plain_ms:.4f} ms, bincount "
             f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
             f"{bound / ms:.1%} of bound")
         entry = {"name": "pair_counts (K4)", "route": "cuda",
@@ -352,6 +404,52 @@ def check_k5(label, got_k2, x, y, y2, k, plain):
     return compare_topk(f"K5 {label}", got, plain, x, y, y2, x.shape[1])
 
 
+def check_k2_parts(dev, x, y, y2, k):
+    """K2's ablations at the bench shape: without the product,
+    bit-identical to its plain version (the same f32 adds, the same
+    lowest-id rule); without the selection, each row's minimum within 1e-5
+    relative of the plain one. Times by the chained helper, bounds at the
+    card's rates."""
+    from avenir_tpu_torch.ops import cuda_distance as D
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    m, d = x.shape
+    n = y.shape[0]
+    nodot = D.topk_nodot_raw(x, y2, k)
+    if not all(torch.equal(a, b) for a, b in
+               zip(nodot, D.topk_nodot_plain(x, y2, k))):
+        raise AssertionError("K2 without its product differs from plain")
+    sweep, plain = D.topk_sweep_min(x, y, y2), D.topk_sweep_plain(x, y, y2)
+    tol = 1e-5 * (D.row_sq_norm(x) + plain.abs())
+    if not ((sweep - plain).abs() <= tol).all():
+        raise AssertionError("K2 without its selection: minima beyond 1e-5 "
+                             "relative")
+    results = {}
+    # (wrapper call, plain call, bytes, product, instructions a pair, error)
+    parts = {
+        "K2-nodot": (lambda: D.topk_nodot_raw(x, y2, k),
+                     lambda: D.topk_nodot_plain(x, y2, k),
+                     (m * d + n) * 4 + m * k * 8, None, 2, 0.0),
+        "K2-sweep": (lambda: D.topk_sweep_min(x, y, y2),
+                     lambda: D.topk_sweep_plain(x, y, y2),
+                     (m * d + n * d + n) * 4 + m * 4, "f32", 2,
+                     float((sweep - plain).abs().max())),
+    }
+    for name, (kernel, plain_fn, n_bytes, product, ops, err) in parts.items():
+        ms = chain_ms(kernel, dev)
+        plain_ms = cuda_ms(plain_fn, 3)
+        bound, by = pair_bound_ms(dev, m, n, d, n_bytes, product, ops)
+        log(f"phase 2 {name} bench shape: max err {err:.3g}; kernel "
+            f"{ms:.4f} ms device (chained), plain {plain_ms:.3f} ms, bound "
+            f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
+        results[name] = {
+            "name": f"topk_{name[3:]} (ablation of K2)", "route": "cuda",
+            "source": "avenir_tpu_torch/csrc/topk.cu",
+            "replaces": "avenir_tpu/ops/pallas_distance.py:165",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+    return results
+
+
 def check_k2_k3(dev):
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.ops import cuda_fused as F
@@ -389,6 +487,8 @@ def check_k2_k3(dev):
                      "max_abs_err": c2["metric_err"], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                      "library_ms": library_ms}
+
+    results.update(check_k2_parts(dev, x, y, y2, k))
 
     # K5: the same function over feature-major operands
     xt, yt = x.T.contiguous(), y.T.contiguous()
@@ -509,6 +609,211 @@ def check_k2_k3(dev):
         log(f"phase 2 K2/K3/K5 m={m} n={n} width={width} k={kk}: "
             f"{summary(c)}; K3 and K5 bit-identical to K2")
     return results
+
+
+# the fold kernels K6-K9: (label, m, n, k, K6 (n_acc, tile_n, bf16) list,
+# K8/K9 (n_acc, tile_n) list); the first is the bench shape, timed
+FOLD_SHAPES = (
+    ("bench", 8192, 65536, 5,
+     [(a, t, r) for a, t in ((2, 4096), (4, 4096), (4, 6144), (8, 4096),
+                             (4, 8192)) for r in (True, False)],
+     [(4, 4096)]),
+    ("ragged N<B", 1000, 300, 5, [(4, 4096, True), (8, 4096, False)],
+     [(8, 4096)]),
+    ("ragged", 2051, 16383, 5, [(4, 6144, True), (2, 4096, False)],
+     [(2, 4096)]),
+    ("k=128", 2048, 16384, 128, [(4, 4096, True), (8, 4096, False)],
+     [(8, 4096)]),
+)
+FOLD_SOURCE = "avenir_tpu_torch/csrc/fold.cu"
+FOLD_REPLACES = {"K6": "scripts/exp_fold.py:24",
+                 "K7": "scripts/roofline_knn.py:75",
+                 "K8": "scripts/roofline_knn.py:98",
+                 "K9": "scripts/roofline_knn.py:142"}
+FOLD_NAMES = {"K6": "fold_acc (K6)", "K7": "fold_dotmin (K7)",
+              "K8": "fold_nodot (K8)", "K9": "fold_tpose (K9)"}
+
+
+def compare_fold(label, got, plain, metric_of, scale):
+    """Hold a fold kernel's raw output (metric [M, 128], columns [M, 128],
+    or lane minima [M, 128] with ``got[1]`` None) against its plain
+    version on the same operands. The tolerance of a row is 1e-5 relative
+    to the scale of its terms, ``scale + |metric|``. Required:
+
+    - empty slots, (BIG, -1), exactly where the plain version has them
+      (K7: lanes at BIG);
+    - the metrics equal the plain version's within tolerance, slot by slot;
+    - the kernel's columns are distinct within a row, and the metric it
+      reports for each is that column's metric recomputed here
+      (``metric_of``), so that a column other than the plain one carries a
+      metric within twice the tolerance of the plain one: a near-tie.
+
+    Returns the count of slots with another column and the max |metric|
+    difference."""
+    from avenir_tpu_torch.ops.fold import BIG
+    kd, ki = got
+    pd, pi = plain
+    empty = pd == BIG if pi is None else pi < 0
+    if not torch.equal(kd == BIG if ki is None else ki < 0, empty):
+        raise AssertionError(f"{label}: empty slots differ from plain")
+    if not (kd[empty] == BIG).all():
+        raise AssertionError(f"{label}: an empty slot is not BIG")
+    real = ~empty
+    tol = 1e-5 * (scale.reshape(-1, 1) + pd.abs())
+    if not torch.isfinite(kd[real]).all():
+        raise AssertionError(f"{label}: non-finite kernel metrics")
+    if ((kd - pd).abs() > tol)[real].any():
+        raise AssertionError(f"{label}: metrics beyond 1e-5 relative")
+    err = float((kd - pd).abs()[real].max()) if real.any() else 0.0
+    if ki is None:
+        return {"differ": 0, "err": err}
+    slots = torch.arange(ki.shape[1], device=ki.device)
+    ids = torch.where(real, ki.long(), -1 - slots).sort(dim=1).values
+    if (ids[:, 1:] == ids[:, :-1]).any():
+        raise AssertionError(f"{label}: a column repeats within a row")
+    recomputed = metric_of(ki.clamp(min=0))
+    if ((kd - recomputed).abs() > tol)[real].any():
+        raise AssertionError(f"{label}: kernel metrics are not those of "
+                             "its columns")
+    return {"differ": int(((ki != pi) & real).sum()), "err": err}
+
+
+def fold_metrics(x, y, y2, use_bf16):
+    """(metric of given columns, row scale) of the product fold."""
+    from avenir_tpu_torch.ops.distance import row_sq_norm
+    from avenir_tpu_torch.ops.fold import round_bf16
+    xr, yr = (round_bf16(x), round_bf16(y)) if use_bf16 else (x, y)
+
+    def metric(ids):
+        rows = ids.long()
+        return y2[rows] - 2.0 * (yr[rows] * xr.unsqueeze(1)).sum(-1)
+    return metric, row_sq_norm(xr)
+
+
+def check_fold(dev):
+    """K6-K9 against their plain versions at FOLD_SHAPES; times at the
+    bench shape. Returns the kernels line's entries (launches from
+    phase 4)."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.ops import fold as F
+    from avenir_tpu_torch.ops.distance import row_sq_norm
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    err = {name: 0.0 for name in FOLD_NAMES}
+    entries = {}
+    for label, m, n, k, accs, folds in FOLD_SHAPES:
+        d = 9
+        x = torch.rand((m, d), generator=gen, device=dev)
+        y = torch.rand((n, d), generator=gen, device=dev)
+        y2 = row_sq_norm(y)
+        xt, yt = x.T.contiguous(), y.T.contiguous()
+        s = F.row_sum(x)
+        notes, plains = [], {}
+
+        def hold(name, what, got, plain, metric, scale):
+            c = compare_fold(f"{name} {label} {what}", got, plain, metric,
+                             scale)
+            err[name] = max(err[name], c["err"])
+            notes.append(f"{name} {what}: {c['differ']} other columns")
+
+        for n_acc, tile_n, bf16 in accs:
+            if (n_acc, bf16) not in plains:   # tile_n changes nothing
+                plains[n_acc, bf16] = F.acc_fold_plain(
+                    x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n,
+                    use_bf16=bf16)
+            hold("K6", f"n_acc={n_acc} tile_n={tile_n} bf16={bf16}",
+                 CF.acc_fold(x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n,
+                             use_bf16=bf16),
+                 plains[n_acc, bf16], *fold_metrics(x, y, y2, bf16))
+        metric, scale = fold_metrics(x, y, y2, True)
+        hold("K7", "lanes", (CF.dotmin(x, y, y2), None),
+             (F.dotmin_plain(x, y, y2), None), metric, scale)
+        for n_acc, tile_n in folds:
+            kw = dict(k=k, n_acc=n_acc, tile_n=tile_n)
+            got8 = CF.nodot_fold(x, y2, **kw)
+            hold("K8", f"n_acc={n_acc}", got8,
+                 F.nodot_fold_plain(x, y2, **kw),
+                 lambda ids: y2[ids.long()] + s.reshape(-1, 1), s.abs())
+            hold("K9", f"n_acc={n_acc}", CF.tpose_fold(xt, yt, y2, **kw),
+                 F.tpose_fold_plain(xt, yt, y2, **kw), metric, scale)
+        log(f"phase 2 K6-K9 {label} m={m} n={n} d={d} k={k}: "
+            + "; ".join(notes))
+        if label != "bench":
+            continue
+        n_acc, tile_n = folds[0]
+        kw = dict(k=k, n_acc=n_acc, tile_n=tile_n)
+        calls = {
+            "K6": (lambda: CF.acc_fold(x, y, y2, **kw),
+                   lambda: F.acc_fold_plain(x, y, y2, **kw)),
+            "K7": (lambda: CF.dotmin(x, y, y2),
+                   lambda: F.dotmin_plain(x, y, y2)),
+            "K8": (lambda: CF.nodot_fold(x, y2, **kw),
+                   lambda: F.nodot_fold_plain(x, y2, **kw)),
+            "K9": (lambda: CF.tpose_fold(xt, yt, y2, **kw),
+                   lambda: F.tpose_fold_plain(xt, yt, y2, **kw)),
+        }
+        inputs = (m * d + n * d + n) * 4
+        # (bytes, product, instructions a pair): K6 (bf16 on, as timed),
+        # K7 and K9 take bf16-rounded operands; the indexed folds spend the
+        # metric, a compare and two selects a pair, K7 the metric and a min;
+        # K8 reads no y and has no product
+        work = {"K6": (inputs + m * 128 * 8, "bf16", 4),
+                "K7": (inputs + m * 128 * 4, "bf16", 2),
+                "K8": ((m * d + n) * 4 + m * 128 * 8, None, 4),
+                "K9": (inputs + m * 128 * 8, "bf16", 4)}
+        for name, (kernel, plain) in calls.items():
+            ms = chain_ms(kernel, dev)
+            plain_ms = cuda_ms(plain, 3)
+            bound, by = pair_bound_ms(dev, m, n, d, *work[name])
+            log(f"phase 2 {name} bench shape (n_acc={n_acc}, tile_n="
+                f"{tile_n}): kernel {ms:.4f} ms device (chained), plain "
+                f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+                f"{bound / ms:.1%} of bound")
+            entries[name] = {
+                "name": FOLD_NAMES[name], "route": "cuda",
+                "source": FOLD_SOURCE, "replaces": FOLD_REPLACES[name],
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": by, "library_ms": None}
+        del x, y, y2, xt, yt, plains
+    for name, entry in entries.items():
+        entry["max_abs_err"] = err[name]
+    return entries
+
+
+def fold_harnesses():
+    """Phase 4: the experiment harnesses of the slice, in-process on the
+    card, each fold kernel's launches counted from 0."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.scripts import exp_fold, roofline_knn
+    from avenir_tpu_torch.ops import cuda_distance as D
+    counters = {"K2-sweep": D.topk_sweep_min, "K2-nodot": D.topk_nodot_raw,
+                "K6": CF.acc_fold, "K7": CF.dotmin, "K8": CF.nodot_fold,
+                "K9": CF.tpose_fold}
+    for fn in counters.values():
+        fn.launches = 0
+    log("phase 4 python -m avenir_tpu_torch.scripts.exp_fold:")
+    folds = exp_fold.main([])
+    log("phase 4 python -m avenir_tpu_torch.scripts.roofline_knn:")
+    roof = {r["variant"]: r for r in roofline_knn.main([])}
+    launches = {name: fn.launches for name, fn in counters.items()}
+    missing = [name for name, c in launches.items() if c < 1]
+    if missing:
+        raise AssertionError(f"phase 4: {missing} not launched")
+    for row in folds:
+        # the fold is approximate: bucket collisions cost some recall, the
+        # bf16 rounding more
+        if not (math.isfinite(row["ms"]) and row["recall_f32"] >= 0.95
+                and row["recall"] >= 0.9):
+            raise AssertionError(f"phase 4 exp_fold result out of range: "
+                                 f"{row}")
+    if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in roof.values()):
+        raise AssertionError(f"phase 4 roofline_knn times: {roof}")
+    full = roof["full"]["ms"]
+    log("phase 4 decomposition: full (K2) " + f"{full:.4f} ms; " + "; ".join(
+        f"{v} {roof[v]['ms']:.4f} ms = {roof[v]['ms'] / full:.0%} of full"
+        for v in ("full-sweep", "full-nodot", "dotmin", "nodot", "tpose"))
+        + f"; launches {json.dumps(launches)}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -983,16 +1288,20 @@ def main() -> int:
     k1 = check_k1(dev, rng)
     k4 = check_k4(dev, rng)
     k23 = check_k2_k3(dev)
+    folds = check_fold(dev)
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
         launches = cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    launches.update(fold_harnesses())
 
     launches["K5"] = k23["K5_launches"]
     kernels = []
-    for name, entry in (("K1", k1), ("K2", k23["K2"]), ("K3", k23["K3"]),
-                        ("K4", k4), ("K5", k23["K5"])):
+    for name, entry in (("K1", k1), ("K2", k23["K2"]),
+                        ("K2-sweep", k23["K2-sweep"]),
+                        ("K2-nodot", k23["K2-nodot"]), ("K3", k23["K3"]),
+                        ("K4", k4), ("K5", k23["K5"]), *folds.items()):
         entry = dict(entry)
         entry["launches"] = launches[name]
         kernels.append(entry)
