@@ -1,12 +1,19 @@
-// K6-K9: the lane-bucket fold of the KNN experiment kernels on Hopper
+// K6-K10: the lane-bucket fold of the KNN experiment kernels on Hopper
 // (sm_90a).
 //
 // K6 replaces `_acc_kernel` (scripts/exp_fold.py:24, launched from
 // `acc_topk` at :91). K7 replaces `_dotmin_kernel`, K8 `_nodot_kernel` and
 // K9 `_tpose_kernel` (scripts/roofline_knn.py:75, :98, :142, launched at
-// :205, :255 and :225). All four are one template here, with compile-time
-// flags for the layout (row-major or feature-major operands), the metric
-// (a product or a broadcast) and the output (indexed or values only).
+// :205, :255 and :225). K10 replaces the f32 uses of `_tag_kernel` without
+// an epilogue (scripts/sweep16_kernels.py:71 `augbf16`,
+// scripts/sweep16b_kernels.py:77 `augv2`) and `_tpose_aug_kernel`
+// (scripts/sweep18_tpose_fold.py:110). All five are one template here, with
+// compile-time flags for the layout (row-major or feature-major operands),
+// the metric (a product or a broadcast; with or without the y2 epilogue)
+// and the output (indexed or values only). The TPU's scalar-tag index fold
+// is no different function here: a thread owns a bucket and walks its
+// columns in order, so the column is t0 + tid whether the TPU kept an iota
+// or a tag.
 //
 // What they compute, for each test row r and train column col < n:
 //   K6, K9  metric = y2[col] - 2 * <x_r, y_col>, x and y rounded to bf16
@@ -17,6 +24,13 @@
 //           minimum, no index: out_d[r][l] = min over col % 128 == l.
 //   K8      metric = y2[col] + sum_d x[r][d] (f32, summed in feature order),
 //           no product; y is not read.
+//   K10     metric = sum_c bf16(x[r][c]) * bf16(y[col][c]), the raw product
+//           of operands the caller augmented ([x | 1 | 1] against
+//           [-2y | y2hi | y2lo]): no y2 operand, no epilogue. The products
+//           of bf16 values are exact in f32; they are summed by FMAs in
+//           feature order, c = 0, 1, ..., which the plain version repeats
+//           (the y2 columns are some 2^8 times the others, so the order
+//           shows in the last bits). Row-major or feature-major.
 // Indexed kernels fold into B = n_acc * 128 buckets, col falling in bucket
 // col % B: each bucket keeps the smallest metric strictly below BIG and the
 // lowest column reaching it, else (BIG, -1). Then k rounds extract, per
@@ -31,7 +45,7 @@
 // lanes per SM and clock. K8 has no product and the same fold. These
 // kernels do the product on the CUDA cores too, d FMAs a pair beside the
 // fold's 4, so they can reach at most 4 / (d + 4) of that floor (K7:
-// 2 / (d + 2)). Memory is
+// 2 / (d + 2)). K10's fold spends 3 (no epilogue) beside d + 2 FMAs. Memory is
 // not the limit: the train set is read once per block from L2 (2.4 MB at
 // the bench shape, in the 50 MB L2).
 //
@@ -55,24 +69,23 @@
 //   yt[c][col] straight from global memory, coalesced across the warp, with
 //   no staging and no barrier.
 // - After the sweep the kR x B pairs go to shared memory (at most 64 KB);
-//   one warp per row runs the k rounds: a strided scan for the lane's
-//   smallest (value, column), a butterfly of shuffles for the warp's, and
-//   lane 0 writes the slot and masks the pair taken.
+//   one warp per row runs the k rounds (fold_extract.cuh).
 //
 // Interface: plain C, bound from Python with ctypes; the caller allocates
 // out_d (and out_i) [m][128]. Each entry point returns cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 
-#include <climits>
 #include <cstddef>
+
+#include "fold_extract.cuh"
 
 namespace {
 
+using avt::kLanes;
+
 constexpr float kBig = 3.0e38f;
-constexpr int kLanes = 128;
 constexpr int kMaxD = 48;
 // K7's block: four buckets a lane, K6's shape at n_acc = 4, so that K7
 // differs from K6 only in what it keeps of the sweep
@@ -88,11 +101,20 @@ __host__ __device__ constexpr int rows_per_block() {
   return kB >= 1024 ? 8 : 16;
 }
 
+// A block of 512 threads must leave room for a second one on its SM (64
+// registers a thread): with one, K6 ran 1.08 ms at the bench shape, with
+// two 0.80.
+template <int kB>
+__host__ __device__ constexpr int blocks_per_sm() {
+  return kB == 512 ? 2 : 1;
+}
+
 // kTpose: x is xt [d][m] and y is yt [d][n]; kDot: the product metric (K8's
-// broadcast otherwise); kIndexed: bucket fold and extraction (K7's lane
-// minima otherwise).
-template <bool kTpose, bool kDot, bool kIndexed, int kB>
-__global__ void __launch_bounds__(kB)
+// broadcast otherwise); kEpi: the y2 epilogue (K10's raw product otherwise,
+// y2 is not read); kIndexed: bucket fold and extraction (K7's lane minima
+// otherwise).
+template <bool kTpose, bool kDot, bool kEpi, bool kIndexed, int kB>
+__global__ void __launch_bounds__(kB, blocks_per_sm<kB>())
 fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
             const float* __restrict__ y2, int m, int n, int d, int k,
             int round_bf16, float* __restrict__ out_d,
@@ -151,7 +173,8 @@ fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
     const int col = t0 + tid;
     if (col >= n) continue;  // a column past n never wins
     float v[kR];
-    const float y2v = y2[col];
+    float y2v = 0.f;
+    if constexpr (kEpi) y2v = y2[col];
     if constexpr (kDot) {
       float acc[kR];
 #pragma unroll
@@ -175,7 +198,7 @@ fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
         }
       }
 #pragma unroll
-      for (int r = 0; r < kR; ++r) v[r] = y2v - 2.f * acc[r];
+      for (int r = 0; r < kR; ++r) v[r] = kEpi ? y2v - 2.f * acc[r] : acc[r];
     } else {
 #pragma unroll
       for (int r = 0; r < kR; ++r) v[r] = y2v + s[r];
@@ -220,53 +243,11 @@ fold_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
   __syncthreads();
 
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  for (int r = warp; r < kR; r += kB / 32) {
-    const int gr = row0 + r;
-    if (gr >= m) continue;  // the same for the whole warp
-    float* vd = pd + r * kB;
-    const int* vi = pi + r * kB;
-    const size_t out = static_cast<size_t>(gr) * kLanes;
-    for (int slot = 0; slot < k; ++slot) {
-      float bv = CUDART_INF_F;
-      int bx = INT_MAX;
-      int bp = 0;
-      for (int j = lane; j < kB; j += 32) {
-        const float cv = vd[j];
-        const int cx = vi[j];
-        if (cv < bv || (cv == bv && cx < bx)) {
-          bv = cv;
-          bx = cx;
-          bp = j;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int ox = __shfl_xor_sync(0xffffffffu, bx, off);
-        const int op = __shfl_xor_sync(0xffffffffu, bp, off);
-        if (ov < bv || (ov == bv && ox < bx)) {
-          bv = ov;
-          bx = ox;
-          bp = op;
-        }
-      }
-      if (lane == 0) {
-        out_d[out + slot] = bv;
-        out_i[out + slot] = bx;
-        vd[bp] = kBig;  // pairs are unique but for empty (BIG, -1) buckets
-      }
-      __syncwarp();
-    }
-    for (int slot = k + lane; slot < kLanes; slot += 32) {
-      out_d[out + slot] = kBig;
-      out_i[out + slot] = -1;
-    }
-  }
+  avt::extract_rows<float, kB, kB>(pd, pi, kR, row0, m, k, kBig, out_d,
+                                   out_i);
 }
 
-template <bool kTpose, bool kDot, bool kIndexed, int kB>
+template <bool kTpose, bool kDot, bool kEpi, bool kIndexed, int kB>
 cudaError_t launch(const float* x, const float* y, const float* y2, int m,
                    int n, int d, int k, int round_bf16, float* out_d,
                    int* out_i, cudaStream_t stream) {
@@ -275,7 +256,7 @@ cudaError_t launch(const float* x, const float* y, const float* y2, int m,
   if (kDot && !kTpose) sweep += static_cast<size_t>(kB) * d;
   const size_t extract = static_cast<size_t>(kR) * kB * (kIndexed ? 2 : 1);
   const size_t smem = (sweep > extract ? sweep : extract) * sizeof(float);
-  auto kernel = fold_kernel<kTpose, kDot, kIndexed, kB>;
+  auto kernel = fold_kernel<kTpose, kDot, kEpi, kIndexed, kB>;
   if (smem > kDefaultSharedBytes) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -287,7 +268,7 @@ cudaError_t launch(const float* x, const float* y, const float* y2, int m,
   return cudaGetLastError();
 }
 
-template <bool kTpose, bool kDot>
+template <bool kTpose, bool kDot, bool kEpi>
 cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
                            int m, int n, int d, int k, int n_acc,
                            int round_bf16, void* out_d, void* out_i,
@@ -304,8 +285,8 @@ cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
   int* oi = static_cast<int*>(out_i);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define AVT_FOLD(B)                                                          \
-  launch<kTpose, kDot, true, B>(xf, yf, y2f, m, n, d, k, round_bf16, od, oi, \
-                                s)
+  launch<kTpose, kDot, kEpi, true, B>(xf, yf, y2f, m, n, d, k, round_bf16, \
+                                      od, oi, s)
   switch (n_acc) {
     case 1: return AVT_FOLD(128);
     case 2: return AVT_FOLD(256);
@@ -324,7 +305,7 @@ extern "C" {
 int avt_fold_acc(const void* x, const void* y, const void* y2, int m, int n,
                  int d, int k, int n_acc, int round_bf16, void* out_d,
                  void* out_i, int device, void* stream) {
-  return static_cast<int>(launch_indexed<false, true>(
+  return static_cast<int>(launch_indexed<false, true, true>(
       x, y, y2, m, n, d, k, n_acc, round_bf16, out_d, out_i, device, stream));
 }
 
@@ -336,7 +317,7 @@ int avt_fold_dotmin(const void* x, const void* y, const void* y2, int m,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch<false, true, false, kDotminThreads>(
+  err = launch<false, true, true, false, kDotminThreads>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(y2), m, n, d, 0, 1,
       static_cast<float*>(out_d), nullptr, static_cast<cudaStream_t>(stream));
@@ -347,7 +328,7 @@ int avt_fold_dotmin(const void* x, const void* y, const void* y2, int m,
 int avt_fold_nodot(const void* x, const void* y2, int m, int n, int d, int k,
                    int n_acc, void* out_d, void* out_i, int device,
                    void* stream) {
-  return static_cast<int>(launch_indexed<false, false>(
+  return static_cast<int>(launch_indexed<false, false, true>(
       x, nullptr, y2, m, n, d, k, n_acc, 0, out_d, out_i, device, stream));
 }
 
@@ -355,8 +336,22 @@ int avt_fold_nodot(const void* x, const void* y2, int m, int n, int d, int k,
 int avt_fold_tpose(const void* xt, const void* yt, const void* y2, int m,
                    int n, int d, int k, int n_acc, void* out_d, void* out_i,
                    int device, void* stream) {
-  return static_cast<int>(launch_indexed<true, true>(
+  return static_cast<int>(launch_indexed<true, true, true>(
       xt, yt, y2, m, n, d, k, n_acc, 1, out_d, out_i, device, stream));
+}
+
+// K10: the raw product of augmented operands, rounded to bf16: x [m, d] and
+// y [n, d] row-major, or with tpose xt [d, m] and yt [d, n]; no y2.
+int avt_fold_raw(const void* x, const void* y, int m, int n, int d, int k,
+                 int n_acc, int tpose, void* out_d, void* out_i, int device,
+                 void* stream) {
+  return static_cast<int>(
+      tpose ? launch_indexed<true, true, false>(x, y, nullptr, m, n, d, k,
+                                                n_acc, 1, out_d, out_i,
+                                                device, stream)
+            : launch_indexed<false, true, false>(x, y, nullptr, m, n, d, k,
+                                                 n_acc, 1, out_d, out_i,
+                                                 device, stream));
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""State carried across from numpy: a trained Naive Bayes model and a
-staged (encoded) table, so the same state can drive both this port and
-the JAX package.
+"""State carried across from numpy: a trained Naive Bayes model, a staged
+(encoded) table and the encoded operands of the KNN kernel sweeps, so the
+same state can drive both this port and the JAX package.
 
 The model file is the other carrier: each package's ``load_model`` reads
 what the other's ``save_model`` wrote.
@@ -8,7 +8,7 @@ what the other's ``save_model`` wrote.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,3 +54,36 @@ def encoded_table_from_numpy(binned: np.ndarray, numeric: np.ndarray,
         bin_labels=[list(b) for b in bin_labels],
         norm_min=tuple(norm_min),
         norm_max=tuple(norm_max))
+
+
+def _operand_from_numpy(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # the ml_dtypes type JAX hands out
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16) \
+            .to(dev).contiguous()
+    if a.dtype not in (np.int8, np.int32, np.float32):
+        raise TypeError(f"sweep operands are int8, int32, bfloat16 or "
+                        f"float32, got {a.dtype}")
+    return torch.from_numpy(np.array(a)).to(dev)   # a writable copy
+
+
+def sweep_operands_from_numpy(xa: np.ndarray, ya: np.ndarray, *, n: int,
+                              scale=None, y2: Optional[np.ndarray] = None,
+                              tpose: bool = False,
+                              device: DeviceLike = "cuda"
+                              ) -> Tuple[torch.Tensor, ...]:
+    """The encoded operands a JAX sweep encoded (int8, bf16 or f32
+    arrays; ``scale`` its quantization scale, ``y2`` its epilogue row) as
+    the port's tensors, types kept: ``(xa, ya, scale, y2)``. The JAX
+    launchers pad the train side to their tile; ``n`` is the number of real
+    train rows, and what lies past it is cut (along axis 1 with ``tpose``),
+    since columns past N do not exist for the port's fold kernels."""
+    dev = resolve_device(device)
+    ya = np.asarray(ya)
+    ya = ya[:, :n] if tpose else ya[:n]
+    return (_operand_from_numpy(xa, dev), _operand_from_numpy(ya, dev),
+            None if scale is None else torch.tensor(
+                float(np.asarray(scale, np.float32)), dtype=torch.float32,
+                device=dev),
+            None if y2 is None else _operand_from_numpy(
+                np.asarray(y2).reshape(-1)[:n], dev))

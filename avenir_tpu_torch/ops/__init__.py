@@ -14,11 +14,16 @@
 - ``cuda_fused``     — K3, the fused normalize→distance→top-k (same source,
   fused flag)
 - ``fold``           — the lane-bucket fold of the KNN experiment kernels
-  in plain PyTorch (bucket fold, k extraction, the four metrics)
+  in plain PyTorch (bucket fold, k extraction, the metrics, the int32 and
+  packed folds)
 - ``cuda_fold``      — K6-K9, the fold kernels of ``scripts/exp_fold.py``
   and ``scripts/roofline_knn.py`` (``csrc/fold.cu``): indexed fold
   (``acc_fold``), lane minima (``dotmin``), fold without a product
-  (``nodot_fold``), fold over feature-major operands (``tpose_fold``)
+  (``nodot_fold``), fold over feature-major operands (``tpose_fold``); and
+  K10-K12, the folds of the kernel-restructure sweeps: the raw product of
+  augmented operands (``raw_fold``, same source), int8 operands with int32
+  sums (``int8_fold``) and the packed single-accumulator fold
+  (``packed_fold``; ``csrc/fold_int8.cu``)
 - ``_build``         — builds ``csrc/*.cu`` with nvcc and loads them
 
 Each kernel wrapper takes its plain version for CPU tensors only; a CUDA
@@ -34,6 +39,8 @@ import torch
 
 from avenir_tpu_torch.ops.cuda_distance import (  # noqa: F401
     pairwise_topk_cuda, supported)
+from avenir_tpu_torch.ops.cuda_fold import (  # noqa: F401
+    int8_fold, packed_fold, raw_fold)
 from avenir_tpu_torch.ops.cuda_fused import fused_topk_cuda  # noqa: F401
 from avenir_tpu_torch.ops.distance import (  # noqa: F401
     INT_BIG, TOPK_BIG, encode_mixed, finalize_topk, fused_topk_plain,

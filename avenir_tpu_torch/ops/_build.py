@@ -4,8 +4,9 @@ with a plain C interface, bound with ``ctypes``.
 At first use every ``csrc/*.cu`` compiles for ``sm_90a`` (one ``nvcc``
 process per source, all started together), links into
 ``_build/<hash>/libavt_kernels.so`` and loads. ``<hash>`` covers the
-sources and the flags, so an edited source rebuilds and an unchanged one
-loads the library already built. ``_build/`` is listed in ``.gitignore``.
+sources, the headers they share (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one loads the library already
+built. ``_build/`` is listed in ``.gitignore``.
 
 No kernel is replaced by anything else: a missing ``nvcc`` or a failed
 build raises :class:`BuildError` with the compiler's output.
@@ -47,7 +48,7 @@ def sources() -> List[Path]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -129,6 +130,9 @@ _SIGNATURES = {
     "avt_fold_nodot": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "avt_fold_tpose": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
                        _I),
+    "avt_fold_raw": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
+    "avt_fold_int8": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
+    "avt_fold_packed": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "avt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,17 +1,39 @@
-"""K6-K9: the lane-bucket fold kernels of the KNN experiments — the CUDA
-kernels' wrappers (``csrc/fold.cu``) over the plain versions in
-:mod:`avenir_tpu_torch.ops.fold`.
+"""K6-K12: the lane-bucket fold kernels of the KNN experiments — the CUDA
+kernels' wrappers (``csrc/fold.cu``, ``csrc/fold_int8.cu``) over the plain
+versions in :mod:`avenir_tpu_torch.ops.fold`.
 
 - :func:`acc_fold` (K6) replaces ``_acc_kernel`` (``scripts/exp_fold.py``);
+  it also runs ``_topk_kernel`` under other tiles
+  (``scripts/sweep11_vmem.py``) and ``tagfold`` of
+  ``scripts/sweep16b_kernels.py``, the same function;
 - :func:`dotmin` (K7) ``_dotmin_kernel``, :func:`nodot_fold` (K8)
   ``_nodot_kernel`` and :func:`tpose_fold` (K9) ``_tpose_kernel``
-  (``scripts/roofline_knn.py``).
+  (``scripts/roofline_knn.py``); K9 also runs ``_tpose_kernel`` of
+  ``scripts/sweep14_tpose.py`` and ``_tpose_tag_kernel`` of
+  ``scripts/sweep18_tpose_fold.py``;
+- :func:`raw_fold` (K10) replaces the f32 uses of ``_tag_kernel`` without
+  an epilogue (``augbf16``, ``augv2``) and ``_tpose_aug_kernel``;
+- :func:`int8_fold` (K11) the int32 uses of ``_tag_kernel`` (``int8epi``,
+  ``int8aug``, ``int8rr``), :func:`packed_fold` (K12) ``_packed_kernel``
+  (``int8pk``, ``int8pk8``, ``int8pk16``).
 
 Each returns the raw ``[M, 128]`` outputs of its TPU kernel. A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises. Kernel
 and plain version agree up to the f32 summation order of the product:
 metrics within a few ulps, and columns equal except where two candidates'
-metrics lie that close. K8 sums in the same order as its plain version.
+metrics lie that close. K8 and K10 sum in the same order as their plain
+versions; K11 and K12 are integer and equal theirs bit for bit.
+
+**Padding.** The TPU launchers pad the train rows to a multiple of
+``tile_n``. With a ``y2`` epilogue the pad's ``y2`` is ``BIG`` and never
+wins. Without one the pad is part of the operands: ``augv2`` and
+``tpose_aug`` put ``BIG`` in the ``y2hi`` column; ``augbf16`` pads with zero
+rows, whose metric 0 would win; the int8 forms encode 126s, a metric of
+about 144,018 that is below ``INT_BIG`` and so is *found*, with a column
+≥ N, in a bucket no real column reaches. Here columns past N do not exist:
+the wrappers take the N real rows, and a bucket no real column reaches is
+empty, ``(BIG, -1)`` or ``(INT_BIG, -1)``. The two agree wherever N is a
+multiple of ``tile_n``, and on the buckets that real columns reach.
 """
 
 from __future__ import annotations
@@ -51,8 +73,16 @@ def _check_rows(x: torch.Tensor, feat: int, y2: torch.Tensor,
     return m, n, d
 
 
-def _outputs(m: int, dev: torch.device, indexed: bool = True):
-    out_d = torch.empty((m, F.LANES), dtype=torch.float32, device=dev)
+def _as_f32(*operands: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """bf16 operands (cast by the caller, as the sweeps' host-cast arms
+    do) widened to f32, exactly; others as they are."""
+    return tuple(t.to(torch.float32) if t.dtype == torch.bfloat16 else t
+                 for t in operands)
+
+
+def _outputs(m: int, dev: torch.device, indexed: bool = True,
+             dtype: torch.dtype = torch.float32):
+    out_d = torch.empty((m, F.LANES), dtype=dtype, device=dev)
     out_i = (torch.empty((m, F.LANES), dtype=torch.int32, device=dev)
              if indexed else None)
     return out_d, out_i
@@ -67,7 +97,10 @@ def acc_fold(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, *, k: int,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 wrapper: x ``[M, D]``, y ``[N, D]``, ``y2 = |y|²`` of the
     unrounded y → ``[M, 128]`` (metric f32, column int32), k extracted
-    from ``n_acc·128`` buckets; see :func:`fold.acc_fold_plain`."""
+    from ``n_acc·128`` buckets; see :func:`fold.acc_fold_plain`. x and y
+    may arrive as bf16 tensors, rounded by the caller; they widen
+    exactly."""
+    x, y = _as_f32(x, y)
     if x.device.type == "cpu":
         return F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n,
                                 use_bf16=use_bf16)
@@ -153,3 +186,135 @@ def tpose_fold(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor, *,
 
 
 tpose_fold.launches = 0
+
+
+def raw_fold(x: torch.Tensor, y: torch.Tensor, *, k: int, n_acc: int = 4,
+             tile_n: int = 4096, tpose: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 wrapper: the fold of the raw product of augmented operands, x
+    ``[M, W]`` and y ``[N, W]`` (``tpose``: ``[W, M]`` and ``[W, N]``), f32
+    or bf16 tensors, rounded to bf16 in the kernel and summed in f32 in
+    feature order → ``[M, 128]`` (metric f32, column int32); see
+    :func:`fold.raw_fold_plain`."""
+    x, y = _as_f32(x, y)
+    if x.device.type == "cpu":
+        return F.raw_fold_plain(x, y, k=k, n_acc=n_acc, tile_n=tile_n,
+                                tpose=tpose)
+    F.check_tiles(n_acc, tile_n)
+    F.check_k(k)
+    dev = _check_operands(x=x, y=y)
+    feat = 0 if tpose else 1
+    if x.dim() != 2 or y.dim() != 2 or x.shape[feat] != y.shape[feat]:
+        want = "[W, M] and [W, N]" if tpose else "[M, W] and [N, W]"
+        raise ValueError(f"operands must be {want}, got {tuple(x.shape)} "
+                         f"and {tuple(y.shape)}")
+    d, m, n = x.shape[feat], x.shape[1 - feat], y.shape[1 - feat]
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"width must be in [1, {MAX_D}], got {d}")
+    if n < 1:
+        raise ValueError("no train columns")
+    out_d, out_i = _outputs(m, dev)
+    if m:
+        _build.check(_build.load_library().avt_fold_raw(
+            x.data_ptr(), y.data_ptr(), m, n, d, k, n_acc, int(tpose),
+            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
+            "K10 fold launch")
+        raw_fold.launches += 1
+    return out_d, out_i
+
+
+raw_fold.launches = 0
+
+#: widest int8 rows K11 and K12 take (the sweeps use 9 and 19)
+MAX_INT8_W = 32
+
+
+def _check_int8(xa: torch.Tensor, ya: torch.Tensor,
+                y2: Optional[torch.Tensor] = None) -> Tuple:
+    """(device, m, n, w) of int8 xa ``[M, W]``, ya ``[N, W]`` and int32 y2
+    ``[N]``, contiguous on one CUDA device."""
+    dev = None
+    for name, t, dtype in (("xa", xa, torch.int8), ("ya", ya, torch.int8),
+                           ("y2", y2, torch.int32)):
+        if t is None:
+            continue
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}, expected CUDA")
+        if dev is not None and t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, others on {dev}")
+        dev = t.device
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if xa.dim() != 2 or ya.dim() != 2 or xa.shape[1] != ya.shape[1]:
+        raise ValueError(f"operands must be [M, W] and [N, W], got "
+                         f"{tuple(xa.shape)} and {tuple(ya.shape)}")
+    (m, w), n = xa.shape, ya.shape[0]
+    if y2 is not None and y2.shape != (n,):
+        raise ValueError(f"y2 must be [{n}], got {tuple(y2.shape)}")
+    if not 1 <= w <= MAX_INT8_W:
+        raise ValueError(f"width must be in [1, {MAX_INT8_W}], got {w}")
+    if n < 1:
+        raise ValueError("no train columns")
+    return dev, m, n, w
+
+
+def int8_fold(xa: torch.Tensor, ya: torch.Tensor,
+              y2: Optional[torch.Tensor] = None, *, k: int, n_acc: int = 4,
+              tile_n: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K11 wrapper: int8 xa ``[M, W]``, ya ``[N, W]`` (W as the caller
+    built them, 9 or 19 in the sweeps; the kernel pads rows to whole words
+    as it stages them) → ``[M, 128]`` (metric int32, column int32) of the
+    fold of the int32 product, or of ``y2 − 2·product`` with int32 ``y2``
+    ``[N]``; see :func:`fold.int8_fold_plain`."""
+    if xa.device.type == "cpu":
+        return F.int8_fold_plain(xa, ya, y2, k=k, n_acc=n_acc, tile_n=tile_n)
+    F.check_tiles(n_acc, tile_n)
+    F.check_k(k)
+    dev, m, n, w = _check_int8(xa, ya, y2)
+    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    if m:
+        _build.check(_build.load_library().avt_fold_int8(
+            xa.data_ptr(), ya.data_ptr(),
+            None if y2 is None else y2.data_ptr(), m, n, w, k, n_acc,
+            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
+            "K11 fold launch")
+        int8_fold.launches += 1
+    return out_d, out_i
+
+
+int8_fold.launches = 0
+
+
+def packed_fold(xa: torch.Tensor, ya: torch.Tensor, *, k: int,
+                n_acc: int = 4, tile_n: int = 4096,
+                metric_bound: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K12 wrapper: K11 without ``y2`` through one packed int32 a bucket,
+    ``metric·2048 + col div 128`` folded by ``min`` → ``[M, 128]`` (metric
+    int32, column int32), k ≤ 128 candidates; ``n_acc`` may be 16; see
+    :func:`fold.packed_fold_plain`. Raises where N > 262,144, and where
+    ``|metric| ≥ 2**18`` cannot be excluded: ``metric_bound`` is the
+    caller's bound of ``|metric|`` by the operands' construction, and
+    without one the wrapper reads it off the tensors
+    (:func:`fold.packed_metric_bound`, which waits for the device)."""
+    if xa.device.type == "cpu":
+        return F.packed_fold_plain(xa, ya, k=k, n_acc=n_acc, tile_n=tile_n,
+                                   metric_bound=metric_bound)
+    F.check_tiles(n_acc, tile_n, F.PACKED_N_ACC_CHOICES)
+    F.check_k(k)
+    dev, m, n, w = _check_int8(xa, ya)
+    F.check_packed(n, F.packed_metric_bound(xa, ya) if metric_bound is None
+                   else metric_bound)
+    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    if m:
+        _build.check(_build.load_library().avt_fold_packed(
+            xa.data_ptr(), ya.data_ptr(), m, n, w, k, n_acc,
+            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
+            "K12 fold launch")
+        packed_fold.launches += 1
+    return out_d, out_i
+
+
+packed_fold.launches = 0

@@ -1,9 +1,13 @@
 """The lane-bucket fold of the KNN experiment kernels, in plain PyTorch:
-the plain versions of K6-K9 (``csrc/fold.cu``).
+the plain versions of K6-K10 (``csrc/fold.cu``) and K11-K12
+(``csrc/fold_int8.cu``).
 
-Counterpart of the fold that ``scripts/exp_fold.py`` (``_acc_kernel``) and
+Counterpart of the fold that ``scripts/exp_fold.py`` (``_acc_kernel``),
 ``scripts/roofline_knn.py`` (``_dotmin_kernel``, ``_nodot_kernel``,
-``_tpose_kernel``) run on the TPU. For one test row and a per-column metric:
+``_tpose_kernel``) and the kernel-restructure sweeps (``_tag_kernel`` and
+``_packed_kernel`` of ``scripts/sweep16*_kernels.py``, ``_tpose_tag_kernel``
+and ``_tpose_aug_kernel`` of ``scripts/sweep18_tpose_fold.py``) run on the
+TPU. For one test row and a per-column metric:
 
 - **buckets**: there are ``B = n_acc·128``; train column ``col`` falls in
   bucket ``col mod B``. The TPU kernels bucket by
@@ -13,7 +17,8 @@ Counterpart of the fold that ``scripts/exp_fold.py`` (``_acc_kernel``) and
 - **fold**: each bucket keeps its smallest metric strictly below ``BIG``
   and the lowest column that reaches it; a bucket nothing reaches keeps
   ``(BIG, -1)``. Columns past N do not exist (the TPU launchers pad them
-  with ``y² = BIG``, which never wins).
+  with ``y² = BIG``, which never wins). Integer metrics (K11, K12) fold
+  the same way with ``INT_BIG`` for ``BIG``.
 - **extraction** (:func:`extract_k`): k rounds, each taking the smallest
   value, the lowest index among the entries equal to it, and masking
   exactly that (value, index) entry. Slots past k hold ``(BIG, -1)``.
@@ -27,7 +32,7 @@ index.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -36,18 +41,25 @@ BIG = 3.0e38
 INT_BIG = 2 ** 30
 #: the bucket multipliers the kernels take (``B = n_acc·128`` threads)
 N_ACC_CHOICES = (1, 2, 4, 8)
+#: K12 alone also takes 16 (2,048 buckets, two a thread)
+PACKED_N_ACC_CHOICES = N_ACC_CHOICES + (16,)
 MAX_K = LANES
+#: the packed fold: ``metric·2048 + tag`` in one int32, ``tag = col div 128``
+PACK = 2048
+PACKED_MAX_N = PACK * LANES
+PACKED_METRIC_LIMIT = 2 ** 18
 #: metric elements per row chunk of the plain versions (256 MB of f32)
 _CHUNK_ELEMS = 1 << 26
 
 
-def check_tiles(n_acc: int, tile_n: int) -> int:
+def check_tiles(n_acc: int, tile_n: int,
+                choices: Tuple[int, ...] = N_ACC_CHOICES) -> int:
     """The number of buckets ``n_acc·128``; raises unless ``n_acc`` is one
-    the kernels take and ``tile_n`` is a multiple of it (then the TPU
-    kernels' bucket of a column is ``col mod B`` and ``tile_n`` changes
-    nothing in the result)."""
-    if n_acc not in N_ACC_CHOICES:
-        raise ValueError(f"n_acc must be one of {N_ACC_CHOICES}, got {n_acc}")
+    the kernel takes (``choices``) and ``tile_n`` is a multiple of it (then
+    the TPU kernels' bucket of a column is ``col mod B`` and ``tile_n``
+    changes nothing in the result)."""
+    if n_acc not in choices:
+        raise ValueError(f"n_acc must be one of {choices}, got {n_acc}")
     buckets = n_acc * LANES
     if tile_n <= 0 or tile_n % buckets:
         raise ValueError(
@@ -81,41 +93,42 @@ def _row_chunks(m: int, n: int):
         yield r0, min(m, r0 + rows)
 
 
-def _pad_columns(metric: torch.Tensor, buckets: int) -> torch.Tensor:
-    """``[R, N]`` → ``[R, N/B, B]`` with the columns past N at ``BIG``."""
+def _pad_columns(metric: torch.Tensor, buckets: int, big=BIG
+                 ) -> torch.Tensor:
+    """``[R, N]`` → ``[R, N/B, B]`` with the columns past N at ``big``."""
     r, n = metric.shape
     n_pad = -(-n // buckets) * buckets
     if n_pad != n:
-        metric = torch.nn.functional.pad(metric, (0, n_pad - n), value=BIG)
+        metric = torch.nn.functional.pad(metric, (0, n_pad - n), value=big)
     return metric.reshape(r, n_pad // buckets, buckets)
 
 
-def bucket_fold(metric: torch.Tensor, buckets: int
+def bucket_fold(metric: torch.Tensor, buckets: int, big=BIG
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``[R, N]`` metric → per bucket (value, column) ``[R, B]``: the
-    smallest value strictly below ``BIG`` with its lowest column, else
-    ``(BIG, -1)``."""
-    v = _pad_columns(metric, buckets)
+    """``[R, N]`` metric (f32, or int32 with ``big = INT_BIG``) → per
+    bucket (value, column) ``[R, B]``: the smallest value strictly below
+    ``big`` with its lowest column, else ``(big, -1)``."""
+    v = _pad_columns(metric, buckets, big)
     best = v.min(dim=1).values
     cols = torch.arange(v.shape[1] * buckets, dtype=torch.int32,
                         device=metric.device).reshape(1, -1, buckets)
     idx = torch.where(v == best.unsqueeze(1), cols,
                       torch.tensor(INT_BIG, dtype=torch.int32,
                                    device=metric.device)).min(dim=1).values
-    found = best < BIG
-    return (torch.where(found, best, torch.full_like(best, BIG)),
+    found = best < big
+    return (torch.where(found, best, torch.full_like(best, big)),
             torch.where(found, idx, torch.full_like(idx, -1)))
 
 
-def extract_k(val: torch.Tensor, idx: torch.Tensor, k: int
+def extract_k(val: torch.Tensor, idx: torch.Tensor, k: int, big=BIG
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k rounds over the ``[R, B]`` buckets → ``[R, 128]`` (value, index),
     slot by slot: the smallest value, the lowest index equal to it, that
-    (value, index) entry masked to ``BIG``; ``(BIG, -1)`` past k."""
+    (value, index) entry masked to ``big``; ``(big, -1)`` past k. The
+    values keep their type (f32, or int32 with ``big = INT_BIG``)."""
     check_k(k)
     r = val.shape[0]
-    out_d = torch.full((r, LANES), BIG, dtype=torch.float32,
-                       device=val.device)
+    out_d = torch.full((r, LANES), big, dtype=val.dtype, device=val.device)
     out_i = torch.full((r, LANES), -1, dtype=torch.int32, device=val.device)
     int_big = torch.tensor(INT_BIG, dtype=torch.int32, device=val.device)
     for slot in range(k):
@@ -125,13 +138,14 @@ def extract_k(val: torch.Tensor, idx: torch.Tensor, k: int
         out_d[:, slot] = min_d[:, 0]
         out_i[:, slot] = min_i[:, 0]
         val = torch.where((val == min_d) & (idx == min_i),
-                          torch.full_like(val, BIG), val)
+                          torch.full_like(val, big), val)
     return out_d, out_i
 
 
-def _fold_rows(m: int, n: int, metric_rows, k: int, buckets: int
+def _fold_rows(m: int, n: int, metric_rows, k: int, buckets: int, big=BIG
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    outs = [extract_k(*bucket_fold(metric_rows(r0, r1), buckets), k)
+    outs = [extract_k(*bucket_fold(metric_rows(r0, r1), buckets, big), k,
+                      big)
             for r0, r1 in _row_chunks(m, n)]
     if not outs:
         raise ValueError("no test rows")
@@ -196,3 +210,120 @@ def tpose_fold_plain(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor,
     feature-major operands xt ``[D, M]``, yt ``[D, N]``."""
     return acc_fold_plain(xt.T, yt.T, y2, k=k, n_acc=n_acc, tile_n=tile_n,
                           use_bf16=True)
+
+
+def raw_fold_plain(x: torch.Tensor, y: torch.Tensor, *, k: int,
+                   n_acc: int = 4, tile_n: int = 4096, tpose: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K10 (``_tag_kernel`` without an epilogue, ``_tpose_aug_kernel``):
+    the fold and extraction of K6 over the raw product of augmented
+    operands, ``metric = Σ_c bf16(x[r, c])·bf16(y[col, c])``: x ``[M, W]``
+    and y ``[N, W]``, or feature-major ``[W, M]`` and ``[W, N]`` with
+    ``tpose``. The caller has folded ``y² − 2·x·y`` into the columns, so
+    there is no ``y2`` operand. Operands are rounded to bf16 (a no-op on
+    operands cast already); the products of two bf16 values are exact in
+    f32 and are summed in f32 **in feature order**, c = 0, 1, ..., as the
+    kernel does: with the ``y²`` of the hi and lo columns some 2⁸ times the
+    other terms the order shows in the last bits, so it is fixed."""
+    buckets = check_tiles(n_acc, tile_n)
+    check_k(k)
+    if tpose:
+        x, y = x.T, y.T
+    x, y = round_bf16(x), round_bf16(y)
+
+    def rows(r0, r1):
+        acc = x[r0:r1, 0:1] * y[:, 0].reshape(1, -1)
+        for c in range(1, x.shape[1]):
+            acc = acc + x[r0:r1, c:c + 1] * y[:, c].reshape(1, -1)
+        return acc
+    return _fold_rows(x.shape[0], y.shape[0], rows, k, buckets)
+
+
+def _int_cross(xa: torch.Tensor, ya: torch.Tensor):
+    """Rows r0:r1 of the int32 product ``xa @ yaᵀ`` of int8 operands,
+    through float64, which holds every sum of products exactly (integer
+    matrix products have no CUDA path in PyTorch)."""
+    y64 = ya.to(torch.float64).T
+
+    def rows(r0, r1):
+        return (xa[r0:r1].to(torch.float64) @ y64).to(torch.int32)
+    return rows
+
+
+def int8_fold_plain(xa: torch.Tensor, ya: torch.Tensor,
+                    y2: Optional[torch.Tensor] = None, *, k: int,
+                    n_acc: int = 4, tile_n: int = 4096
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K11 (``_tag_kernel`` with int32 sums): int8 xa ``[M, W]``, ya
+    ``[N, W]`` → ``[M, 128]`` (metric int32, column int32). The metric is
+    the int32 product ``Σ_c xa[r, c]·ya[col, c]`` itself, or with ``y2``
+    (int32 ``[N]``) the epilogue ``y2[col] − 2·product``; buckets hold
+    values strictly below ``INT_BIG``, empty ones ``(INT_BIG, -1)``.
+    Integer sums are exact in any order."""
+    buckets = check_tiles(n_acc, tile_n)
+    check_k(k)
+    cross = _int_cross(xa, ya)
+    if y2 is None:
+        rows = cross
+    else:
+        def rows(r0, r1):
+            return y2.reshape(1, -1) - 2 * cross(r0, r1)
+    return _fold_rows(xa.shape[0], ya.shape[0], rows, k, buckets, INT_BIG)
+
+
+def packed_metric_bound(xa: torch.Tensor, ya: torch.Tensor) -> int:
+    """The largest ``|Σ_c xa[r, c]·ya[col, c]|`` the operands' ranges
+    allow: ``Σ_c max|xa[:, c]|·max|ya[:, c]|`` (reads the tensors)."""
+    if xa.shape[0] == 0 or ya.shape[0] == 0:
+        return 0
+    ax = xa.to(torch.int32).abs().amax(dim=0)
+    ay = ya.to(torch.int32).abs().amax(dim=0)
+    return int((ax * ay).sum())
+
+
+def check_packed(n: int, metric_bound: int) -> None:
+    """The packed fold's ranges: the tag ``col div 128`` has 11 bits, and
+    ``metric·2048 + tag`` stays inside ±2³⁰ only for ``|metric| < 2¹⁸``."""
+    if n > PACKED_MAX_N:
+        raise ValueError(f"the packed fold takes at most {PACKED_MAX_N} "
+                         f"train rows (an 11-bit tag), got {n}")
+    if metric_bound >= PACKED_METRIC_LIMIT:
+        raise ValueError(
+            f"the operands allow |metric| up to {metric_bound}, not below "
+            f"2**18 = {PACKED_METRIC_LIMIT}: metric·2048 + tag could leave "
+            "the int32 range of the packed fold")
+
+
+def packed_fold_plain(xa: torch.Tensor, ya: torch.Tensor, *, k: int,
+                      n_acc: int = 4, tile_n: int = 4096,
+                      metric_bound: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K12 (``_packed_kernel``): one int32 a bucket, the minimum of
+    ``packed = metric·2048 + (col div 128)`` over the bucket's columns,
+    ``metric = Σ_c xa[r, c]·ya[col, c]``. A bucket is found where its
+    minimum is below ``INT_BIG``; then its metric is ``packed >> 11``
+    (arithmetic: centered operands give negative metrics) and its column
+    ``(packed & 2047)·128 + bucket mod 128``. k candidates (k ≤ 128) are
+    extracted as in :func:`extract_k`. ``n_acc`` may be 16. Raises where N
+    exceeds 262,144 or ``metric_bound`` (by default
+    :func:`packed_metric_bound` of the operands) reaches 2¹⁸."""
+    buckets = check_tiles(n_acc, tile_n, PACKED_N_ACC_CHOICES)
+    check_k(k)
+    n = ya.shape[0]
+    check_packed(n, packed_metric_bound(xa, ya) if metric_bound is None
+                 else metric_bound)
+    cross = _int_cross(xa, ya)
+    tags = torch.arange(n, dtype=torch.int32, device=ya.device) // LANES
+    lane = torch.arange(buckets, dtype=torch.int32, device=ya.device) % LANES
+    outs = []
+    for r0, r1 in _row_chunks(xa.shape[0], n):
+        packed = cross(r0, r1) * PACK + tags.reshape(1, -1)
+        val = _pad_columns(packed, buckets, INT_BIG).min(dim=1).values
+        found = val < INT_BIG
+        idx = torch.where(found, (val & (PACK - 1)) * LANES + lane,
+                          torch.full_like(val, -1))
+        metric = torch.where(found, val >> 11, torch.full_like(val, INT_BIG))
+        outs.append(extract_k(metric, idx, k, INT_BIG))
+    if not outs:
+        raise ValueError("no test rows")
+    return (torch.cat([d for d, _ in outs]), torch.cat([i for _, i in outs]))

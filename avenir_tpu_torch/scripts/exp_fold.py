@@ -65,9 +65,9 @@ def exact_ids(x: torch.Tensor, y: torch.Tensor, k: int) -> torch.Tensor:
 
 
 def recall(exact: torch.Tensor, got: torch.Tensor) -> float:
-    """Share of the exact ids found, row by row (ids within a row are
-    distinct on both sides)."""
-    hits = (got.unsqueeze(2) == exact.unsqueeze(1)).any(dim=2).sum()
+    """Share of the exact ids found among ``got``, row by row (``got`` may
+    hold more columns than ``exact``, and an id more than once)."""
+    hits = (exact.unsqueeze(2) == got.unsqueeze(1)).any(dim=2).sum()
     return float(hits) / exact.numel()
 
 

@@ -41,7 +41,18 @@ Phases (one line each; any failure exits non-zero):
    (``compare_fold``): empty slots (BIG, -1) where the plain version has
    them, metrics within 1e-5 relative, the kernel's columns distinct and
    carrying the metrics reported, so that a column that differs from the
-   plain one is a near-tie of it;
+   plain one is a near-tie of it. K10-K12, the fold kernels of the
+   kernel-restructure sweeps (``csrc/fold.cu``, ``csrc/fold_int8.cu``), at
+   every configuration the sweeps launch, on operands their encoders make
+   from seeded data at 8,192 × 65,536 × 9: sweep 16's ``augbf16`` (K10),
+   ``int8epi`` and ``int8aug`` (K11); 16b's ``tagfold`` (K6 on operands
+   cast by the caller), ``augv2`` (K10), ``int8rr`` (K11, 16 candidates)
+   and ``int8pk`` (K12); 16c's ``int8pk8`` and ``int8pk16`` (K12, centered,
+   n_acc 8 and 16); 18's ``tpose_tag``, ``tpose_tag8`` (K9) and
+   ``tpose_aug`` (K10 feature-major); sweep 11's six tile configurations
+   (K6) and sweep 14's ``tpose`` (K9); plus 2,051 × 16,383 and 1,000 × 300
+   (N below every bucket count). K11 and K12 must equal their plain
+   versions exactly, ids included; K10, K6 and K9 pass the fold gate;
 3. the CLI path, in-process through ``avenir_tpu_torch.cli.main.main`` on
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
@@ -66,13 +77,21 @@ Phases (one line each; any failure exits non-zero):
    rounding) and ``avenir_tpu_torch.scripts.roofline_knn.main`` (K2 beside
    its two ablations, K7, K8, K9, the plain path and cdist + topk, against
    the card's ceilings). K2's ablations and K6-K9 must each have launched
-   in this phase.
+   in this phase;
+5. the kernel-restructure sweeps, in-process on the card at the same
+   shape: ``avenir_tpu_torch.scripts.sweep11_vmem``, ``sweep14_tpose``,
+   ``sweep17_tpose_protocol``, ``sweep16_kernels``, ``sweep16b_kernels``,
+   ``sweep16c_kernels`` and ``sweep18_tpose_fold``, each gating its arms on
+   recall against the exact top-k and timing those it keeps against K2 by
+   the interleaved differential protocol. K6, K9, K10, K11 and K12 must
+   each have launched in this phase, and K2 must pass its own gate.
 
 Then one JSON line of per-kernel numbers (K1-K4 launches from the CLI
 phase, K5's from its entry-point run in phase 2: no CLI key selects the
-tpose layout; K2's ablations' and K6-K9's from phase 4; each bound the
-larger of the bytes over 3.35 TB/s and the operations at the card's rate
-for their type), the ``nvidia-smi`` line, and
+tpose layout; K2's ablations' and K7-K8's from phase 4, K6's and K9's from
+phases 4 and 5, K10-K12's from phase 5; each bound the larger of the bytes
+over 3.35 TB/s and the operations at the card's rate for their type), the
+``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result.
 """
@@ -98,9 +117,10 @@ import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): f32 on the CUDA cores, bf16
-# on the tensor cores (f32 sums), HBM3
+# (f32 sums) and int8 (int32 sums) on the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 SEED = 20261016
 # the CLI phase's data sizes
@@ -173,17 +193,18 @@ def bound_ms(n_bytes: float, n_flops: float):
 def pair_bound_ms(dev, m, n, d, n_bytes, product, ops_per_pair):
     """Bound of a kernel over m × n (row, column) pairs: the larger of the
     bytes over the memory rate and its operations at their units' rates.
-    ``product`` is the dot's type: "bf16" (bf16-rounded operands, f32 sums:
-    2·m·n·d on the tensor cores, beside the CUDA cores), "f32" (2·m·n·d on
-    the CUDA cores, which also run the per-pair instructions) or None.
-    ``ops_per_pair`` f32 instructions a pair on the CUDA cores: the metric,
-    then the compare and selects or the minimum that consume it, at SMs ×
-    128 lanes × the maximum SM clock."""
+    ``product`` is the dot's type: "bf16" (bf16-rounded operands, f32 sums)
+    or "int8" (int32 sums): 2·m·n·d on the tensor cores, beside the CUDA
+    cores; "f32" (2·m·n·d on the CUDA cores, which also run the per-pair
+    instructions) or None. ``ops_per_pair`` f32 or int32 instructions a
+    pair on the CUDA cores: the metric, then the compare and selects or
+    the minimum that consume it, at SMs × 128 lanes × the maximum SM
+    clock."""
     from avenir_tpu_torch.scripts.roofline_knn import lane_ops_per_s
     t_pairs = m * n * ops_per_pair / lane_ops_per_s(dev)
-    t_dot = 2.0 * m * n * d / (PEAK_BF16_FLOPS if product == "bf16"
-                               else PEAK_F32_FLOPS)
-    t_ops = (max(t_dot, t_pairs) if product == "bf16" else
+    tensor_rate = {"bf16": PEAK_BF16_FLOPS, "int8": PEAK_INT8_OPS}
+    t_dot = 2.0 * m * n * d / tensor_rate.get(product, PEAK_F32_FLOPS)
+    t_ops = (max(t_dot, t_pairs) if product in tensor_rate else
              t_dot + t_pairs if product == "f32" else t_pairs) * 1e3
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -780,6 +801,207 @@ def check_fold(dev):
     return entries
 
 
+# the kernel-restructure sweeps' folds: (label, m, n) of the shapes K10-K12
+# are held at; the first is the sweeps' own, timed
+SWEEP_SHAPES = (("bench", 8192, 65536), ("ragged", 2051, 16383),
+                ("ragged N<B", 1000, 300))
+SWEEP_REPLACES = {"K10": "scripts/sweep16b_kernels.py:77",
+                  "K11": "scripts/sweep16_kernels.py:71",
+                  "K12": "scripts/sweep16b_kernels.py:114"}
+SWEEP_NAMES = {"K10": "fold_raw (K10)", "K11": "fold_int8 (K11)",
+               "K12": "fold_packed (K12)"}
+SWEEP_SOURCES = {"K10": FOLD_SOURCE,
+                 "K11": "avenir_tpu_torch/csrc/fold_int8.cu",
+                 "K12": "avenir_tpu_torch/csrc/fold_int8.cu"}
+# the configuration whose time stands for the kernel in the kernels line
+SWEEP_ENTRY = {"K10": "augv2", "K11": "int8rr", "K12": "int8pk"}
+
+
+def sweep_configs(x, y):
+    """Every fold launch of the sweeps on operands their encoders make from
+    x and y: label → (kernel, wrapper call, plain call, how to hold it,
+    (width, bytes, product, instructions a pair) for the bound). ``hold`` is
+    "exact" or (metric of given columns, row scale) for the fold gate."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.ops import fold as F
+    from avenir_tpu_torch.ops.distance import row_sq_norm
+    from avenir_tpu_torch.scripts import _sweep as S
+    m, d = x.shape
+    n = y.shape[0]
+    out_bytes = m * 128 * 8
+    configs = {}
+
+    def raw(label, xa, ya, tpose=False):
+        xr, yr = F.round_bf16(xa.float()), F.round_bf16(ya.float())
+        if tpose:
+            xr, yr = xr.T.contiguous(), yr.T.contiguous()
+        w = xr.shape[1]
+
+        def metric(ids):
+            return (yr[ids.long()] * xr.unsqueeze(1)).sum(-1)
+        kw = dict(k=S.K, n_acc=S.N_ACC, tile_n=S.TILE_N, tpose=tpose)
+        configs[label] = (
+            "K10", lambda: CF.raw_fold(xa, ya, **kw),
+            lambda: F.raw_fold_plain(xa.float(), ya.float(), **kw),
+            (metric, row_sq_norm(xr)),
+            (w, (m + n) * w * xa.element_size() + out_bytes, "bf16", 3))
+
+    def int8(label, xa, ya, k, y2=None, packed=False, n_acc=S.N_ACC):
+        w = xa.shape[1]
+        kw = dict(k=k, n_acc=n_acc, tile_n=max(S.TILE_N, n_acc * 128))
+        n_bytes = (m + n) * w + (0 if y2 is None else n * 4) + out_bytes
+        if packed:
+            bound = F.packed_metric_bound(xa, ya)
+            configs[label] = (
+                "K12", lambda: CF.packed_fold(xa, ya, metric_bound=bound,
+                                              **kw),
+                lambda: F.packed_fold_plain(xa, ya, metric_bound=bound, **kw),
+                "exact", (w, n_bytes, "int8", 2))
+        else:
+            configs[label] = (
+                "K11", lambda: CF.int8_fold(xa, ya, y2, **kw),
+                lambda: F.int8_fold_plain(xa, ya, y2, **kw), "exact",
+                (w, n_bytes, "int8", 3 if y2 is None else 4))
+
+    ones = torch.ones((m, 1), device=x.device)
+    y2 = row_sq_norm(y)
+    raw("augbf16", torch.cat([x, ones], 1).to(torch.bfloat16),
+        torch.cat([-2.0 * y, y2.reshape(-1, 1)], 1).to(torch.bfloat16))
+    xa, ya = S.aug_operands(x, y)
+    raw("augv2", xa.to(torch.bfloat16), ya.to(torch.bfloat16))
+    raw("tpose_aug", xa.T.contiguous(), ya.T.contiguous(), tpose=True)
+    x8, y8, _ = S.quant(x, y, 127.0)
+    int8("int8epi", x8, y8, S.K, y2=S._int8_sq_norm(y8))
+    xa8, ya8, _ = S.int8_aug_operands(x, y)
+    int8("int8aug", xa8, ya8, S.K)
+    int8("int8rr", xa8, ya8, S.K_CAND)
+    int8("int8pk", xa8, ya8, S.K_CAND, packed=True)
+    xc8, yc8, _ = S.int8_centered_operands(x, y)
+    int8("int8pk8", xc8, yc8, 8, packed=True, n_acc=8)
+    int8("int8pk16", xc8, yc8, 16, packed=True, n_acc=16)
+
+    # the sweeps' uses of K6 and K9
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    xt, yt = x.T.contiguous(), y.T.contiguous()
+    hold = fold_metrics(x, y, y2, True)
+    inputs = (m * d + n * d + n) * 4
+    work = (d, inputs + out_bytes, "bf16", 4)
+    kw = dict(k=S.K, n_acc=S.N_ACC, tile_n=S.TILE_N)
+    configs["tagfold"] = (
+        "K6", lambda: CF.acc_fold(xb, yb, y2, **kw),
+        lambda: F.acc_fold_plain(x, y, y2, **kw), hold,
+        (d, inputs - (m + n) * d * 2 + out_bytes, "bf16", 4))
+    from avenir_tpu_torch.scripts.sweep11_vmem import CONFIGS
+    for tile_n in sorted({tn for _, tn in CONFIGS}):
+        configs[f"vmem tile_n={tile_n}"] = (
+            "K6", lambda tile_n=tile_n: CF.acc_fold(
+                x, y, y2, k=S.K, n_acc=4, tile_n=tile_n),
+            lambda: F.acc_fold_plain(x, y, y2, **kw), hold, work)
+    for label, n_acc in (("tpose_tag", S.N_ACC), ("tpose_tag8", 8)):
+        kw9 = dict(k=S.K, n_acc=n_acc, tile_n=S.TILE_N)
+        configs[label] = (
+            "K9", lambda kw9=kw9: CF.tpose_fold(xt, yt, y2, **kw9),
+            lambda kw9=kw9: F.tpose_fold_plain(xt, yt, y2, **kw9), hold, work)
+    return configs
+
+
+def check_sweep_folds(dev):
+    """K10-K12, and the sweeps' uses of K6 and K9, against their plain
+    versions at SWEEP_SHAPES; times at the sweeps' shape. Returns the
+    kernels line's entries of K10-K12 (launches from phase 5)."""
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    err = {name: 0.0 for name in SWEEP_NAMES}
+    entries = {}
+    for label, m, n in SWEEP_SHAPES:
+        x = torch.rand((m, 9), generator=gen, device=dev)
+        y = torch.rand((n, 9), generator=gen, device=dev)
+        notes = []
+        for config, (name, kernel, plain, hold, work) in \
+                sweep_configs(x, y).items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if hold == "exact":
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(
+                        f"{name} {config} {label}: differs from plain in "
+                        f"{int((got[0] != want[0]).sum())} metrics and "
+                        f"{int((got[1] != want[1]).sum())} columns")
+                notes.append(f"{config} ({name}) exact")
+            else:
+                c = compare_fold(f"{name} {config} {label}", got, want, *hold)
+                if name in err:
+                    err[name] = max(err[name], c["err"])
+                notes.append(f"{config} ({name}) {c['differ']} other "
+                             f"columns, err {c['err']:.3g}")
+            if label != "bench":
+                continue
+            ms = chain_ms(kernel, dev)
+            plain_ms = cuda_ms(plain, 3)
+            width, n_bytes, product, ops = work
+            bound, by = pair_bound_ms(dev, m, n, width, n_bytes, product, ops)
+            log(f"phase 2 {name} {config} {m}x{n}, width {width}: kernel "
+                f"{ms:.4f} ms device (chained), plain {plain_ms:.3f} ms, "
+                f"bound {bound:.4f} ms ({by}, {ops} instructions a pair), "
+                f"{bound / ms:.1%} of bound")
+            if SWEEP_ENTRY.get(name) == config:
+                entries[name] = {
+                    "name": SWEEP_NAMES[name], "route": "cuda",
+                    "source": SWEEP_SOURCES[name],
+                    "replaces": SWEEP_REPLACES[name], "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                    "library_ms": None}
+        log(f"phase 2 sweep folds {label} m={m} n={n}: " + "; ".join(notes))
+    for name, entry in entries.items():
+        entry["max_abs_err"] = err[name]
+    return entries
+
+
+def sweep_harnesses():
+    """Phase 5: the seven kernel-restructure sweeps, in-process on the card
+    at their own shape, each fold kernel's launches counted from 0."""
+    import importlib
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    counters = {"K6": CF.acc_fold, "K9": CF.tpose_fold, "K10": CF.raw_fold,
+                "K11": CF.int8_fold, "K12": CF.packed_fold}
+    for fn in counters.values():
+        fn.launches = 0
+    results = {}
+    for name in ("sweep11_vmem", "sweep14_tpose", "sweep17_tpose_protocol",
+                 "sweep16_kernels", "sweep16b_kernels", "sweep16c_kernels",
+                 "sweep18_tpose_fold"):
+        log(f"phase 5 python -m avenir_tpu_torch.scripts.{name}:")
+        module = importlib.import_module(f"avenir_tpu_torch.scripts.{name}")
+        results[name] = module.main([])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    missing = [name for name, c in launches.items() if c < 1]
+    if missing:
+        raise AssertionError(f"phase 5: {missing} not launched")
+    gates = {}
+    for name in ("sweep16_kernels", "sweep16b_kernels", "sweep16c_kernels",
+                 "sweep18_tpose_fold"):
+        gates.update(results[name]["gates"])
+        for row in results[name]["timed"]:
+            if not (math.isfinite(row["us"]) and row["us"] > 0
+                    and math.isfinite(row["ratio"])):
+                raise AssertionError(f"phase 5 {name} time out of range: "
+                                     f"{row}")
+    for name, g in gates.items():
+        # K2 is exact; every arm approximates it and keeps most neighbors,
+        # whether or not it clears the sweeps' 0.985
+        floor = 0.999 if name == "prod" else 0.5
+        if not (floor <= g["recall"] <= 1.0 and g["dist_err"] >= 0):
+            raise AssertionError(f"phase 5 gate out of range: {g}")
+    for name in ("sweep14_tpose", "sweep17_tpose_protocol"):
+        if not 0.5 <= results[name]["recall"] <= 1.0:
+            raise AssertionError(f"phase 5 {name}: {results[name]}")
+    log("phase 5 gates: " + "; ".join(
+        f"{name} recall {g['recall']:.4f} err {g['dist_err']} "
+        f"{'PASS' if g['ok'] else 'FAIL'}" for name, g in gates.items())
+        + f"; launches {json.dumps(launches)}")
+    return launches
+
+
 def fold_harnesses():
     """Phase 4: the experiment harnesses of the slice, in-process on the
     card, each fold kernel's launches counted from 0."""
@@ -1289,12 +1511,15 @@ def main() -> int:
     k4 = check_k4(dev, rng)
     k23 = check_k2_k3(dev)
     folds = check_fold(dev)
+    folds.update(check_sweep_folds(dev))
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
         launches = cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     launches.update(fold_harnesses())
+    for name, count in sweep_harnesses().items():
+        launches[name] = launches.get(name, 0) + count
 
     launches["K5"] = k23["K5_launches"]
     kernels = []

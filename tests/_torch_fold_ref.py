@@ -2,7 +2,11 @@
 scripts/exp_fold.py and scripts/roofline_knn.py, each in the pallas_call its
 script's launcher builds (padding included), run in interpret mode — the
 launchers themselves take no ``interpret`` argument — and the float64
-metrics the port's outputs are held to."""
+metrics the port's outputs are held to. The kernel-restructure sweeps
+(scripts/sweep16*_kernels.py, sweep18_tpose_fold.py) run through their own
+launchers: :func:`load_sweep` hands the unedited script small tiles and a
+``pallas_call`` that interprets, :func:`recorded_call` runs one of its
+variants and keeps what its launcher was given and gave back."""
 
 import numpy as np
 
@@ -130,3 +134,45 @@ def assert_fold_close(got, want, metric64, atol=1e-5):
                   - metric64[rows, wi[rows, slots]])
     assert (diff <= atol).all(), diff.max()
     return len(rows)
+
+
+def load_sweep(name: str, **tiles):
+    """``scripts/<name>.py`` loaded unedited, its tile constants set to
+    ``tiles`` (e.g. ``TILE_M=16, TILE_N=512``) and its ``pl.pallas_call``
+    interpreting: the script's own launchers then run on the CPU."""
+    import types
+    from functools import partial
+    mod = load_script(name)
+    real = mod.pl
+    proxy = types.SimpleNamespace(**{k: getattr(real, k) for k in dir(real)
+                                     if not k.startswith("__")})
+    proxy.pallas_call = partial(real.pallas_call, interpret=True)
+    mod.pl = proxy
+    for key, value in tiles.items():
+        assert hasattr(mod, key), key
+        setattr(mod, key, value)
+    return mod
+
+
+def recorded_call(mod, launcher: str, fn, *args, **kwargs):
+    """Run the script's variant ``fn`` (its jit taken off, so that the
+    operands are arrays) with the module's ``launcher`` recorded: (the
+    variant's result, [(positional operands, keyword arguments, raw
+    outputs) of each launch]), all as numpy."""
+    real = getattr(mod, launcher)
+    calls = []
+
+    def recorder(*a, **kw):
+        out = real(*a, **kw)
+        calls.append(([np.asarray(v) if hasattr(v, "shape") else v
+                       for v in a],
+                      {k: np.asarray(v) if hasattr(v, "shape") else v
+                       for k, v in kw.items()},
+                      tuple(np.asarray(o) for o in out)))
+        return out
+    setattr(mod, launcher, recorder)
+    try:
+        out = getattr(fn, "__wrapped__", fn)(*args, **kwargs)
+    finally:
+        setattr(mod, launcher, real)
+    return tuple(np.asarray(o) for o in out), calls
