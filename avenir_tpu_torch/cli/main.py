@@ -13,9 +13,10 @@ the six verbs), with the same ``.properties`` keys, schemas and output
 files. ``--device {cuda,cpu}`` (default cuda) picks where the job runs;
 with no GPU and no ``--device cpu`` the job raises.
 
-Keys that select something this port does not carry yet, and the JAX
-CLI's other verbs, raise a ValueError naming the key or verb and the later
-work that ports it; nothing is silently ignored.
+Keys that select something this port does not carry yet (among them the
+keys of the JAX CLI's part-file KNN path, on the inputs that take it), and
+the JAX CLI's other verbs, raise a ValueError naming the key or verb and
+the ROADMAP item that ports it; nothing is silently ignored.
 """
 
 from __future__ import annotations
@@ -27,37 +28,62 @@ from typing import Callable, Dict, List
 import torch
 
 from avenir_tpu_torch.utils.config import JobConfig
-from avenir_tpu_torch.utils.dataset import Featurizer, read_csv_lines
+from avenir_tpu_torch.utils.dataset import (
+    Featurizer, part_file_paths, read_csv_lines)
 from avenir_tpu_torch.utils.schema import FeatureSchema
 
+
+def _item(title: str) -> str:
+    """A ROADMAP queue A item, named by its title (its number changes when
+    the queue is reordered)."""
+    return f"ROADMAP queue A, '{title}'"
+
+
 # keys that select work outside this port, per verb family: key -> the
-# later work that ports it (ROADMAP queue A)
-_PLAN = "the plan layer (ROADMAP queue A item 13)"
-_MULTI = "the multi-device layer (ROADMAP queue A item 14)"
-_STREAM_NB = "streaming/sharded Naive Bayes (ROADMAP queue A item 6)"
-_QUANT = "the quantized candidate pass (ROADMAP queue A item 8)"
-_IVF = "the IVF index (ROADMAP queue A item 8)"
+# later work that ports it
+_LAYERS = _item("Plan, ingest, obs and checkpoint layers")
+_PLAN = f"the plan layer ({_LAYERS})"
+_OBS = f"the observability layer ({_LAYERS})"
+_MULTI = f"the multi-device layer ({_item('Multi-device layer')})"
+_STREAM_NB = ("streaming/sharded Naive Bayes "
+              f"({_item('Streaming/sharded NB and per-shard MI')})")
+_QUANT = ("the quantized candidate pass "
+          f"({_item('`knn.quantized` (`ops/quantized.py`)')})")
+_IVF = f"the IVF index ({_item('IVF and live ANN')})"
 _LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "streaming.train": _STREAM_NB, "shard.parts": _STREAM_NB,
              "job.resume": _STREAM_NB}
 _LATER_KNN = {"plan.enable": _PLAN, "knn.quantized": _QUANT,
               "knn.ann": _IVF, "knn.sharded": _MULTI,
               "job.resume": _STREAM_NB}
-_SHARD_MI = "per-shard journaled MI (ROADMAP queue A item 6)"
+_SHARD_MI = ("per-shard journaled MI "
+             f"({_item('Streaming/sharded NB and per-shard MI')})")
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
 _LATER_PREFIXES = {"knn.ann.": _IVF, "knn.quantized.": _QUANT}
-# observability keys of the JAX CLI (ROADMAP queue A item 13): refused
-# when set, like their flags
+# observability keys of the JAX CLI: refused when set, like their flags
 _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
               "obs.flight.path", "alerts.enable")
+# The JAX CLI scores a directory of more than one part file on its
+# part-file path unless shard.prefetch=false (avenir_tpu/cli/main.py:953-964)
+# and reads these keys only there; this port merges the parts, so a key set
+# off its JAX default (:420-488, :732) is refused
+_PART_PATH = ("the part-file KNN path "
+              f"({_item('Native CSV loader and the part-file KNN path')})")
+_PART_KEYS = {"on.bad.row": "raise", "max.bad.fraction": 0.1,
+              "quarantine.dir": None, "shard.retries": 1,
+              "shard.timeout.s": 0.0, "shard.speculate": True,
+              "shard.speculative.factor": 4.0,
+              "shard.speculative.min.wait.s": 2.0,
+              "shard.prefetch.depth": 2, "shard.journal": True,
+              "shard.journal.keep": False, "shard.report": False}
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
-_SIMILARITY = "ROADMAP queue A item 7"
-_TREES = "ROADMAP queue A item 9"
-_EXPLORE = "ROADMAP queue A item 10"
-_SEQUENCES = "ROADMAP queue A item 11"
-_BANDITS = "ROADMAP queue A item 12"
+_SIMILARITY = _item("`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
+_TREES = _item("Trees, forests and boosting")
+_EXPLORE = _item("Explore, regress, discriminant and text")
+_SEQUENCES = _item("Sequences")
+_BANDITS = _item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
     "FeatureCondProbJoiner": _SIMILARITY,
@@ -100,6 +126,27 @@ def _check_keys(conf: JobConfig, later: Dict[str, str]) -> None:
             _refuse(f"{key}={conf.get(key)}", work)
 
 
+def _check_part_keys(conf: JobConfig, in_path: str) -> None:
+    """Refuse the keys of the JAX CLI's part-file KNN path where the JAX
+    CLI would take it and read them."""
+    if (len(part_file_paths(in_path)) < 2
+            or not conf.get_bool("shard.prefetch", True)):
+        return
+    for key, default in _PART_KEYS.items():
+        if key not in conf:
+            continue
+        if isinstance(default, bool):
+            value = conf.get_bool(key, default)
+        elif isinstance(default, int):
+            value = conf.get_int(key, default)
+        elif isinstance(default, float):
+            value = conf.get_float(key, default)
+        else:
+            value = conf.get(key)
+        if value != default:
+            _refuse(f"{key}={conf.get(key)}", _PART_PATH)
+
+
 def _load_table(conf: JobConfig, in_path: str, device: torch.device,
                 for_predict: bool = False):
     schema = FeatureSchema.from_file(
@@ -125,7 +172,7 @@ def _load_table(conf: JobConfig, in_path: str, device: torch.device,
 def _check_tabular(conf: JobConfig) -> None:
     if not conf.get_bool("tabular.input", True):
         _refuse("tabular.input=false",
-                "text Naive Bayes (ROADMAP queue A item 5)")
+                f"text Naive Bayes ({_item('Text Naive Bayes')})")
 
 
 def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
@@ -214,17 +261,18 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         for prefix, work in _LATER_PREFIXES.items():
             if key.startswith(prefix):
                 _refuse(key, work)
-    for key, work in (("feed.depth",
-                       "the threaded DeviceFeed (ROADMAP queue A item 1)"),
+    feed = _item("Threaded `DeviceFeed` (`feed.depth`)")
+    for key, work in (("feed.depth", f"the threaded DeviceFeed ({feed})"),
                       ("mesh.shape", _MULTI)):
         if key in conf:
             _refuse(key, work)
     if conf.get("neighbor.data.path"):
-        _refuse("neighbor.data.path",
-                "neighbor-record replay (ROADMAP queue A item 4)")
+        _refuse("neighbor.data.path", "neighbor-record replay "
+                f"({_item('Neighbor-record replay')})")
     if conf.get("prediction.mode", "classification") != "classification":
         _refuse(f"prediction.mode={conf.get('prediction.mode')}",
-                "KNN regression (ROADMAP queue A item 3)")
+                f"KNN regression ({_item('KNN regression')})")
+    _check_part_keys(conf, in_path)
     validation = conf.get_bool("validation.mode", False)
     fz, train_rows = _load_table(conf, conf.get_required("train.data.path"),
                                  device)
@@ -387,8 +435,7 @@ def main(argv: List[str] = None) -> int:
     if args.verb in _LATER_VERBS:
         _refuse(f"the verb {args.verb}", _LATER_VERBS[args.verb])
     if args.metrics_out is not None or args.obs_port is not None:
-        _refuse("--metrics-out/--obs-port",
-                "the observability layer (ROADMAP queue A item 13)")
+        _refuse("--metrics-out/--obs-port", _OBS)
     if args.resume:
         _refuse("--resume", _STREAM_NB)
 
@@ -398,7 +445,7 @@ def main(argv: List[str] = None) -> int:
         conf.set(key, value)
     for key in _LATER_OBS:
         if key in conf:
-            _refuse(key, "the observability layer (ROADMAP queue A item 13)")
+            _refuse(key, _OBS)
 
     from avenir_tpu_torch.utils import profiling
     from avenir_tpu_torch.utils.device import resolve_device

@@ -38,16 +38,35 @@
 //   shared load and 8 y values with two broadcast 16-byte loads, for 32
 //   FMAs. Each test row then compares the smallest of its 8 metrics with its
 //   k-th best, one compare per 8 candidates; only a row with a winner walks
-//   them, and the insertion is a call, not 32 inlined copies.
+//   them.
 // - Each thread keeps, per test row, an exact running top-k as a sorted list
 //   and the k-th best in a register; a candidate enters only if strictly
 //   below it. Within a thread train ids ascend, so a strict compare keeps
 //   the lowest id on ties. The lists live in local memory (cached in L1);
 //   the list capacity (8, 32 or 128) is a template argument.
+// - A candidate does not enter the list where it is found. Each row
+//   appends the candidates below its k-th best as of the last flush to a
+//   pending buffer of kPending (metric, id) pairs: one store and an
+//   increment. After each chunk of 8 columns the warp votes; once some row
+//   of some lane could overflow in the next chunk, every lane feeds every
+//   row's buffer, in append order, through the strict test against its
+//   live list, all 32 lanes at once. One more flush ends the sweep. Run
+//   where it is found, an insertion shifts a list in local memory inside a
+//   divergent branch that one lane takes while the other 31 wait: over a
+//   split of L rows a row inserts about k * (1 + ln(L / k)) times, ~41 at
+//   k = 5 and 7,284 rows, ~1,300 serialised events a warp. Buffered, a warp
+//   pays for the longest buffer of each flush instead. On the H100 this
+//   bought K2 little (PERF.md): those insertions were not what set its pace.
+//   The result is bit-identical to inserting each candidate where it is
+//   found: the metrics come from the same fmaf chains; the threshold of the
+//   last flush is never below the live one, so every candidate that the
+//   live test would take is in the buffer; at the flush the candidates meet
+//   the same strict test, in the same id order, against the same list; and
+//   a candidate equal to the k-th best has a higher id than every entry, so
+//   the lowest id still wins ties.
 // - Insertions are rare once a sweep is long, but over a short one (train
-//   splits under 16,384 rows, see kLongSweep) a row keeps inserting, and a
-//   warp of 128 test rows waits on some lane's insertion at most steps.
-//   There each thread takes one test row instead of four, keeping the row's
+//   splits under 16,384 rows, see kLongSweep) a row keeps inserting. There
+//   each thread takes one test row instead of four, keeping the row's
 //   values in registers for the whole sweep (widths up to 32).
 // - When the test tiles alone cannot fill the 132 SMs, the train axis is
 //   split across blocks. Each split writes its sorted (metric, id) list and a
@@ -62,7 +81,7 @@
 //   operands are d-major already, so its staging is a straight copy of D
 //   row segments: 16-byte loads where the row length and the segment start
 //   allow them, scalar loads otherwise. Everything after the staging (the
-//   sweep, the register tiling, the insertion, the split merge) is K2's
+//   sweep, the register tiling, the selection, the split merge) is K2's
 //   code on the same shared-memory tiles, so K5's output is bit-identical to
 //   K2's. The TPU kernel's scalar-tag fold is a register trick for its
 //   approximate lane-bucket fold; this top-k is exact and has no
@@ -101,6 +120,10 @@ constexpr int kWhole = 0;
 constexpr int kNoProduct = 1;  // the selection alone
 constexpr int kNoSelect = 2;   // the product sweep alone
 constexpr int kPartMaxK = 8;   // the ablations' list capacity
+// candidates a test row holds between two flushes into its list; a chunk
+// appends at most kRn, so a warp flushes once some row holds more than
+// kPending - kRn
+constexpr int kPending = 16;
 
 struct Config {
   int rm;       // test rows per thread
@@ -205,6 +228,45 @@ __device__ __noinline__ void insert_sorted(float* bd, int* bi, int k,
   bi[p] = id;
 }
 
+// Feed a row's n pending candidates, in append order (ascending train id),
+// through the strict test against its live list, and return the list's new
+// k-th best. thr is the k-th best of the list as it stands on entry.
+__device__ __forceinline__ float flush_pending(float* bd, int* bi, int k,
+                                               const float* pend_d,
+                                               const int* pend_i, int n,
+                                               float thr) {
+  for (int p = 0; p < n; ++p) {
+    if (pend_d[p] < thr) {
+      insert_sorted(bd, bi, k, pend_d[p], pend_i[p]);
+      thr = bd[k - 1];
+    }
+  }
+  return thr;
+}
+
+__device__ __noinline__ float flush_pending_call(float* bd, int* bi, int k,
+                                                 const float* pend_d,
+                                                 const int* pend_i, int n,
+                                                 float thr) {
+  return flush_pending(bd, bi, k, pend_d, pend_i, n, thr);
+}
+
+// A flush of one test row. With one row a thread it is a call: inlined into
+// the chunk loop, it made ptxas spill registers in K2's main variant, and
+// K2 ran slower than with the call. With four rows a thread it is inlined:
+// there the four calls of a flush cost more than they saved (PERF.md).
+template <int kRm>
+__device__ __forceinline__ float flush_row(float* bd, int* bi, int k,
+                                           const float* pend_d,
+                                           const int* pend_i, int n,
+                                           float thr) {
+  if constexpr (kRm == 1) {
+    return flush_pending_call(bd, bi, k, pend_d, pend_i, n, thr);
+  } else {
+    return flush_pending(bd, bi, k, pend_d, pend_i, n, thr);
+  }
+}
+
 template <bool kFused, bool kTpose, int kRm, int kCap, int kDx, int kPart>
 __global__ void __launch_bounds__(128)
 topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -267,12 +329,18 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
     }
   }
 
+  // per test row: the sorted list, its k-th best as of the last flush, and
+  // the candidates that passed it since, in ascending train id
   float bd[kRm][kCap];
   int bi[kRm][kCap];
   float thr[kRm];
+  float pend_d[kRm][kPending];
+  int pend_i[kRm][kPending];
+  int pend_n[kRm];
 #pragma unroll
   for (int r = 0; r < kRm; ++r) {
     thr[r] = CUDART_INF_F;
+    pend_n[r] = 0;
     for (int p = 0; p < k; ++p) {
       bd[r][p] = CUDART_INF_F;
       bi[r][p] = -1;
@@ -377,12 +445,37 @@ topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
 #pragma unroll
           for (int q = 0; q < kRn; ++q) {
             if (v[q] < thr[r] && jj + q < tn) {
-              insert_sorted(bd[r], bi[r], k, v[q], t0 + jj + q);
-              thr[r] = bd[r][k - 1];
+              pend_d[r][pend_n[r]] = v[q];
+              pend_i[r][pend_n[r]] = t0 + jj + q;
+              ++pend_n[r];
             }
           }
         }
       }
+      if constexpr (kPart != kNoSelect) {
+        // tn is the block's, so every lane reaches the vote; when one row
+        // of one lane could overflow in the next chunk, all flush at once
+        bool near_full = false;
+#pragma unroll
+        for (int r = 0; r < kRm; ++r) {
+          near_full |= pend_n[r] > kPending - kRn;
+        }
+        if (__any_sync(0xffffffffu, near_full)) {
+#pragma unroll
+          for (int r = 0; r < kRm; ++r) {
+            thr[r] = flush_row<kRm>(bd[r], bi[r], k, pend_d[r], pend_i[r],
+                                    pend_n[r], thr[r]);
+            pend_n[r] = 0;
+          }
+        }
+      }
+    }
+  }
+  if constexpr (kPart != kNoSelect) {
+#pragma unroll
+    for (int r = 0; r < kRm; ++r) {
+      flush_row<kRm>(bd[r], bi[r], k, pend_d[r], pend_i[r], pend_n[r],
+                     thr[r]);
     }
   }
 

@@ -29,9 +29,13 @@ Phases (one line each; any failure exits non-zero):
    (``compare_topk``): the ids are distinct train rows carrying the
    metrics reported, the metrics equal the plain version's within 1e-5
    relative, every id that differs sits in a near-tie of the plain list
-   (the (k+1)-th included), and the scaled ints are within 1. K1 and K4
-   are timed twice: per call with CUDA events around it (the wrapper's
-   host work included), and as device time by the chained timing of
+   (the (k+1)-th included), and the scaled ints are within 1. The exact-tie
+   hold: K2, K5 and K3 on integer features in [0, 4) (D = 9, metrics exact
+   in any sum order, train rows repeated) at 8,192 × 65,536 and 16,384 ×
+   1,048,576 must equal the plain version's metrics and ids position by
+   position, with no near-tie allowance. K1, K2, K3, K4 and K5 are timed
+   twice: per call with CUDA events around it (the wrapper's host work
+   included), and as device time by the chained timing of
    ``avenir_tpu_torch/scripts/_timing.py``, which the kernels line
    reports. K6-K9, the fold kernels of the KNN experiments
    (``csrc/fold.cu``), against their plain versions at the bench shape
@@ -146,17 +150,22 @@ def nvidia_smi_line() -> str:
 
 
 def kernel_registers(build_log: str) -> str:
-    """Registers per thread of each kernel instantiation, from the
-    ``-Xptxas -v`` lines of nvcc's build log, names demangled by
-    ``c++filt`` where the toolchain has it."""
-    entries, name = [], None
+    """Registers per thread of each kernel instantiation, and the bytes
+    it spills (stores/loads) where it spills, from the ``-Xptxas -v``
+    lines of nvcc's build log, names demangled by ``c++filt`` where the
+    toolchain has it."""
+    entries, name, spill = [], None, ""
     for line in build_log.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
-            name = found.group(1)
+            name, spill = found.group(1), ""
+        found = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if found and found.groups() != ("0", "0"):
+            spill = f" spill {found.group(1)}/{found.group(2)} B"
         found = re.search(r"Used (\d+) registers", line)
         if found and name:
-            entries.append((name, found.group(1)))
+            entries.append((name, found.group(1) + spill))
             name = None
     names = [n for n, _ in entries]
     if shutil.which("c++filt"):
@@ -474,6 +483,7 @@ def check_k2_parts(dev, x, y, y2, k):
 def check_k2_k3(dev):
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.ops import cuda_fused as F
+    from avenir_tpu_torch.scripts._timing import chain_ms
     gen = torch.Generator(device=dev).manual_seed(SEED)
     d, k = 9, 5
     results = {}
@@ -490,7 +500,8 @@ def check_k2_k3(dev):
     c2 = compare_topk("K2 bench", got2,
                       plain_with_next(D.topk_raw_plain, x, y, y2, k),
                       x, y, y2, d)
-    ms = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
+    per_call = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
+    ms = chain_ms(lambda: D.topk_raw(x, y, y2, k), dev)
     plain_ms = cuda_ms(lambda: D.topk_raw_plain(x, y, y2, k), 3)
 
     def library():
@@ -500,8 +511,9 @@ def check_k2_k3(dev):
     flops = 2.0 * m * n * d
     bound, by = bound_ms((m * d + n * d + n) * 4 + m * k * 8, flops)
     log(f"phase 2 K2 bench shape m={m} n={n} d={d} k={k}: {summary(c2)}; "
-        f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, cdist+topk "
-        f"{library_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+        f"kernel {ms:.4f} ms device (chained), {per_call:.4f} ms per call "
+        f"host included, plain {plain_ms:.3f} ms, cdist+topk "
+        f"{library_ms:.3f} ms, bound {bound:.4f} ms ({by})")
     results["K2"] = {"name": "topk_staged (K2)", "route": "cuda",
                      "source": "avenir_tpu_torch/csrc/topk.cu",
                      "replaces": "avenir_tpu/ops/pallas_distance.py:165",
@@ -515,15 +527,16 @@ def check_k2_k3(dev):
     xt, yt = x.T.contiguous(), y.T.contiguous()
     c5 = check_k5("bench", got2, x, y, y2, k,
                   plain_with_next(D.topk_raw_tpose_plain, xt, yt, y2, k))
-    ms5 = cuda_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), 20)
+    per_call5 = cuda_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), 20)
+    ms5 = chain_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), dev)
     # K2 once more, so that K5 sits between two K2 timings
-    ms2_after = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 20)
+    ms2_after = chain_ms(lambda: D.topk_raw(x, y, y2, k), dev)
     plain5 = cuda_ms(lambda: D.topk_raw_tpose_plain(xt, yt, y2, k), 3)
     log(f"phase 2 K5 bench shape: bit-identical to K2; vs plain "
-        f"{summary(c5)}; kernel {ms5:.3f} ms (K2 before and after "
-        f"{ms:.3f}, {ms2_after:.3f} ms), plain "
-        f"{plain5:.3f} ms, cdist+topk {library_ms:.3f} ms, bound "
-        f"{bound:.3f} ms ({by})")
+        f"{summary(c5)}; kernel {ms5:.4f} ms device (chained; K2 before and "
+        f"after {ms:.4f}, {ms2_after:.4f} ms), {per_call5:.4f} ms per call "
+        f"host included, plain {plain5:.3f} ms, cdist+topk "
+        f"{library_ms:.3f} ms, bound {bound:.4f} ms ({by})")
     results["K5"] = {"name": "topk_tpose (K5)", "route": "cuda",
                      "source": "avenir_tpu_torch/csrc/topk.cu",
                      "replaces": "avenir_tpu/ops/pallas_distance.py:256",
@@ -558,14 +571,17 @@ def check_k2_k3(dev):
     c3 = compare_topk("K3 bench", (fd, fi),
                       plain_with_next(F.fused_topk_raw_plain, raw, y, y2, k,
                                       mins, span), staged, y, y2, d)
-    ms3 = cuda_ms(lambda: F.fused_topk_raw(raw, y, y2, mins, span, k), 20)
+    per_call3 = cuda_ms(lambda: F.fused_topk_raw(raw, y, y2, mins, span, k),
+                        20)
+    ms3 = chain_ms(lambda: F.fused_topk_raw(raw, y, y2, mins, span, k), dev)
     plain3 = cuda_ms(lambda: F.fused_topk_raw_plain(raw, y, y2, mins, span,
                                                     k), 3)
     bound3, by3 = bound_ms((m * d + n * d + n + 2 * d) * 4 + m * k * 8,
                            flops + 2.0 * m * d)
     log(f"phase 2 K3 bench shape: bit-identical to K2 on normalized rows; "
-        f"vs plain {summary(c3)}; kernel {ms3:.3f} ms, plain {plain3:.3f} "
-        f"ms, bound {bound3:.3f} ms ({by3})")
+        f"vs plain {summary(c3)}; kernel {ms3:.4f} ms device (chained), "
+        f"{per_call3:.4f} ms per call host included, plain {plain3:.3f} ms, "
+        f"bound {bound3:.4f} ms ({by3})")
     results["K3"] = {"name": "topk_fused (K3)", "route": "cuda",
                      "source": "avenir_tpu_torch/csrc/topk.cu",
                      "replaces": "avenir_tpu/ops/pallas_fused.py:52",
@@ -582,23 +598,23 @@ def check_k2_k3(dev):
     torch.cuda.synchronize()
     plain_big = (time.perf_counter() - t0) * 1e3
     c = compare_topk("K2 big", got, want, x, y, y2, d)
-    ms_big = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 3)
+    ms_big = chain_ms(lambda: D.topk_raw(x, y, y2, k), dev)
     bound_big, _ = bound_ms((m * d + n * d + n) * 4 + m * k * 8,
                             2.0 * m * n * d)
     log(f"phase 2 K2 scale m={m} n={n} d={d} k={k}: {summary(c)}; kernel "
-        f"{ms_big:.2f} ms, plain (one call, host clock) {plain_big:.0f} ms, "
-        f"bound {bound_big:.2f} ms (operations)")
+        f"{ms_big:.2f} ms device (chained), plain (one call, host clock) "
+        f"{plain_big:.0f} ms, bound {bound_big:.2f} ms (operations)")
     xt, yt = x.T.contiguous(), y.T.contiguous()
     t0 = time.perf_counter()
     want5 = plain_with_next(D.topk_raw_tpose_plain, xt, yt, y2, k)
     torch.cuda.synchronize()
     plain5_big = (time.perf_counter() - t0) * 1e3
     c5 = check_k5("scale", got, x, y, y2, k, want5)
-    ms5_big = cuda_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), 3)
-    ms2_after = cuda_ms(lambda: D.topk_raw(x, y, y2, k), 3)
+    ms5_big = chain_ms(lambda: D.topk_raw_tpose(xt, yt, y2, k), dev)
+    ms2_after = chain_ms(lambda: D.topk_raw(x, y, y2, k), dev)
     log(f"phase 2 K5 scale: bit-identical to K2; vs plain {summary(c5)}; "
-        f"kernel {ms5_big:.2f} ms (K2 before and after {ms_big:.2f}, "
-        f"{ms2_after:.2f} ms), plain (one call, host clock) "
+        f"kernel {ms5_big:.2f} ms device (chained; K2 before and after "
+        f"{ms_big:.2f}, {ms2_after:.2f} ms), plain (one call, host clock) "
         f"{plain5_big:.0f} ms, bound {bound_big:.2f} ms (operations)")
     del x, y, y2, got, want, xt, yt, want5
 
@@ -630,6 +646,48 @@ def check_k2_k3(dev):
         log(f"phase 2 K2/K3/K5 m={m} n={n} width={width} k={kk}: "
             f"{summary(c)}; K3 and K5 bit-identical to K2")
     return results
+
+
+def check_exact_ties(dev):
+    """K2, K5 and K3 (mins 0, span 1) on integer features in [0, 4), D = 9:
+    every metric is an integer that f32 holds exactly in any sum order, and
+    train rows repeat, so a row's k-th and (k+1)-th metrics tie often. The
+    kernels' metrics and ids must equal the plain version's position by
+    position, with no near-tie allowance: the lowest id wins every tie. At
+    8,192 × 65,536 K2 takes one test row a thread and 9 train splits
+    through the merge, at 16,384 × 1,048,576 four rows a thread and 17."""
+    from avenir_tpu_torch.ops import cuda_distance as D
+    from avenir_tpu_torch.ops import cuda_fused as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    d, k = 9, 5
+    mins = torch.zeros(d, device=dev)
+    span = torch.ones(d, device=dev)
+    for m, n in ((8192, 65536), (16384, 1_048_576)):
+        x = torch.randint(0, 4, (m, d), generator=gen, device=dev).float()
+        y = torch.randint(0, 4, (n, d), generator=gen, device=dev).float()
+        y2 = D.row_sq_norm(y)
+        plain_d, plain_i = D.topk_raw_plain(x, y, y2, k + 1)
+        want = (plain_d[:, :k], plain_i[:, :k])
+        got = {"K2": D.topk_raw(x, y, y2, k),
+               "K5": D.topk_raw_tpose(x.T.contiguous(), y.T.contiguous(),
+                                      y2, k),
+               "K3": F.fused_topk_raw(x, y, y2, mins, span, k)}
+        for name, out in got.items():
+            if not (torch.equal(out[0], want[0])
+                    and torch.equal(out[1], want[1])):
+                rows = int(((out[0] != want[0]) | (out[1] != want[1]))
+                           .any(dim=1).sum())
+                raise AssertionError(f"exact ties {m}x{n}: {name} differs "
+                                     f"from plain in {rows} rows")
+        boundary = float((plain_d[:, k] == plain_d[:, k - 1])
+                         .float().mean())
+        inside = float((want[0][:, 1:] == want[0][:, :-1]).any(dim=1)
+                       .float().mean())
+        log(f"phase 2 exact ties m={m} n={n} d={d} k={k} (integer features "
+            f"in [0, 4)): K2, K5, K3 metrics and ids equal to plain, position "
+            f"by position; rows with a tie inside the top-{k} {inside:.1%}, "
+            f"at the k-th/(k+1)-th boundary {boundary:.1%}")
+        del x, y, y2, plain_d, plain_i, want, got
 
 
 # the fold kernels K6-K9: (label, m, n, k, K6 (n_acc, tile_n, bf16) list,
@@ -1503,13 +1561,14 @@ def main() -> int:
     _build.load_library()
     log(f"phase 1 build: {time.perf_counter() - t0:.1f} s ({lib_path.name} "
         f"from {len(_build.sources())} sources, sm_90a)")
-    log("phase 1 registers per thread (ptxas): " + kernel_registers(
+    log("phase 1 registers per thread, spills (ptxas): " + kernel_registers(
         (lib_path.parent / "build.log").read_text()))
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(dev, rng)
     k4 = check_k4(dev, rng)
     k23 = check_k2_k3(dev)
+    check_exact_ties(dev)
     folds = check_fold(dev)
     folds.update(check_sweep_folds(dev))
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))

@@ -4,6 +4,7 @@ rules the port keeps: no JAX, no silent CPU, no hidden fallback."""
 import ast
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -149,29 +150,128 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
                "--conf", props, "-D", f"{key}={value}", "--device", "cpu"])
 
 
-@pytest.mark.parametrize("args,match", [
-    (["SameTypeSimilarity"], "SameTypeSimilarity.*item 7"),
-    (["FeatureCondProbJoiner"], "FeatureCondProbJoiner.*item 7"),
-    (["TreeBuilder"], "TreeBuilder.*item 9"),
-    (["ClassPartitionGenerator"], "ClassPartitionGenerator.*item 9"),
-    (["GradientBoostPredictor"], "GradientBoostPredictor.*item 9"),
-    (["LogisticRegressionJob"], "LogisticRegressionJob.*item 10"),
-    (["UnderSamplingBalancer"], "UnderSamplingBalancer.*item 10"),
-    (["WordCounter"], "WordCounter.*item 10"),
-    (["MarkovStateTransitionModel"], "MarkovStateTransitionModel.*item 11"),
-    (["ViterbiStatePredictor"], "ViterbiStatePredictor.*item 11"),
-    (["GreedyRandomBandit"], "GreedyRandomBandit.*item 12"),
-    (["ReinforcementLearnerTopology"],
-     "ReinforcementLearnerTopology.*item 12"),
-    (["Lifecycle"], "Lifecycle.*item 12"),
-    (["NearestNeighbor", "--metrics-out", "m.jsonl"], "--metrics-out"),
-    (["NearestNeighbor", "--obs-port", "0"], "--obs-port"),
-    (["NearestNeighbor", "--resume"], "--resume")])
-def test_cli_refuses_later_verbs_and_flags(tmp_path, args, match):
+_SIMILARITY = "'`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs'"
+_TREES = "'Trees, forests and boosting'"
+_EXPLORE = "'Explore, regress, discriminant and text'"
+_SEQUENCES = "'Sequences'"
+_BANDITS = "'Bandits and streaming serving'"
+_LAYERS = "'Plan, ingest, obs and checkpoint layers'"
+
+
+@pytest.mark.parametrize("args,title", [
+    (["SameTypeSimilarity"], _SIMILARITY),
+    (["FeatureCondProbJoiner"], _SIMILARITY),
+    (["TreeBuilder"], _TREES),
+    (["ClassPartitionGenerator"], _TREES),
+    (["GradientBoostPredictor"], _TREES),
+    (["LogisticRegressionJob"], _EXPLORE),
+    (["UnderSamplingBalancer"], _EXPLORE),
+    (["WordCounter"], _EXPLORE),
+    (["MarkovStateTransitionModel"], _SEQUENCES),
+    (["ViterbiStatePredictor"], _SEQUENCES),
+    (["GreedyRandomBandit"], _BANDITS),
+    (["ReinforcementLearnerTopology"], _BANDITS),
+    (["Lifecycle"], _BANDITS),
+    (["NearestNeighbor", "--metrics-out", "m.jsonl"], _LAYERS),
+    (["NearestNeighbor", "--obs-port", "0"], _LAYERS),
+    (["NearestNeighbor", "--resume"],
+     "'Streaming/sharded NB and per-shard MI'")])
+def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
+    """The refusal names the verb or flag and the ROADMAP item by title."""
     props = _props(tmp_path / "p.properties", x="1")
+    name = args[1] if len(args) > 1 else args[0]
+    match = f"{re.escape(name)}.*ROADMAP queue A, {re.escape(title)}"
     with pytest.raises(ValueError, match=match):
         tmain([args[0], "in.csv", "out.txt", "--conf", props, *args[1:],
                "--device", "cpu"])
+
+
+def test_refusals_name_roadmap_items_that_exist():
+    """Every ROADMAP item a refusal names is a title of queue A."""
+    from avenir_tpu_torch.cli import main as cli
+    queue = (REPO / "ROADMAP.md").read_text().split("### A.")[1] \
+        .split("### B.")[0]
+    titles = set(re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", queue, re.M))
+    named = set(re.findall(r"_item\([\"'](.+?)[\"']\)",
+                           Path(cli.__file__).read_text()))
+    assert len(named) >= 14
+    assert named <= titles, named - titles
+
+
+# a two-part elearn directory: the JAX CLI scores it on its part-file path,
+# which reads these keys; the port refuses them there (ROADMAP fault C1)
+_PART_CASES = [("shard.report", "true"), ("on.bad.row", "skip"),
+               ("on.bad.row", "quarantine"), ("quarantine.dir", "q"),
+               ("max.bad.fraction", "0.5"), ("shard.retries", "3"),
+               ("shard.timeout.s", "30"), ("shard.speculate", "false"),
+               ("shard.speculative.factor", "2"),
+               ("shard.speculative.min.wait.s", "5"),
+               ("shard.prefetch.depth", "4"), ("shard.journal", "false"),
+               ("shard.journal.keep", "true")]
+
+
+def _two_parts(tmp_path, n_train=800, n_test=200):
+    train, test = write_fixture(tmp_path, "elearn", n_train, n_test,
+                                seed=55)
+    parts = tmp_path / "test_parts"
+    parts.mkdir()
+    half = len(test) // 2
+    for i, rows in enumerate((test[:half], test[half:])):
+        (parts / f"part-0000{i}").write_text(
+            "".join(",".join(r) + "\n" for r in rows))
+    (parts / "_SUCCESS").write_text("")
+    props = _props(tmp_path / "knn.properties", **{
+        "field.delim.regex": ",",
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "top.match.count": "5", "kernel.function": "none",
+        "distance.scale": "1000", "validation.mode": "true",
+        "positive.class.value": "fail"})
+    return parts, props
+
+
+@pytest.mark.parametrize("key,value", _PART_CASES)
+def test_knn_refuses_part_file_keys(tmp_path, key, value):
+    parts, props = _two_parts(tmp_path, 200, 40)
+    match = (f"{re.escape(key)}={re.escape(value)} .*ROADMAP queue A, "
+             "'Native CSV loader and the part-file KNN path'")
+    with pytest.raises(ValueError, match=match):
+        tmain(["NearestNeighbor", str(parts), str(tmp_path / "o.txt"),
+               "--conf", props, "-D", f"{key}={value}", "--device", "cpu"])
+    assert not (tmp_path / "o.txt").exists()
+
+
+@pytest.mark.parametrize("extra", [
+    ["-D", "shard.retries=1", "-D", "on.bad.row=raise"],
+    ["-D", "shard.prefetch=false", "-D", "shard.report=true",
+     "-D", "on.bad.row=skip"]])
+def test_knn_part_file_keys_at_defaults_or_merged(tmp_path, capsys, extra):
+    """Keys at their JAX defaults, or shard.prefetch=false (the JAX CLI's
+    merged path, which reads none of them), are not refused, and the
+    outputs stay byte-identical to the JAX CLI's."""
+    parts, props = _two_parts(tmp_path)
+    j_out, t_out = _run_both(
+        capsys,
+        ["NearestNeighbor", str(parts), str(tmp_path / "j.txt"), "--conf",
+         props, "-D", "knn.mode=exact"] + extra,
+        ["NearestNeighbor", str(parts), str(tmp_path / "t.txt"), "--conf",
+         props] + extra)
+    assert j_out == t_out
+    assert ((tmp_path / "j.txt").read_bytes()
+            == (tmp_path / "t.txt").read_bytes())
+    assert len((tmp_path / "t.txt").read_text().splitlines()) == 200
+
+
+def test_knn_single_file_ignores_part_file_keys(tmp_path, capsys):
+    """A single file takes the merged path in both CLIs, keys and all."""
+    write_fixture(tmp_path, "elearn", 200, 40, seed=55)
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv"})
+    tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
+           str(tmp_path / "o.txt"), "--conf", props, "-D",
+           "shard.report=true", "--device", "cpu"])
+    assert len((tmp_path / "o.txt").read_text().splitlines()) == 40
 
 
 def test_cli_knows_every_verb_of_the_jax_cli():
