@@ -4,9 +4,10 @@ Counterpart of ``avenir_tpu/explore/correlation.py``. The reference builds
 per-mapper in-memory contingency matrices for configured (src, dst)
 attribute pairs and reduces them (CramerCorrelation.java:161-235;
 CategoricalCorrelation.java abstract reducer :155-209;
-HeterogeneityReductionCorrelation.java:67-86). Here every pair's
-contingency matrix is one K4 launch (``ops/histogram.pair_counts``), and
-the indices are numpy formulas over the count matrix, copied from the JAX
+HeterogeneityReductionCorrelation.java:67-86). Here the contingency
+matrices of all the pairs come from one K4 launch
+(``ops/histogram.pair_counts_multi``) and one copy to the host, and the
+indices are numpy formulas over each count matrix, copied from the JAX
 package so that the same counts give the same bytes
 (ContingencyMatrix.java):
 
@@ -25,7 +26,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from avenir_tpu_torch.ops import histogram
+from avenir_tpu_torch.ops import cuda_histogram, histogram
 from avenir_tpu_torch.utils.dataset import EncodedTable
 
 
@@ -85,8 +86,9 @@ def correlate_pairs(table: EncodedTable,
                     ) -> Dict[Tuple[int, int], float]:
     """Correlation stat for each (srcOrdinal, dstOrdinal) attribute pair —
     the whole CramerCorrelation / HeterogeneityReductionCorrelation job.
-    The counts are taken on the table's device, the statistic in numpy
-    over the f32 count matrix.
+    The counts of every pair are taken on the table's device in one call,
+    over the columns the pairs name, the statistic in numpy over each f32
+    count matrix.
 
     Either side of a pair may name the class attribute (pass its ordinal as
     ``class_ordinal``): to the reference the class column is just another
@@ -107,9 +109,19 @@ def correlate_pairs(table: EncodedTable,
         raise KeyError(f"ordinal {ordinal} is neither a feature field nor "
                        "the class attribute")
 
-    out = {}
-    for src, dst in pairs:
-        (sc, sb), (dc, db) = column(src), column(dst)
-        out[(src, dst)] = float(stat(
-            histogram.pair_counts(sc, dc, sb, db).cpu().numpy()))
-    return out
+    if not pairs:
+        return {}
+    slot: Dict[int, int] = {}
+    columns, cards = [], []
+    for ordinal in (o for pair in pairs for o in pair):
+        if ordinal not in slot:
+            ids, card = column(ordinal)
+            slot[ordinal] = len(columns)
+            columns.append(ids.to(torch.int32))
+            cards.append(card)
+    slot_pairs = [(slot[src], slot[dst]) for src, dst in pairs]
+    flat = histogram.pair_counts_multi(torch.stack(columns), slot_pairs,
+                                       cards).cpu()
+    counts = cuda_histogram.split_pairs(flat, slot_pairs, cards)
+    return {(src, dst): float(stat(c.numpy()))
+            for (src, dst), c in zip(pairs, counts)}

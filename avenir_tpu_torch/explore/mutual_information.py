@@ -4,8 +4,9 @@ Counterpart of ``avenir_tpu/explore/mutual_information.py``. The
 reference's MutualInformation MR (MutualInformation.java) emits the
 distribution families per row into one shuffle and computes MI variants in
 the reducer cleanup (:598-783). Here every family comes from K4's
-contingency counts (``ops/histogram.pair_counts``), as the JAX package
-computes them on its accelerator (``_distributions_pallas``), and the
+contingency counts (``ops/histogram.pair_counts_multi``, every feature
+pair in one launch), as the JAX package computes them on its accelerator
+(``_distributions_pallas``), and the
 greedy feature-selection loops (MutualInformationScore.java: MIM :98-101,
 MIFS :116-153, JMI :177-179, DISR :185-187, MRMR :265-300) run host-side
 over the resulting small matrices, like the reference's reducer.
@@ -47,13 +48,16 @@ def compute_distributions(table: EncodedTable, mesh=None,
                           mask=None) -> MiDistributions:
     """One pass over the table on its device -> every family.
 
-    ``feature_pair_class[f, g]`` is ``pair_counts(bins_f, bins_g·C +
-    label)`` reshaped to [B, B, C]: F² launches of K4. Every other family
-    is an exact-integer marginal of it: ``feature_pair`` drops the class
-    axis; ``feature_class`` is the diagonal (bin_f == bin_g when f == g)
-    summed over the redundant second bin axis; ``feature`` drops the class
-    axis from that. The counts are exact integers, so each family equals
-    the JAX package's einsum path (``_distribution_kernel``) byte for byte.
+    ``feature_pair_class[f, g]`` is the pair count of ``bins_f`` and
+    ``bins_g·C + label`` reshaped to [B, B, C]: all F² pairs in one launch
+    of K4 over the 2F columns. Every other family is an exact-integer
+    marginal of it: ``feature_pair`` drops the class axis;
+    ``feature_class`` is the diagonal (bin_f == bin_g when f == g) summed
+    over the redundant second bin axis; ``feature`` drops the class axis
+    from that. The counts are exact integers, so each family equals the JAX
+    package's einsum path (``_distribution_kernel``) byte for byte. The
+    five families come to the host in one copy (into pinned memory from a
+    card).
 
     A row whose label lies outside [0, C) drops out of the combined id
     (-1), as it drops out of the einsum path's class one-hot; the JAX
@@ -77,19 +81,25 @@ def compute_distributions(table: EncodedTable, mesh=None,
     combined_t = torch.where(valid.reshape(1, -1),
                              bins_t * n_classes + labels.reshape(1, -1),
                              torch.full_like(bins_t, -1))
-    fpc = torch.stack([
-        torch.stack([histogram.pair_counts(bins_t[f], combined_t[g], n_bins,
-                                           n_bins * n_classes)
-                     .reshape(n_bins, n_bins, n_classes)
-                     for g in range(n_f)])
-        for f in range(n_f)])                              # [F, F, B, B, C]
+    pairs = [(f, n_f + g) for f in range(n_f) for g in range(n_f)]
+    cards = [n_bins] * n_f + [n_bins * n_classes] * n_f
+    fpc = histogram.pair_counts_multi(
+        torch.cat([bins_t, combined_t]), pairs, cards) \
+        .reshape(n_f, n_f, n_bins, n_bins, n_classes)      # [F, F, B, B, C]
     fp = fpc.sum(dim=-1)                                   # [F, F, B, B]
     fc = torch.stack([fpc[f, f].sum(dim=1) for f in range(n_f)])  # [F, B, C]
     feature = fc.sum(dim=-1)                               # [F, B]
+    families = (cls, feature, fc, fp, fpc)
+    flat = torch.cat([t.reshape(-1) for t in families])
+    host = torch.empty(flat.shape, dtype=flat.dtype,
+                       pin_memory=flat.device.type == "cuda")
+    host.copy_(flat)
+    arrays, start = [], 0
+    for t in families:
+        arrays.append(host[start:start + t.numel()].numpy().reshape(t.shape))
+        start += t.numel()
     return MiDistributions(
-        class_counts=cls.cpu().numpy(), feature=feature.cpu().numpy(),
-        feature_class=fc.cpu().numpy(), feature_pair=fp.cpu().numpy(),
-        feature_pair_class=fpc.cpu().numpy(),
+        *arrays,
         feature_ordinals=tuple(f.ordinal for f in table.feature_fields),
         class_values=tuple(table.class_values))
 

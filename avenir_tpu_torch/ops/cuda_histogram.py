@@ -10,7 +10,11 @@ Replaces ``avenir_tpu/ops/pallas_histogram.py``'s ``_cfb_kernel`` and
   outside ``[0, C)`` drop out; N = 0 or F = 0 give zeros.
 - K4: ``[N]`` × ``[N]`` ids (optional ``[N]`` weights, folded into the
   ``a`` side) → ``[n_a, n_b]`` f32 contingency counts; ids outside their
-  range drop out; N = 0 gives zeros.
+  range drop out; N = 0 gives zeros. ``pair_counts_multi`` counts many
+  pairs of the columns of one ``[K, N]`` id matrix in one launch, into one
+  flat buffer (pair p's ``[n_a, n_b]`` block at its offset); each block
+  equals ``pair_counts`` of its two columns. ``pair_counts`` is the same
+  launch with one pair.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. Nothing falls back.
@@ -18,8 +22,11 @@ or raises. Nothing falls back.
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from avenir_tpu_torch.ops import _build
@@ -129,7 +136,8 @@ def pair_counts_plain(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
 
 def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
                 weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``[N]`` int32 × ``[N]`` int32 ids → ``[n_a, n_b]`` f32 counts."""
+    """``[N]`` int32 × ``[N]`` int32 ids → ``[n_a, n_b]`` f32 counts: the
+    launch of ``pair_counts_multi`` with the one pair (a, b)."""
     if a.dim() != 1 or b.shape != a.shape:
         raise ValueError(f"a and b must be [N], got {tuple(a.shape)} and "
                          f"{tuple(b.shape)}")
@@ -146,18 +154,262 @@ def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
                          f"cells, got {n_a}, {n_b}")
     if n == 0:
         return torch.zeros((n_a, n_b), dtype=torch.float32, device=a.device)
-    lib = _build.load_library()
-    out = torch.empty((n_a, n_b),
-                      dtype=torch.int32 if weights is None else torch.float32,
-                      device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    err = lib.avt_pair_counts(
-        a.data_ptr(), b.data_ptr(),
-        None if weights is None else weights.data_ptr(), n, n_a, n_b,
-        out.data_ptr(), a.device.index, stream)
-    _build.check(err, "pair_counts kernel launch")
+    # the kernel reads column k at ids + k * ld: a's storage, then b's
+    ld = (b.data_ptr() - a.data_ptr()) // 4
+    out = _launch(a, ld, n, ((0, 1),), (n_a, n_b), weights)
     pair_counts.launches += 1
-    return out.to(torch.float32)
+    return out.reshape(n_a, n_b)
 
 
 pair_counts.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K4 over many pairs: one launch for every pair of a job
+# --------------------------------------------------------------------------
+
+#: the kernel's shared-memory layout (``csrc/hist.cu``): the most a block
+#: may use, its warps, and a group's staged tile: about PAIR_TILE_ITEMS
+#: (row, pair) items, in rows a multiple of PAIR_TILE_MIN_ROWS up to
+#: PAIR_TILE_MAX_ROWS (the plan hands the kernel each group's), each column
+#: padded by PAIR_TILE_PAD words
+MAX_SHARED_BYTES = 232448
+WARPS = 8
+PAIR_TILE_ITEMS = 8192
+PAIR_TILE_MIN_ROWS = 256
+PAIR_TILE_MAX_ROWS = 2048
+PAIR_TILE_PAD = 4
+
+
+@dataclass(frozen=True)
+class PairGroup:
+    """Pairs counted by the same blocks: ``pairs`` (a range of the
+    caller's pair indices), the distinct ``columns`` they name, their
+    ``cells``, the ``copies`` of their histograms a block keeps in shared
+    memory (0: one pair too large for shared memory, added into the global
+    result directly), the rows of a staged tile and the ``smem`` bytes a
+    block of the group takes."""
+
+    pairs: range
+    columns: Tuple[int, ...]
+    cells: int
+    copies: int
+    tile_rows: int
+    smem: int
+
+
+def _round4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def pair_tile_rows(n_pairs: int) -> int:
+    """Rows of a staged tile for a group of ``n_pairs`` pairs."""
+    rows = -(-PAIR_TILE_ITEMS // n_pairs)
+    rows = -(-rows // PAIR_TILE_MIN_ROWS) * PAIR_TILE_MIN_ROWS
+    return min(rows, PAIR_TILE_MAX_ROWS)
+
+
+def _group_smem(n_pairs: int, n_columns: int, cells: int, copies: int,
+                weighted: bool) -> int:
+    """The pairs' table, the histogram copies and two staged tiles."""
+    stride = pair_tile_rows(n_pairs) + PAIR_TILE_PAD
+    return (16 * n_pairs + 4 * _round4(copies * cells)
+            + 8 * (n_columns + weighted) * stride)
+
+
+def pair_offsets(pairs: Sequence[Tuple[int, int]],
+                 cards: Sequence[int]) -> List[int]:
+    """Where each pair's ``[n_a, n_b]`` block starts in the flat result,
+    and the total, as ``len(pairs) + 1`` offsets."""
+    offsets = [0]
+    for a, b in pairs:
+        offsets.append(offsets[-1] + cards[a] * cards[b])
+    return offsets
+
+
+def plan_pair_groups(pairs: Sequence[Tuple[int, int]], cards: Sequence[int],
+                     weighted: bool = False,
+                     budget: int = MAX_SHARED_BYTES) -> List[PairGroup]:
+    """Cut the pair list, in order, into groups whose histograms (int32
+    cells), staged columns and pair table fit ``budget`` bytes of shared
+    memory. A pair that does not fit alone forms a group of its own with
+    ``copies`` 0. A group of fewer than 32 pairs (whose warps' lanes cover
+    several rows of one pair) keeps one histogram copy a warp where they
+    fit, up to ``WARPS``; a larger one keeps one copy."""
+    groups: List[PairGroup] = []
+    start, columns, cells = 0, [], 0
+
+    def close(end: int) -> None:
+        if end == start:
+            return
+        n_p = end - start
+        copies = WARPS if n_p < 32 else 1
+        while copies > 1 and _group_smem(n_p, len(columns), cells, copies,
+                                         weighted) > budget:
+            copies -= 1
+        groups.append(PairGroup(range(start, end), tuple(columns), cells,
+                                copies, pair_tile_rows(n_p),
+                                _group_smem(n_p, len(columns), cells,
+                                            copies, weighted)))
+
+    for p, (a, b) in enumerate(pairs):
+        pair_cells = cards[a] * cards[b]
+        pair_columns = list(dict.fromkeys((a, b)))
+        if _group_smem(1, len(pair_columns), pair_cells, 1,
+                       weighted) > budget:
+            close(p)
+            groups.append(PairGroup(range(p, p + 1), tuple(pair_columns),
+                                    pair_cells, 0, pair_tile_rows(1),
+                                    _group_smem(1, len(pair_columns), 0, 0,
+                                                weighted)))
+            start, columns, cells = p + 1, [], 0
+            continue
+        grown = list(dict.fromkeys(columns + pair_columns))
+        if _group_smem(p - start + 1, len(grown), cells + pair_cells, 1,
+                       weighted) > budget:
+            close(p)
+            start, grown, cells = p, pair_columns, 0
+        columns, cells = grown, cells + pair_cells
+    close(len(pairs))
+    return groups
+
+
+def _plan_table(pairs, cards, groups) -> np.ndarray:
+    """The kernel's plan (``csrc/hist.cu``, ``PairGroup``): eight int32 a
+    group, four a pair, then the groups' column lists."""
+    offsets = pair_offsets(pairs, cards)
+    head, body, slots = [], [], []
+    for g in groups:
+        slot = {c: i for i, c in enumerate(g.columns)}
+        head += [g.pairs.start, g.pairs.stop, len(slots),
+                 len(slots) + len(g.columns), g.cells, g.copies,
+                 offsets[g.pairs.start], g.tile_rows]
+        for p in g.pairs:
+            a, b = pairs[p]
+            body += [slot[a] | slot[b] << 16, cards[a], cards[b],
+                     offsets[p] - offsets[g.pairs.start]]
+        slots += g.columns
+    return np.asarray(head + body + slots, dtype=np.int32)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_plan(pairs: Tuple[Tuple[int, int], ...], cards: Tuple[int, ...],
+                 weighted: bool, device: torch.device):
+    """The plan of a pair list on ``device``, built once for each pair
+    list, cardinalities and weighting: (groups, table, shared-memory bytes
+    of the largest group, most cells a pair of a shared-memory group holds
+    on average)."""
+    groups = plan_pair_groups(pairs, cards, weighted)
+    table = torch.from_numpy(_plan_table(pairs, cards, groups)).to(device)
+    smem = max(g.smem for g in groups)
+    per_pair = max([-(-g.cells // len(g.pairs)) for g in groups
+                    if g.copies > 0] or [0])
+    return groups, table, smem, per_pair
+
+
+def _launch(ids: torch.Tensor, ld: int, n: int,
+            pairs: Tuple[Tuple[int, int], ...], cards: Tuple[int, ...],
+            weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """One K4 launch over ``n`` rows of the columns at ``ids``'s storage
+    plus ``k * ld`` elements: the flat f32 counts of every pair."""
+    groups, table, smem, per_pair = _device_plan(
+        pairs, cards, weights is not None, ids.device)
+    if len(groups) > 65535:
+        raise ValueError(f"{len(groups)} groups of pairs exceed the grid's "
+                         "65,535")
+    lib = _build.load_library()
+    out = torch.empty(pair_offsets(pairs, cards)[-1],
+                      dtype=torch.int32 if weights is None else torch.float32,
+                      device=ids.device)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    err = lib.avt_pair_counts_multi(
+        ids.data_ptr(), ld, None if weights is None else weights.data_ptr(),
+        n, table.data_ptr(), len(groups), len(pairs), out.numel(), smem,
+        per_pair, out.data_ptr(), ids.device.index, stream)
+    _build.check(err, "pair_counts_multi kernel launch")
+    return out.to(torch.float32)
+
+
+def _check_pairs(n_columns: int, pairs, cards) -> None:
+    if len(cards) != n_columns:
+        raise ValueError(f"cards must name {n_columns} columns, got "
+                         f"{len(cards)}")
+    if any(c < 1 for c in cards):
+        raise ValueError(f"cardinalities must be >= 1, got {list(cards)}")
+    for a, b in pairs:
+        if not (0 <= a < n_columns and 0 <= b < n_columns):
+            raise ValueError(f"pair ({a}, {b}) names a column outside "
+                             f"[0, {n_columns})")
+    if pair_offsets(pairs, cards)[-1] >= 2 ** 31:
+        raise ValueError("the pairs' cells must number fewer than 2**31")
+
+
+def pair_counts_multi_plain(ids: torch.Tensor,
+                            pairs: Sequence[Tuple[int, int]],
+                            cards: Sequence[int],
+                            weights: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Plain version: one bincount over the masked combined ids
+    ``offset[p] + a·n_b + b`` of every pair (integer counts, exact), or an
+    index_add of the weights in float64, rounded once to f32."""
+    dev = ids.device
+    offsets = pair_offsets(pairs, cards)
+    if not pairs:
+        return torch.zeros(0, dtype=torch.float32, device=dev)
+    n = ids.shape[1]
+    col_a = torch.tensor([a for a, _ in pairs], device=dev)
+    col_b = torch.tensor([b for _, b in pairs], device=dev)
+    cards_t = torch.tensor(list(cards), device=dev)
+    n_a, n_b = cards_t[col_a].reshape(-1, 1), cards_t[col_b].reshape(-1, 1)
+    ids = ids.long()
+    a, b = ids[col_a], ids[col_b]                               # [P, N]
+    valid = (a >= 0) & (a < n_a) & (b >= 0) & (b < n_b)
+    off = torch.tensor(offsets[:-1], device=dev).reshape(-1, 1)
+    flat = (off + a * n_b + b)[valid]
+    if weights is None:
+        return torch.bincount(flat, minlength=offsets[-1]).to(torch.float32)
+    w = weights.to(torch.float64).reshape(1, n).expand(len(pairs), n)[valid]
+    counts = torch.zeros(offsets[-1], dtype=torch.float64, device=dev)
+    return counts.index_add_(0, flat, w).to(torch.float32)
+
+
+def pair_counts_multi(ids: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+                      cards: Sequence[int],
+                      weights: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """``[K, N]`` int32 ids (column k is row k), P pairs ``(c_a, c_b)`` of
+    its columns and each column's cardinality → the flat f32 counts of
+    every pair, pair p's ``[card[c_a], card[c_b]]`` block at
+    ``pair_offsets(pairs, cards)[p]`` (``split_pairs`` cuts it), in one
+    launch."""
+    if ids.dim() != 2:
+        raise ValueError(f"ids must be [K, N], got shape {tuple(ids.shape)}")
+    pairs = tuple((int(a), int(b)) for a, b in pairs)
+    cards = tuple(int(c) for c in cards)
+    _check_pairs(ids.shape[0], pairs, cards)
+    if ids.device.type == "cpu":
+        return pair_counts_multi_plain(ids, pairs, cards, weights)
+    if ids.device.type != "cuda":
+        raise ValueError(f"unsupported device {ids.device}")
+    n = ids.shape[1]
+    _check_ids(ids, ids=ids, weights=weights)
+    if weights is not None and weights.shape != (n,):
+        raise ValueError(f"weights must be [{n}], got {tuple(weights.shape)}")
+    if n == 0 or not pairs:
+        return torch.zeros(pair_offsets(pairs, cards)[-1],
+                           dtype=torch.float32, device=ids.device)
+    out = _launch(ids, n, n, pairs, cards, weights)
+    pair_counts_multi.launches += 1
+    return out
+
+
+pair_counts_multi.launches = 0
+
+
+def split_pairs(flat: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+                cards: Sequence[int]) -> List[torch.Tensor]:
+    """The ``[n_a, n_b]`` blocks of ``pair_counts_multi``'s flat result,
+    one a pair (views)."""
+    offsets = pair_offsets(pairs, cards)
+    return [flat[offsets[p]:offsets[p + 1]].reshape(cards[a], cards[b])
+            for p, (a, b) in enumerate(pairs)]

@@ -8,15 +8,16 @@ reduce-side sum; here each is one reduction over the row axis.
 
 Ids outside their range drop out (the one-hot behavior), and integer
 counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
-counts — goes through K1 and ``pair_counts`` — the contingency counts of
-MI and correlation — through K4 (``ops/cuda_histogram.py``), whose
-wrappers take their plain versions for CPU tensors and launch the kernels
-for CUDA ones. All functions take an optional per-row ``weights`` vector.
+counts — goes through K1, and ``pair_counts`` and ``pair_counts_multi`` —
+the contingency counts of MI and correlation, one pair or every pair of a
+job in one launch — through K4 (``ops/cuda_histogram.py``), whose wrappers
+take their plain versions for CPU tensors and launch the kernels for CUDA
+ones. All functions take an optional per-row ``weights`` vector.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -72,6 +73,19 @@ def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,
     return cuda_histogram.pair_counts(
         a.to(torch.int32).contiguous(), b.to(torch.int32).contiguous(),
         n_a, n_b,
+        None if weights is None
+        else weights.to(torch.float32).contiguous())
+
+
+def pair_counts_multi(ids: torch.Tensor, pairs: Sequence[Tuple[int, int]],
+                      cards: Sequence[int],
+                      weights: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """[K, N] ids, pairs (c_a, c_b) of its rows and each row's cardinality
+    -> the flat counts of every pair (``cuda_histogram.split_pairs`` cuts
+    them into [card[c_a], card[c_b]] blocks), in one launch of K4."""
+    return cuda_histogram.pair_counts_multi(
+        ids.to(torch.int32).contiguous(), pairs, cards,
         None if weights is None
         else weights.to(torch.float32).contiguous())
 

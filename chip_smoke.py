@@ -12,11 +12,21 @@ Phases (one line each; any failure exits non-zero):
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
-   the global-atomics variant; K4 (pair contingency counts) at 1,048,576
+   the global-atomics variant, the 200,000-row churn CLI shape, N not a
+   multiple of 4 with the bins off 16-byte alignment, N = 1, F = 1, F = 64
+   with C·B = 4, C·B = 51 and F = 1,500 (two launches); K4 (pair
+   contingency counts) for one pair on two separate columns at 1,048,576
    and 16,777,216 rows of (9, 18) ids, the widest hospital MI pair, with
    ids -1 and n_a / n_b that drop out — unweighted and 0/1-weighted counts
-   exactly equal, float weights within rtol 1e-5 — plus N = 0 and the
-   global-atomics variant at 256 x 512 cells; K2 (staged top-k) at 8,192
+   exactly equal, float weights within rtol 1e-5 — plus N = 0 and a pair
+   of 256 x 512 cells (the global-atomics group); K4 for many pairs in one
+   launch, held against
+   its plain version and each pair against the one-pair wrapper, at the
+   MI job's shape (100 pairs of (9, 18), 100,000 rows) and at 1,048,576
+   rows, one pair at 200,000 and 1,048,576 rows, mixed cardinalities and
+   shared columns, 64 pairs of 32 x 64 cells (three or more groups), a
+   pair in the global-atomics group, and N = 0,
+   1, 5, 4,098 and 100,003 off 16-byte alignment; K2 (staged top-k) at 8,192
    test x 65,536 train x 9 (the bench shape) and 65,536 test x 1,048,576
    train x 9, with small k=128 and width-512 cases; K3 (fused top-k)
    bit-identical to K2 on the normalized rows; K5 (top-k over
@@ -34,11 +44,16 @@ Phases (one line each; any failure exits non-zero):
    in any sum order, train rows repeated) at 8,192 × 65,536 and 16,384 ×
    1,048,576 must equal the plain version's metrics and ids position by
    position, with no near-tie allowance. K1, K2, K3, K4 and K5 are timed
-   twice: per call with CUDA events around it (the wrapper's host work
+   per call with CUDA events around it (the wrapper's host work
    included), and as device time by the chained timing of
    ``avenir_tpu_torch/scripts/_timing.py``, which the kernels line
-   reports. K6-K9, the fold kernels of the KNN experiments
-   (``csrc/fold.cu``), against their plain versions at the bench shape
+   reports as ``ms``. K1 and K4, whose wrappers' host work outlasts their
+   device work, are also timed from replays of a CUDA graph that holds
+   one call on each of enough copies of the inputs to fill the L2 twice
+   over, so that the inputs are read from HBM (``graph_ms`` in the
+   kernels line). K6-K9, the fold
+   kernels of the KNN experiments (``csrc/fold.cu``), against their
+   plain versions at the bench shape
    (K6 at each of the five (n_acc, tile_n) configurations of the JAX
    experiment, bf16 rounding on and off), at a ragged N below the bucket
    count (1,000 × 300), at 2,051 × 16,383 and at k = 128. The fold gate
@@ -63,17 +78,18 @@ Phases (one line each; any failure exits non-zero):
    on elearn (100,000 / 20,000) staged (K2) and chunked (K3) with
    byte-identical outputs, NearestNeighbor on churn with class-conditional
    weighting (K1 + K2), MutualInformation on 100,000 hospital-readmission
-   rows with all five selection algorithms (K4, F² = 100 launches),
-   CramerCorrelation and HeterogeneityReductionCorrelation on the churn
-   train file (K4), and small card-vs-CPU runs that must agree (MI count
-   families equal and MI values within rtol 1e-5, correlation files
-   byte-identical). Each job must clear the tutorials' planted-signal bar
+   rows with all five selection algorithms (K4, one launch for the F² =
+   100 pairs), CramerCorrelation and HeterogeneityReductionCorrelation on
+   the churn train file (K4, one launch each), and small card-vs-CPU runs
+   that must agree (MI count families equal and MI values within rtol
+   1e-5, correlation files byte-identical). Each job must clear the
+   tutorials' planted-signal bar
    (validation accuracy, MI and Cramér rankings), and each kernel of the
    path must have launched in this phase. Every kernel call a job makes is
    recorded and held against its plain version on the same operands — the
    job's own shapes, each 4,096-row chunk and the ragged tail, each MI
-   pair — and timed there. The MI job runs once more under
-   ``torch.profiler`` for its device time and busy share;
+   call of many pairs — and timed there. The MI job runs once more under
+   ``torch.profiler`` for its device time, busy share and copies;
 4. the KNN experiment slice, in-process on the card at the JAX
    experiments' shape (8,192 test × 65,536 train × 9):
    ``avenir_tpu_torch.scripts.exp_fold.main`` (K6 at five
@@ -90,10 +106,13 @@ Phases (one line each; any failure exits non-zero):
    the interleaved differential protocol. K6, K9, K10, K11 and K12 must
    each have launched in this phase, and K2 must pass its own gate.
 
-Then one JSON line of per-kernel numbers (K1-K4 launches from the CLI
-phase, K5's from its entry-point run in phase 2: no CLI key selects the
-tpose layout; K2's ablations' and K7-K8's from phase 4, K6's and K9's from
-phases 4 and 5, K10-K12's from phase 5; each bound the larger of the bytes
+Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
+through ``pair_counts_multi`` from the CLI phase; K4's through
+``pair_counts``, one pair at 16,777,216 rows, and K5's from their entry
+points' runs in phase 2: no CLI job counts a single pair, and no CLI key
+selects the tpose layout; K2's
+ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
+K10-K12's from phase 5; each bound the larger of the bytes
 over 3.35 TB/s and the operations at the card's rate for their type), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -126,6 +145,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2 ** 20
 SEED = 20261016
 # the CLI phase's data sizes
 CHURN_TRAIN, CHURN_TEST = 200_000, 50_000
@@ -193,6 +213,28 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def hbm_copies(n_bytes: int) -> int:
+    """Copies of a call's inputs of ``n_bytes`` that, read in turn, fill
+    the card's L2 twice over, so that no call finds its inputs there."""
+    return max(1, math.ceil(2 * L2_BYTES / max(n_bytes, 1)))
+
+
+def hbm_graph_ms(call, inputs, n_bytes, dev) -> float:
+    """Device time of ``call(*inputs)`` with its inputs read from HBM:
+    replays of a CUDA graph that holds one call on each of
+    ``hbm_copies(n_bytes)`` copies of ``inputs`` in turn
+    (``_timing.graph_ms``: the wrapper's device work and none of its host
+    work), divided by the copies."""
+    from avenir_tpu_torch.scripts._timing import graph_ms
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(hbm_copies(n_bytes) - 1)]
+
+    def run():
+        for args in copies:
+            call(*args)
+    return graph_ms(run, dev) / len(copies)
+
+
 def bound_ms(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_flops / PEAK_F32_FLOPS * 1e3
@@ -223,6 +265,38 @@ def pair_bound_ms(dev, m, n, d, n_bytes, product, ops_per_pair):
 # phase 2: kernels against their plain versions
 # --------------------------------------------------------------------------
 
+def k1_case(dev, H, label, n, f, c, b, weights, offset=0):
+    """K1 against its plain version on seeded ids of one shape, ids -1 and
+    b (bins) and c (labels) among them; ``offset`` puts the bins one
+    element past a 16-byte boundary, so that the kernel stages them with
+    4-byte copies. Unweighted and 0/1 weights exact, float weights within
+    rtol 1e-5 (f32 atomics in any order against one f64 sum rounded to
+    f32); returns the float-weighted max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(n * 131 + f)
+    bins = torch.randint(-1, b + 1, (n * f + offset,), generator=gen,
+                         dtype=torch.int32, device=dev)[offset:].view(n, f)
+    labels = torch.randint(-1, c + 1, (n,), generator=gen, dtype=torch.int32,
+                           device=dev)
+    err = 0.0
+    for kind in weights:
+        w = None
+        if kind == "01":
+            w = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+        elif kind == "float":
+            w = torch.rand(n, generator=gen, device=dev)
+        got = H.class_feature_bin_counts(bins, labels, c, b, w)
+        want = H.class_feature_bin_counts_plain(bins, labels, c, b, w)
+        if kind == "float":
+            if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"K1 {label}: float-weighted counts "
+                                     "beyond rtol 1e-5")
+            err = max(err, float((got - want).abs().max()))
+        elif not torch.equal(got, want):
+            raise AssertionError(f"K1 {label}: {kind or 'unweighted'} "
+                                 "counts differ from plain")
+    return err
+
+
 def check_k1(dev, rng):
     from avenir_tpu_torch.ops import cuda_histogram as H
     n, f, c, b = 1_048_576, 5, 2, 5
@@ -250,10 +324,24 @@ def check_k1(dev, rng):
     if not torch.equal(H.class_feature_bin_counts(gb, gl, 8, 128),
                        H.class_feature_bin_counts_plain(gb, gl, 8, 128)):
         raise AssertionError("K1 global-atomics variant differs from plain")
+    all_kinds = (None, "01", "float")
+    cases = (("churn CLI 200,000 x 5", 200_000, 5, 2, 5, all_kinds, 0),
+             ("N not a multiple of 4, bins off 16-byte alignment", 200_003,
+              5, 2, 5, all_kinds, 1),
+             ("N = 1", 1, 5, 2, 5, all_kinds, 0),
+             ("F = 1", 100_001, 1, 2, 5, all_kinds, 0),
+             ("F = 64, C*B = 4", 100_000, 64, 2, 2, all_kinds, 0),
+             ("C*B = 51 > 32", 100_002, 7, 3, 17, all_kinds, 0),
+             ("F = 1,500 (two launches)", 3_001, 1_500, 2, 3, (None, "01"),
+              0))
+    for label, *shape, kinds, offset in cases:
+        err = max(err, k1_case(dev, H, label, *shape, kinds, offset))
 
     from avenir_tpu_torch.scripts._timing import chain_ms
     per_call = cuda_ms(lambda: H.class_feature_bin_counts(tb, tl, c, b), 20)
     ms = chain_ms(lambda: H.class_feature_bin_counts(tb, tl, c, b), dev)
+    hbm_ms = hbm_graph_ms(lambda x, y: H.class_feature_bin_counts(x, y, c, b),
+                          (tb, tl), n * (f + 1) * 4, dev)
     plain_ms = cuda_ms(lambda: H.class_feature_bin_counts_plain(tb, tl, c, b),
                        5)
     combined = (torch.arange(f, device=dev).reshape(1, f) * (c * b)
@@ -264,14 +352,17 @@ def check_k1(dev, rng):
     bound, by = bound_ms(n * (f + 1) * 4 + f * c * b * 4, n * f)
     log(f"phase 2 K1 counts n={n} f={f} c={c} b={b}: exact (unweighted, 0/1),"
         f" float weights max abs err {err:.3g} (rtol 1e-5), global variant "
-        f"exact; kernel {ms:.4f} ms device (chained), {per_call:.4f} ms per "
-        f"call host included, plain {plain_ms:.4f} ms, bincount "
-        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"exact; also exact at {'; '.join(case[0] for case in cases)}; "
+        f"kernel {ms:.4f} ms chained, {hbm_ms:.4f} ms device from graph "
+        f"replays reading HBM ({bound / hbm_ms:.1%} of bound), "
+        f"{per_call:.4f} ms per call host included, plain {plain_ms:.4f} ms,"
+        f" bincount {library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
     return {"name": "cfb_counts (K1)", "route": "cuda",
             "source": "avenir_tpu_torch/csrc/hist.cu",
             "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
+            "max_abs_err": err, "ms": ms, "graph_ms": hbm_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def pair_flat(a, b, n_a, n_b):
@@ -281,11 +372,70 @@ def pair_flat(a, b, n_a, n_b):
     return (a.long() * n_b + b.long())[valid]
 
 
-def check_k4(dev, rng):
+def multi_flat(ids, pairs, cards):
+    """The masked combined ids ``offset[p] + a·n_b + b`` of every pair:
+    what one ``torch.bincount`` counts to compute K4 over many pairs."""
     from avenir_tpu_torch.ops import cuda_histogram as H
+    offsets = H.pair_offsets(pairs, cards)
+    return torch.cat([offsets[p] + pair_flat(ids[a], ids[b], cards[a],
+                                             cards[b])
+                      for p, (a, b) in enumerate(pairs)])
+
+
+def multi_bytes(ids, pairs, cards, weighted):
+    """Bytes K4 over many pairs must move: each column its pairs name and
+    the weights read once, the counts written once."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    columns = len({c for pair in pairs for c in pair})
+    return ((columns + weighted) * ids.shape[1]
+            + H.pair_offsets(pairs, cards)[-1]) * 4
+
+
+def k4_multi_case(dev, H, label, ids, pairs, cards, kinds=(None, "01",
+                                                           "float")):
+    """K4 over many pairs against its plain version, and each pair's block
+    against the one-pair wrapper on the pair's two rows of ``ids``:
+    unweighted and 0/1 weights exact, float weights within rtol 1e-5;
+    returns the float-weighted max abs error."""
+    gen = torch.Generator(device=dev).manual_seed(ids.shape[1] + len(pairs))
+    n = ids.shape[1]
+    err = 0.0
+    for kind in kinds:
+        w = None
+        if kind == "01":
+            w = (torch.rand(n, generator=gen, device=dev) < 0.7).float()
+        elif kind == "float":
+            w = torch.rand(n, generator=gen, device=dev)
+        got = H.pair_counts_multi(ids, pairs, cards, w)
+        want = H.pair_counts_multi_plain(ids, pairs, cards, w)
+        if kind == "float":
+            if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+                raise AssertionError(f"K4 {label}: float-weighted counts "
+                                     "beyond rtol 1e-5")
+            err = max(err, float((got - want).abs().max()))
+            continue
+        if not torch.equal(got, want):
+            raise AssertionError(f"K4 {label}: {kind or 'unweighted'} counts "
+                                 "differ from plain")
+        for block, (a, b) in zip(H.split_pairs(got, pairs, cards), pairs):
+            if not torch.equal(block, H.pair_counts(ids[a], ids[b], cards[a],
+                                                    cards[b], w)):
+                raise AssertionError(f"K4 {label}: pair ({a}, {b}) differs "
+                                     "from the one-pair wrapper")
+    return err
+
+
+def check_k4(dev, rng):
+    """K4 for one pair through ``pair_counts`` on two separate columns, at
+    1,048,576 and 16,777,216 rows: unweighted and 0/1 weights exact, float
+    weights within rtol 1e-5 (f32 atomics in any order against one f64 sum
+    rounded to f32); N = 0; a pair too large for shared memory (the
+    global-atomics group); the launches of one call of its entry point,
+    ``ops.histogram.pair_counts``; then K4 over many pairs."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.ops import histogram as TH
     from avenir_tpu_torch.scripts._timing import chain_ms
     n_a, n_b = 9, 18          # the widest hospital pair: 9 bins x 9 bins * 2
-    entry = None
     for n in (1_048_576, 16_777_216):
         # ids -1 and n_a / n_b drop out
         a = torch.from_numpy(rng.integers(-1, n_a + 1, size=n)
@@ -302,43 +452,158 @@ def check_k4(dev, rng):
                                      f"at n={n}")
         got = H.pair_counts(a, b, n_a, n_b, wf)
         want = H.pair_counts_plain(a, b, n_a, n_b, wf)
-        # f32 atomics in any order against one f64 sum rounded to f32
         if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
             raise AssertionError(f"K4 float-weighted counts beyond rtol 1e-5 "
                                  f"at n={n}")
         err = float((got - want).abs().max())
-        per_call = cuda_ms(lambda: H.pair_counts(a, b, n_a, n_b), 20)
-        ms = chain_ms(lambda: H.pair_counts(a, b, n_a, n_b), dev)
+
+        def timed(x, y):
+            return H.pair_counts(x, y, n_a, n_b)
+        per_call = cuda_ms(lambda: timed(a, b), 20)
+        ms = chain_ms(lambda: timed(a, b), dev)
+        hbm_ms = hbm_graph_ms(timed, (a, b), 2 * n * 4, dev)
         plain_ms = cuda_ms(lambda: H.pair_counts_plain(a, b, n_a, n_b), 5)
         flat = pair_flat(a, b, n_a, n_b)
         library_ms = cuda_ms(lambda: torch.bincount(flat,
                                                     minlength=n_a * n_b), 20)
         bound, by = bound_ms(2 * n * 4 + n_a * n_b * 4, n)
-        log(f"phase 2 K4 pair counts n={n} cells {n_a}x{n_b}: exact "
+        log(f"phase 2 K4 one pair n={n} cells {n_a}x{n_b}: exact "
             f"(unweighted, 0/1), float weights max abs err {err:.3g} (rtol "
-            f"1e-5); kernel {ms:.4f} ms device (chained), {per_call:.4f} ms "
-            f"per call host included, plain {plain_ms:.4f} ms, bincount "
-            f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-            f"{bound / ms:.1%} of bound")
-        entry = {"name": "pair_counts (K4)", "route": "cuda",
-                 "source": "avenir_tpu_torch/csrc/hist.cu",
-                 "replaces": "avenir_tpu/ops/pallas_histogram.py:133",
-                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
-        del a, b, w01, wf, flat
+            f"1e-5); kernel {ms:.4f} ms chained, {hbm_ms:.4f} ms device from "
+            f"graph replays reading HBM ({bound / hbm_ms:.1%} of bound), "
+            f"{per_call:.4f} ms per call host included, plain "
+            f"{plain_ms:.4f} ms, bincount {library_ms:.4f} ms, bound "
+            f"{bound:.4f} ms ({by})")
+        del flat, w01, wf
+    entry = {"name": "pair_counts (K4)", "route": "cuda",
+             "source": "avenir_tpu_torch/csrc/hist.cu",
+             "replaces": "avenir_tpu/ops/pallas_histogram.py:133",
+             "max_abs_err": err, "ms": ms, "graph_ms": hbm_ms,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": library_ms}
+    # the one-pair entry point's path: counts from 0, one call
+    H.pair_counts.launches = 0
+    TH.pair_counts(a, b, n_a, n_b)
+    one_launches = H.pair_counts.launches
+    if one_launches != 1:
+        raise AssertionError(f"histogram.pair_counts launched K4 "
+                             f"{one_launches} times, not once")
+    del a, b
     empty = torch.empty(0, dtype=torch.int32, device=dev)
     if not torch.equal(H.pair_counts(empty, empty, n_a, n_b),
                        torch.zeros((n_a, n_b), device=dev)):
         raise AssertionError("K4 with N = 0 is not all zeros")
-    # the global-atomics variant: 256 * 512 int32 cells exceed 227 KB
+    # the global-atomics group: 256 * 512 int32 cells exceed 227 KB
     ga = torch.randint(-1, 257, (200_000,), dtype=torch.int32, device=dev)
     gb = torch.randint(-1, 513, (200_000,), dtype=torch.int32, device=dev)
     if not torch.equal(H.pair_counts(ga, gb, 256, 512),
                        H.pair_counts_plain(ga, gb, 256, 512)):
-        raise AssertionError("K4 global-atomics variant differs from plain")
-    log("phase 2 K4: N = 0 gives zeros; global-atomics variant (256 x 512 "
-        "cells) exact")
-    return entry
+        raise AssertionError("K4 global-atomics group differs from plain")
+    log("phase 2 K4: N = 0 gives zeros; one pair of 256 x 512 cells (the "
+        "global-atomics group) exact")
+    return {"one": entry, "one_launches": one_launches,
+            "multi": check_k4_multi(dev, H, chain_ms)}
+
+
+def mi_ids(dev, n_f, n, seed):
+    """The MI job's id matrix at n rows: F bin columns in [-1, 10) against
+    9 bins and F combined (bin, class) columns in [-1, 19) against 18, ids
+    -1 and the cardinality dropping out; every (f, F + g) pair."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.cat([
+        torch.randint(-1, 10, (n_f, n), generator=gen, dtype=torch.int32,
+                      device=dev),
+        torch.randint(-1, 19, (n_f, n), generator=gen, dtype=torch.int32,
+                      device=dev)])
+    pairs = [(f, n_f + g) for f in range(n_f) for g in range(n_f)]
+    return ids, pairs, [9] * n_f + [18] * n_f
+
+
+def check_k4_multi(dev, H, chain_ms):
+    """K4 over many pairs in one launch: the MI job's 100 pairs at its
+    100,000 rows and at 1,048,576, one (9, 18) pair at the churn CLI's
+    200,000 rows and at 1,048,576 (one histogram copy a warp, the 32 lanes
+    on one pair), mixed cardinalities with columns shared by several
+    pairs, a list that needs three or more groups, a pair that takes the
+    global-atomics group, N = 0 and 1 and N not a multiple of 4 with the
+    ids off 16-byte alignment; then times at the MI shape."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    err = 0.0
+    for n in (100_000, 1_048_576):
+        err = max(err, k4_multi_case(dev, H, f"MI n={n}",
+                                     *mi_ids(dev, 10, n, SEED + n)))
+    for n in (200_000, 1_048_576):
+        ids = torch.stack([torch.randint(-1, c + 1, (n,), generator=gen,
+                                         dtype=torch.int32, device=dev)
+                           for c in (9, 18)])
+        (group,) = H.plan_pair_groups([(0, 1)], [9, 18])
+        if group.copies != H.WARPS:
+            raise AssertionError(f"one pair is planned with {group.copies}"
+                                 " histogram copies, not one a warp")
+        err = max(err, k4_multi_case(dev, H, f"one pair n={n}", ids,
+                                     [(0, 1)], [9, 18]))
+    cards = [3, 7, 1, 12, 5, 40]
+    mixed = [(0, 1), (1, 0), (2, 3), (3, 3), (4, 5), (0, 5), (5, 1), (1, 1)]
+    ids = torch.stack([torch.randint(-1, c + 1, (100_003,), generator=gen,
+                                     dtype=torch.int32, device=dev)
+                       for c in cards])
+    err = max(err, k4_multi_case(dev, H, "mixed cardinalities", ids, mixed,
+                                 cards))
+    wide_cards = [32] * 8 + [64] * 8
+    wide = [(a, 8 + b) for a in range(8) for b in range(8)]
+    n_groups = len(H.plan_pair_groups(wide, wide_cards))
+    if n_groups < 3:
+        raise AssertionError(f"64 pairs of 32 x 64 planned as {n_groups} "
+                             "groups, not 3 or more")
+    ids = torch.stack([torch.randint(-1, c + 1, (50_001,), generator=gen,
+                                     dtype=torch.int32, device=dev)
+                       for c in wide_cards])
+    err = max(err, k4_multi_case(dev, H, f"{n_groups} groups", ids, wide,
+                                 wide_cards))
+    big_cards = [256, 512, 4]
+    ids = torch.stack([torch.randint(-1, c + 1, (200_000,), generator=gen,
+                                     dtype=torch.int32, device=dev)
+                       for c in big_cards])
+    err = max(err, k4_multi_case(dev, H, "global-atomics group", ids,
+                                 [(0, 1), (2, 2), (1, 2)], big_cards))
+    for n in (0, 1, 5, 4_098, 100_003):
+        k, total = 4, 4 * n + 1
+        # one element past a 16-byte boundary: 4-byte copies
+        base = torch.randint(-1, 9, (total,), generator=gen,
+                             dtype=torch.int32, device=dev)
+        ids = base[1:].view(k, n)
+        err = max(err, k4_multi_case(dev, H, f"n={n} unaligned", ids,
+                                     [(0, 1), (2, 3), (1, 1), (3, 0)],
+                                     [8, 7, 3, 8]))
+    ids, pairs, cards = mi_ids(dev, 10, 100_000, SEED)
+    n = ids.shape[1]
+    per_call = cuda_ms(lambda: H.pair_counts_multi(ids, pairs, cards), 20)
+    ms = chain_ms(lambda: H.pair_counts_multi(ids, pairs, cards), dev)
+    hbm_ms = hbm_graph_ms(lambda x: H.pair_counts_multi(x, pairs, cards),
+                          (ids,), ids.numel() * 4, dev)
+    plain_ms = cuda_ms(lambda: H.pair_counts_multi_plain(ids, pairs, cards),
+                       5)
+    flat = multi_flat(ids, pairs, cards)
+    total = H.pair_offsets(pairs, cards)[-1]
+    library_ms = cuda_ms(lambda: torch.bincount(flat, minlength=total), 20)
+    bound, by = bound_ms(multi_bytes(ids, pairs, cards, False),
+                         n * len(pairs))
+    log(f"phase 2 K4 {len(pairs)} pairs of (9, 18) in one launch, n={n}: "
+        f"exact against plain and each pair against the one-pair wrapper "
+        f"(unweighted, 0/1; also at 1,048,576 rows, one pair at 200,000 and "
+        f"1,048,576 rows, mixed cardinalities, {n_groups} groups, a "
+        f"global-atomics group, n = 0, 1, 5, 4,098, 100,003 unaligned), "
+        f"float weights max abs err {err:.3g} (rtol 1e-5); kernel "
+        f"{ms:.4f} ms chained, {hbm_ms:.4f} ms device from graph replays "
+        f"reading HBM ({bound / hbm_ms:.1%} of bound), {per_call:.4f} ms "
+        f"per call host included, plain {plain_ms:.4f} ms, bincount "
+        f"{library_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+    return {"name": "pair_counts_multi (K4)", "route": "cuda",
+            "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:133",
+            "max_abs_err": err, "ms": ms, "graph_ms": hbm_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms}
 
 
 def compare_topk(label, got, plain, x, y, y2, n_attrs):
@@ -1119,7 +1384,8 @@ def run_cli(args):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Record every call of the four kernel wrappers while the main path
+    """Record every call of the kernel wrappers of K1-K4 (K4 through
+    ``pair_counts_multi``, the wrapper the path calls) while the main path
     runs — its operands and the result the path went on with — so that
     each can be held against its plain version afterwards. The wrappers
     themselves run unchanged and count their launches: they count through
@@ -1129,7 +1395,7 @@ def recording(calls):
     sites = [(cuda_histogram, "class_feature_bin_counts", "K1"),
              (cuda_distance, "topk_raw", "K2"),
              (cuda_fused, "fused_topk_raw", "K3"),
-             (cuda_histogram, "pair_counts", "K4")]
+             (cuda_histogram, "pair_counts_multi", "K4")]
     originals = [getattr(module, attr) for module, attr, _ in sites]
 
     def recorder(fn, name):
@@ -1169,10 +1435,11 @@ def host_ms(fn):
 
 def profile_job(label, args, kernel):
     """One more run of a CLI job under ``torch.profiler`` (launch counts
-    untouched): its wall time, the device time of each kernel the card
-    ran, their sum over the wall time (the device's busy share) and the
-    launches and device time of ``kernel``. Prints "not measured" where
-    the profiler recorded no device time."""
+    untouched): its wall time, the device time of each kernel and copy the
+    card ran, their sum over the wall time (the device's busy share), the
+    launches and device time of ``kernel`` and the count and device time
+    of the copies. Prints "not measured" where the profiler recorded no
+    device time."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1189,12 +1456,16 @@ def profile_job(label, args, kernel):
         return
     busy = sum(e.self_device_time_total for e in device) / 1e3
     mine = [e for e in device if kernel in e.key]
+    copies = [e for e in device if "Memcpy" in e.key]
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:4]
     log(f"phase 3 {label} under torch.profiler: wall {wall:.1f} ms, device "
         f"busy {busy:.3f} ms ({busy / wall:.3%}); {kernel} "
         f"{sum(e.count for e in mine)} launches, "
         f"{sum(e.self_device_time_total for e in mine) / 1e3:.3f} ms on the "
-        "device; largest: " + "; ".join(
+        f"device; copies {sum(e.count for e in copies)}, "
+        f"{sum(e.self_device_time_total for e in copies) / 1e3:.3f} ms ("
+        + ", ".join(f"{e.key} x{e.count}" for e in copies)
+        + "); largest: " + "; ".join(
             f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
             for e in top))
 
@@ -1215,22 +1486,22 @@ def hold_main_path(label, calls, n_attrs):
         shapes, checks = [], []
         for a, out in mine:
             if name == "K4":
-                n = a["a"].shape[0]
-                w = a["weights"]
-                n_bytes += (2 + (w is not None)) * n * 4 \
-                    + a["n_a"] * a["n_b"] * 4
-                n_ops += n
-                plain_t, want = host_ms(lambda: H.pair_counts_plain(
-                    a["a"], a["b"], a["n_a"], a["n_b"], w))
+                ids, pairs, cards, w = (a["ids"], a["pairs"], a["cards"],
+                                        a["weights"])
+                n = ids.shape[1]
+                n_bytes += multi_bytes(ids, pairs, cards, w is not None)
+                n_ops += n * len(pairs)
+                plain_t, want = host_ms(lambda: H.pair_counts_multi_plain(
+                    ids, pairs, cards, w))
                 exact = w is None or bool(((w == 0) | (w == 1)).all())
                 same = (torch.equal(out, want) if exact else
                         torch.allclose(out, want, rtol=1e-5, atol=0.0))
                 if not same:
                     raise AssertionError(f"{label}: K4 counts differ from "
                                          "plain on the path's operands")
-                ms += cuda_ms(lambda: H.pair_counts(
-                    a["a"], a["b"], a["n_a"], a["n_b"], w), 5)
-                shapes.append(f"{n}:{a['n_a']}x{a['n_b']}")
+                ms += cuda_ms(lambda: H.pair_counts_multi(ids, pairs, cards,
+                                                          w), 5)
+                shapes.append(f"{n}:{len(pairs)} pairs")
                 checks.append("exact" if exact else "rtol 1e-5")
                 plain_ms += plain_t
                 continue
@@ -1361,22 +1632,25 @@ def mi_card_vs_cpu(p, hosp_conf, churn_conf):
 def cli_phase(work: str):
     from avenir_tpu_torch.datagen import generators as G
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
-    counters = {"K1": cuda_histogram.class_feature_bin_counts,
-                "K2": cuda_distance.topk_raw,
-                "K3": cuda_fused.fused_topk_raw,
-                "K4": cuda_histogram.pair_counts}
+    counters = {"K1": [cuda_histogram.class_feature_bin_counts],
+                "K2": [cuda_distance.topk_raw],
+                "K3": [cuda_fused.fused_topk_raw],
+                "K4": [cuda_histogram.pair_counts_multi],
+                "K4-one": [cuda_histogram.pair_counts]}
     totals = {name: 0 for name in counters}
 
     def job(label, args, bar, must_launch, n_attrs=None, launches=None):
         calls = []
-        for fn in counters.values():
-            fn.launches = 0
+        for fns in counters.values():
+            for fn in fns:
+                fn.launches = 0
         t0 = time.perf_counter()
         with recording(calls):
             report = run_cli(args + ["--device", "cuda"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in counters.items()}
+        counts = {name: sum(fn.launches for fn in fns)
+                  for name, fns in counters.items()}
         for name, c in counts.items():
             totals[name] += c
         missing = [name for name in must_launch if counts[name] < 1]
@@ -1470,7 +1744,7 @@ def cli_phase(work: str):
         G._HOSP_SCHEMA_JSON).get_feature_fields())
     job(f"MutualInformation hosp {HOSP_ROWS} rows",
         ["MutualInformation", p("hosp.csv"), p("mi.txt")] + hosp_conf, None,
-        ["K4"], launches={"K4": n_hosp * n_hosp})
+        ["K4"], launches={"K4": 1})
     mi_lines = [line.split(",") for line in
                 open(p("mi.txt")).read().splitlines()]
     fc = {int(f[1]): float(f[2]) for f in mi_lines if f[0] == "featureClass"}
@@ -1486,12 +1760,12 @@ def cli_phase(work: str):
         f"{fc[8]:.6g} > height(3) {fc[3]:.6g}; five rankings of {n_hosp}")
     profile_job(f"MutualInformation hosp {HOSP_ROWS} rows",
                 ["MutualInformation", p("hosp.csv"), p("mi_prof.txt")]
-                + hosp_conf, "pair_counts_kernel")
+                + hosp_conf, "pair_counts_multi_kernel")
 
     job(f"CramerCorrelation churn {CHURN_TRAIN} rows pairs 3:6,2:6",
         ["CramerCorrelation", p("churn_train.csv"), p("cramer.txt")]
         + churn_conf + ["-D", "correlation.attr.pairs=3:6,2:6"], None,
-        ["K4"], launches={"K4": 2})
+        ["K4"], launches={"K4": 1})
     corr = {tuple(int(v) for v in line.split(",")[:2]):
             float(line.split(",")[2])
             for line in open(p("cramer.txt")).read().splitlines()}
@@ -1508,7 +1782,7 @@ def cli_phase(work: str):
         f"{n_pairs} pairs",
         ["HeterogeneityReductionCorrelation", p("churn_train.csv"),
          p("hetero.txt")] + churn_conf, None, ["K4"],
-        launches={"K4": n_pairs})
+        launches={"K4": 1})
     hetero = [float(line.split(",")[2])
               for line in open(p("hetero.txt")).read().splitlines()]
     # Goodman-Kruskal tau lies in [0, 1]; f32 rounding may put an
@@ -1581,11 +1855,13 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
 
     launches["K5"] = k23["K5_launches"]
+    launches["K4-one"] = k4["one_launches"]
     kernels = []
     for name, entry in (("K1", k1), ("K2", k23["K2"]),
                         ("K2-sweep", k23["K2-sweep"]),
                         ("K2-nodot", k23["K2-nodot"]), ("K3", k23["K3"]),
-                        ("K4", k4), ("K5", k23["K5"]), *folds.items()):
+                        ("K4-one", k4["one"]), ("K4", k4["multi"]),
+                        ("K5", k23["K5"]), *folds.items()):
         entry = dict(entry)
         entry["launches"] = launches[name]
         kernels.append(entry)

@@ -408,6 +408,19 @@ def test_smoke_topk_gate(ids, metrics, match):
             smoke.compare_topk("gate", got, plain, x, _GATE_Y, y2, 2)
 
 
+@pytest.mark.parametrize("n_bytes,copies", [
+    (1_048_576 * 6 * 4, 5),        # K1 at 1,048,576 x 5 churn rows
+    (20 * 100_000 * 4, 14),        # K4 at the MI shape
+    (2 * 16_777_216 * 4, 1),       # K4, one pair at 16,777,216 rows
+])
+def test_smoke_hbm_copies_fill_the_l2_twice(n_bytes, copies):
+    """The card's HBM timing rotates through enough input copies that
+    each is gone from the 50 MB L2 before it is read again."""
+    smoke = _chip_smoke()
+    assert smoke.hbm_copies(n_bytes) == copies
+    assert copies * n_bytes >= 2 * smoke.L2_BYTES or copies == 1
+
+
 @pytest.mark.parametrize("chunk", [0, 128])
 def test_smoke_records_the_main_path(tmp_path, chunk):
     """The recorder sees each kernel call of a CLI job — one K2 call, or

@@ -446,9 +446,9 @@ def test_hospital_generator_copy():
 
 
 def test_smoke_records_the_mi_path(tmp_path):
-    """``chip_smoke.recording`` sees every K4 call of an MI job — F² of
-    them, each equal to the plain version on its own operands — and puts
-    the wrapper back afterwards."""
+    """``chip_smoke.recording`` sees the MI job's one K4 call — all F²
+    pairs, each pair's block equal to the one-pair plain version on its
+    own columns — and puts the wrappers back afterwards."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   REPO / "chip_smoke.py")
     smoke = importlib.util.module_from_spec(spec)
@@ -456,14 +456,21 @@ def test_smoke_records_the_mi_path(tmp_path):
     _mi_fixture(tmp_path, n=300)
     props = _props(tmp_path / "mi.properties",
                    **{"feature.schema.file.path": tmp_path / "hosp.json"})
-    wrapper = cuda_histogram.pair_counts
+    wrappers = (cuda_histogram.pair_counts, cuda_histogram.pair_counts_multi)
     calls = []
     with smoke.recording(calls):
         tmain(["MutualInformation", str(tmp_path / "hosp.csv"),
                str(tmp_path / "o.txt"), "--conf", props, "--device", "cpu"])
-    assert cuda_histogram.pair_counts is wrapper
-    assert [name for name, _, _ in calls] == ["K4"] * 100
-    for _, a, out in calls:
-        assert (a["n_a"], a["n_b"]) == (9, 18) and a["a"].shape == (300,)
-        assert torch.equal(out, cuda_histogram.pair_counts_plain(
-            a["a"], a["b"], a["n_a"], a["n_b"], a["weights"]))
+    assert (cuda_histogram.pair_counts,
+            cuda_histogram.pair_counts_multi) == wrappers
+    assert [name for name, _, _ in calls] == ["K4"]
+    (_, a, out), = calls
+    ids, pairs, cards = a["ids"], a["pairs"], a["cards"]
+    assert ids.shape == (20, 300) and len(pairs) == 100
+    assert torch.equal(out, cuda_histogram.pair_counts_multi_plain(
+        ids, pairs, cards, a["weights"]))
+    blocks = cuda_histogram.split_pairs(out, pairs, cards)
+    for block, (c_a, c_b) in zip(blocks, pairs):
+        assert (cards[c_a], cards[c_b]) == (9, 18)
+        assert torch.equal(block, cuda_histogram.pair_counts_plain(
+            ids[c_a], ids[c_b], 9, 18))
