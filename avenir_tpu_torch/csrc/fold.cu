@@ -42,34 +42,98 @@
 // do at 989 TFLOP/s (2 * m * n * d flops: 0.010 ms at the bench shape), so
 // the floor of K6, K7 and K9 is the fold that consumes each pair: the
 // metric, a compare and two selects (K7: the metric and a min), at 128
-// lanes per SM and clock. K8 has no product and the same fold. These
-// kernels do the product on the CUDA cores too, d FMAs a pair beside the
-// fold's 4, so they can reach at most 4 / (d + 4) of that floor (K7:
-// 2 / (d + 2)). K10's fold spends 3 (no epilogue) beside d + 2 FMAs. Memory is
-// not the limit: the train set is read once per block from L2 (2.4 MB at
-// the bench shape, in the 50 MB L2).
+// lanes per SM and clock; K8 has no product and the same fold. Memory is
+// not the limit: the train set is 2.4 MB at the bench shape, in the 50 MB
+// L2. Two bodies serve them.
 //
-// Design: where the TPU grid carries its accumulators across train tiles in
-// VMEM, a Hopper block owns kR whole test rows and sweeps all of n itself.
+// The tensor-core body (namespace tc): K6 with its round flag on, and K7.
+// Every time below is chained device time at the bench shape (8,192 x
+// 65,536 x 9) on an NVIDIA H100 80GB HBM3 at 700 W.
+// - The product is mma.sync m16n8k16 (bf16 operands, f32 sums) with y2 in
+//   the padding of k: A = [-2 bf16(x) | 1 1 1 | 0] against packed train
+//   rows [bf16(y) | y2 in three bf16 parts, an exact split | 0], so the
+//   accumulator is the metric and the fold spends a compare and two
+//   selects a pair (K7 one min). d + 3 <= 16 is one k-step (d <= 13),
+//   d = 48 four. The products are exact in f32; only the order of the sum
+//   differs from the CUDA cores'. A pre-pass packs y (tc::pack_kernel; its
+//   time is in the kernel's). Pad columns carry the largest finite bf16 as
+//   y2, a metric above BIG that never wins.
+// - A block owns R = 128 test rows and a slice of B' = 64 buckets (8 warps
+//   of 32 rows x 32 buckets, each warp two m16 by four n8 tiles). Step t
+//   brings columns t * B + the slice, so each element of a thread's C
+//   fragments is one (row, bucket) pair for the whole sweep and columns
+//   come in increasing order: a strict < keeps the lowest column on ties.
+//   The thread stores the step, not the column, which it rebuilds at the
+//   end.
+// - Two limits size the tile. Re-reads of y: every row tile reads all the
+//   packed rows, M / R * N * 32 bytes = 134 MB from L2 at the bench shape
+//   (the CUDA-core body, R = 16 and f32 rows: 1.34 GB). Registers: K6's
+//   pairs take 128 * 64 * 2 words / 256 threads = 64 registers a thread;
+//   all 512 buckets of 128 rows would fill the SM's register file alone.
+//   At one or two k-steps __launch_bounds__(256, 2) holds a thread to 128
+//   registers so that two blocks share an SM (ptxas: K6 128 with 28-36
+//   bytes spilled, one spill access inside the loop; K7 126 and 128); at
+//   three or four, one block (K6 214 and 238, K7 164 and 182). One block
+//   an SM at one k-step, no spills, ran K6's sweep 0.1355 ms against
+//   0.1348-0.1363 at 512 buckets and 0.1503 against 0.1421 at 1024, K7's
+//   0.0662 against 0.0582-0.0585.
+// - K6's slices of a row tile merge through an [M, B] (metric, column)
+//   scratch, then tc_extract_kernel runs the k rounds, a warp a row with
+//   its pairs in registers (at n_acc 4 the sweep takes 140 us, the
+//   extraction 18, the pack 3-4). Measured and left out: a thread block
+//   cluster of the B / B' blocks of a row tile trading pairs through
+//   distributed shared memory, the k rounds in the sweep kernel (0.2155
+//   ms against 0.1824-0.1827 at n_acc 4, slower at 2 and 8 too); each
+//   quad of lanes writing only the min(k, 32) smallest of its row's 32
+//   buckets (80 of 512 at k = 5: the extraction 18.2 -> 17.2 us, the
+//   sweep 139.9 -> 148.1).
+// - The B fragments come straight from the packed rows in global memory,
+//   two steps ahead of the fold (one at more than one k-step), one 8-byte
+//   load a lane, n8 tile and k-step (the packing orders each k-step's
+//   words 0 4 1 5 2 6 3 7 for it), at offsets fixed at compile time from
+//   one pointer a step; L1 serves the four warps that share a column
+//   group. The sweep runs whole rounds of three steps (two) over rows
+//   padded for it, so its loop tests no bound. A cp.async ring of 2-step
+//   stages read by ldmatrix, a barrier a stage, ran 0.1635 ms against
+//   0.1505 for K6's sweep, 0.0926 against 0.0708 for K7's (8-step stages:
+//   0.1586, 0.0849). Computing each load's address and testing the bound
+//   a step (218 IMAD and 80 ISETP for 24 HMMA) had held K6 at 0.1745 ms,
+//   0.1631 without.
+// - K7 folds 512 buckets, four a lane, and a block's 64 are the four of
+//   16 lanes, so each thread takes its lanes' minima in registers and
+//   writes the output (0.0695 -> 0.0622 ms against a scratch and a
+//   lane-minimum kernel). 128 buckets, one a lane, gave 128 blocks, one an
+//   SM: 0.0961-0.0979 ms against 0.0818-0.0822 then.
+// - What sets the pace: the compare, selects and minimum run at 64 lanes
+//   an SM and clock, half the FP32 rate. Without loads K6's sweep ran
+//   0.131 ms and K7's 0.057, 0.074 ms apart for K6's two more of them a
+//   pair; mma.sync peaked at 654 TFLOP/s (2 * m * n * 16 flops: 0.026 ms).
+//
+// The CUDA-core body: K6 with its round flag off (f32 operands cannot
+// pass the bf16 tensor cores unchanged), K8, K9, K10. It does the
+// product on the CUDA cores, d FMAs a pair beside the fold's 4, so it can
+// reach at most 4 / (d + 4) of the floor; K10's fold spends 3 (no
+// epilogue) beside d + 2 FMAs. Where the TPU grid carries its accumulators
+// across train tiles in VMEM, a Hopper block owns kR whole test rows and
+// sweeps all of n itself.
 // - A block has B threads, one per bucket, and kR test rows: 16, or 8 at
-//   B = 1024 where a thread may hold only 64 registers. K7 runs K6's block
-//   of 512 (four buckets a lane, one minimum each, no column) and takes
-//   each lane's minimum of its four at the end: a first K7 of 128 threads,
-//   one a lane, ran slower than K6 at the bench shape (0.84 against 0.80
-//   ms, 512 blocks of four warps), which would have made the decomposition
-//   read the block shape instead of the work. The rows' features sit in shared memory, d-major, so a thread
-//   reads four rows of one feature with one 16-byte broadcast load.
+//   B = 1024 where a thread may hold only 64 registers. The rows' features
+//   sit in shared memory, d-major, so a thread reads four rows of one
+//   feature with one 16-byte broadcast load.
 // - Thread b visits columns b, b + B, b + 2B, ... in increasing order; a
 //   strict < gives the lowest column on ties for free. It keeps its kR
 //   (value, column) pairs in registers.
-// - Row-major operands (K6, K7): each step stages B train rows of y, a
-//   contiguous run of B * d floats, into shared memory with coalesced loads
-//   (rounded as they land); a thread then reads its row at stride d, free of
-//   bank conflicts for odd d. Feature-major operands (K9): thread b reads
-//   yt[c][col] straight from global memory, coalesced across the warp, with
-//   no staging and no barrier.
+// - Row-major operands (K6): each step stages B train rows of y, a
+//   contiguous run of B * d floats, into shared memory with coalesced loads;
+//   a thread then reads its row at stride d, free of bank conflicts for odd
+//   d. Feature-major operands (K9): thread b reads yt[c][col] straight from
+//   global memory, coalesced across the warp, with no staging and no
+//   barrier.
 // - After the sweep the kR x B pairs go to shared memory (at most 64 KB);
 //   one warp per row runs the k rounds (fold_extract.cuh).
+// - K7's former body, kept to time against: K6's block of 512 (four
+//   buckets a lane, one minimum each, no column), then each lane's minimum
+//   of its four.
 //
 // Interface: plain C, bound from Python with ctypes; the caller allocates
 // out_d (and out_i) [m][128]. Each entry point returns cudaGetLastError().
@@ -77,7 +141,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
+#include <cstdint>
 
 #include "fold_extract.cuh"
 
@@ -268,6 +334,410 @@ cudaError_t launch(const float* x, const float* y, const float* y2, int m,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body of K6 (bf16 on) and K7: see the note at the top.
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int kWarpRows = 32;            // two m16 tiles a warp
+constexpr int kWarpCols = 32;            // four n8 tiles a warp
+constexpr int kWarpsR = 4;
+constexpr int kWarpsC = 2;
+constexpr int kThreads = 32 * kWarpsR * kWarpsC;
+constexpr int kTcRows = kWarpRows * kWarpsR;     // R, test rows a block
+constexpr int kTcSlice = kWarpCols * kWarpsC;    // B', buckets a block
+constexpr int kDotminBuckets = 512;              // K7: four buckets a lane
+constexpr unsigned short kPadY2 = 0x7F7F;        // largest finite bf16
+
+// k-steps of 16 for d features and the three y2 parts
+__host__ __device__ constexpr int ksteps(int d) { return (d + 3 + 15) / 16; }
+// train steps whose fragments are in flight ahead of the one folded; the
+// sweep runs whole rounds of steps_ahead + 1 steps
+__host__ __device__ constexpr int steps_ahead(int kSteps) {
+  return kSteps == 1 ? 2 : 1;
+}
+
+// steps of `buckets` columns the sweep runs over n train rows: whole
+// rounds, so that its loop has no bound to test (pad columns never win)
+__host__ __device__ inline int sweep_steps(int n, int d, int buckets) {
+  const int round = steps_ahead(ksteps(d)) + 1;
+  const int steps = (n + buckets - 1) / buckets;
+  return (steps + round - 1) / round * round;
+}
+
+// rows of yp: the sweep's steps and the steps_ahead its last loads reach
+// past them, as ops/cuda_fold.py's tc_plan sizes it
+__host__ __device__ inline int padded_rows(int n, int d, int buckets) {
+  return (sweep_steps(n, d, buckets) + steps_ahead(ksteps(d))) * buckets;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a (16 x 16, row) * b (16 x 8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint2& b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b.x), "r"(b.y));
+}
+
+// Packed train rows: yp [n_pad][16 * ksteps(d)] bf16. Logically row j < n
+// holds bf16(y[j][0..d)), then y2[j] split exactly into three bf16 parts,
+// then zeros; a pad row holds zeros but for kPadY2 in column d, so that
+// its metric lies above BIG. In memory each k-step's eight 32-bit words
+// (two values each) lie in the order 0 4 1 5 2 6 3 7, so that the B
+// fragment of lane (g, tig), words tig and tig + 4 of row g, is one
+// 8-byte load. One thread writes one k-step of a row (32 bytes).
+__global__ void pack_kernel(const float* __restrict__ y,
+                            const float* __restrict__ y2, int n, int n_pad,
+                            int d, int steps, uint4* __restrict__ yp) {
+  const size_t total = static_cast<size_t>(n_pad) * steps;
+  for (size_t e = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
+       e < total; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    const int j = static_cast<int>(e / steps);
+    const int c0 = static_cast<int>(e % steps) * 16;
+    float part[3] = {0.f, 0.f, 0.f};
+    if (j < n) {
+      const float s = y2[j];
+      part[0] = bf16_round(s);
+      const float r = s - part[0];         // exact
+      part[1] = bf16_round(r);
+      part[2] = r - part[1];               // exact, and exact in bf16
+    }
+    uint32_t w[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      float v[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = c0 + 2 * q + u;
+        v[u] = j >= n ? 0.f
+               : c < d ? y[static_cast<size_t>(j) * d + c]
+               : c < d + 3 ? part[c - d] : 0.f;
+      }
+      w[q] = pack_bf16x2(v[0], v[1]);
+      if (j >= n && (c0 + 2 * q == d || c0 + 2 * q + 1 == d)) {
+        w[q] |= static_cast<uint32_t>(kPadY2) << (16 * (d & 1));
+      }
+    }
+    yp[2 * e] = make_uint4(w[0], w[4], w[1], w[5]);
+    yp[2 * e + 1] = make_uint4(w[2], w[6], w[3], w[7]);
+  }
+}
+
+// A block owns kTcRows test rows and kTcSlice of the `buckets` buckets;
+// step t brings the train columns t * buckets + those buckets. K6: the
+// buckets blockIdx.y * kTcSlice + [0, kTcSlice), warp column group wc
+// taking 32 of them, n-tile j 8. K7 (kDotminBuckets, four a lane): the
+// four buckets of lanes blockIdx.y * 16 + [0, 16), warp column group wc
+// taking 8 lanes, n-tile j the buckets 128 j + those lanes, so that a
+// thread holds all four buckets of its lanes and writes their minimum. Each element of a thread's C
+// fragments is one (row, bucket) pair for the whole sweep: it keeps the
+// smallest metric strictly below BIG and the first step that reached it.
+// The B fragments come straight from the packed rows (L1 serves the four
+// warps of a column group), steps_ahead() steps ahead of the fold.
+// K6 writes its (metric, column) pairs to vals / cols [m][buckets]; K7
+// its lane minima to vals [m][128].
+template <bool kIndexed, int kSteps>
+__global__ void __launch_bounds__(kThreads, kSteps <= 2 ? 2 : 1)
+tc_sweep_kernel(const float* __restrict__ x, const uint2* __restrict__ yp,
+                int m, int d, int n_steps, int buckets,
+                float* __restrict__ vals, int* __restrict__ cols) {
+  constexpr int kAhead = steps_ahead(kSteps);
+  constexpr int kRound = kAhead + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wr = warp / kWarpsC;
+  const int wc = warp - wr * kWarpsC;
+  const int row0 = blockIdx.x * kTcRows + wr * kWarpRows;
+  const int slice0 = blockIdx.y * kTcSlice;
+
+  // lane (g, tig) of n-tile j reads column t * buckets + col0 + g +
+  // kTileCols j, words 2 tig and 2 tig + 1 of each k-step: a pointer a
+  // step and offsets fixed at compile time
+  constexpr int kTileCols = kIndexed ? 8 : kLanes;
+  const int col0 = kIndexed ? slice0 + wc * kWarpCols
+                            : blockIdx.y * (kTcSlice / 4) + wc * 8;
+  const size_t step_stride = static_cast<size_t>(buckets) * kSteps * 4;
+  const uint2* next =
+      yp + (static_cast<size_t>(col0 + g) * kSteps) * 4 + tig;
+  uint2 pf[kRound][4][kSteps];
+  auto load = [&](uint2 (&dst)[4][kSteps]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int q = 0; q < kSteps; ++q)
+        dst[j][q] = __ldg(next + (kTileCols * j * kSteps + q) * 4);
+    next += step_stride;
+  };
+#pragma unroll
+  for (int p = 0; p < kAhead; ++p) load(pf[p]);
+
+  // A fragments, fixed for the sweep: -2 bf16(x), then 1 against the
+  // three y2 parts, then 0; rows past m are 0
+  uint32_t a[2][kSteps][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int q = 0; q < kSteps; ++q) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int r = row0 + 16 * i + g + 8 * (h & 1);
+        const int c = 16 * q + 2 * tig + 8 * (h >> 1);
+        float v[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int cu = c + u;
+          v[u] = r >= m ? 0.f
+                 : cu < d ? -2.f * x[static_cast<size_t>(r) * d + cu]
+                 : cu < d + 3 ? 1.f : 0.f;
+        }
+        a[i][q][h] = pack_bf16x2(v[0], v[1]);
+      }
+    }
+  }
+
+  float bd[2][4][4];
+  int bt[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bd[i][j][e] = kBig;
+        bt[i][j][e] = -1;
+      }
+
+  for (int t0 = 0; t0 < n_steps; t0 += kRound) {
+#pragma unroll
+    for (int p = 0; p < kRound; ++p) {
+      const int t = t0 + p;
+      load(pf[(p + kAhead) % kRound]);   // step t + kAhead
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int q = 0; q < kSteps; ++q) mma_bf16(c, a[i][q], pf[p][j][q]);
+          // element e: row g + 8 (e >> 1), bucket 2 tig + (e & 1)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if constexpr (kIndexed) {
+              if (c[e] < bd[i][j][e]) {
+                bd[i][j][e] = c[e];
+                bt[i][j][e] = t;
+              }
+            } else {
+              bd[i][j][e] = fminf(bd[i][j][e], c[e]);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (!kIndexed) {
+    // lane col0 + 2 tig + (e & 1): the minimum of its four buckets
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + g + 8 * h;
+        if (r >= m) continue;
+        float lo = bd[i][0][2 * h];
+        float hi = bd[i][0][2 * h + 1];
+#pragma unroll
+        for (int j = 1; j < 4; ++j) {
+          lo = fminf(lo, bd[i][j][2 * h]);
+          hi = fminf(hi, bd[i][j][2 * h + 1]);
+        }
+        *reinterpret_cast<float2*>(
+            vals + static_cast<size_t>(r) * kLanes + col0 + 2 * tig) =
+            make_float2(lo, hi);
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int bucket = col0 + 8 * j + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + g + 8 * h;
+        if (r >= m) continue;
+        const size_t at = static_cast<size_t>(r) * buckets + bucket;
+        *reinterpret_cast<float2*>(vals + at) =
+            make_float2(bd[i][j][2 * h], bd[i][j][2 * h + 1]);
+        const int t0 = bt[i][j][2 * h];
+        const int t1 = bt[i][j][2 * h + 1];
+        *reinterpret_cast<int2*>(cols + at) =
+            make_int2(t0 < 0 ? -1 : t0 * buckets + bucket,
+                      t1 < 0 ? -1 : t1 * buckets + bucket + 1);
+      }
+    }
+  }
+}
+
+// K6's k rounds over the sweep's [m][kB] (metric, column) pairs: a warp
+// a row, each lane's kB / 32 pairs in registers (16-byte loads). A round
+// takes each lane's smallest (metric, column) pair not yet taken, the
+// warp's smallest by a butterfly, and the lane that holds it marks it
+// taken; lane 0 writes the slot. Slots past k hold (BIG, -1).
+template <int kB>
+__global__ void __launch_bounds__(kThreads)
+tc_extract_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
+                  int m, int k, float* __restrict__ out_d,
+                  int* __restrict__ out_i) {
+  constexpr int kPer = kB / 32;
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= m) return;
+  const float4* vr =
+      reinterpret_cast<const float4*>(vals + static_cast<size_t>(row) * kB);
+  const int4* cr =
+      reinterpret_cast<const int4*>(cols + static_cast<size_t>(row) * kB);
+  float v[kPer];
+  int c[kPer];
+#pragma unroll
+  for (int q = 0; q < kPer / 4; ++q) {
+    const float4 f = vr[lane + 32 * q];
+    const int4 n = cr[lane + 32 * q];
+    v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
+    c[4 * q] = n.x, c[4 * q + 1] = n.y, c[4 * q + 2] = n.z, c[4 * q + 3] = n.w;
+  }
+  unsigned taken = 0;
+  const size_t out = static_cast<size_t>(row) * kLanes;
+  for (int slot = 0; slot < k; ++slot) {
+    float bv = CUDART_INF_F;
+    int bx = INT_MAX;
+    int bu = 0;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      if (!((taken >> u) & 1u) && (v[u] < bv || (v[u] == bv && c[u] < bx))) {
+        bv = v[u];
+        bx = c[u];
+        bu = u;
+      }
+    }
+    int owner = lane;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+      const int ox = __shfl_xor_sync(0xffffffffu, bx, off);
+      const int oo = __shfl_xor_sync(0xffffffffu, owner, off);
+      if (ov < bv || (ov == bv && ox < bx)) {
+        bv = ov;
+        bx = ox;
+        owner = oo;
+      }
+    }
+    // the empty (BIG, -1) pairs tie: lane 0's view names the one taken
+    owner = __shfl_sync(0xffffffffu, owner, 0);
+    if (lane == owner) taken |= 1u << bu;
+    if (lane == 0) {
+      out_d[out + slot] = bv;
+      out_i[out + slot] = bx;
+    }
+  }
+  for (int slot = k + lane; slot < kLanes; slot += 32) {
+    out_d[out + slot] = kBig;
+    out_i[out + slot] = -1;
+  }
+}
+
+int grid_for(size_t work) {
+  return static_cast<int>(work / 256 + 1 < 4096 ? work / 256 + 1 : 4096);
+}
+
+cudaError_t pack(const float* y, const float* y2, int n, int n_pad, int d,
+                 uint4* yp, cudaStream_t s) {
+  const int steps = ksteps(d);
+  pack_kernel<<<grid_for(static_cast<size_t>(n_pad) * steps), 256, 0, s>>>(
+      y, y2, n, n_pad, d, steps, yp);
+  return cudaGetLastError();
+}
+
+template <bool kIndexed, int kSteps>
+cudaError_t sweep(const float* x, const uint4* yp, int m, int d, int n,
+                  int buckets, float* vals, int* cols, cudaStream_t s) {
+  const dim3 grid((m + kTcRows - 1) / kTcRows, buckets / kTcSlice);
+  tc_sweep_kernel<kIndexed, kSteps><<<grid, kThreads, 0, s>>>(
+      x, reinterpret_cast<const uint2*>(yp), m, d,
+      sweep_steps(n, d, buckets), buckets, vals, cols);
+  return cudaGetLastError();
+}
+
+template <bool kIndexed>
+cudaError_t sweep_any(const float* x, const uint4* yp, int m, int d, int n,
+                      int buckets, float* vals, int* cols, cudaStream_t s) {
+#define AVT_SWEEP(S) \
+  sweep<kIndexed, S>(x, yp, m, d, n, buckets, vals, cols, s)
+  switch (ksteps(d)) {
+    case 1: return AVT_SWEEP(1);
+    case 2: return AVT_SWEEP(2);
+    case 3: return AVT_SWEEP(3);
+    case 4: return AVT_SWEEP(4);
+    default: return cudaErrorInvalidValue;
+  }
+#undef AVT_SWEEP
+}
+
+template <int kB>
+cudaError_t extract(const float* vals, const int* cols, int m, int k,
+                    float* out_d, int* out_i, cudaStream_t s) {
+  constexpr int kRows = kThreads / 32;
+  tc_extract_kernel<kB><<<(m + kRows - 1) / kRows, kThreads, 0, s>>>(
+      vals, cols, m, k, out_d, out_i);
+  return cudaGetLastError();
+}
+
+// K6 on the tensor cores: pack, sweep, k rounds. yp, vals and cols are
+// the caller's scratch: [padded_rows][16 ksteps(d)] bf16, [m][buckets]
+// f32 and i32.
+cudaError_t fold_acc(const float* x, const float* y, const float* y2, int m,
+                     int n, int d, int k, int buckets, uint4* yp,
+                     float* vals, int* cols, float* out_d, int* out_i,
+                     cudaStream_t s) {
+  cudaError_t err = pack(y, y2, n, padded_rows(n, d, buckets), d, yp, s);
+  if (err != cudaSuccess) return err;
+  err = sweep_any<true>(x, yp, m, d, n, buckets, vals, cols, s);
+  if (err != cudaSuccess) return err;
+  switch (buckets) {
+    case 128: return extract<128>(vals, cols, m, k, out_d, out_i, s);
+    case 256: return extract<256>(vals, cols, m, k, out_d, out_i, s);
+    case 512: return extract<512>(vals, cols, m, k, out_d, out_i, s);
+    case 1024: return extract<1024>(vals, cols, m, k, out_d, out_i, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// K7 on the tensor cores over kDotminBuckets buckets, four a lane, each
+// thread writing its lanes' minima; yp is the caller's scratch.
+cudaError_t fold_dotmin(const float* x, const float* y, const float* y2,
+                        int m, int n, int d, uint4* yp, float* out_d,
+                        cudaStream_t s) {
+  static_assert(kDotminBuckets == 4 * kLanes && kTcSlice == 4 * 16,
+                "a K7 block holds the four buckets of 16 lanes");
+  const cudaError_t err =
+      pack(y, y2, n, padded_rows(n, d, kDotminBuckets), d, yp, s);
+  if (err != cudaSuccess) return err;
+  return sweep_any<false>(x, yp, m, d, n, kDotminBuckets, out_d, nullptr,
+                          s);
+}
+
+}  // namespace tc
+
 template <bool kTpose, bool kDot, bool kEpi>
 cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
                            int m, int n, int d, int k, int n_acc,
@@ -302,21 +772,49 @@ cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
 extern "C" {
 
 // K6: x [m, d], y [n, d] row-major; round_bf16 rounds both before the dot.
+// body 0: the CUDA-core body; 1: the tensor-core body (round_bf16 only),
+// with the caller's scratch yp, vals, cols (see tc::fold_acc).
 int avt_fold_acc(const void* x, const void* y, const void* y2, int m, int n,
-                 int d, int k, int n_acc, int round_bf16, void* out_d,
-                 void* out_i, int device, void* stream) {
-  return static_cast<int>(launch_indexed<false, true, true>(
-      x, y, y2, m, n, d, k, n_acc, round_bf16, out_d, out_i, device, stream));
-}
-
-// K7: x [m, d], y [n, d] row-major, rounded; out_d [m, 128] lane minima.
-int avt_fold_dotmin(const void* x, const void* y, const void* y2, int m,
-                    int n, int d, void* out_d, int device, void* stream) {
-  if (m <= 0 || n <= 0 || d <= 0 || d > kMaxD) {
+                 int d, int k, int n_acc, int round_bf16, int body, void* yp,
+                 void* vals, void* cols, void* out_d, void* out_i,
+                 int device, void* stream) {
+  if (body == 0) {
+    return static_cast<int>(launch_indexed<false, true, true>(
+        x, y, y2, m, n, d, k, n_acc, round_bf16, out_d, out_i, device,
+        stream));
+  }
+  if (body != 1 || !round_bf16 || m <= 0 || n <= 0 || d <= 0 || d > kMaxD ||
+      k < 1 || k > kLanes ||
+      (n_acc != 1 && n_acc != 2 && n_acc != 4 && n_acc != 8)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tc::fold_acc(
+      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(y2), m, n, d, k, n_acc * kLanes,
+      static_cast<uint4*>(yp), static_cast<float*>(vals),
+      static_cast<int*>(cols), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), static_cast<cudaStream_t>(stream)));
+}
+
+// K7: x [m, d], y [n, d] row-major, rounded; out_d [m, 128] lane minima.
+// body 0: the CUDA-core body; 1: the tensor cores, with the caller's
+// packed rows yp (see tc::fold_dotmin).
+int avt_fold_dotmin(const void* x, const void* y, const void* y2, int m,
+                    int n, int d, int body, void* yp, void* out_d,
+                    int device, void* stream) {
+  if (m <= 0 || n <= 0 || d <= 0 || d > kMaxD || (body != 0 && body != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (body == 1) {
+    return static_cast<int>(tc::fold_dotmin(
+        static_cast<const float*>(x), static_cast<const float*>(y),
+        static_cast<const float*>(y2), m, n, d, static_cast<uint4*>(yp),
+        static_cast<float*>(out_d), static_cast<cudaStream_t>(stream)));
+  }
   err = launch<false, true, true, false, kDotminThreads>(
       static_cast<const float*>(x), static_cast<const float*>(y),
       static_cast<const float*>(y2), m, n, d, 0, 1,

@@ -125,9 +125,9 @@ _SIGNATURES = {
                        _I),
     "avt_topk_sweep": ([_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P],
                        _I),
-    "avt_fold_acc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
-                     _I),
-    "avt_fold_dotmin": ([_P, _P, _P, _I, _I, _I, _P, _I, _P], _I),
+    "avt_fold_acc": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                      _P, _P, _I, _P], _I),
+    "avt_fold_dotmin": ([_P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "avt_fold_nodot": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
     "avt_fold_tpose": ([_P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _I, _P],
                        _I),

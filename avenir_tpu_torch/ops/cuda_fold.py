@@ -38,7 +38,7 @@ multiple of ``tile_n``, and on the buckets that real columns reach.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -92,6 +92,154 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+#: K6 (bf16 on) and K7 on the tensor cores (``csrc/fold.cu``, namespace
+#: ``tc``): a block owns TC_ROWS test rows and TC_SLICE buckets, and the
+#: train rows are packed first to bf16 rows of ``tc_width(d)`` values
+TC_ROWS = 128
+TC_SLICE = 64
+#: K7's buckets on the tensor cores: four a lane, a thread holding all
+#: four of its lanes and writing their minimum
+TC_DOTMIN_BUCKETS = 512
+#: the packed y2 of a pad row, as bf16 bits: the largest finite bf16, so
+#: that a pad column's metric lies above BIG
+TC_PAD_Y2 = 0x7F7F
+#: the kernel's order of the eight 32-bit words (two values each) of a
+#: packed row's k-step: lane tig's B fragment, words tig and tig + 4, is
+#: then one 8-byte load
+TC_WORD_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
+#: the C entries' ``body`` argument
+BODIES = {"cuda_cores": 0, "tensor": 1}
+
+
+def tc_steps(d: int) -> int:
+    """k-steps of 16 of the tensor-core product: d features and the three
+    bf16 parts of y2."""
+    return -(-(d + 3) // 16)
+
+
+def tc_width(d: int) -> int:
+    """Values a packed train row holds."""
+    return 16 * tc_steps(d)
+
+
+def tc_ahead(d: int) -> int:
+    """Steps whose train rows are loaded ahead of the one folded: two at
+    one k-step, one at more."""
+    return 2 if tc_steps(d) == 1 else 1
+
+
+def tc_sweep_steps(n: int, d: int, buckets: int) -> int:
+    """Steps of ``buckets`` columns the sweep runs: n rounded up to whole
+    rounds of ``tc_ahead(d) + 1`` steps."""
+    rounds = tc_ahead(d) + 1
+    return -(-n // (buckets * rounds)) * rounds
+
+
+def tc_padded_rows(n: int, d: int, buckets: int) -> int:
+    """Packed rows: the sweep's steps, and the steps its last loads reach
+    past them."""
+    return (tc_sweep_steps(n, d, buckets) + tc_ahead(d)) * buckets
+
+
+class TcPlan(NamedTuple):
+    """One tensor-core launch: the packed rows ``[n_pad, width]`` bf16, the
+    sweep's grid (row tiles, bucket slices), and K6's scratch ``[m,
+    buckets]`` of (row, bucket) pairs (metric f32, column int32); None
+    for K7, whose sweep writes the lane minima."""
+    buckets: int
+    width: int
+    n_pad: int
+    grid: Tuple[int, int]
+    scratch: Optional[Tuple[int, int]]
+
+
+def tc_plan(m: int, n: int, d: int, buckets: int,
+            indexed: bool = True) -> TcPlan:
+    """Shapes of a tensor-core launch over m test rows, n train rows of d
+    features and ``buckets`` buckets: K6 (``indexed``, ``n_acc·128``
+    buckets) or K7 (``TC_DOTMIN_BUCKETS``)."""
+    if buckets < F.LANES or buckets % TC_SLICE:
+        raise ValueError(f"buckets must be a multiple of {TC_SLICE}, at "
+                         f"least {F.LANES}, got {buckets}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"width must be in [1, {MAX_D}], got {d}")
+    if m < 1 or n < 1:
+        raise ValueError(f"no rows: m={m}, n={n}")
+    if not indexed and buckets != TC_DOTMIN_BUCKETS:
+        raise ValueError(f"K7 folds {TC_DOTMIN_BUCKETS} buckets, got "
+                         f"{buckets}")
+    return TcPlan(buckets, tc_width(d), tc_padded_rows(n, d, buckets),
+                  (-(-m // TC_ROWS), buckets // TC_SLICE),
+                  (m, buckets) if indexed else None)
+
+
+def tc_operands(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
+                buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The tensor-core body's operands, as f32 tensors of bf16 values in
+    logical order: A ``[m, W]`` = (−2·bf16(x) | 1 1 1 | 0) and the packed
+    train rows ``[n_pad, W]`` = (bf16(y) | y2 split exactly into three bf16
+    parts | 0), a pad row 0 but for the largest finite bf16 against the
+    first 1. ``A @ Yᵀ`` summed exactly is ``y2 − 2·bf16(x)·bf16(y)``; a pad
+    column's is above BIG. :func:`tc_packed` gives the kernel's layout."""
+    m, d = x.shape
+    n = y.shape[0]
+    w = tc_width(d)
+    a = torch.zeros((m, w), dtype=torch.float32, device=x.device)
+    a[:, :d] = -2.0 * F.round_bf16(x)
+    a[:, d:d + 3] = 1.0
+    hi = F.round_bf16(y2)
+    rest = y2 - hi
+    mid = F.round_bf16(rest)
+    yp = torch.zeros((tc_padded_rows(n, d, buckets), w), dtype=torch.float32,
+                     device=y.device)
+    yp[:n, :d] = F.round_bf16(y)
+    yp[:n, d] = hi
+    yp[:n, d + 1] = mid
+    yp[:n, d + 2] = F.round_bf16(rest - mid)
+    pad = torch.tensor([TC_PAD_Y2], dtype=torch.int16).view(torch.bfloat16)
+    yp[n:, d] = pad.to(torch.float32).item()
+    return a, yp
+
+
+def tc_packed(rows: torch.Tensor) -> torch.Tensor:
+    """Packed rows of :func:`tc_operands` in the kernel's memory layout:
+    bf16, each k-step's words in ``TC_WORD_ORDER``."""
+    n, w = rows.shape
+    words = rows.to(torch.bfloat16).view(torch.int32).reshape(n, w // 16, 8)
+    order = torch.tensor(TC_WORD_ORDER, device=rows.device)
+    return words[:, :, order].reshape(n, w // 2).view(torch.bfloat16)
+
+
+def _tc_scratch(plan: TcPlan, dev: torch.device) -> Tuple:
+    """The packed rows, then K6's scratch metrics and columns, of
+    ``plan``."""
+    out = (torch.empty((plan.n_pad, plan.width), dtype=torch.bfloat16,
+                       device=dev),)
+    if plan.scratch is not None:
+        out += (torch.empty(plan.scratch, dtype=torch.float32, device=dev),
+                torch.empty(plan.scratch, dtype=torch.int32, device=dev))
+    return out
+
+
+def _launch_acc(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, k: int,
+                n_acc: int, use_bf16: bool, body: str, dev: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Launch K6's ``body`` on checked operands: (out_d, out_i, the
+    tensor-core body's packed rows and scratch, or ())."""
+    m, n, d = _check_rows(x, 1, y2, y)
+    out_d, out_i = _outputs(m, dev)
+    scratch: Tuple = ()
+    if m:
+        if body != "cuda_cores":
+            scratch = _tc_scratch(tc_plan(m, n, d, n_acc * F.LANES), dev)
+        ptrs = [t.data_ptr() for t in scratch] or [None] * 3
+        _build.check(_build.load_library().avt_fold_acc(
+            x.data_ptr(), y.data_ptr(), y2.data_ptr(), m, n, d, k,
+            n_acc, int(use_bf16), BODIES[body], *ptrs, out_d.data_ptr(),
+            out_i.data_ptr(), dev.index, _stream(dev)), "K6 fold launch")
+    return out_d, out_i, scratch
+
+
 def acc_fold(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, *, k: int,
              n_acc: int = 4, tile_n: int = 4096, use_bf16: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,7 +247,8 @@ def acc_fold(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, *, k: int,
     unrounded y → ``[M, 128]`` (metric f32, column int32), k extracted
     from ``n_acc·128`` buckets; see :func:`fold.acc_fold_plain`. x and y
     may arrive as bf16 tensors, rounded by the caller; they widen
-    exactly."""
+    exactly. On the card bf16 rounding runs on the tensor cores (faster at
+    every n_acc), f32 operands on the CUDA cores."""
     x, y = _as_f32(x, y)
     if x.device.type == "cpu":
         return F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n,
@@ -107,13 +256,10 @@ def acc_fold(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, *, k: int,
     F.check_tiles(n_acc, tile_n)
     F.check_k(k)
     dev = _check_operands(x=x, y=y, y2=y2)
-    m, n, d = _check_rows(x, 1, y2, y)
-    out_d, out_i = _outputs(m, dev)
-    if m:
-        _build.check(_build.load_library().avt_fold_acc(
-            x.data_ptr(), y.data_ptr(), y2.data_ptr(), m, n, d, k,
-            n_acc, int(use_bf16), out_d.data_ptr(), out_i.data_ptr(),
-            dev.index, _stream(dev)), "K6 fold launch")
+    out_d, out_i, _ = _launch_acc(x, y, y2, k, n_acc, use_bf16,
+                                  "tensor" if use_bf16 else "cuda_cores",
+                                  dev)
+    if out_d.shape[0]:
         acc_fold.launches += 1
     return out_d, out_i
 
@@ -121,19 +267,35 @@ def acc_fold(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor, *, k: int,
 acc_fold.launches = 0
 
 
+def _launch_dotmin(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
+                   body: str, dev: torch.device
+                   ) -> Tuple[torch.Tensor, Tuple]:
+    """Launch K7's ``body`` ("cuda_cores" or "tensor") on checked operands:
+    (out_d, the tensor-core body's packed rows, or ())."""
+    m, n, d = _check_rows(x, 1, y2, y)
+    out_d, _ = _outputs(m, dev, indexed=False)
+    scratch: Tuple = ()
+    if m:
+        if body != "cuda_cores":
+            scratch = _tc_scratch(tc_plan(m, n, d, TC_DOTMIN_BUCKETS,
+                                          indexed=False), dev)
+        _build.check(_build.load_library().avt_fold_dotmin(
+            x.data_ptr(), y.data_ptr(), y2.data_ptr(), m, n, d,
+            BODIES[body], scratch[0].data_ptr() if scratch else None,
+            out_d.data_ptr(), dev.index, _stream(dev)), "K7 fold launch")
+    return out_d, scratch
+
+
 def dotmin(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor
            ) -> torch.Tensor:
     """K7 wrapper: ``[M, 128]`` lane minima of ``y2 − 2·bf16(x)@bf16(y)ᵀ``;
-    see :func:`fold.dotmin_plain`."""
+    see :func:`fold.dotmin_plain`. On the card it runs on the tensor
+    cores."""
     if x.device.type == "cpu":
         return F.dotmin_plain(x, y, y2)
     dev = _check_operands(x=x, y=y, y2=y2)
-    m, n, d = _check_rows(x, 1, y2, y)
-    out_d, _ = _outputs(m, dev, indexed=False)
-    if m:
-        _build.check(_build.load_library().avt_fold_dotmin(
-            x.data_ptr(), y.data_ptr(), y2.data_ptr(), m, n, d,
-            out_d.data_ptr(), dev.index, _stream(dev)), "K7 fold launch")
+    out_d, _ = _launch_dotmin(x, y, y2, "tensor", dev)
+    if out_d.shape[0]:
         dotmin.launches += 1
     return out_d
 

@@ -96,12 +96,17 @@ def per_class_moments(values: torch.Tensor, labels: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-(class, feature) count / sum / sum-of-squares for continuous
     features — the Gaussian sufficient statistics the reference accumulates
-    at BayesianDistribution.java:283-285. Returns ([C,F], [C,F], [C,F])."""
-    oh = _one_hot(labels, n_classes)                            # [N, C]
+    at BayesianDistribution.java:283-285. Returns ([C,F], [C,F], [C,F]).
+
+    The reference sums integers exactly; an f32 product in whatever order
+    the BLAS picks does not (integer features ≤ 600 give sums of squares
+    above 2^24). So the f32 values, squares and weights are summed in
+    float64 and each result is rounded to f32 once."""
+    oh = _one_hot(labels, n_classes).to(torch.float64)          # [N, C]
     if weights is not None:
-        oh = oh * weights.reshape(-1, 1)
-    values = values.to(torch.float32)
+        oh = oh * weights.to(torch.float32).to(torch.float64).reshape(-1, 1)
+    values = values.to(torch.float32).to(torch.float64)
     count = oh.T @ torch.ones_like(values)
     vsum = oh.T @ values
     vsq = oh.T @ (values * values)
-    return count, vsum, vsq
+    return tuple(t.to(torch.float32) for t in (count, vsum, vsq))

@@ -23,9 +23,12 @@ against the H100's ceilings:
 
 A ``full-sweep`` close to ``full`` puts K2's time in its product sweep, a
 ``full-nodot`` close to ``full`` in its selection. ``dotmin``, ``nodot``
-and ``tpose`` split the JAX experiment's fold kernels the same way; they
-share a design of their own (``csrc/fold.cu``, one thread per bucket), so
-they speak of the fold family, not of K2.
+and ``tpose`` split the JAX experiment's fold kernels the same way, with
+designs of their own (``csrc/fold.cu``), so they speak of the fold
+family, not of K2: ``dotmin`` runs its product on the tensor cores (bf16
+``mma.sync``, the minimum on the accumulator fragments), the product + the
+cheapest fold on this card; ``nodot`` and ``tpose`` keep one thread per
+bucket on the CUDA cores.
 
 Ceilings, computed at run time on the card: the f32 product at 67 TFLOP/s
 on the CUDA cores, ``67e12 / (2·D)`` pairs/s; the fold at SMs × 128 lanes ×

@@ -7,8 +7,10 @@ their plain PyTorch versions.
 Phases (one line each; any failure exits non-zero):
 
 1. card and build: the ``nvidia-smi`` name and power limit,
-   ``torch.version.cuda``, and the time to build ``avenir_tpu_torch/csrc/*.cu``
-   with nvcc for sm_90a;
+   ``torch.version.cuda``, the time to build ``avenir_tpu_torch/csrc/*.cu``
+   with nvcc for sm_90a, each kernel's registers and spills (ptxas), and
+   the HMMA instructions of each tensor-core sweep kernel of K6 and K7
+   (``cuobjdump -sass``; none fails the run);
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
@@ -60,7 +62,16 @@ Phases (one line each; any failure exits non-zero):
    (``compare_fold``): empty slots (BIG, -1) where the plain version has
    them, metrics within 1e-5 relative, the kernel's columns distinct and
    carrying the metrics reported, so that a column that differs from the
-   plain one is a near-tie of it. K10-K12, the fold kernels of the
+   plain one is a near-tie of it. K6 with bf16 rounding and K7 run on the
+   tensor cores: they are also held at their edges (d from 1 to 48 across
+   the k-step boundaries, n_acc 1 and 8, 1,000 test rows, no multiple of a
+   block's 128, 50 train rows, below a block's 64 buckets, and k = 128),
+   and on integer features in [0, 4), where every metric is exact, equal
+   to the plain version position by position, columns included; the
+   CUDA-core body they replaced (kept for K6 with bf16 off) is timed
+   against them at each n_acc of the JAX experiment, and its packed train
+   rows are held bit for bit against ``cuda_fold.tc_packed``. K10-K12, the
+   fold kernels of the
    kernel-restructure sweeps (``csrc/fold.cu``, ``csrc/fold_int8.cu``), at
    every configuration the sweeps launch, on operands their encoders make
    from seeded data at 8,192 × 65,536 × 9: sweep 16's ``augbf16`` (K10),
@@ -112,7 +123,9 @@ through ``pair_counts_multi`` from the CLI phase; K4's through
 points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
-K10-K12's from phase 5; each bound the larger of the bytes
+K10-K12's from phase 5; K6 and K7 add ``parent_ms``, the chained time of
+the CUDA-core body they replaced, in the same run; each bound the larger
+of the bytes
 over 3.35 TB/s and the operations at the card's rate for their type), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
@@ -1105,23 +1118,148 @@ def check_fold(dev):
                 "K7": (inputs + m * 128 * 4, "bf16", 2),
                 "K8": ((m * d + n) * 4 + m * 128 * 8, None, 4),
                 "K9": (inputs + m * 128 * 8, "bf16", 4)}
+        # the former body of K6 and K7, on the CUDA cores (K6 keeps it for
+        # bf16 off), timed in this run as the kernels line's parent_ms
+        kept = {"K6": lambda: CF._launch_acc(x, y, y2, k, n_acc, True,
+                                             "cuda_cores", dev),
+                "K7": lambda: CF._launch_dotmin(x, y, y2, "cuda_cores", dev)}
         for name, (kernel, plain) in calls.items():
             ms = chain_ms(kernel, dev)
             plain_ms = cuda_ms(plain, 3)
             bound, by = pair_bound_ms(dev, m, n, d, *work[name])
+            parent_ms = chain_ms(kept[name], dev) if name in kept else None
+            parent = ("" if parent_ms is None else
+                      f", CUDA-core body {parent_ms:.4f} ms")
             log(f"phase 2 {name} bench shape (n_acc={n_acc}, tile_n="
                 f"{tile_n}): kernel {ms:.4f} ms device (chained), plain "
                 f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
-                f"{bound / ms:.1%} of bound")
+                f"{bound / ms:.1%} of bound{parent}")
             entries[name] = {
                 "name": FOLD_NAMES[name], "route": "cuda",
                 "source": FOLD_SOURCE, "replaces": FOLD_REPLACES[name],
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": by, "library_ms": None}
+            if parent_ms is not None:
+                entries[name]["parent_ms"] = parent_ms
+        compare_bodies(dev, x, y, y2, k)
         del x, y, y2, xt, yt, plains
     for name, entry in entries.items():
         entry["max_abs_err"] = err[name]
     return entries
+
+
+def compare_bodies(dev, x, y, y2, k):
+    """Chained device time of K6's two bodies (bf16 on) at each n_acc of
+    exp_fold's configurations and at n_acc 1, and of K7's, the CUDA cores
+    against the
+    tensor cores in turns (CUDA cores, tensor, tensor, CUDA cores): the
+    tensor cores serve bf16 at every n_acc for this measurement. The
+    tensor-core body's packed rows
+    must equal ``tc_packed(tc_operands(...))`` bit for bit."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    from avenir_tpu_torch.scripts.exp_fold import CONFIGS
+    arms = {f"K6 n_acc={a}": (
+        lambda b, a=a: CF._launch_acc(x, y, y2, k, a, True, b, dev))
+        for a in sorted({1} | {a for a, _ in CONFIGS})}
+    arms["K7"] = lambda b: CF._launch_dotmin(x, y, y2, b, dev)
+    for arm, launch in arms.items():
+        got = collections.defaultdict(list)
+        for body in ("cuda_cores", "tensor", "tensor", "cuda_cores"):
+            got[body].append(chain_ms(lambda: launch(body), dev))
+        log(f"phase 2 bodies {arm} (bench shape, bf16 on): CUDA cores "
+            + ", ".join(f"{t:.4f}" for t in got["cuda_cores"])
+            + " ms; tensor cores "
+            + ", ".join(f"{t:.4f}" for t in got["tensor"]) + " ms")
+    yp = CF._launch_acc(x, y, y2, k, 4, True, "tensor", dev)[2][0]
+    want = CF.tc_packed(CF.tc_operands(x, y, y2, 512)[1])
+    if not torch.equal(yp.view(torch.int16), want.view(torch.int16)):
+        raise AssertionError("K6 packed rows differ from "
+                             "tc_packed(tc_operands(...))")
+
+
+# K6 (bf16 on) and K7 on the tensor cores at their edges: (label, m, n, d,
+# k); every case at n_acc 1 and 8. d 13/14, 29/30, 45/46 are the k-step
+# boundaries of d + 3 (the y2 parts ride in the padding), 16/17 those of d
+# alone; m is no multiple of 128 rows; n = 50 is below one slice of 64
+# buckets
+TC_EDGE_SHAPES = tuple(
+    (f"d={d}", 1000, 5000, d, 5) for d in (1, 13, 14, 16, 17, 29, 30, 46, 48)
+) + (("N<slice", 300, 50, 9, 5), ("k=128", 2048, 16384, 9, 128))
+
+
+def check_tc_edges(dev):
+    """TC_EDGE_SHAPES through the wrappers, held by ``compare_fold``, then
+    the exact-tie hold: integer features in [0, 4), where bf16 products and
+    f32 sums are exact, so K6's (metric, column) and K7's lanes must equal
+    the plain version's position by position at every n_acc."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.ops import fold as F
+    from avenir_tpu_torch.ops.distance import row_sq_norm
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    err = 0.0
+    for label, m, n, d, k in TC_EDGE_SHAPES:
+        x = torch.rand((m, d), generator=gen, device=dev)
+        y = torch.rand((n, d), generator=gen, device=dev)
+        y2 = row_sq_norm(y)
+        metric, scale = fold_metrics(x, y, y2, True)
+        notes = []
+        for n_acc in (1, 8):
+            c = compare_fold(f"K6 {label} n_acc={n_acc}",
+                             CF.acc_fold(x, y, y2, k=k, n_acc=n_acc),
+                             F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc),
+                             metric, scale)
+            err = max(err, c["err"])
+            notes.append(f"K6 n_acc={n_acc} {c['differ']} other columns")
+        c = compare_fold(f"K7 {label}", (CF.dotmin(x, y, y2), None),
+                         (F.dotmin_plain(x, y, y2), None), metric, scale)
+        err = max(err, c["err"])
+        log(f"phase 2 tensor-core edges {label} m={m} n={n} d={d} k={k}: "
+            + "; ".join(notes) + "; K7 lanes within 1e-5")
+        del x, y, y2
+    m, n, d, k = 2051, 65536, 9, 5
+    x = torch.randint(0, 4, (m, d), generator=gen, device=dev).float()
+    y = torch.randint(0, 4, (n, d), generator=gen, device=dev).float()
+    y2 = row_sq_norm(y)
+    for n_acc in (1, 2, 4, 8):
+        got = CF.acc_fold(x, y, y2, k=k, n_acc=n_acc)
+        want = F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc)
+        if not (torch.equal(got[0], want[0])
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"exact ties: K6 n_acc={n_acc} differs "
+                                 "from plain")
+    if not torch.equal(CF.dotmin(x, y, y2), F.dotmin_plain(x, y, y2)):
+        raise AssertionError("exact ties: K7 differs from plain")
+    log(f"phase 2 tensor-core exact ties m={m} n={n} d={d} k={k} (integer "
+        "features in [0, 4)): K6 at n_acc 1, 2, 4, 8 and K7 equal to plain, "
+        "position by position")
+    return err
+
+
+def hmma_counts(lib_path):
+    """HMMA instructions of each tensor-core sweep kernel in the built
+    library (``cuobjdump -sass``), by demangled name."""
+    from avenir_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        found = re.search(r"Function : (\S+)", line)
+        if found:
+            name = found.group(1)
+            counts[name] = 0
+        elif name and re.search(r"\bHMMA\b", line):
+            counts[name] += 1
+    names = list(counts)
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names),
+                               capture_output=True, text=True, timeout=60,
+                               check=True).stdout.splitlines()
+    return {re.sub(r"[(].*", "", pretty.split("::")[-1]): counts[raw]
+            for pretty, raw in zip(names, counts)
+            if "tc_sweep_kernel" in raw}
 
 
 # the kernel-restructure sweeps' folds: (label, m, n) of the shapes K10-K12
@@ -1837,6 +1975,11 @@ def main() -> int:
         f"from {len(_build.sources())} sources, sm_90a)")
     log("phase 1 registers per thread, spills (ptxas): " + kernel_registers(
         (lib_path.parent / "build.log").read_text()))
+    hmma = hmma_counts(lib_path)
+    log("phase 1 HMMA instructions (cuobjdump -sass): " + "; ".join(
+        f"{name} {count}" for name, count in hmma.items()))
+    if len(hmma) != 8 or not all(hmma.values()):
+        raise AssertionError(f"the tensor-core sweeps lack HMMA: {hmma}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(dev, rng)
@@ -1844,6 +1987,9 @@ def main() -> int:
     k23 = check_k2_k3(dev)
     check_exact_ties(dev)
     folds = check_fold(dev)
+    tc_err = check_tc_edges(dev)
+    for name in ("K6", "K7"):
+        folds[name]["max_abs_err"] = max(folds[name]["max_abs_err"], tc_err)
     folds.update(check_sweep_folds(dev))
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:

@@ -144,3 +144,216 @@ def test_cuda_tensors_launch_or_raise_and_no_silent_cpu():
         roofline_knn.main(["--m", "8", "--n", "600"])
     d, i = exp_fold.acc_topk(x, y, k=5, device="cpu")
     assert d.shape == i.shape == (8, 5) and (i >= 0).all()
+
+
+# --------------------------------------------------------------------------
+# The tensor-core body of K6 (bf16 on) and K7: its planner, its operands
+# and its launch arguments (the kernels run only on the card)
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,d,buckets,want", [
+    # (grid, n_pad, width): rounds of three steps at one k-step and two
+    # ahead; rounds of two and one ahead at more
+    (8192, 65536, 9, 512, ((64, 8), (129 + 2) * 512, 16)),
+    (1000, 5000, 13, 128, ((8, 2), (42 + 2) * 128, 16)),
+    (1000, 5000, 14, 1024, ((8, 16), (6 + 1) * 1024, 32)),
+    (300, 50, 30, 256, ((3, 4), (2 + 1) * 256, 48)),
+    (129, 1, 48, 128, ((2, 2), (2 + 1) * 128, 64)),
+    (2051, 16383, 9, 512, ((17, 8), (33 + 2) * 512, 16)),
+])
+def test_tc_plan_shapes(m, n, d, buckets, want):
+    plan = cuda_fold.tc_plan(m, n, d, buckets)
+    assert (plan.grid, plan.n_pad, plan.width) == want
+    assert plan.buckets == buckets and plan.scratch == (m, buckets)
+    if buckets == cuda_fold.TC_DOTMIN_BUCKETS:     # K7: no scratch
+        k7 = cuda_fold.tc_plan(m, n, d, buckets, indexed=False)
+        assert k7.scratch is None and k7[:4] == plan[:4]
+    # every row tile and bucket slice is covered, whole steps of columns
+    assert plan.grid[0] * cuda_fold.TC_ROWS >= m > (
+        plan.grid[0] - 1) * cuda_fold.TC_ROWS
+    assert plan.grid[1] * cuda_fold.TC_SLICE == buckets
+    steps = cuda_fold.tc_sweep_steps(n, d, buckets)
+    ahead = cuda_fold.tc_ahead(d)
+    assert steps % (ahead + 1) == 0 and steps * buckets >= n
+    assert (steps - ahead - 1) * buckets < n
+    assert plan.n_pad == (steps + ahead) * buckets
+    assert plan.width >= d + 3 and plan.width % 16 == 0
+
+
+def test_tc_plan_refuses_what_the_kernel_does_not_take():
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cuda_fold.tc_plan(8, 600, 9, 96)
+    with pytest.raises(ValueError, match="at least 128"):
+        cuda_fold.tc_plan(8, 600, 9, 64)
+    with pytest.raises(ValueError, match="width"):
+        cuda_fold.tc_plan(8, 600, 49, 512)
+    with pytest.raises(ValueError, match="no rows"):
+        cuda_fold.tc_plan(0, 600, 9, 512)
+    with pytest.raises(ValueError, match="K7 folds 512"):
+        cuda_fold.tc_plan(8, 600, 9, 128, indexed=False)
+
+
+def test_tc_steps_boundaries():
+    """d features and y2's three parts in k-steps of 16."""
+    assert [cuda_fold.tc_steps(d) for d in (1, 13, 14, 29, 30, 45, 46, 48)] \
+        == [1, 1, 2, 2, 3, 3, 4, 4]
+
+
+@pytest.mark.parametrize("use_bf16,body", [(True, "tensor"),
+                                           (False, "cuda_cores")])
+def test_acc_fold_launches_the_body_of_its_operands(monkeypatch, use_bf16,
+                                                    body):
+    """A CUDA tensor takes the tensor cores with bf16 rounding and the
+    CUDA cores without, at every n_acc; one launch counted each."""
+    calls = []
+
+    def launch(x, y, y2, k, n_acc, bf16, chosen, dev):
+        calls.append((n_acc, bf16, chosen))
+        return torch.empty(8, 128), torch.empty(8, 128), ()
+    monkeypatch.setattr(cuda_fold, "_launch_acc", launch)
+    monkeypatch.setattr(cuda_fold, "_check_operands",
+                        lambda **t: torch.device("meta"))
+    monkeypatch.setattr(cuda_fold.acc_fold, "launches", 0)
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    for n_acc in (1, 2, 4, 8):
+        cuda_fold.acc_fold(meta(8, 9), meta(600, 9), meta(600), k=5,
+                           n_acc=n_acc, use_bf16=use_bf16)
+    assert calls == [(a, use_bf16, body) for a in (1, 2, 4, 8)]
+    assert cuda_fold.acc_fold.launches == 4
+
+
+def test_tc_planner_mirrors_the_kernel_constants():
+    """The planner and the operands mirror ``csrc/fold.cu``'s tile, pad
+    value and packed word order."""
+    import re
+    from pathlib import Path
+    src = (Path(cuda_fold.__file__).resolve().parent.parent / "csrc"
+           / "fold.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr \w+(?: \w+)? {name} = (\w+);",
+                             src).group(1), 0)
+    assert const("kWarpRows") * const("kWarpsR") == cuda_fold.TC_ROWS
+    assert const("kWarpCols") * const("kWarpsC") == cuda_fold.TC_SLICE
+    assert const("kPadY2") == cuda_fold.TC_PAD_Y2
+    assert const("kDotminBuckets") == cuda_fold.TC_DOTMIN_BUCKETS
+    assert "kDotminBuckets == 4 * kLanes" in src
+    stores = re.findall(r"make_uint4\(w\[(\d)\], w\[(\d)\], w\[(\d)\], "
+                        r"w\[(\d)\]\)", src)
+    assert tuple(int(i) for s in stores for i in s) == \
+        cuda_fold.TC_WORD_ORDER
+    assert "(d + 3 + 15) / 16" in src
+    assert "return kSteps == 1 ? 2 : 1;" in src       # tc_ahead
+
+
+@pytest.mark.parametrize("d,n", [(1, 300), (9, 1000), (13, 129), (14, 700),
+                                 (30, 64), (48, 200)])
+def test_tc_operands_product_is_the_metric(d, n):
+    """A·Yᵀ summed exactly is y2 − 2·bf16(x)·bf16(y): the y2 parts are exact
+    bf16 values summing to y2, and a pad column's metric lies above BIG."""
+    x, y = _inputs(d + n + 7, 33, n, d)
+    tx, ty = torch.from_numpy(x * 3.0), torch.from_numpy(y * 5.0)
+    y2 = row_sq_norm(ty)
+    a, yp = cuda_fold.tc_operands(tx, ty, y2, 256)
+    assert a.shape == (33, cuda_fold.tc_width(d))
+    assert yp.shape == (cuda_fold.tc_padded_rows(n, d, 256),
+                        cuda_fold.tc_width(d))
+    for t in (a, yp):     # every value is a bf16 value
+        assert torch.equal(t, t.to(torch.bfloat16).to(torch.float32))
+    parts = yp[:n, d:d + 3].double().sum(dim=1)
+    assert torch.equal(parts, y2.double())
+    metric = a.double() @ yp.double().T
+    want = y2.double() - 2.0 * (F.round_bf16(tx).double()
+                                @ F.round_bf16(ty).double().T)
+    assert torch.allclose(metric[:, :n], want, rtol=1e-12, atol=1e-12)
+    assert (metric[:, n:] > F.BIG).all()
+
+
+def test_tc_packed_word_order():
+    """Lane tig's B fragment, logical words tig and tig + 4 of a k-step,
+    is one 8-byte pair of the packed layout."""
+    rows = torch.arange(2 * 32, dtype=torch.float32).reshape(2, 32)
+    packed = cuda_fold.tc_packed(rows)
+    assert packed.shape == (2, 32) and packed.dtype == torch.bfloat16
+    logical = rows.to(torch.bfloat16).view(torch.int32).reshape(2, 2, 8)
+    words = packed.view(torch.int32).reshape(2, 2, 4, 2)
+    for tig in range(4):
+        assert torch.equal(words[:, :, tig, 0], logical[:, :, tig])
+        assert torch.equal(words[:, :, tig, 1], logical[:, :, tig + 4])
+
+
+class _FakeFoldLib:
+    """Stands in for the kernels' library: records each K6/K7 launch."""
+
+    def __init__(self):
+        self.calls = []
+
+    def avt_fold_acc(self, *args):
+        self.calls.append(("acc", args))
+        return 0
+
+    def avt_fold_dotmin(self, *args):
+        self.calls.append(("dotmin", args))
+        return 0
+
+
+@pytest.mark.parametrize("body", ["cuda_cores", "tensor"])
+def test_k6_launch_arguments(monkeypatch, body):
+    """K6's launch on the host side, the library faked: the body's code,
+    the packed rows and the scratch its plan asks for; the count is left
+    to the wrapper."""
+    from types import SimpleNamespace
+    from avenir_tpu_torch.ops import _build
+    lib = _FakeFoldLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_fold.acc_fold, "launches", 0)
+    m, n, d, k, n_acc = 300, 1000, 9, 5, 4
+    x, y = (torch.rand(m, d), torch.rand(n, d))
+    y2 = row_sq_norm(y)
+    out_d, out_i, scratch = cuda_fold._launch_acc(
+        x, y, y2, k, n_acc, True, body, torch.device("cpu"))
+    assert out_d.shape == out_i.shape == (m, 128)
+    ((kind, args),) = lib.calls
+    assert kind == "acc"
+    assert args[3:10] == (m, n, d, k, n_acc, 1, cuda_fold.BODIES[body])
+    if body == "cuda_cores":
+        assert scratch == () and args[10:13] == (None, None, None)
+    else:
+        plan = cuda_fold.tc_plan(m, n, d, n_acc * 128)
+        assert scratch[0].shape == (plan.n_pad, plan.width)
+        assert scratch[0].dtype == torch.bfloat16
+        assert [(t.shape, t.dtype) for t in scratch[1:]] == [
+            (plan.scratch, torch.float32), (plan.scratch, torch.int32)]
+        assert args[10:13] == tuple(t.data_ptr() for t in scratch)
+    assert args[13:15] == (out_d.data_ptr(), out_i.data_ptr())
+    assert cuda_fold.acc_fold.launches == 0
+
+
+@pytest.mark.parametrize("body", ["cuda_cores", "tensor"])
+def test_k7_launch_arguments(monkeypatch, body):
+    from types import SimpleNamespace
+    from avenir_tpu_torch.ops import _build
+    lib = _FakeFoldLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_fold.dotmin, "launches", 0)
+    m, n, d = 200, 700, 17
+    x, y = torch.rand(m, d), torch.rand(n, d)
+    out_d, scratch = cuda_fold._launch_dotmin(
+        x, y, row_sq_norm(y), body, torch.device("cpu"))
+    ((kind, args),) = lib.calls
+    assert kind == "dotmin" and out_d.shape == (m, 128)
+    assert args[3:7] == (m, n, d, cuda_fold.BODIES[body])
+    if body == "cuda_cores":
+        assert scratch == () and args[7] is None
+    else:
+        buckets = cuda_fold.TC_DOTMIN_BUCKETS
+        (packed,) = scratch
+        assert packed.shape == (cuda_fold.tc_padded_rows(n, d, buckets),
+                                cuda_fold.tc_width(d))
+        assert args[7] == packed.data_ptr()
+    assert args[8] == out_d.data_ptr()
+    assert cuda_fold.dotmin.launches == 0

@@ -120,6 +120,31 @@ def test_other_reductions_vs_jax(wkind):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-6)
 
 
+@pytest.mark.parametrize("weighted", [False, True])
+def test_moments_are_exact_past_f32_integers(weighted):
+    """Integer features up to 600 (the elearn shape): per-class sums of
+    squares pass 2^24, where f32 sums in any order lose the last units.
+    The moments must equal the exact sums (float64 of integers, exact in
+    any order) rounded to f32 once, with integer weights and without."""
+    rng = np.random.default_rng(9)
+    n, f, c = 6000, 4, 3
+    vals = rng.integers(0, 601, size=(n, f)).astype(np.float32)
+    labels = rng.integers(-1, c, size=n).astype(np.int32)   # -1 drops
+    w = rng.integers(0, 4, size=n).astype(np.float32) if weighted else None
+    got = th.per_class_moments(torch.from_numpy(vals),
+                               torch.from_numpy(labels), c,
+                               None if w is None else torch.from_numpy(w))
+    oh = (labels[:, None] == np.arange(c)[None, :]).astype(np.float64)
+    if w is not None:
+        oh = oh * w.astype(np.float64)[:, None]
+    v64 = vals.astype(np.float64)
+    want = (oh.T @ np.ones_like(v64), oh.T @ v64, oh.T @ (v64 * v64))
+    assert want[2].min() > 2 ** 24
+    for t, e in zip(got, want):
+        assert t.dtype == torch.float32
+        assert np.array_equal(t.numpy(), e.astype(np.float32))
+
+
 # --------------------------------------------------------------------------
 # K4 over many pairs: the plain version pair by pair against the JAX
 # package, and the group planner
