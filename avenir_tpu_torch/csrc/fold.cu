@@ -7,13 +7,14 @@
 // :205, :255 and :225). K10 replaces the f32 uses of `_tag_kernel` without
 // an epilogue (scripts/sweep16_kernels.py:71 `augbf16`,
 // scripts/sweep16b_kernels.py:77 `augv2`) and `_tpose_aug_kernel`
-// (scripts/sweep18_tpose_fold.py:110). All five are one template here, with
-// compile-time flags for the layout (row-major or feature-major operands),
-// the metric (a product or a broadcast; with or without the y2 epilogue)
-// and the output (indexed or values only). The TPU's scalar-tag index fold
-// is no different function here: a thread owns a bucket and walks its
-// columns in order, so the column is t0 + tid whether the TPU kept an iota
-// or a tag.
+// (scripts/sweep18_tpose_fold.py:110). Two bodies serve the five (below):
+// the tensor-core body (K6 with bf16 rounding, K7, K9; K8 on its tile) and
+// the CUDA-core template of PRs 3-4, with compile-time flags for the layout
+// (row-major or feature-major operands), the metric (a product or a
+// broadcast; with or without the y2 epilogue) and the output (indexed or
+// values only). The TPU's scalar-tag index fold is no different function
+// here: both bodies visit a bucket's columns in increasing order, so the
+// column is rebuilt from the step whether the TPU kept an iota or a tag.
 //
 // What they compute, for each test row r and train column col < n:
 //   K6, K9  metric = y2[col] - 2 * <x_r, y_col>, x and y rounded to bf16
@@ -46,9 +47,10 @@
 // not the limit: the train set is 2.4 MB at the bench shape, in the 50 MB
 // L2. Two bodies serve them.
 //
-// The tensor-core body (namespace tc): K6 with its round flag on, and K7.
-// Every time below is chained device time at the bench shape (8,192 x
-// 65,536 x 9) on an NVIDIA H100 80GB HBM3 at 700 W.
+// The tensor-core body (namespace tc): K6 with its round flag on, K7 and
+// K9; K8 runs its tile with an add for the product. Every time below is
+// chained device time at the bench shape (8,192 x 65,536 x 9) on an NVIDIA
+// H100 80GB HBM3 at 700 W.
 // - The product is mma.sync m16n8k16 (bf16 operands, f32 sums) with y2 in
 //   the padding of k: A = [-2 bf16(x) | 1 1 1 | 0] against packed train
 //   rows [bf16(y) | y2 in three bf16 parts, an exact split | 0], so the
@@ -108,12 +110,31 @@
 //   an SM and clock, half the FP32 rate. Without loads K6's sweep ran
 //   0.131 ms and K7's 0.057, 0.074 ms apart for K6's two more of them a
 //   pair; mma.sync peaked at 654 TFLOP/s (2 * m * n * 16 flops: 0.026 ms).
+// - K9 is K6's function over feature-major operands, xt [d][m] and yt
+//   [d][n]: the pack and the A fragments read them through run-time
+//   strides (Strides; K6 (d, 1), K9 (1, rows)), both outside the sweep's
+//   loop, so K9 runs K6's sweep and extraction instantiations as they
+//   are. The pack's reads of yt are coalesced across a warp (consecutive
+//   rows) and take 5.5-5.7 us against K6's 4.3: K9 0.1643-0.1651 ms at
+//   n_acc 4 (K6 0.1622-0.1626), 0.1953-0.1963 at n_acc 8; its CUDA-core
+//   body 0.625-0.635 and 0.658-0.666.
+// - K8 (tc_nodot_kernel) is the sweep's tile with the product replaced by
+//   one add: the element of a thread's fragments for (row r, bucket b) at
+//   step t is y2p[t * B + b] + s[r], four row sums in registers, four
+//   float2 of y2p a step loaded ahead as the B fragments are, then K6's
+//   fold and extraction; the wrapper pads y2 with +inf, so the loop tests
+//   no bound. One f32 add of the same two values as the plain version and
+//   the columns in the same order: K8 equals it bit for bit. It runs
+//   0.1432-0.1446 ms (sweep 116 us, extraction 18, pad 3) against the
+//   CUDA-core body's 0.2045-0.2081: the sweep's floor is its compare and
+//   two selects at 64 lanes, 0.096 ms.
 //
 // The CUDA-core body: K6 with its round flag off (f32 operands cannot
-// pass the bf16 tensor cores unchanged), K8, K9, K10. It does the
-// product on the CUDA cores, d FMAs a pair beside the fold's 4, so it can
-// reach at most 4 / (d + 4) of the floor; K10's fold spends 3 (no
-// epilogue) beside d + 2 FMAs. Where the TPU grid carries its accumulators
+// pass the bf16 tensor cores unchanged) and K10; K8 and K9 keep it to be
+// timed against. It does the product on the CUDA cores, d FMAs a pair
+// beside the fold's 4, so it can reach at most 4 / (d + 4) of the floor;
+// K10's fold spends 3 (no epilogue) beside d + 2 FMAs. Where the TPU grid
+// carries its accumulators
 // across train tiles in VMEM, a Hopper block owns kR whole test rows and
 // sweeps all of n itself.
 // - A block has B threads, one per bucket, and kR test rows: 16, or 8 at
@@ -126,8 +147,8 @@
 // - Row-major operands (K6): each step stages B train rows of y, a
 //   contiguous run of B * d floats, into shared memory with coalesced loads;
 //   a thread then reads its row at stride d, free of bank conflicts for odd
-//   d. Feature-major operands (K9): thread b reads yt[c][col] straight from
-//   global memory, coalesced across the warp, with no staging and no
+//   d. Feature-major operands (K9, K10): thread b reads yt[c][col] straight
+//   from global memory, coalesced across the warp, with no staging and no
 //   barrier.
 // - After the sweep the kR x B pairs go to shared memory (at most 64 KB);
 //   one warp per row runs the k rounds (fold_extract.cuh).
@@ -335,7 +356,8 @@ cudaError_t launch(const float* x, const float* y, const float* y2, int m,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body of K6 (bf16 on) and K7: see the note at the top.
+// The tensor-core body of K6 (bf16 on), K7 and K9, and K8 on its tile: see
+// the note at the top.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -348,6 +370,18 @@ constexpr int kTcRows = kWarpRows * kWarpsR;     // R, test rows a block
 constexpr int kTcSlice = kWarpCols * kWarpsC;    // B', buckets a block
 constexpr int kDotminBuckets = 512;              // K7: four buckets a lane
 constexpr unsigned short kPadY2 = 0x7F7F;        // largest finite bf16
+
+// Where an operand of rows i and features c keeps element (i, c): at
+// i * row + c * feat, so (d, 1) row-major and (1, rows) feature-major
+// ([d][rows]). Only the pack and the A fragments read through it, both
+// outside the sweep's loop.
+struct Strides {
+  int row;
+  int feat;
+  __host__ __device__ size_t at(int i, int c) const {
+    return static_cast<size_t>(i) * row + static_cast<size_t>(c) * feat;
+  }
+};
 
 // k-steps of 16 for d features and the three y2 parts
 __host__ __device__ constexpr int ksteps(int d) { return (d + 3 + 15) / 16; }
@@ -393,7 +427,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 // (two values each) lie in the order 0 4 1 5 2 6 3 7, so that the B
 // fragment of lane (g, tig), words tig and tig + 4 of row g, is one
 // 8-byte load. One thread writes one k-step of a row (32 bytes).
-__global__ void pack_kernel(const float* __restrict__ y,
+__global__ void pack_kernel(const float* __restrict__ y, Strides ys,
                             const float* __restrict__ y2, int n, int n_pad,
                             int d, int steps, uint4* __restrict__ yp) {
   const size_t total = static_cast<size_t>(n_pad) * steps;
@@ -417,7 +451,7 @@ __global__ void pack_kernel(const float* __restrict__ y,
       for (int u = 0; u < 2; ++u) {
         const int c = c0 + 2 * q + u;
         v[u] = j >= n ? 0.f
-               : c < d ? y[static_cast<size_t>(j) * d + c]
+               : c < d ? y[ys.at(j, c)]
                : c < d + 3 ? part[c - d] : 0.f;
       }
       w[q] = pack_bf16x2(v[0], v[1]);
@@ -427,6 +461,36 @@ __global__ void pack_kernel(const float* __restrict__ y,
     }
     yp[2 * e] = make_uint4(w[0], w[4], w[1], w[5]);
     yp[2 * e + 1] = make_uint4(w[2], w[6], w[3], w[7]);
+  }
+}
+
+// A thread's (row, bucket) pairs of a K6 or K8 sweep into vals / cols
+// [m][buckets]: the metric and the column t * buckets + bucket of the step
+// t that reached it, or -1. Element e of n-tile j of m-tile i is row
+// row0 + 16 i + g + 8 (e >> 1), bucket col0 + 8 j + 2 tig + (e & 1).
+__device__ __forceinline__ void store_pairs(
+    const float (&bd)[2][4][4], const int (&bt)[2][4][4], int row0, int col0,
+    int g, int tig, int m, int buckets, float* __restrict__ vals,
+    int* __restrict__ cols) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int bucket = col0 + 8 * j + 2 * tig;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * i + g + 8 * h;
+        if (r >= m) continue;
+        const size_t at = static_cast<size_t>(r) * buckets + bucket;
+        *reinterpret_cast<float2*>(vals + at) =
+            make_float2(bd[i][j][2 * h], bd[i][j][2 * h + 1]);
+        const int t0 = bt[i][j][2 * h];
+        const int t1 = bt[i][j][2 * h + 1];
+        *reinterpret_cast<int2*>(cols + at) =
+            make_int2(t0 < 0 ? -1 : t0 * buckets + bucket,
+                      t1 < 0 ? -1 : t1 * buckets + bucket + 1);
+      }
+    }
   }
 }
 
@@ -445,8 +509,9 @@ __global__ void pack_kernel(const float* __restrict__ y,
 // its lane minima to vals [m][128].
 template <bool kIndexed, int kSteps>
 __global__ void __launch_bounds__(kThreads, kSteps <= 2 ? 2 : 1)
-tc_sweep_kernel(const float* __restrict__ x, const uint2* __restrict__ yp,
-                int m, int d, int n_steps, int buckets,
+tc_sweep_kernel(const float* __restrict__ x, Strides xs,
+                const uint2* __restrict__ yp, int m, int d, int n_steps,
+                int buckets,
                 float* __restrict__ vals, int* __restrict__ cols) {
   constexpr int kAhead = steps_ahead(kSteps);
   constexpr int kRound = kAhead + 1;
@@ -481,7 +546,10 @@ tc_sweep_kernel(const float* __restrict__ x, const uint2* __restrict__ yp,
   for (int p = 0; p < kAhead; ++p) load(pf[p]);
 
   // A fragments, fixed for the sweep: -2 bf16(x), then 1 against the
-  // three y2 parts, then 0; rows past m are 0
+  // three y2 parts, then 0; rows past m are 0. K7 reads row-major x only:
+  // with its strides fixed ptxas schedules its loop as before the strides
+  // (0.0622 ms at the bench shape against 0.0655 through xs)
+  const Strides ax = kIndexed ? xs : Strides{d, 1};
   uint32_t a[2][kSteps][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -496,7 +564,7 @@ tc_sweep_kernel(const float* __restrict__ x, const uint2* __restrict__ yp,
         for (int u = 0; u < 2; ++u) {
           const int cu = c + u;
           v[u] = r >= m ? 0.f
-                 : cu < d ? -2.f * x[static_cast<size_t>(r) * d + cu]
+                 : cu < d ? -2.f * x[ax.at(r, cu)]
                  : cu < d + 3 ? 1.f : 0.f;
         }
         a[i][q][h] = pack_bf16x2(v[0], v[1]);
@@ -567,26 +635,95 @@ tc_sweep_kernel(const float* __restrict__ x, const uint2* __restrict__ yp,
     }
     return;
   }
+  store_pairs(bd, bt, row0, col0, g, tig, m, buckets, vals, cols);
+}
+
+// K8 on the tile of tc_sweep_kernel, the product replaced by an add: the
+// element of a thread's fragments for (row r, bucket b) at step t is
+// y2p[t * buckets + b] + s[r], s[r] the sum of row r's features in feature
+// order (as fold.row_sum). y2p is y2 padded with +inf to padded_rows(n, d,
+// buckets) entries, so the loop tests no bound and a pad never wins. A
+// thread holds the sums of its four rows and loads its eight buckets' y2
+// as four float2 a step, kAhead steps ahead of the fold; a pair costs an
+// add, a compare and two selects, and the step is stored, not the column.
+// Its pairs go to vals / cols [m][buckets] as K6's do.
+template <int kAhead>
+__global__ void __launch_bounds__(kThreads, 2)
+tc_nodot_kernel(const float* __restrict__ x, const float* __restrict__ y2p,
+                int m, int d, int n_steps, int buckets,
+                float* __restrict__ vals, int* __restrict__ cols) {
+  constexpr int kRound = kAhead + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int wr = warp / kWarpsC;
+  const int wc = warp - wr * kWarpsC;
+  const int row0 = blockIdx.x * kTcRows + wr * kWarpRows;
+  const int col0 = blockIdx.y * kTcSlice + wc * kWarpCols;
+
+  // buckets col0 + 8 j + 2 tig and the next: one float2 of y2p a step
+  const float2* next = reinterpret_cast<const float2*>(y2p + col0 + 2 * tig);
+  const int step_stride = buckets / 2;
+  float2 pf[kRound][4];
+  auto load = [&](float2 (&dst)[4]) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[j] = __ldg(next + 4 * j);
+    next += step_stride;
+  };
+#pragma unroll
+  for (int p = 0; p < kAhead; ++p) load(pf[p]);
+
+  // s[i][h]: row row0 + 16 i + g + 8 h (0 past m)
+  float s[2][2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int bucket = col0 + 8 * j + 2 * tig;
+    for (int h = 0; h < 2; ++h) {
+      const int r = row0 + 16 * i + g + 8 * h;
+      float v = 0.f;
+      if (r < m) {
+        for (int c = 0; c < d; ++c) v += x[static_cast<size_t>(r) * d + c];
+      }
+      s[i][h] = v;
+    }
+  }
+
+  float bd[2][4][4];
+  int bt[2][4][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 16 * i + g + 8 * h;
-        if (r >= m) continue;
-        const size_t at = static_cast<size_t>(r) * buckets + bucket;
-        *reinterpret_cast<float2*>(vals + at) =
-            make_float2(bd[i][j][2 * h], bd[i][j][2 * h + 1]);
-        const int t0 = bt[i][j][2 * h];
-        const int t1 = bt[i][j][2 * h + 1];
-        *reinterpret_cast<int2*>(cols + at) =
-            make_int2(t0 < 0 ? -1 : t0 * buckets + bucket,
-                      t1 < 0 ? -1 : t1 * buckets + bucket + 1);
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bd[i][j][e] = kBig;
+        bt[i][j][e] = -1;
+      }
+
+  for (int t0 = 0; t0 < n_steps; t0 += kRound) {
+#pragma unroll
+    for (int p = 0; p < kRound; ++p) {
+      const int t = t0 + p;
+      load(pf[(p + kAhead) % kRound]);   // step t + kAhead
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float v =
+                ((e & 1) ? pf[p][j].y : pf[p][j].x) + s[i][e >> 1];
+            if (v < bd[i][j][e]) {
+              bd[i][j][e] = v;
+              bt[i][j][e] = t;
+            }
+          }
+        }
       }
     }
   }
+  store_pairs(bd, bt, row0, col0, g, tig, m, buckets, vals, cols);
 }
 
 // K6's k rounds over the sweep's [m][kB] (metric, column) pairs: a warp
@@ -660,29 +797,31 @@ int grid_for(size_t work) {
   return static_cast<int>(work / 256 + 1 < 4096 ? work / 256 + 1 : 4096);
 }
 
-cudaError_t pack(const float* y, const float* y2, int n, int n_pad, int d,
-                 uint4* yp, cudaStream_t s) {
+cudaError_t pack(const float* y, Strides ys, const float* y2, int n,
+                 int n_pad, int d, uint4* yp, cudaStream_t s) {
   const int steps = ksteps(d);
   pack_kernel<<<grid_for(static_cast<size_t>(n_pad) * steps), 256, 0, s>>>(
-      y, y2, n, n_pad, d, steps, yp);
+      y, ys, y2, n, n_pad, d, steps, yp);
   return cudaGetLastError();
 }
 
 template <bool kIndexed, int kSteps>
-cudaError_t sweep(const float* x, const uint4* yp, int m, int d, int n,
-                  int buckets, float* vals, int* cols, cudaStream_t s) {
+cudaError_t sweep(const float* x, Strides xs, const uint4* yp, int m, int d,
+                  int n, int buckets, float* vals, int* cols,
+                  cudaStream_t s) {
   const dim3 grid((m + kTcRows - 1) / kTcRows, buckets / kTcSlice);
   tc_sweep_kernel<kIndexed, kSteps><<<grid, kThreads, 0, s>>>(
-      x, reinterpret_cast<const uint2*>(yp), m, d,
+      x, xs, reinterpret_cast<const uint2*>(yp), m, d,
       sweep_steps(n, d, buckets), buckets, vals, cols);
   return cudaGetLastError();
 }
 
 template <bool kIndexed>
-cudaError_t sweep_any(const float* x, const uint4* yp, int m, int d, int n,
-                      int buckets, float* vals, int* cols, cudaStream_t s) {
+cudaError_t sweep_any(const float* x, Strides xs, const uint4* yp, int m,
+                      int d, int n, int buckets, float* vals, int* cols,
+                      cudaStream_t s) {
 #define AVT_SWEEP(S) \
-  sweep<kIndexed, S>(x, yp, m, d, n, buckets, vals, cols, s)
+  sweep<kIndexed, S>(x, xs, yp, m, d, n, buckets, vals, cols, s)
   switch (ksteps(d)) {
     case 1: return AVT_SWEEP(1);
     case 2: return AVT_SWEEP(2);
@@ -702,17 +841,10 @@ cudaError_t extract(const float* vals, const int* cols, int m, int k,
   return cudaGetLastError();
 }
 
-// K6 on the tensor cores: pack, sweep, k rounds. yp, vals and cols are
-// the caller's scratch: [padded_rows][16 ksteps(d)] bf16, [m][buckets]
-// f32 and i32.
-cudaError_t fold_acc(const float* x, const float* y, const float* y2, int m,
-                     int n, int d, int k, int buckets, uint4* yp,
-                     float* vals, int* cols, float* out_d, int* out_i,
-                     cudaStream_t s) {
-  cudaError_t err = pack(y, y2, n, padded_rows(n, d, buckets), d, yp, s);
-  if (err != cudaSuccess) return err;
-  err = sweep_any<true>(x, yp, m, d, n, buckets, vals, cols, s);
-  if (err != cudaSuccess) return err;
+// the k rounds over [m][buckets] (metric, column) pairs
+cudaError_t extract_any(const float* vals, const int* cols, int m, int k,
+                        int buckets, float* out_d, int* out_i,
+                        cudaStream_t s) {
   switch (buckets) {
     case 128: return extract<128>(vals, cols, m, k, out_d, out_i, s);
     case 256: return extract<256>(vals, cols, m, k, out_d, out_i, s);
@@ -722,6 +854,42 @@ cudaError_t fold_acc(const float* x, const float* y, const float* y2, int m,
   }
 }
 
+// K6 and K9 on the tensor cores: pack, sweep, k rounds, the operands read
+// through xs and ys (row-major K6, feature-major K9). yp, vals and cols are
+// the caller's scratch: [padded_rows][16 ksteps(d)] bf16, [m][buckets]
+// f32 and i32.
+cudaError_t fold_acc(const float* x, Strides xs, const float* y, Strides ys,
+                     const float* y2, int m, int n, int d, int k,
+                     int buckets, uint4* yp, float* vals, int* cols,
+                     float* out_d, int* out_i, cudaStream_t s) {
+  cudaError_t err =
+      pack(y, ys, y2, n, padded_rows(n, d, buckets), d, yp, s);
+  if (err != cudaSuccess) return err;
+  err = sweep_any<true>(x, xs, yp, m, d, n, buckets, vals, cols, s);
+  if (err != cudaSuccess) return err;
+  return extract_any(vals, cols, m, k, buckets, out_d, out_i, s);
+}
+
+// K8 on the tile of the tensor-core sweep without the product: the sweep
+// over y2p, y2 padded with +inf to padded_rows(n, d, buckets) entries by
+// the caller, then K6's k rounds; vals and cols are the caller's scratch.
+cudaError_t fold_nodot(const float* x, const float* y2p, int m, int n,
+                       int d, int k, int buckets, float* vals, int* cols,
+                       float* out_d, int* out_i, cudaStream_t s) {
+  const dim3 grid((m + kTcRows - 1) / kTcRows, buckets / kTcSlice);
+  const int n_steps = sweep_steps(n, d, buckets);
+  if (steps_ahead(ksteps(d)) == 2) {
+    tc_nodot_kernel<2><<<grid, kThreads, 0, s>>>(x, y2p, m, d, n_steps,
+                                                   buckets, vals, cols);
+  } else {
+    tc_nodot_kernel<1><<<grid, kThreads, 0, s>>>(x, y2p, m, d, n_steps,
+                                                   buckets, vals, cols);
+  }
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return extract_any(vals, cols, m, k, buckets, out_d, out_i, s);
+}
+
 // K7 on the tensor cores over kDotminBuckets buckets, four a lane, each
 // thread writing its lanes' minima; yp is the caller's scratch.
 cudaError_t fold_dotmin(const float* x, const float* y, const float* y2,
@@ -729,11 +897,12 @@ cudaError_t fold_dotmin(const float* x, const float* y, const float* y2,
                         cudaStream_t s) {
   static_assert(kDotminBuckets == 4 * kLanes && kTcSlice == 4 * 16,
                 "a K7 block holds the four buckets of 16 lanes");
+  const Strides rows{d, 1};
   const cudaError_t err =
-      pack(y, y2, n, padded_rows(n, d, kDotminBuckets), d, yp, s);
+      pack(y, rows, y2, n, padded_rows(n, d, kDotminBuckets), d, yp, s);
   if (err != cudaSuccess) return err;
-  return sweep_any<false>(x, yp, m, d, n, kDotminBuckets, out_d, nullptr,
-                          s);
+  return sweep_any<false>(x, rows, yp, m, d, n, kDotminBuckets, out_d,
+                          nullptr, s);
 }
 
 }  // namespace tc
@@ -767,6 +936,12 @@ cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
 #undef AVT_FOLD
 }
 
+// the sizes a tensor-core launch takes (K6 and K9 bf16, K8 on the tile)
+bool tc_sizes_ok(int m, int n, int d, int k, int n_acc) {
+  return m > 0 && n > 0 && d > 0 && d <= kMaxD && k >= 1 && k <= kLanes &&
+         (n_acc == 1 || n_acc == 2 || n_acc == 4 || n_acc == 8);
+}
+
 }  // namespace
 
 extern "C" {
@@ -783,15 +958,14 @@ int avt_fold_acc(const void* x, const void* y, const void* y2, int m, int n,
         x, y, y2, m, n, d, k, n_acc, round_bf16, out_d, out_i, device,
         stream));
   }
-  if (body != 1 || !round_bf16 || m <= 0 || n <= 0 || d <= 0 || d > kMaxD ||
-      k < 1 || k > kLanes ||
-      (n_acc != 1 && n_acc != 2 && n_acc != 4 && n_acc != 8)) {
+  if (body != 1 || !round_bf16 || !tc_sizes_ok(m, n, d, k, n_acc)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(tc::fold_acc(
-      static_cast<const float*>(x), static_cast<const float*>(y),
+      static_cast<const float*>(x), tc::Strides{d, 1},
+      static_cast<const float*>(y), tc::Strides{d, 1},
       static_cast<const float*>(y2), m, n, d, k, n_acc * kLanes,
       static_cast<uint4*>(yp), static_cast<float*>(vals),
       static_cast<int*>(cols), static_cast<float*>(out_d),
@@ -822,20 +996,59 @@ int avt_fold_dotmin(const void* x, const void* y, const void* y2, int m,
   return static_cast<int>(err);
 }
 
-// K8: x [m, d]; y2 [n]; the metric y2[col] + sum_d x[r][d].
+// K8: x [m, d]; y2 [n]; the metric y2[col] + sum_d x[r][d]. body 0: the
+// CUDA-core body; 1: the tile of the tensor-core body with an add for the
+// product (tc::fold_nodot), y2p the caller's y2 padded with +inf to
+// padded_rows(n, d, n_acc * 128) entries, vals and cols its scratch.
 int avt_fold_nodot(const void* x, const void* y2, int m, int n, int d, int k,
-                   int n_acc, void* out_d, void* out_i, int device,
-                   void* stream) {
-  return static_cast<int>(launch_indexed<false, false, true>(
-      x, nullptr, y2, m, n, d, k, n_acc, 0, out_d, out_i, device, stream));
+                   int n_acc, int body, void* y2p, void* vals, void* cols,
+                   void* out_d, void* out_i, int device, void* stream) {
+  if (body == 0) {
+    return static_cast<int>(launch_indexed<false, false, true>(
+        x, nullptr, y2, m, n, d, k, n_acc, 0, out_d, out_i, device,
+        stream));
+  }
+  if (body != 1 || !tc_sizes_ok(m, n, d, k, n_acc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tc::fold_nodot(
+      static_cast<const float*>(x), static_cast<const float*>(y2p), m, n, d,
+      k, n_acc * kLanes, static_cast<float*>(vals), static_cast<int*>(cols),
+      static_cast<float*>(out_d), static_cast<int*>(out_i),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K9: xt [d, m], yt [d, n] feature-major, rounded to bf16 before the dot.
+// body 0: the CUDA-core body, which takes the strides (1, m) and (1, n)
+// only; 1: K6's tensor-core body (tc::fold_acc) reading xt and yt through
+// the strides (x_row, x_feat) and (y_row, y_feat), with the caller's
+// scratch yp, vals, cols.
 int avt_fold_tpose(const void* xt, const void* yt, const void* y2, int m,
-                   int n, int d, int k, int n_acc, void* out_d, void* out_i,
-                   int device, void* stream) {
-  return static_cast<int>(launch_indexed<true, true, true>(
-      xt, yt, y2, m, n, d, k, n_acc, 1, out_d, out_i, device, stream));
+                   int n, int d, int k, int n_acc, int body, int x_row,
+                   int x_feat, int y_row, int y_feat, void* yp, void* vals,
+                   void* cols, void* out_d, void* out_i, int device,
+                   void* stream) {
+  if (body == 0) {
+    if (x_row != 1 || x_feat != m || y_row != 1 || y_feat != n) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return static_cast<int>(launch_indexed<true, true, true>(
+        xt, yt, y2, m, n, d, k, n_acc, 1, out_d, out_i, device, stream));
+  }
+  if (body != 1 || !tc_sizes_ok(m, n, d, k, n_acc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tc::fold_acc(
+      static_cast<const float*>(xt), tc::Strides{x_row, x_feat},
+      static_cast<const float*>(yt), tc::Strides{y_row, y_feat},
+      static_cast<const float*>(y2), m, n, d, k, n_acc * kLanes,
+      static_cast<uint4*>(yp), static_cast<float*>(vals),
+      static_cast<int*>(cols), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), static_cast<cudaStream_t>(stream)));
 }
 
 // K10: the raw product of augmented operands, rounded to bf16: x [m, d] and

@@ -21,8 +21,22 @@ Each returns the raw ``[M, 128]`` outputs of its TPU kernel. A CPU tensor
 takes the plain version; a CUDA tensor launches the kernel or raises. Kernel
 and plain version agree up to the f32 summation order of the product:
 metrics within a few ulps, and columns equal except where two candidates'
-metrics lie that close. K8 and K10 sum in the same order as their plain
-versions; K11 and K12 are integer and equal theirs bit for bit.
+metrics lie that close. K8 does one f32 add a pair, as its plain version
+does, and equals it bit for bit; K10 sums in the same order as its plain
+version; K11 and K12 are integer and equal theirs bit for bit.
+
+**Bodies.** K6 with bf16 rounding, K7 and K9 run on the tensor-core body
+of ``csrc/fold.cu`` (namespace ``tc``: the train rows packed to bf16 with
+y2 in the padding of k, a block of ``TC_ROWS`` test rows × ``TC_SLICE``
+buckets, the fold on the accumulator fragments, K6's and K9's slices
+merged through an ``[M, B]`` scratch and an extraction kernel); K9 reads
+its feature-major operands through the strides of :func:`tc_strides`. K8
+runs that body's tile with the product replaced by an add, over y2 padded
+with +inf. The CUDA-core body of PRs 3-4 (one thread per bucket) serves K6
+with f32 operands and K10, and stays reachable as ``_launch_acc``,
+``_launch_dotmin``, ``_launch_nodot`` and ``_launch_tpose`` with ``body
+"cuda_cores"`` so that ``chip_smoke.py`` can time it beside the new body;
+no public path selects it.
 
 **Padding.** The TPU launchers pad the train rows to a multiple of
 ``tile_n``. With a ``y2`` epilogue the pad's ``y2`` is ``BIG`` and never
@@ -92,9 +106,10 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-#: K6 (bf16 on) and K7 on the tensor cores (``csrc/fold.cu``, namespace
-#: ``tc``): a block owns TC_ROWS test rows and TC_SLICE buckets, and the
-#: train rows are packed first to bf16 rows of ``tc_width(d)`` values
+#: K6 (bf16 on), K7 and K9 on the tensor cores, K8 on their tile
+#: (``csrc/fold.cu``, namespace ``tc``): a block owns TC_ROWS test rows and
+#: TC_SLICE buckets, and the train rows are packed first to bf16 rows of
+#: ``tc_width(d)`` values (K8: y2 padded to the same ``n_pad`` entries)
 TC_ROWS = 128
 TC_SLICE = 64
 #: K7's buckets on the tensor cores: four a lane, a thread holding all
@@ -107,8 +122,10 @@ TC_PAD_Y2 = 0x7F7F
 #: packed row's k-step: lane tig's B fragment, words tig and tig + 4, is
 #: then one 8-byte load
 TC_WORD_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
-#: the C entries' ``body`` argument
-BODIES = {"cuda_cores": 0, "tensor": 1}
+#: the C entries' ``body`` argument: the CUDA-core body of PRs 3-4, one
+#: thread per bucket; the tensor-core body (K6, K7, K9); and its tile with
+#: the product replaced by an add (K8, which has no product)
+BODIES = {"cuda_cores": 0, "tensor": 1, "tile": 1}
 
 
 def tc_steps(d: int) -> int:
@@ -173,14 +190,35 @@ def tc_plan(m: int, n: int, d: int, buckets: int,
                   (m, buckets) if indexed else None)
 
 
+def tc_strides(rows: int, d: int, tpose: bool) -> Tuple[int, int]:
+    """(row, feature) strides, in elements, through which the tensor-core
+    body reads an operand of ``rows`` rows of d features: element (i, c)
+    at ``i·row + c·feature``; ``(d, 1)`` row-major ``[rows, d]``, ``(1,
+    rows)`` feature-major ``[d, rows]`` (K9)."""
+    return (1, rows) if tpose else (d, 1)
+
+
+def _strided_rows(t: torch.Tensor, tpose: bool) -> torch.Tensor:
+    """The contiguous operand ``t`` (``[rows, d]``, or ``[d, rows]`` with
+    ``tpose``) as ``[rows, d]``, read through :func:`tc_strides`."""
+    rows, d = (t.shape[1], t.shape[0]) if tpose else t.shape
+    return t.as_strided((rows, d), tc_strides(rows, d, tpose),
+                        t.storage_offset())
+
+
 def tc_operands(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
-                buckets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                buckets: int, tpose: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core body's operands, as f32 tensors of bf16 values in
     logical order: A ``[m, W]`` = (−2·bf16(x) | 1 1 1 | 0) and the packed
     train rows ``[n_pad, W]`` = (bf16(y) | y2 split exactly into three bf16
     parts | 0), a pad row 0 but for the largest finite bf16 against the
     first 1. ``A @ Yᵀ`` summed exactly is ``y2 − 2·bf16(x)·bf16(y)``; a pad
-    column's is above BIG. :func:`tc_packed` gives the kernel's layout."""
+    column's is above BIG. x ``[m, d]`` and y ``[n, d]`` are contiguous, or
+    with ``tpose`` feature-major ``[d, m]`` and ``[d, n]`` (K9), read
+    through :func:`tc_strides` as the kernel reads them.
+    :func:`tc_packed` gives the kernel's layout."""
+    x, y = _strided_rows(x, tpose), _strided_rows(y, tpose)
     m, d = x.shape
     n = y.shape[0]
     w = tc_width(d)
@@ -210,14 +248,20 @@ def tc_packed(rows: torch.Tensor) -> torch.Tensor:
     return words[:, :, order].reshape(n, w // 2).view(torch.bfloat16)
 
 
+def _tc_pairs(plan: TcPlan, dev: torch.device) -> Tuple:
+    """The scratch of an indexed sweep of ``plan``: its (row, bucket)
+    metrics and columns."""
+    return (torch.empty(plan.scratch, dtype=torch.float32, device=dev),
+            torch.empty(plan.scratch, dtype=torch.int32, device=dev))
+
+
 def _tc_scratch(plan: TcPlan, dev: torch.device) -> Tuple:
     """The packed rows, then K6's scratch metrics and columns, of
     ``plan``."""
     out = (torch.empty((plan.n_pad, plan.width), dtype=torch.bfloat16,
                        device=dev),)
     if plan.scratch is not None:
-        out += (torch.empty(plan.scratch, dtype=torch.float32, device=dev),
-                torch.empty(plan.scratch, dtype=torch.int32, device=dev))
+        out += _tc_pairs(plan, dev)
     return out
 
 
@@ -303,22 +347,45 @@ def dotmin(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor
 dotmin.launches = 0
 
 
+def _launch_nodot(x: torch.Tensor, y2: torch.Tensor, k: int, n_acc: int,
+                  body: str, dev: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Launch K8's ``body`` ("cuda_cores" or "tile") on checked operands:
+    (out_d, out_i, the tile's y2p — y2 padded with +inf to the plan's
+    ``n_pad`` entries, so that the sweep tests no bound and a pad never
+    wins — and scratch, or ())."""
+    if body not in ("cuda_cores", "tile"):
+        raise ValueError(f"K8 runs on 'cuda_cores' or 'tile', got {body!r}")
+    m, n, d = _check_rows(x, 1, y2)
+    out_d, out_i = _outputs(m, dev)
+    scratch: Tuple = ()
+    if m:
+        if body == "tile":
+            plan = tc_plan(m, n, d, n_acc * F.LANES)
+            scratch = (torch.nn.functional.pad(y2, (0, plan.n_pad - n),
+                                               value=float("inf")),
+                       *_tc_pairs(plan, dev))
+        ptrs = [t.data_ptr() for t in scratch] or [None] * 3
+        _build.check(_build.load_library().avt_fold_nodot(
+            x.data_ptr(), y2.data_ptr(), m, n, d, k, n_acc, BODIES[body],
+            *ptrs, out_d.data_ptr(), out_i.data_ptr(), dev.index,
+            _stream(dev)), "K8 fold launch")
+    return out_d, out_i, scratch
+
+
 def nodot_fold(x: torch.Tensor, y2: torch.Tensor, *, k: int, n_acc: int = 4,
                tile_n: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
     """K8 wrapper: the fold of ``y2[col] + Σ_d x[r, d]``; see
-    :func:`fold.nodot_fold_plain`."""
+    :func:`fold.nodot_fold_plain`, which it equals bit for bit. On the card
+    it runs on the tensor-core body's tile, an add in place of the
+    product."""
     if x.device.type == "cpu":
         return F.nodot_fold_plain(x, y2, k=k, n_acc=n_acc, tile_n=tile_n)
     F.check_tiles(n_acc, tile_n)
     F.check_k(k)
     dev = _check_operands(x=x, y2=y2)
-    m, n, d = _check_rows(x, 1, y2)
-    out_d, out_i = _outputs(m, dev)
-    if m:
-        _build.check(_build.load_library().avt_fold_nodot(
-            x.data_ptr(), y2.data_ptr(), m, n, d, k, n_acc,
-            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
-            "K8 fold launch")
+    out_d, out_i, _ = _launch_nodot(x, y2, k, n_acc, "tile", dev)
+    if out_d.shape[0]:
         nodot_fold.launches += 1
     return out_d, out_i
 
@@ -326,23 +393,45 @@ def nodot_fold(x: torch.Tensor, y2: torch.Tensor, *, k: int, n_acc: int = 4,
 nodot_fold.launches = 0
 
 
+def _launch_tpose(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor,
+                  k: int, n_acc: int, body: str, dev: torch.device
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Launch K9's ``body`` ("cuda_cores" or "tensor") on checked
+    feature-major operands, with their strides (:func:`tc_strides`):
+    (out_d, out_i, the tensor-core body's packed rows and scratch, or
+    ())."""
+    if body not in ("cuda_cores", "tensor"):
+        raise ValueError(f"K9 runs on 'cuda_cores' or 'tensor', got "
+                         f"{body!r}")
+    m, n, d = _check_rows(xt, 0, y2, yt)
+    out_d, out_i = _outputs(m, dev)
+    scratch: Tuple = ()
+    if m:
+        if body == "tensor":
+            scratch = _tc_scratch(tc_plan(m, n, d, n_acc * F.LANES), dev)
+        ptrs = [t.data_ptr() for t in scratch] or [None] * 3
+        _build.check(_build.load_library().avt_fold_tpose(
+            xt.data_ptr(), yt.data_ptr(), y2.data_ptr(), m, n, d, k, n_acc,
+            BODIES[body], *tc_strides(m, d, True), *tc_strides(n, d, True),
+            *ptrs, out_d.data_ptr(), out_i.data_ptr(), dev.index,
+            _stream(dev)), "K9 fold launch")
+    return out_d, out_i, scratch
+
+
 def tpose_fold(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor, *,
                k: int, n_acc: int = 4, tile_n: int = 4096
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9 wrapper: K6 with bf16 rounding over feature-major xt ``[D, M]``,
-    yt ``[D, N]``; see :func:`fold.tpose_fold_plain`."""
+    yt ``[D, N]``; see :func:`fold.tpose_fold_plain`. On the card it runs
+    K6's tensor-core body, which reads the operands through their
+    strides."""
     if xt.device.type == "cpu":
         return F.tpose_fold_plain(xt, yt, y2, k=k, n_acc=n_acc, tile_n=tile_n)
     F.check_tiles(n_acc, tile_n)
     F.check_k(k)
     dev = _check_operands(xt=xt, yt=yt, y2=y2)
-    m, n, d = _check_rows(xt, 0, y2, yt)
-    out_d, out_i = _outputs(m, dev)
-    if m:
-        _build.check(_build.load_library().avt_fold_tpose(
-            xt.data_ptr(), yt.data_ptr(), y2.data_ptr(), m, n, d, k,
-            n_acc, out_d.data_ptr(), out_i.data_ptr(), dev.index,
-            _stream(dev)), "K9 fold launch")
+    out_d, out_i, _ = _launch_tpose(xt, yt, y2, k, n_acc, "tensor", dev)
+    if out_d.shape[0]:
         tpose_fold.launches += 1
     return out_d, out_i
 

@@ -9,8 +9,9 @@ Phases (one line each; any failure exits non-zero):
 1. card and build: the ``nvidia-smi`` name and power limit,
    ``torch.version.cuda``, the time to build ``avenir_tpu_torch/csrc/*.cu``
    with nvcc for sm_90a, each kernel's registers and spills (ptxas), and
-   the HMMA instructions of each tensor-core sweep kernel of K6 and K7
-   (``cuobjdump -sass``; none fails the run);
+   the HMMA instructions of each tensor-core sweep kernel of K6 and K7,
+   which K9 shares through its strides (``cuobjdump -sass``; none fails
+   the run);
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
@@ -62,16 +63,19 @@ Phases (one line each; any failure exits non-zero):
    (``compare_fold``): empty slots (BIG, -1) where the plain version has
    them, metrics within 1e-5 relative, the kernel's columns distinct and
    carrying the metrics reported, so that a column that differs from the
-   plain one is a near-tie of it. K6 with bf16 rounding and K7 run on the
-   tensor cores: they are also held at their edges (d from 1 to 48 across
-   the k-step boundaries, n_acc 1 and 8, 1,000 test rows, no multiple of a
-   block's 128, 50 train rows, below a block's 64 buckets, and k = 128),
-   and on integer features in [0, 4), where every metric is exact, equal
-   to the plain version position by position, columns included; the
-   CUDA-core body they replaced (kept for K6 with bf16 off) is timed
-   against them at each n_acc of the JAX experiment, and its packed train
-   rows are held bit for bit against ``cuda_fold.tc_packed``. K10-K12, the
-   fold kernels of the
+   plain one is a near-tie of it. K8 is held bit for bit instead, values
+   and columns, at every shape. K6 with bf16 rounding, K7 and K9 run on
+   the tensor cores, K8 on their tile with an add for the product: they
+   are also held at their edges (d from 1 to 48 across the k-step
+   boundaries, n_acc 1 and 8, 1,000 test rows, no multiple of a block's
+   128, 50 train rows, below a block's 64 buckets, and k = 128), and on
+   integer features in [0, 4), where every metric is exact, equal to the
+   plain version position by position, columns included; the CUDA-core
+   body they replaced (kept for K6 with bf16 off) is timed against them in
+   turns (K6 at each n_acc of the JAX experiment, K7, K8, K9 at n_acc 4
+   and 8), the packed train rows are held bit for bit against
+   ``cuda_fold.tc_packed``, and K9's, packed from ``y.T``, against K6's
+   of y. K10-K12, the fold kernels of the
    kernel-restructure sweeps (``csrc/fold.cu``, ``csrc/fold_int8.cu``), at
    every configuration the sweeps launch, on operands their encoders make
    from seeded data at 8,192 × 65,536 × 9: sweep 16's ``augbf16`` (K10),
@@ -106,9 +110,10 @@ Phases (one line each; any failure exits non-zero):
    ``avenir_tpu_torch.scripts.exp_fold.main`` (K6 at five
    configurations, recall against K2's exact top-k with and without bf16
    rounding) and ``avenir_tpu_torch.scripts.roofline_knn.main`` (K2 beside
-   its two ablations, K7, K8, K9, the plain path and cdist + topk, against
-   the card's ceilings). K2's ablations and K6-K9 must each have launched
-   in this phase;
+   its two ablations, K7, K8, K9, the plain path and cdist + topk, each
+   against the ceilings of the units that do its work, then the fold
+   variants' device time split kernel by kernel). K2's ablations and
+   K6-K9 must each have launched in this phase;
 5. the kernel-restructure sweeps, in-process on the card at the same
    shape: ``avenir_tpu_torch.scripts.sweep11_vmem``, ``sweep14_tpose``,
    ``sweep17_tpose_protocol``, ``sweep16_kernels``, ``sweep16b_kernels``,
@@ -123,10 +128,11 @@ through ``pair_counts_multi`` from the CLI phase; K4's through
 points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
-K10-K12's from phase 5; K6 and K7 add ``parent_ms``, the chained time of
+K10-K12's from phase 5; K6-K9 add ``parent_ms``, the chained time of
 the CUDA-core body they replaced, in the same run; each bound the larger
-of the bytes
-over 3.35 TB/s and the operations at the card's rate for their type), the
+of the bytes over 3.35 TB/s and the operations at the card's rate for
+their type, K2's ablations and K6-K9 with the product types and
+instructions a pair of ``roofline_knn.WORK``), the
 ``nvidia-smi`` line, and
 last ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repo, it exits non-zero and prints no result.
@@ -205,7 +211,8 @@ def kernel_registers(build_log: str) -> str:
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True, timeout=60,
                                check=True).stdout.splitlines()
-    return "; ".join(f"{re.sub(r'[(].*', '', n.split('::')[-1])} {regs}"
+    from avenir_tpu_torch.scripts.roofline_knn import kernel_name
+    return "; ".join(f"{kernel_name(n)} {regs}"
                      for n, (_, regs) in zip(names, entries))
 
 
@@ -720,6 +727,7 @@ def check_k2_parts(dev, x, y, y2, k):
     card's rates."""
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.scripts._timing import chain_ms
+    from avenir_tpu_torch.scripts.roofline_knn import WORK
     m, d = x.shape
     n = y.shape[0]
     nodot = D.topk_nodot_raw(x, y2, k)
@@ -732,20 +740,21 @@ def check_k2_parts(dev, x, y, y2, k):
         raise AssertionError("K2 without its selection: minima beyond 1e-5 "
                              "relative")
     results = {}
-    # (wrapper call, plain call, bytes, product, instructions a pair, error)
+    # (wrapper call, plain call, bytes, error); the product's type and the
+    # instructions a pair from roofline_knn.WORK
     parts = {
         "K2-nodot": (lambda: D.topk_nodot_raw(x, y2, k),
                      lambda: D.topk_nodot_plain(x, y2, k),
-                     (m * d + n) * 4 + m * k * 8, None, 2, 0.0),
+                     (m * d + n) * 4 + m * k * 8, 0.0),
         "K2-sweep": (lambda: D.topk_sweep_min(x, y, y2),
                      lambda: D.topk_sweep_plain(x, y, y2),
-                     (m * d + n * d + n) * 4 + m * 4, "f32", 2,
+                     (m * d + n * d + n) * 4 + m * 4,
                      float((sweep - plain).abs().max())),
     }
-    for name, (kernel, plain_fn, n_bytes, product, ops, err) in parts.items():
+    for name, (kernel, plain_fn, n_bytes, err) in parts.items():
         ms = chain_ms(kernel, dev)
         plain_ms = cuda_ms(plain_fn, 3)
-        bound, by = pair_bound_ms(dev, m, n, d, n_bytes, product, ops)
+        bound, by = pair_bound_ms(dev, m, n, d, n_bytes, *WORK[name])
         log(f"phase 2 {name} bench shape: max err {err:.3g}; kernel "
             f"{ms:.4f} ms device (chained), plain {plain_ms:.3f} ms, bound "
             f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound")
@@ -1047,6 +1056,17 @@ def fold_metrics(x, y, y2, use_bf16):
     return metric, row_sq_norm(xr)
 
 
+def hold_nodot(label, got, plain):
+    """K8 against its plain version: equal bit for bit, values and
+    columns (one f32 add of the same two values a pair, the columns in the
+    same order)."""
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
+        raise AssertionError(
+            f"K8 {label}: differs from plain in "
+            f"{int((got[0] != plain[0]).sum())} metrics and "
+            f"{int((got[1] != plain[1]).sum())} columns")
+
+
 def check_fold(dev):
     """K6-K9 against their plain versions at FOLD_SHAPES; times at the
     bench shape. Returns the kernels line's entries (launches from
@@ -1055,6 +1075,7 @@ def check_fold(dev):
     from avenir_tpu_torch.ops import fold as F
     from avenir_tpu_torch.ops.distance import row_sq_norm
     from avenir_tpu_torch.scripts._timing import chain_ms
+    from avenir_tpu_torch.scripts.roofline_knn import WORK
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
     err = {name: 0.0 for name in FOLD_NAMES}
     entries = {}
@@ -1064,7 +1085,6 @@ def check_fold(dev):
         y = torch.rand((n, d), generator=gen, device=dev)
         y2 = row_sq_norm(y)
         xt, yt = x.T.contiguous(), y.T.contiguous()
-        s = F.row_sum(x)
         notes, plains = [], {}
 
         def hold(name, what, got, plain, metric, scale):
@@ -1082,15 +1102,19 @@ def check_fold(dev):
                  CF.acc_fold(x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n,
                              use_bf16=bf16),
                  plains[n_acc, bf16], *fold_metrics(x, y, y2, bf16))
+            if bf16:     # K9 is K6 with bf16 on over feature-major operands
+                hold("K9", f"n_acc={n_acc} tile_n={tile_n}",
+                     CF.tpose_fold(xt, yt, y2, k=k, n_acc=n_acc,
+                                   tile_n=tile_n),
+                     plains[n_acc, bf16], *fold_metrics(x, y, y2, bf16))
         metric, scale = fold_metrics(x, y, y2, True)
         hold("K7", "lanes", (CF.dotmin(x, y, y2), None),
              (F.dotmin_plain(x, y, y2), None), metric, scale)
         for n_acc, tile_n in folds:
             kw = dict(k=k, n_acc=n_acc, tile_n=tile_n)
-            got8 = CF.nodot_fold(x, y2, **kw)
-            hold("K8", f"n_acc={n_acc}", got8,
-                 F.nodot_fold_plain(x, y2, **kw),
-                 lambda ids: y2[ids.long()] + s.reshape(-1, 1), s.abs())
+            hold_nodot(f"{label} n_acc={n_acc}", CF.nodot_fold(x, y2, **kw),
+                       F.nodot_fold_plain(x, y2, **kw))
+            notes.append(f"K8 n_acc={n_acc}: equal")
             hold("K9", f"n_acc={n_acc}", CF.tpose_fold(xt, yt, y2, **kw),
                  F.tpose_fold_plain(xt, yt, y2, **kw), metric, scale)
         log(f"phase 2 K6-K9 {label} m={m} n={n} d={d} k={k}: "
@@ -1110,26 +1134,26 @@ def check_fold(dev):
                    lambda: F.tpose_fold_plain(xt, yt, y2, **kw)),
         }
         inputs = (m * d + n * d + n) * 4
-        # (bytes, product, instructions a pair): K6 (bf16 on, as timed),
-        # K7 and K9 take bf16-rounded operands; the indexed folds spend the
-        # metric, a compare and two selects a pair, K7 the metric and a min;
-        # K8 reads no y and has no product
-        work = {"K6": (inputs + m * 128 * 8, "bf16", 4),
-                "K7": (inputs + m * 128 * 4, "bf16", 2),
-                "K8": ((m * d + n) * 4 + m * 128 * 8, None, 4),
-                "K9": (inputs + m * 128 * 8, "bf16", 4)}
-        # the former body of K6 and K7, on the CUDA cores (K6 keeps it for
-        # bf16 off), timed in this run as the kernels line's parent_ms
+        # bytes (K8 reads no y; K7 writes values only), then the product's
+        # type and the instructions a pair from roofline_knn.WORK
+        work = {"K6": inputs + m * 128 * 8, "K7": inputs + m * 128 * 4,
+                "K8": (m * d + n) * 4 + m * 128 * 8,
+                "K9": inputs + m * 128 * 8}
+        # the former body of K6-K9, on the CUDA cores (K6 keeps it for bf16
+        # off), timed in this run as the kernels line's parent_ms
         kept = {"K6": lambda: CF._launch_acc(x, y, y2, k, n_acc, True,
                                              "cuda_cores", dev),
-                "K7": lambda: CF._launch_dotmin(x, y, y2, "cuda_cores", dev)}
+                "K7": lambda: CF._launch_dotmin(x, y, y2, "cuda_cores", dev),
+                "K8": lambda: CF._launch_nodot(x, y2, k, n_acc, "cuda_cores",
+                                               dev),
+                "K9": lambda: CF._launch_tpose(xt, yt, y2, k, n_acc,
+                                               "cuda_cores", dev)}
         for name, (kernel, plain) in calls.items():
             ms = chain_ms(kernel, dev)
             plain_ms = cuda_ms(plain, 3)
-            bound, by = pair_bound_ms(dev, m, n, d, *work[name])
-            parent_ms = chain_ms(kept[name], dev) if name in kept else None
-            parent = ("" if parent_ms is None else
-                      f", CUDA-core body {parent_ms:.4f} ms")
+            bound, by = pair_bound_ms(dev, m, n, d, work[name], *WORK[name])
+            parent_ms = chain_ms(kept[name], dev)
+            parent = f", CUDA-core body {parent_ms:.4f} ms"
             log(f"phase 2 {name} bench shape (n_acc={n_acc}, tile_n="
                 f"{tile_n}): kernel {ms:.4f} ms device (chained), plain "
                 f"{plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
@@ -1137,10 +1161,8 @@ def check_fold(dev):
             entries[name] = {
                 "name": FOLD_NAMES[name], "route": "cuda",
                 "source": FOLD_SOURCE, "replaces": FOLD_REPLACES[name],
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": by, "library_ms": None}
-            if parent_ms is not None:
-                entries[name]["parent_ms"] = parent_ms
+                "ms": ms, "parent_ms": parent_ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": by, "library_ms": None}
         compare_bodies(dev, x, y, y2, k)
         del x, y, y2, xt, yt, plains
     for name, entry in entries.items():
@@ -1149,91 +1171,120 @@ def check_fold(dev):
 
 
 def compare_bodies(dev, x, y, y2, k):
-    """Chained device time of K6's two bodies (bf16 on) at each n_acc of
-    exp_fold's configurations and at n_acc 1, and of K7's, the CUDA cores
-    against the
-    tensor cores in turns (CUDA cores, tensor, tensor, CUDA cores): the
-    tensor cores serve bf16 at every n_acc for this measurement. The
-    tensor-core body's packed rows
-    must equal ``tc_packed(tc_operands(...))`` bit for bit."""
+    """Chained device time of the CUDA-core body against the new one, in
+    turns (CUDA cores, new, new, CUDA cores), bf16 on: K6 at each n_acc of
+    exp_fold's configurations and at n_acc 1, K7, K8 (the tile with an add
+    for the product) at n_acc 4, and K9 at n_acc 4 and 8 (sweep 18's
+    ``tpose_tag`` and ``tpose_tag8``). The tensor-core body's packed rows
+    must equal ``tc_packed(tc_operands(...))`` bit for bit, and K9's,
+    packed from the feature-major ``y.T``, K6's of y."""
     from avenir_tpu_torch.ops import cuda_fold as CF
     from avenir_tpu_torch.scripts._timing import chain_ms
     from avenir_tpu_torch.scripts.exp_fold import CONFIGS
+    xt, yt = x.T.contiguous(), y.T.contiguous()
     arms = {f"K6 n_acc={a}": (
-        lambda b, a=a: CF._launch_acc(x, y, y2, k, a, True, b, dev))
+        "tensor", lambda b, a=a: CF._launch_acc(x, y, y2, k, a, True, b, dev))
         for a in sorted({1} | {a for a, _ in CONFIGS})}
-    arms["K7"] = lambda b: CF._launch_dotmin(x, y, y2, b, dev)
-    for arm, launch in arms.items():
+    arms["K7"] = ("tensor", lambda b: CF._launch_dotmin(x, y, y2, b, dev))
+    arms["K8 n_acc=4"] = (
+        "tile", lambda b: CF._launch_nodot(x, y2, k, 4, b, dev))
+    for a in (4, 8):
+        arms[f"K9 n_acc={a}"] = (
+            "tensor",
+            lambda b, a=a: CF._launch_tpose(xt, yt, y2, k, a, b, dev))
+    for arm, (new, launch) in arms.items():
         got = collections.defaultdict(list)
-        for body in ("cuda_cores", "tensor", "tensor", "cuda_cores"):
+        for body in ("cuda_cores", new, new, "cuda_cores"):
             got[body].append(chain_ms(lambda: launch(body), dev))
         log(f"phase 2 bodies {arm} (bench shape, bf16 on): CUDA cores "
             + ", ".join(f"{t:.4f}" for t in got["cuda_cores"])
-            + " ms; tensor cores "
-            + ", ".join(f"{t:.4f}" for t in got["tensor"]) + " ms")
+            + f" ms; {'tensor cores' if new == 'tensor' else new} "
+            + ", ".join(f"{t:.4f}" for t in got[new]) + " ms")
     yp = CF._launch_acc(x, y, y2, k, 4, True, "tensor", dev)[2][0]
     want = CF.tc_packed(CF.tc_operands(x, y, y2, 512)[1])
     if not torch.equal(yp.view(torch.int16), want.view(torch.int16)):
         raise AssertionError("K6 packed rows differ from "
                              "tc_packed(tc_operands(...))")
+    yp9 = CF._launch_tpose(xt, yt, y2, k, 4, "tensor", dev)[2][0]
+    if not torch.equal(yp9.view(torch.int16), yp.view(torch.int16)):
+        raise AssertionError("K9 packed rows of y.T differ from K6's of y")
+    log("phase 2 packed rows: K6's equal tc_packed(tc_operands(...)), K9's "
+        "(from y.T) equal K6's (from y), bit for bit")
 
 
-# K6 (bf16 on) and K7 on the tensor cores at their edges: (label, m, n, d,
-# k); every case at n_acc 1 and 8. d 13/14, 29/30, 45/46 are the k-step
-# boundaries of d + 3 (the y2 parts ride in the padding), 16/17 those of d
-# alone; m is no multiple of 128 rows; n = 50 is below one slice of 64
-# buckets
+# the tensor-core body (K6 bf16 on, K7, K9) and K8 on its tile at their
+# edges: (label, m, n, d, k); every indexed case at n_acc 1 and 8. d 13/14,
+# 29/30, 45/46 are the k-step boundaries of d + 3 (the y2 parts ride in the
+# padding), 16/17 those of d alone; m is no multiple of 128 rows; n = 50 is
+# below one slice of 64 buckets
 TC_EDGE_SHAPES = tuple(
     (f"d={d}", 1000, 5000, d, 5) for d in (1, 13, 14, 16, 17, 29, 30, 46, 48)
 ) + (("N<slice", 300, 50, 9, 5), ("k=128", 2048, 16384, 9, 128))
 
 
 def check_tc_edges(dev):
-    """TC_EDGE_SHAPES through the wrappers, held by ``compare_fold``, then
-    the exact-tie hold: integer features in [0, 4), where bf16 products and
-    f32 sums are exact, so K6's (metric, column) and K7's lanes must equal
-    the plain version's position by position at every n_acc."""
+    """TC_EDGE_SHAPES through the wrappers, K6, K7 and K9 held by
+    ``compare_fold``, K8 bit for bit; then the exact-tie hold: integer
+    features in [0, 4), where bf16 products and f32 sums are exact, so
+    K6's and K9's (metric, column), K7's lanes and K8's pairs must equal
+    the plain version's position by position at every n_acc. Returns the
+    largest error of K6, K7 and K9."""
     from avenir_tpu_torch.ops import cuda_fold as CF
     from avenir_tpu_torch.ops import fold as F
     from avenir_tpu_torch.ops.distance import row_sq_norm
     gen = torch.Generator(device=dev).manual_seed(SEED + 11)
-    err = 0.0
+    err = collections.defaultdict(float)
     for label, m, n, d, k in TC_EDGE_SHAPES:
         x = torch.rand((m, d), generator=gen, device=dev)
         y = torch.rand((n, d), generator=gen, device=dev)
         y2 = row_sq_norm(y)
+        xt, yt = x.T.contiguous(), y.T.contiguous()
         metric, scale = fold_metrics(x, y, y2, True)
         notes = []
         for n_acc in (1, 8):
-            c = compare_fold(f"K6 {label} n_acc={n_acc}",
-                             CF.acc_fold(x, y, y2, k=k, n_acc=n_acc),
-                             F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc),
-                             metric, scale)
-            err = max(err, c["err"])
-            notes.append(f"K6 n_acc={n_acc} {c['differ']} other columns")
+            for name, got, plain in (
+                    ("K6", CF.acc_fold(x, y, y2, k=k, n_acc=n_acc),
+                     F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc)),
+                    ("K9", CF.tpose_fold(xt, yt, y2, k=k, n_acc=n_acc),
+                     F.tpose_fold_plain(xt, yt, y2, k=k, n_acc=n_acc))):
+                c = compare_fold(f"{name} {label} n_acc={n_acc}", got, plain,
+                                 metric, scale)
+                err[name] = max(err[name], c["err"])
+                notes.append(f"{name} n_acc={n_acc} {c['differ']} other "
+                             "columns")
+            hold_nodot(f"{label} n_acc={n_acc}",
+                       CF.nodot_fold(x, y2, k=k, n_acc=n_acc),
+                       F.nodot_fold_plain(x, y2, k=k, n_acc=n_acc))
         c = compare_fold(f"K7 {label}", (CF.dotmin(x, y, y2), None),
                          (F.dotmin_plain(x, y, y2), None), metric, scale)
-        err = max(err, c["err"])
+        err["K7"] = max(err["K7"], c["err"])
         log(f"phase 2 tensor-core edges {label} m={m} n={n} d={d} k={k}: "
-            + "; ".join(notes) + "; K7 lanes within 1e-5")
-        del x, y, y2
+            + "; ".join(notes) + "; K7 lanes within 1e-5; K8 at n_acc 1 "
+            "and 8 equal to plain")
+        del x, y, y2, xt, yt
     m, n, d, k = 2051, 65536, 9, 5
     x = torch.randint(0, 4, (m, d), generator=gen, device=dev).float()
     y = torch.randint(0, 4, (n, d), generator=gen, device=dev).float()
     y2 = row_sq_norm(y)
+    xt, yt = x.T.contiguous(), y.T.contiguous()
     for n_acc in (1, 2, 4, 8):
-        got = CF.acc_fold(x, y, y2, k=k, n_acc=n_acc)
         want = F.acc_fold_plain(x, y, y2, k=k, n_acc=n_acc)
-        if not (torch.equal(got[0], want[0])
-                and torch.equal(got[1], want[1])):
-            raise AssertionError(f"exact ties: K6 n_acc={n_acc} differs "
-                                 "from plain")
+        for name, got in (("K6", CF.acc_fold(x, y, y2, k=k, n_acc=n_acc)),
+                          ("K9", CF.tpose_fold(xt, yt, y2, k=k,
+                                               n_acc=n_acc))):
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"exact ties: {name} n_acc={n_acc} "
+                                     "differs from plain")
+        hold_nodot(f"exact ties n_acc={n_acc}",
+                   CF.nodot_fold(x, y2, k=k, n_acc=n_acc),
+                   F.nodot_fold_plain(x, y2, k=k, n_acc=n_acc))
     if not torch.equal(CF.dotmin(x, y, y2), F.dotmin_plain(x, y, y2)):
         raise AssertionError("exact ties: K7 differs from plain")
     log(f"phase 2 tensor-core exact ties m={m} n={n} d={d} k={k} (integer "
-        "features in [0, 4)): K6 at n_acc 1, 2, 4, 8 and K7 equal to plain, "
-        "position by position")
-    return err
+        "features in [0, 4)): K6, K9 and K8 at n_acc 1, 2, 4, 8 and K7 "
+        "equal to plain, position by position")
+    return dict(err)
 
 
 def hmma_counts(lib_path):
@@ -1257,7 +1308,8 @@ def hmma_counts(lib_path):
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True, timeout=60,
                                check=True).stdout.splitlines()
-    return {re.sub(r"[(].*", "", pretty.split("::")[-1]): counts[raw]
+    from avenir_tpu_torch.scripts.roofline_knn import kernel_name
+    return {kernel_name(pretty): counts[raw]
             for pretty, raw in zip(names, counts)
             if "tc_sweep_kernel" in raw}
 
@@ -1977,7 +2029,9 @@ def main() -> int:
         (lib_path.parent / "build.log").read_text()))
     hmma = hmma_counts(lib_path)
     log("phase 1 HMMA instructions (cuobjdump -sass): " + "; ".join(
-        f"{name} {count}" for name, count in hmma.items()))
+        f"{name} {count}" for name, count in hmma.items())
+        + " (K9 runs K6's instantiations, tc_sweep_kernel<true, S>, through "
+        "its strides; K8's tc_nodot_kernel has no product)")
     if len(hmma) != 8 or not all(hmma.values()):
         raise AssertionError(f"the tensor-core sweeps lack HMMA: {hmma}")
 
@@ -1987,9 +2041,8 @@ def main() -> int:
     k23 = check_k2_k3(dev)
     check_exact_ties(dev)
     folds = check_fold(dev)
-    tc_err = check_tc_edges(dev)
-    for name in ("K6", "K7"):
-        folds[name]["max_abs_err"] = max(folds[name]["max_abs_err"], tc_err)
+    for name, err in check_tc_edges(dev).items():
+        folds[name]["max_abs_err"] = max(folds[name]["max_abs_err"], err)
     folds.update(check_sweep_folds(dev))
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:

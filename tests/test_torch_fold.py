@@ -244,6 +244,22 @@ def test_tc_planner_mirrors_the_kernel_constants():
         cuda_fold.TC_WORD_ORDER
     assert "(d + 3 + 15) / 16" in src
     assert "return kSteps == 1 ? 2 : 1;" in src       # tc_ahead
+    # K8's tile runs tc_ahead(d) steps ahead, so that tc_padded_rows sizes
+    # its y2p as it sizes K6's packed rows
+    assert "if (steps_ahead(ksteps(d)) == 2) {" in src
+    assert "tc_nodot_kernel<2>" in src and "tc_nodot_kernel<1>" in src
+    # tc_strides: element (i, c) at i·row + c·feature; K6 and K7 row-major,
+    # K9's CUDA-core body feature-major only
+    assert "static_cast<size_t>(i) * row + static_cast<size_t>(c) * feat" \
+        in src
+    assert src.count("tc::Strides{d, 1}") == 2
+    assert "const Strides rows{d, 1};" in src
+    assert cuda_fold.tc_strides(7, 9, False) == (9, 1)
+    assert "x_row != 1 || x_feat != m || y_row != 1 || y_feat != n" in src
+    assert cuda_fold.tc_strides(7, 9, True) == (1, 7)
+    # the C entries' body codes
+    assert cuda_fold.BODIES == {"cuda_cores": 0, "tensor": 1, "tile": 1}
+    assert src.count("if (body == 0) {") == 3
 
 
 @pytest.mark.parametrize("d,n", [(1, 300), (9, 1000), (13, 129), (14, 700),
@@ -294,6 +310,14 @@ class _FakeFoldLib:
 
     def avt_fold_dotmin(self, *args):
         self.calls.append(("dotmin", args))
+        return 0
+
+    def avt_fold_nodot(self, *args):
+        self.calls.append(("nodot", args))
+        return 0
+
+    def avt_fold_tpose(self, *args):
+        self.calls.append(("tpose", args))
         return 0
 
 
@@ -357,3 +381,167 @@ def test_k7_launch_arguments(monkeypatch, body):
         assert args[7] == packed.data_ptr()
     assert args[8] == out_d.data_ptr()
     assert cuda_fold.dotmin.launches == 0
+
+
+@pytest.mark.parametrize("body", ["cuda_cores", "tile"])
+def test_k8_launch_arguments(monkeypatch, body):
+    """K8's launch with the library faked: the body's code; on the tile,
+    y2 padded with +inf to the plan's rows (the sweep tests no bound) and
+    K6's scratch; the count is left to the wrapper."""
+    from types import SimpleNamespace
+    from avenir_tpu_torch.ops import _build
+    lib = _FakeFoldLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_fold.nodot_fold, "launches", 0)
+    m, n, d, k, n_acc = 300, 1000, 9, 5, 2
+    x, y2 = torch.rand(m, d), torch.rand(n)
+    out_d, out_i, scratch = cuda_fold._launch_nodot(
+        x, y2, k, n_acc, body, torch.device("cpu"))
+    assert out_d.shape == out_i.shape == (m, 128)
+    ((kind, args),) = lib.calls
+    assert kind == "nodot"
+    assert args[2:8] == (m, n, d, k, n_acc, cuda_fold.BODIES[body])
+    if body == "cuda_cores":
+        assert scratch == () and args[8:11] == (None, None, None)
+    else:
+        plan = cuda_fold.tc_plan(m, n, d, n_acc * 128)
+        y2p, vals, cols = scratch
+        assert y2p.shape == (cuda_fold.tc_padded_rows(n, d, n_acc * 128),)
+        assert plan.n_pad == y2p.shape[0] > n
+        assert torch.equal(y2p[:n], y2)
+        assert (y2p[n:] == float("inf")).all()
+        assert [(t.shape, t.dtype) for t in (vals, cols)] == [
+            (plan.scratch, torch.float32), (plan.scratch, torch.int32)]
+        assert args[8:11] == tuple(t.data_ptr() for t in scratch)
+    assert args[11:13] == (out_d.data_ptr(), out_i.data_ptr())
+    assert cuda_fold.nodot_fold.launches == 0
+    with pytest.raises(ValueError, match="K8 runs on"):
+        cuda_fold._launch_nodot(x, y2, k, n_acc, "tensor",
+                                torch.device("cpu"))
+
+
+@pytest.mark.parametrize("body", ["cuda_cores", "tensor"])
+def test_k9_launch_arguments(monkeypatch, body):
+    """K9's launch with the library faked: the body's code, the strides of
+    feature-major operands, and on the tensor cores K6's packed rows and
+    scratch from the plan."""
+    from types import SimpleNamespace
+    from avenir_tpu_torch.ops import _build
+    lib = _FakeFoldLib()
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(cuda_fold.tpose_fold, "launches", 0)
+    m, n, d, k, n_acc = 200, 700, 17, 5, 8
+    xt, yt = torch.rand(d, m), torch.rand(d, n)
+    out_d, out_i, scratch = cuda_fold._launch_tpose(
+        xt, yt, row_sq_norm(yt.T), k, n_acc, body, torch.device("cpu"))
+    assert out_d.shape == out_i.shape == (m, 128)
+    ((kind, args),) = lib.calls
+    assert kind == "tpose"
+    assert args[3:9] == (m, n, d, k, n_acc, cuda_fold.BODIES[body])
+    assert args[9:13] == (1, m, 1, n)         # (row, feature) of xt, yt
+    if body == "cuda_cores":
+        assert scratch == () and args[13:16] == (None, None, None)
+    else:
+        plan = cuda_fold.tc_plan(m, n, d, n_acc * 128)
+        assert scratch[0].shape == (plan.n_pad, plan.width)
+        assert scratch[0].dtype == torch.bfloat16
+        assert [(t.shape, t.dtype) for t in scratch[1:]] == [
+            (plan.scratch, torch.float32), (plan.scratch, torch.int32)]
+        assert args[13:16] == tuple(t.data_ptr() for t in scratch)
+    assert args[16:18] == (out_d.data_ptr(), out_i.data_ptr())
+    assert cuda_fold.tpose_fold.launches == 0
+
+
+def test_nodot_and_tpose_folds_launch_their_new_bodies(monkeypatch):
+    """A CUDA tensor takes K8's tile and K9's tensor cores at every n_acc;
+    one launch counted each."""
+    calls = []
+
+    def launch(name):
+        def run(*args):
+            calls.append((name, args[-3], args[-2]))     # n_acc, body
+            return torch.empty(8, 128), torch.empty(8, 128), ()
+        return run
+    monkeypatch.setattr(cuda_fold, "_launch_nodot", launch("K8"))
+    monkeypatch.setattr(cuda_fold, "_launch_tpose", launch("K9"))
+    monkeypatch.setattr(cuda_fold, "_check_operands",
+                        lambda **t: torch.device("meta"))
+    monkeypatch.setattr(cuda_fold.nodot_fold, "launches", 0)
+    monkeypatch.setattr(cuda_fold.tpose_fold, "launches", 0)
+    meta = lambda *s: torch.empty(s, device="meta")  # noqa: E731
+    for n_acc in (1, 2, 4, 8):
+        cuda_fold.nodot_fold(meta(8, 9), meta(600), k=5, n_acc=n_acc)
+        cuda_fold.tpose_fold(meta(9, 8), meta(9, 600), meta(600), k=5,
+                             n_acc=n_acc)
+    assert calls == [c for a in (1, 2, 4, 8)
+                     for c in (("K8", a, "tile"), ("K9", a, "tensor"))]
+    assert cuda_fold.nodot_fold.launches == cuda_fold.tpose_fold.launches \
+        == 4
+
+
+def _k8_tile(x, y2, k, n_acc):
+    """K8's tile in plain torch, in the kernel's order: y2 padded with +inf
+    to ``tc_padded_rows`` entries; step t brings columns t·B + b; each
+    (row, bucket) pair keeps the first step at which ``y2p[t·B + b] + s[r]``
+    (s summed in feature order) is strictly below its best, BIG at first;
+    then the column t·B + b, or -1, and the k rounds."""
+    m, d = x.shape
+    n, buckets = y2.shape[0], n_acc * 128
+    s = torch.zeros(m)
+    for c in range(d):
+        s = s + x[:, c]
+    y2p = torch.full((cuda_fold.tc_padded_rows(n, d, buckets),),
+                     float("inf"))
+    y2p[:n] = y2
+    best = torch.full((m, buckets), F.BIG)
+    step = torch.full((m, buckets), -1, dtype=torch.int32)
+    for t in range(cuda_fold.tc_sweep_steps(n, d, buckets)):
+        v = y2p[t * buckets:(t + 1) * buckets].reshape(1, -1) \
+            + s.reshape(-1, 1)
+        better = v < best
+        best = torch.where(better, v, best)
+        step = torch.where(better, torch.tensor(t, dtype=torch.int32), step)
+    cols = torch.where(step >= 0, step * buckets
+                       + torch.arange(buckets, dtype=torch.int32), -1)
+    return F.extract_k(best, cols.to(torch.int32), k)
+
+
+@pytest.mark.parametrize("m,n,d,n_acc,k,ints", [
+    (40, 8192, 9, 4, 5, False),
+    (33, 50, 9, 1, 5, False),          # N below one slice of 64 buckets
+    (7, 300, 25, 2, 128, False),
+    (100, 1000, 14, 8, 128, False),    # one step ahead (d + 3 > 16)
+    (50, 3000, 9, 4, 5, True),         # integer features: exact ties
+])
+def test_k8_tile_order_equals_the_plain_version(m, n, d, n_acc, k, ints):
+    rng = np.random.default_rng(m * n + d)
+    if ints:
+        x = torch.from_numpy(rng.integers(0, 4, (m, d)).astype(np.float32))
+        y2 = torch.from_numpy(rng.integers(0, 40, n).astype(np.float32))
+    else:
+        x = torch.from_numpy(rng.random((m, d), dtype=np.float32))
+        y2 = torch.from_numpy(rng.random(n, dtype=np.float32) * 9)
+    got = _k8_tile(x, y2, k, n_acc)
+    want = F.nodot_fold_plain(x, y2, k=k, n_acc=n_acc,
+                              tile_n=max(4096, n_acc * 128))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,n,d", [(33, 300, 9), (5, 129, 14), (130, 64, 48)])
+def test_tc_operands_of_feature_major_operands(m, n, d):
+    """K9's operands read through their strides are K6's of the transposed
+    ones, bit for bit."""
+    x, y = _inputs(m + n + d, m, n, d)
+    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
+    y2 = row_sq_norm(ty)
+    for buckets in (128, 1024):
+        rows = cuda_fold.tc_operands(tx, ty, y2, buckets)
+        feat = cuda_fold.tc_operands(tx.T.contiguous(), ty.T.contiguous(),
+                                     y2, buckets, tpose=True)
+        assert all(torch.equal(a, b) for a, b in zip(rows, feat))
+        assert torch.equal(cuda_fold.tc_packed(rows[1]).view(torch.int16),
+                           cuda_fold.tc_packed(feat[1]).view(torch.int16))

@@ -76,6 +76,7 @@ def test_roofline_prints_one_line_per_variant(capsys):
         assert re.search(rf"^{variant}\s+[0-9.]+ ms .* pairs/s", out,
                          re.MULTILINE), variant
     assert "host clock, cpu" in out and "not measured (cpu)" in out
+    assert "# split by kernel: not measured (cpu)" in out
     assert all(r["ms"] > 0 for r in results)
 
 
@@ -163,6 +164,62 @@ def test_smoke_pair_bound_takes_the_rate_of_the_operands_type(monkeypatch):
         pytest.approx((1.0, "bytes"))
 
 
+# chained device times at the bench shape recorded in PERF.md (H100 80GB
+# HBM3, 700 W): K2 and its ablations, K7, K6 for tpose (the same function
+# and body), K8 and the plain and library calls as PR 9 measured them
+_RECORDED_MS = {"full": 0.8717, "full-sweep": 0.5658, "full-nodot": 0.4662,
+                "dotmin": 0.0622, "nodot": 0.2046, "tpose": 0.1622,
+                "plain": 50.6, "library": 10.45}
+
+
+def test_roofline_shares_stay_within_the_ceilings():
+    """Each variant read against the units that do its work, at 132 SMs
+    and 1.98 GHz: no share above 100%, and no share where a ceiling does
+    not apply (no product: nodot, full-nodot; no instructions counted: K2,
+    plain, library)."""
+    m, n, d = 8192, 65536, 9
+    got = {v: roofline_knn.shares(132, 1.98e9, v, m, n, d, ms)
+           for v, ms in _RECORDED_MS.items()}
+    assert set(got) == set(roofline_knn.VARIANTS)
+    for variant, row in got.items():
+        for key, share in row.items():
+            assert share is None or 0 < share <= 1.0, (variant, key, share)
+    none = {v for v, row in got.items() if row["product"] is None}
+    assert none == {"nodot", "full-nodot"}
+    assert {v for v, row in got.items() if row["ops"] is None} == {
+        "full", "plain", "library"}
+    pairs = m * n / (0.0622e-3)
+    # dotmin: bf16 on the tensor cores over one k-step of 16, 2 instructions
+    assert got["dotmin"]["product"] == pytest.approx(
+        pairs / (989e12 / 32))
+    assert got["dotmin"]["ops"] == pytest.approx(
+        pairs * 2 / (132 * 128 * 1.98e9))
+    assert got["dotmin"]["ops"] == pytest.approx(0.516, abs=1e-3)
+    # K2 on the f32 CUDA cores: 2·D flops a pair
+    assert got["full"]["product"] == pytest.approx(
+        m * n / 0.8717e-3 / (67e12 / 18))
+    # the fault repaired: the f32 product and a 4-instruction fold read
+    # dotmin above 100%
+    assert pairs / (67e12 / 18) > 2.3 and pairs * 4 / (
+        132 * 128 * 1.98e9) > 1.0
+    assert roofline_knn.share_text(None).strip() == "—"
+    assert roofline_knn.share_text(0.5162).strip() == "51.6%"
+
+
+def test_roofline_work_is_the_smoke_bounds_table():
+    """One table of each kernel's product type and instructions a pair:
+    the script reads it for its variants and chip_smoke.py for its bounds,
+    which keep no copy of their own."""
+    assert roofline_knn.WORK["K6"] == roofline_knn.WORK["K9"] == ("bf16", 4)
+    assert roofline_knn.WORK["K7"] == ("bf16", 2)
+    assert roofline_knn.WORK["K8"] == (None, 4)
+    for variant, kernel in roofline_knn.VARIANT_KERNELS.items():
+        assert roofline_knn.variant_work(variant) == roofline_knn.WORK[kernel]
+    src = (PORT_SCRIPTS.parent.parent / "chip_smoke.py").read_text()
+    assert src.count("*WORK[name]") == 2
+    assert '"bf16", 4)' not in src.split("def sweep_configs")[0]
+
+
 def test_chain_ms_differences_out_the_fixed_cost(monkeypatch):
     monkeypatch.setattr(_timing, "REPEATS", 2)
     calls = []
@@ -241,6 +298,32 @@ def test_smoke_fold_gate(plain, got, match):
     else:
         with pytest.raises(AssertionError, match=match):
             smoke.compare_fold("gate", *args)
+
+
+@pytest.mark.parametrize("demangled,want", [
+    ("(anonymous namespace)::tc::tc_sweep_kernel<true, 1>(float const*, "
+     "(anonymous namespace)::tc::Strides, uint2 const*, int, int, int, int, "
+     "float*, int*)", "tc_sweep_kernel<true, 1>"),
+    ("void (anonymous namespace)::tc::tc_sweep_kernel<false, 4>((anonymous "
+     "namespace)::tc::Strides)", "tc_sweep_kernel<false, 4>"),
+    ("void (anonymous namespace)::fold_kernel<false, true, false, true, "
+     "1024>(float const*, float const*, int)",
+     "fold_kernel<false, true, false, true, 1024>"),
+    ("avt::pair_counts_multi_kernel(int const*, long long)",
+     "pair_counts_multi_kernel"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul> >(int, at::native::"
+     "FillFunctor<float>, std::array<char*, 1ul>)",
+     "vectorized_elementwise_kernel<4, at::native::FillFunctor<float>, "
+     "std::array<char*, 1ul> >"),
+    ("Memcpy DtoD (Device -> Device)", "Memcpy DtoD"),
+])
+def test_kernel_names_drop_namespaces_and_parameters(demangled, want):
+    """The names chip_smoke.py's phase 1 gives each kernel's registers and
+    HMMA count, and the split each kernel's time: a namespace inside the
+    parameters must not stand in for the name (the eight sweep
+    instantiations then fell together under one key)."""
+    assert roofline_knn.kernel_name(demangled) == want
 
 
 def test_smoke_fold_gate_lanes():
