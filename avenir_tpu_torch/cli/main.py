@@ -30,26 +30,21 @@ import torch
 from avenir_tpu_torch.utils.config import JobConfig
 from avenir_tpu_torch.utils.dataset import (
     Featurizer, part_file_paths, read_csv_lines)
+from avenir_tpu_torch.utils.roadmap import roadmap_item
 from avenir_tpu_torch.utils.schema import FeatureSchema
-
-
-def _item(title: str) -> str:
-    """A ROADMAP queue A item, named by its title (its number changes when
-    the queue is reordered)."""
-    return f"ROADMAP queue A, '{title}'"
 
 
 # keys that select work outside this port, per verb family: key -> the
 # later work that ports it
-_LAYERS = _item("Plan, ingest, obs and checkpoint layers")
+_LAYERS = roadmap_item("Plan, ingest, obs and checkpoint layers")
 _PLAN = f"the plan layer ({_LAYERS})"
 _OBS = f"the observability layer ({_LAYERS})"
-_MULTI = f"the multi-device layer ({_item('Multi-device layer')})"
+_MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
 _STREAM_NB = ("streaming/sharded Naive Bayes "
-              f"({_item('Streaming/sharded NB and per-shard MI')})")
+              f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _QUANT = ("the quantized candidate pass "
-          f"({_item('`knn.quantized` (`ops/quantized.py`)')})")
-_IVF = f"the IVF index ({_item('IVF and live ANN')})"
+          f"({roadmap_item('`knn.quantized` (`ops/quantized.py`)')})")
+_IVF = f"the IVF index ({roadmap_item('IVF and live ANN')})"
 _LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "streaming.train": _STREAM_NB, "shard.parts": _STREAM_NB,
              "job.resume": _STREAM_NB}
@@ -57,7 +52,7 @@ _LATER_KNN = {"plan.enable": _PLAN, "knn.quantized": _QUANT,
               "knn.ann": _IVF, "knn.sharded": _MULTI,
               "job.resume": _STREAM_NB}
 _SHARD_MI = ("per-shard journaled MI "
-             f"({_item('Streaming/sharded NB and per-shard MI')})")
+             f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
 _LATER_PREFIXES = {"knn.ann.": _IVF, "knn.quantized.": _QUANT}
@@ -68,8 +63,8 @@ _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
 # part-file path unless shard.prefetch=false (avenir_tpu/cli/main.py:953-964)
 # and reads these keys only there; this port merges the parts, so a key set
 # off its JAX default (:420-488, :732) is refused
-_PART_PATH = ("the part-file KNN path "
-              f"({_item('Native CSV loader and the part-file KNN path')})")
+_PART_PATH = "the part-file KNN path ({})".format(
+    roadmap_item("Native CSV loader and the part-file KNN path"))
 _PART_KEYS = {"on.bad.row": "raise", "max.bad.fraction": 0.1,
               "quarantine.dir": None, "shard.retries": 1,
               "shard.timeout.s": 0.0, "shard.speculate": True,
@@ -79,11 +74,12 @@ _PART_KEYS = {"on.bad.row": "raise", "max.bad.fraction": 0.1,
               "shard.journal.keep": False, "shard.report": False}
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
-_SIMILARITY = _item("`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
-_TREES = _item("Trees, forests and boosting")
-_EXPLORE = _item("Explore, regress, discriminant and text")
-_SEQUENCES = _item("Sequences")
-_BANDITS = _item("Bandits and streaming serving")
+_SIMILARITY = roadmap_item(
+    "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
+_TREES = roadmap_item("Trees, forests and boosting")
+_EXPLORE = roadmap_item("Explore, regress, discriminant and text")
+_SEQUENCES = roadmap_item("Sequences")
+_BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
     "FeatureCondProbJoiner": _SIMILARITY,
@@ -172,7 +168,7 @@ def _load_table(conf: JobConfig, in_path: str, device: torch.device,
 def _check_tabular(conf: JobConfig) -> None:
     if not conf.get_bool("tabular.input", True):
         _refuse("tabular.input=false",
-                f"text Naive Bayes ({_item('Text Naive Bayes')})")
+                f"text Naive Bayes ({roadmap_item('Text Naive Bayes')})")
 
 
 def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
@@ -261,17 +257,17 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         for prefix, work in _LATER_PREFIXES.items():
             if key.startswith(prefix):
                 _refuse(key, work)
-    feed = _item("Threaded `DeviceFeed` (`feed.depth`)")
+    feed = roadmap_item("Threaded `DeviceFeed` (`feed.depth`)")
     for key, work in (("feed.depth", f"the threaded DeviceFeed ({feed})"),
                       ("mesh.shape", _MULTI)):
         if key in conf:
             _refuse(key, work)
     if conf.get("neighbor.data.path"):
         _refuse("neighbor.data.path", "neighbor-record replay "
-                f"({_item('Neighbor-record replay')})")
+                f"({roadmap_item('Neighbor-record replay')})")
     if conf.get("prediction.mode", "classification") != "classification":
         _refuse(f"prediction.mode={conf.get('prediction.mode')}",
-                f"KNN regression ({_item('KNN regression')})")
+                f"KNN regression ({roadmap_item('KNN regression')})")
     _check_part_keys(conf, in_path)
     validation = conf.get_bool("validation.mode", False)
     fz, train_rows = _load_table(conf, conf.get_required("train.data.path"),

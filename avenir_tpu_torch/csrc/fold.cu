@@ -80,10 +80,10 @@
 //   0.1348-0.1363 at 512 buckets and 0.1503 against 0.1421 at 1024, K7's
 //   0.0662 against 0.0582-0.0585.
 // - K6's slices of a row tile merge through an [M, B] (metric, column)
-//   scratch, then tc_extract_kernel runs the k rounds, a warp a row with
-//   its pairs in registers (at n_acc 4 the sweep takes 140 us, the
-//   extraction 18, the pack 3-4). Measured and left out: a thread block
-//   cluster of the B / B' blocks of a row tile trading pairs through
+//   scratch, then tc_extract_kernel (fold_extract.cuh, shared with K11 and
+//   K12) runs the k rounds, a warp a row (at n_acc 4 the sweep takes 140
+//   us, the extraction 18, the pack 3-4). Measured and left out: a thread
+//   block cluster of the B / B' blocks of a row tile trading pairs through
 //   distributed shared memory, the k rounds in the sweep kernel (0.2155
 //   ms against 0.1824-0.1827 at n_acc 4, slower at 2 and 8 too); each
 //   quad of lanes writing only the min(k, 32) smallest of its row's 32
@@ -726,73 +726,6 @@ tc_nodot_kernel(const float* __restrict__ x, const float* __restrict__ y2p,
   store_pairs(bd, bt, row0, col0, g, tig, m, buckets, vals, cols);
 }
 
-// K6's k rounds over the sweep's [m][kB] (metric, column) pairs: a warp
-// a row, each lane's kB / 32 pairs in registers (16-byte loads). A round
-// takes each lane's smallest (metric, column) pair not yet taken, the
-// warp's smallest by a butterfly, and the lane that holds it marks it
-// taken; lane 0 writes the slot. Slots past k hold (BIG, -1).
-template <int kB>
-__global__ void __launch_bounds__(kThreads)
-tc_extract_kernel(const float* __restrict__ vals, const int* __restrict__ cols,
-                  int m, int k, float* __restrict__ out_d,
-                  int* __restrict__ out_i) {
-  constexpr int kPer = kB / 32;
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
-  if (row >= m) return;
-  const float4* vr =
-      reinterpret_cast<const float4*>(vals + static_cast<size_t>(row) * kB);
-  const int4* cr =
-      reinterpret_cast<const int4*>(cols + static_cast<size_t>(row) * kB);
-  float v[kPer];
-  int c[kPer];
-#pragma unroll
-  for (int q = 0; q < kPer / 4; ++q) {
-    const float4 f = vr[lane + 32 * q];
-    const int4 n = cr[lane + 32 * q];
-    v[4 * q] = f.x, v[4 * q + 1] = f.y, v[4 * q + 2] = f.z, v[4 * q + 3] = f.w;
-    c[4 * q] = n.x, c[4 * q + 1] = n.y, c[4 * q + 2] = n.z, c[4 * q + 3] = n.w;
-  }
-  unsigned taken = 0;
-  const size_t out = static_cast<size_t>(row) * kLanes;
-  for (int slot = 0; slot < k; ++slot) {
-    float bv = CUDART_INF_F;
-    int bx = INT_MAX;
-    int bu = 0;
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      if (!((taken >> u) & 1u) && (v[u] < bv || (v[u] == bv && c[u] < bx))) {
-        bv = v[u];
-        bx = c[u];
-        bu = u;
-      }
-    }
-    int owner = lane;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-      const int ox = __shfl_xor_sync(0xffffffffu, bx, off);
-      const int oo = __shfl_xor_sync(0xffffffffu, owner, off);
-      if (ov < bv || (ov == bv && ox < bx)) {
-        bv = ov;
-        bx = ox;
-        owner = oo;
-      }
-    }
-    // the empty (BIG, -1) pairs tie: lane 0's view names the one taken
-    owner = __shfl_sync(0xffffffffu, owner, 0);
-    if (lane == owner) taken |= 1u << bu;
-    if (lane == 0) {
-      out_d[out + slot] = bv;
-      out_i[out + slot] = bx;
-    }
-  }
-  for (int slot = k + lane; slot < kLanes; slot += 32) {
-    out_d[out + slot] = kBig;
-    out_i[out + slot] = -1;
-  }
-}
-
 int grid_for(size_t work) {
   return static_cast<int>(work / 256 + 1 < 4096 ? work / 256 + 1 : 4096);
 }
@@ -832,26 +765,21 @@ cudaError_t sweep_any(const float* x, Strides xs, const uint4* yp, int m,
 #undef AVT_SWEEP
 }
 
-template <int kB>
-cudaError_t extract(const float* vals, const int* cols, int m, int k,
-                    float* out_d, int* out_i, cudaStream_t s) {
-  constexpr int kRows = kThreads / 32;
-  tc_extract_kernel<kB><<<(m + kRows - 1) / kRows, kThreads, 0, s>>>(
-      vals, cols, m, k, out_d, out_i);
-  return cudaGetLastError();
-}
 
-// the k rounds over [m][buckets] (metric, column) pairs
+// the k rounds over [m][buckets] (metric, column) pairs (fold_extract.cuh)
 cudaError_t extract_any(const float* vals, const int* cols, int m, int k,
                         int buckets, float* out_d, int* out_i,
                         cudaStream_t s) {
+#define AVT_EXTRACT(B) \
+  avt::tc_extract<float, B>(vals, cols, m, k, kBig, out_d, out_i, s)
   switch (buckets) {
-    case 128: return extract<128>(vals, cols, m, k, out_d, out_i, s);
-    case 256: return extract<256>(vals, cols, m, k, out_d, out_i, s);
-    case 512: return extract<512>(vals, cols, m, k, out_d, out_i, s);
-    case 1024: return extract<1024>(vals, cols, m, k, out_d, out_i, s);
+    case 128: return AVT_EXTRACT(128);
+    case 256: return AVT_EXTRACT(256);
+    case 512: return AVT_EXTRACT(512);
+    case 1024: return AVT_EXTRACT(1024);
     default: return cudaErrorInvalidValue;
   }
+#undef AVT_EXTRACT
 }
 
 // K6 and K9 on the tensor cores: pack, sweep, k rounds, the operands read

@@ -27,8 +27,9 @@ from avenir_tpu_torch.ops import histogram
 from avenir_tpu_torch.ops.infotheory import entropy, mutual_information
 from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
+from avenir_tpu_torch.utils.roadmap import roadmap_item
 
-_MULTI = "the multi-device layer (ROADMAP queue A item 14)"
+_MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
 
 
 @dataclass

@@ -32,11 +32,16 @@ buckets, the fold on the accumulator fragments, K6's and K9's slices
 merged through an ``[M, B]`` scratch and an extraction kernel); K9 reads
 its feature-major operands through the strides of :func:`tc_strides`. K8
 runs that body's tile with the product replaced by an add, over y2 padded
-with +inf. The CUDA-core body of PRs 3-4 (one thread per bucket) serves K6
-with f32 operands and K10, and stays reachable as ``_launch_acc``,
-``_launch_dotmin``, ``_launch_nodot`` and ``_launch_tpose`` with ``body
-"cuda_cores"`` so that ``chip_smoke.py`` can time it beside the new body;
-no public path selects it.
+with +inf. K11 and K12 run the same tile on the int8 tensor cores
+(``csrc/fold_int8.cu``, namespace ``tc``: the train rows packed to 32
+bytes, the exact int32 cross term folded on the accumulator fragments,
+columns past N masked in the sweep's last round; :func:`int8_tc_plan`).
+The CUDA-core body (one thread per bucket) serves K6 with f32
+operands and K10, and stays reachable as ``_launch_acc``,
+``_launch_dotmin``, ``_launch_nodot``, ``_launch_tpose``, ``_launch_int8``
+and ``_launch_packed`` with ``body "cuda_cores"`` so that
+``chip_smoke.py`` can time it beside the new body; no public path selects
+it.
 
 **Padding.** The TPU launchers pad the train rows to a multiple of
 ``tile_n``. With a ``y2`` epilogue the pad's ``y2`` is ``BIG`` and never
@@ -511,31 +516,145 @@ def _check_int8(xa: torch.Tensor, ya: torch.Tensor,
     return dev, m, n, w
 
 
+#: K11 and K12 on the int8 tensor cores (``csrc/fold_int8.cu``, namespace
+#: ``tc``): K6's block of TC_ROWS test rows × TC_SLICE buckets over train
+#: rows packed to INT8_TC_WIDTH bytes (one k-step of mma m16n8k32), each
+#: row's eight 32-bit words in TC_WORD_ORDER
+INT8_TC_WIDTH = 32
+
+
+#: train steps the int8 sweep loads ahead of the one it folds
+INT8_TC_AHEAD = 1
+
+
+def int8_tc_sweep_steps(n: int, buckets: int) -> int:
+    """Steps of ``buckets`` columns the int8 sweep runs: n rounded up to
+    whole rounds of ``INT8_TC_AHEAD + 1`` steps."""
+    rounds = INT8_TC_AHEAD + 1
+    return -(-n // (buckets * rounds)) * rounds
+
+
+def int8_tc_open_rounds(n: int, buckets: int) -> int:
+    """The sweep's leading rounds whose columns all lie below n; it masks
+    the columns past n in the rest."""
+    return n // buckets // (INT8_TC_AHEAD + 1)
+
+
+def int8_tc_plan(m: int, n: int, w: int, buckets: int) -> TcPlan:
+    """Shapes of a K11 or K12 launch on the tensor cores over m test rows,
+    n train rows of w int8 and ``buckets`` buckets: the packed rows
+    ``[n_pad, 32]`` (K11's y2 is padded to the same ``n_pad``), the sweep's
+    grid, and the ``[m, buckets]`` (metric, column) scratch."""
+    if buckets not in [a * F.LANES for a in F.PACKED_N_ACC_CHOICES]:
+        raise ValueError(f"buckets must be n_acc·128 for n_acc in "
+                         f"{F.PACKED_N_ACC_CHOICES}, got {buckets}")
+    if not 1 <= w <= MAX_INT8_W:
+        raise ValueError(f"width must be in [1, {MAX_INT8_W}], got {w}")
+    if m < 1 or n < 1:
+        raise ValueError(f"no rows: m={m}, n={n}")
+    n_pad = (int8_tc_sweep_steps(n, buckets) + INT8_TC_AHEAD) * buckets
+    return TcPlan(buckets, INT8_TC_WIDTH, n_pad,
+                  (-(-m // TC_ROWS), buckets // TC_SLICE), (m, buckets))
+
+
+def int8_tc_packed(ya: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """The packed train rows of the int8 tensor-core body, ``[n_pad, 32]``
+    int8: ya ``[N, W]`` zero-padded to 32 bytes and to ``n_pad`` rows, each
+    row's eight 32-bit words in ``TC_WORD_ORDER`` (lane tig's B fragment,
+    words tig and tig + 4, is then one 8-byte load)."""
+    n, w = ya.shape
+    rows = torch.zeros((n_pad, INT8_TC_WIDTH), dtype=torch.int8,
+                       device=ya.device)
+    rows[:n, :w] = ya
+    order = torch.tensor(TC_WORD_ORDER, device=ya.device)
+    return rows.view(torch.int32)[:, order].contiguous().view(torch.int8)
+
+
+def _int8_scratch(plan: TcPlan, epi: bool, dev: torch.device) -> Tuple:
+    """The int8 tensor-core body's scratch of ``plan``: the packed rows, y2
+    padded to them (with ``epi``, else None), then the (metric, column)
+    pairs."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.empty((plan.n_pad, plan.width), dtype=torch.int8,
+                        device=dev),
+            torch.empty(plan.n_pad, **i32) if epi else None,
+            torch.empty(plan.scratch, **i32), torch.empty(plan.scratch, **i32))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _launch_int8(xa: torch.Tensor, ya: torch.Tensor,
+                 y2: Optional[torch.Tensor], k: int, n_acc: int, body: str,
+                 dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor,
+                                             Tuple]:
+    """Launch K11's ``body`` ("cuda_cores" or "tensor") on checked
+    operands: (out_d, out_i, the tensor-core body's scratch — packed rows,
+    y2 padded or None, metrics, columns — or ())."""
+    if body not in ("cuda_cores", "tensor"):
+        raise ValueError(f"K11 runs on 'cuda_cores' or 'tensor', got "
+                         f"{body!r}")
+    (m, w), n = xa.shape, ya.shape[0]
+    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    scratch: Tuple = ()
+    if m:
+        epi = y2 is not None
+        if body == "tensor":
+            scratch = _int8_scratch(int8_tc_plan(m, n, w, n_acc * F.LANES),
+                                    epi, dev)
+        _build.check(_build.load_library().avt_fold_int8(
+            xa.data_ptr(), ya.data_ptr(), _ptr(y2), m, n, w, k, n_acc,
+            BODIES[body], *map(_ptr, scratch or (None,) * 4),
+            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
+            "K11 fold launch")
+    return out_d, out_i, scratch
+
+
 def int8_fold(xa: torch.Tensor, ya: torch.Tensor,
               y2: Optional[torch.Tensor] = None, *, k: int, n_acc: int = 4,
               tile_n: int = 4096) -> Tuple[torch.Tensor, torch.Tensor]:
     """K11 wrapper: int8 xa ``[M, W]``, ya ``[N, W]`` (W as the caller
-    built them, 9 or 19 in the sweeps; the kernel pads rows to whole words
-    as it stages them) → ``[M, 128]`` (metric int32, column int32) of the
-    fold of the int32 product, or of ``y2 − 2·product`` with int32 ``y2``
-    ``[N]``; see :func:`fold.int8_fold_plain`."""
+    built them, 9 or 19 in the sweeps) → ``[M, 128]`` (metric int32, column
+    int32) of the fold of the int32 product, or of ``y2 − 2·product`` with
+    int32 ``y2`` ``[N]``; see :func:`fold.int8_fold_plain`, which it equals
+    bit for bit. On the card it runs on the int8 tensor cores."""
     if xa.device.type == "cpu":
         return F.int8_fold_plain(xa, ya, y2, k=k, n_acc=n_acc, tile_n=tile_n)
     F.check_tiles(n_acc, tile_n)
     F.check_k(k)
-    dev, m, n, w = _check_int8(xa, ya, y2)
-    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    dev, m, _, _ = _check_int8(xa, ya, y2)
+    out_d, out_i, _ = _launch_int8(xa, ya, y2, k, n_acc, "tensor", dev)
     if m:
-        _build.check(_build.load_library().avt_fold_int8(
-            xa.data_ptr(), ya.data_ptr(),
-            None if y2 is None else y2.data_ptr(), m, n, w, k, n_acc,
-            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
-            "K11 fold launch")
         int8_fold.launches += 1
     return out_d, out_i
 
 
 int8_fold.launches = 0
+
+
+def _launch_packed(xa: torch.Tensor, ya: torch.Tensor, k: int, n_acc: int,
+                   body: str, dev: torch.device
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Launch K12's ``body`` ("cuda_cores" or "tensor") on checked operands
+    (ranges checked by the caller): (out_d, out_i, the tensor-core body's
+    scratch as K11's, its y2 None, or ())."""
+    if body not in ("cuda_cores", "tensor"):
+        raise ValueError(f"K12 runs on 'cuda_cores' or 'tensor', got "
+                         f"{body!r}")
+    (m, w), n = xa.shape, ya.shape[0]
+    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    scratch: Tuple = ()
+    if m:
+        if body == "tensor":
+            scratch = _int8_scratch(int8_tc_plan(m, n, w, n_acc * F.LANES),
+                                    False, dev)
+        yp, _, vals, cols = scratch or (None,) * 4
+        _build.check(_build.load_library().avt_fold_packed(
+            xa.data_ptr(), ya.data_ptr(), m, n, w, k, n_acc, BODIES[body],
+            _ptr(yp), _ptr(vals), _ptr(cols), out_d.data_ptr(),
+            out_i.data_ptr(), dev.index, _stream(dev)), "K12 fold launch")
+    return out_d, out_i, scratch
 
 
 def packed_fold(xa: torch.Tensor, ya: torch.Tensor, *, k: int,
@@ -545,8 +664,9 @@ def packed_fold(xa: torch.Tensor, ya: torch.Tensor, *, k: int,
     """K12 wrapper: K11 without ``y2`` through one packed int32 a bucket,
     ``metric·2048 + col div 128`` folded by ``min`` → ``[M, 128]`` (metric
     int32, column int32), k ≤ 128 candidates; ``n_acc`` may be 16; see
-    :func:`fold.packed_fold_plain`. Raises where N > 262,144, and where
-    ``|metric| ≥ 2**18`` cannot be excluded: ``metric_bound`` is the
+    :func:`fold.packed_fold_plain`, which it equals bit for bit. On the
+    card it runs on the int8 tensor cores. Raises where N > 262,144, and
+    where ``|metric| ≥ 2**18`` cannot be excluded: ``metric_bound`` is the
     caller's bound of ``|metric|`` by the operands' construction, and
     without one the wrapper reads it off the tensors
     (:func:`fold.packed_metric_bound`, which waits for the device)."""
@@ -555,15 +675,11 @@ def packed_fold(xa: torch.Tensor, ya: torch.Tensor, *, k: int,
                                    metric_bound=metric_bound)
     F.check_tiles(n_acc, tile_n, F.PACKED_N_ACC_CHOICES)
     F.check_k(k)
-    dev, m, n, w = _check_int8(xa, ya)
+    dev, m, n, _ = _check_int8(xa, ya)
     F.check_packed(n, F.packed_metric_bound(xa, ya) if metric_bound is None
                    else metric_bound)
-    out_d, out_i = _outputs(m, dev, dtype=torch.int32)
+    out_d, out_i, _ = _launch_packed(xa, ya, k, n_acc, "tensor", dev)
     if m:
-        _build.check(_build.load_library().avt_fold_packed(
-            xa.data_ptr(), ya.data_ptr(), m, n, w, k, n_acc,
-            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
-            "K12 fold launch")
         packed_fold.launches += 1
     return out_d, out_i
 

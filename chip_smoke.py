@@ -9,9 +9,10 @@ Phases (one line each; any failure exits non-zero):
 1. card and build: the ``nvidia-smi`` name and power limit,
    ``torch.version.cuda``, the time to build ``avenir_tpu_torch/csrc/*.cu``
    with nvcc for sm_90a, each kernel's registers and spills (ptxas), and
-   the HMMA instructions of each tensor-core sweep kernel of K6 and K7,
-   which K9 shares through its strides (``cuobjdump -sass``; none fails
-   the run);
+   the HMMA instructions of each bf16 tensor-core sweep kernel of K6 and
+   K7, which K9 shares through its strides, and the IMMA instructions of
+   the int8 sweeps of K11 and K12 (``cuobjdump -sass``; none fails the
+   run);
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
@@ -86,7 +87,18 @@ Phases (one line each; any failure exits non-zero):
    ``tpose_aug`` (K10 feature-major); sweep 11's six tile configurations
    (K6) and sweep 14's ``tpose`` (K9); plus 2,051 × 16,383 and 1,000 × 300
    (N below every bucket count). K11 and K12 must equal their plain
-   versions exactly, ids included; K10, K6 and K9 pass the fold gate;
+   versions exactly, ids included; K10, K6 and K9 pass the fold gate.
+   K11 and K12 run on the int8 tensor cores: at the sweeps' shape their
+   former CUDA-core body (kept to be timed) is held exactly too and timed
+   beside them, with ``torch.profiler``'s split of the new body into pack,
+   sweep and extraction; they are also held exactly at every width edge
+   of one 32-byte k-step (1, 4, 9, 16, 17, 19, 32) at every n_acc (16 for
+   K12), with and without y2, at N below B and one past a whole number of
+   steps on positive operands (where a zero pad row would win), on
+   duplicated rows of small integers at 2,051 × 65,536 (ties, negative
+   metrics), with operands at ±127 and with K12's metrics at
+   ±(2^18 − 1); and their packed train rows equal
+   ``cuda_fold.int8_tc_packed`` bit for bit;
 3. the CLI path, in-process through ``avenir_tpu_torch.cli.main.main`` on
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
@@ -128,8 +140,9 @@ through ``pair_counts_multi`` from the CLI phase; K4's through
 points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
-K10-K12's from phase 5; K6-K9 add ``parent_ms``, the chained time of
-the CUDA-core body they replaced, in the same run; each bound the larger
+K10-K12's from phase 5; K6-K9, K11 and K12 add ``parent_ms``, the
+chained time of the CUDA-core body they replaced, in the same run; each
+bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
 their type, K2's ablations and K6-K9 with the product types and
 instructions a pair of ``roofline_knn.WORK``), the
@@ -1287,9 +1300,11 @@ def check_tc_edges(dev):
     return dict(err)
 
 
-def hmma_counts(lib_path):
-    """HMMA instructions of each tensor-core sweep kernel in the built
-    library (``cuobjdump -sass``), by demangled name."""
+def mma_counts(lib_path):
+    """Tensor-core instructions of each tensor-core sweep kernel in the
+    built library (``cuobjdump -sass``), by demangled name: (opcode,
+    count), HMMA for the bf16 sweeps of K6 and K7 (``tc_sweep_kernel``),
+    IMMA for the int8 sweeps of K11 and K12 (``tc_int8_sweep_kernel``)."""
     from avenir_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib_path)],
@@ -1300,18 +1315,24 @@ def hmma_counts(lib_path):
         found = re.search(r"Function : (\S+)", line)
         if found:
             name = found.group(1)
-            counts[name] = 0
-        elif name and re.search(r"\bHMMA\b", line):
-            counts[name] += 1
+            counts[name] = collections.Counter()
+        elif name:
+            found = re.search(r"\b([HI]MMA)\b", line)
+            if found:
+                counts[name][found.group(1)] += 1
     names = list(counts)
     if shutil.which("c++filt"):
         names = subprocess.run(["c++filt"], input="\n".join(names),
                                capture_output=True, text=True, timeout=60,
                                check=True).stdout.splitlines()
     from avenir_tpu_torch.scripts.roofline_knn import kernel_name
-    return {kernel_name(pretty): counts[raw]
-            for pretty, raw in zip(names, counts)
-            if "tc_sweep_kernel" in raw}
+    out = {}
+    for pretty, raw in zip(names, counts):
+        op = ("IMMA" if "tc_int8_sweep_kernel" in raw else
+              "HMMA" if "tc_sweep_kernel" in raw else None)
+        if op:
+            out[kernel_name(pretty)] = (op, counts[raw][op])
+    return out
 
 
 # the kernel-restructure sweeps' folds: (label, m, n) of the shapes K10-K12
@@ -1333,8 +1354,9 @@ SWEEP_ENTRY = {"K10": "augv2", "K11": "int8rr", "K12": "int8pk"}
 def sweep_configs(x, y):
     """Every fold launch of the sweeps on operands their encoders make from
     x and y: label → (kernel, wrapper call, plain call, how to hold it,
-    (width, bytes, product, instructions a pair) for the bound). ``hold`` is
-    "exact" or (metric of given columns, row scale) for the fold gate."""
+    (width, bytes, product, instructions a pair) for the bound, the
+    CUDA-core body's call where the kernel has left it: K11 and K12). ``hold``
+    is "exact" or (metric of given columns, row scale) for the fold gate."""
     from avenir_tpu_torch.ops import cuda_fold as CF
     from avenir_tpu_torch.ops import fold as F
     from avenir_tpu_torch.ops.distance import row_sq_norm
@@ -1357,7 +1379,8 @@ def sweep_configs(x, y):
             "K10", lambda: CF.raw_fold(xa, ya, **kw),
             lambda: F.raw_fold_plain(xa.float(), ya.float(), **kw),
             (metric, row_sq_norm(xr)),
-            (w, (m + n) * w * xa.element_size() + out_bytes, "bf16", 3))
+            (w, (m + n) * w * xa.element_size() + out_bytes, "bf16", 3),
+            None)
 
     def int8(label, xa, ya, k, y2=None, packed=False, n_acc=S.N_ACC):
         w = xa.shape[1]
@@ -1369,12 +1392,16 @@ def sweep_configs(x, y):
                 "K12", lambda: CF.packed_fold(xa, ya, metric_bound=bound,
                                               **kw),
                 lambda: F.packed_fold_plain(xa, ya, metric_bound=bound, **kw),
-                "exact", (w, n_bytes, "int8", 2))
+                "exact", (w, n_bytes, "int8", 2),
+                lambda: CF._launch_packed(xa, ya, k, n_acc, "cuda_cores",
+                                          x.device))
         else:
             configs[label] = (
                 "K11", lambda: CF.int8_fold(xa, ya, y2, **kw),
                 lambda: F.int8_fold_plain(xa, ya, y2, **kw), "exact",
-                (w, n_bytes, "int8", 3 if y2 is None else 4))
+                (w, n_bytes, "int8", 3 if y2 is None else 4),
+                lambda: CF._launch_int8(xa, ya, y2, k, n_acc, "cuda_cores",
+                                        x.device))
 
     ones = torch.ones((m, 1), device=x.device)
     y2 = row_sq_norm(y)
@@ -1403,26 +1430,29 @@ def sweep_configs(x, y):
     configs["tagfold"] = (
         "K6", lambda: CF.acc_fold(xb, yb, y2, **kw),
         lambda: F.acc_fold_plain(x, y, y2, **kw), hold,
-        (d, inputs - (m + n) * d * 2 + out_bytes, "bf16", 4))
+        (d, inputs - (m + n) * d * 2 + out_bytes, "bf16", 4), None)
     from avenir_tpu_torch.scripts.sweep11_vmem import CONFIGS
     for tile_n in sorted({tn for _, tn in CONFIGS}):
         configs[f"vmem tile_n={tile_n}"] = (
             "K6", lambda tile_n=tile_n: CF.acc_fold(
                 x, y, y2, k=S.K, n_acc=4, tile_n=tile_n),
-            lambda: F.acc_fold_plain(x, y, y2, **kw), hold, work)
+            lambda: F.acc_fold_plain(x, y, y2, **kw), hold, work, None)
     for label, n_acc in (("tpose_tag", S.N_ACC), ("tpose_tag8", 8)):
         kw9 = dict(k=S.K, n_acc=n_acc, tile_n=S.TILE_N)
         configs[label] = (
             "K9", lambda kw9=kw9: CF.tpose_fold(xt, yt, y2, **kw9),
-            lambda kw9=kw9: F.tpose_fold_plain(xt, yt, y2, **kw9), hold, work)
+            lambda kw9=kw9: F.tpose_fold_plain(xt, yt, y2, **kw9), hold, work,
+            None)
     return configs
 
 
 def check_sweep_folds(dev):
     """K10-K12, and the sweeps' uses of K6 and K9, against their plain
-    versions at SWEEP_SHAPES; times at the sweeps' shape. Returns the
-    kernels line's entries of K10-K12 (launches from phase 5)."""
+    versions at SWEEP_SHAPES; times at the sweeps' shape, K11's and K12's
+    beside their CUDA-core body's. Returns the kernels line's entries of
+    K10-K12 (launches from phase 5)."""
     from avenir_tpu_torch.scripts._timing import chain_ms
+    from avenir_tpu_torch.scripts.roofline_knn import kernel_split
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     err = {name: 0.0 for name in SWEEP_NAMES}
     entries = {}
@@ -1430,7 +1460,7 @@ def check_sweep_folds(dev):
         x = torch.rand((m, 9), generator=gen, device=dev)
         y = torch.rand((n, 9), generator=gen, device=dev)
         notes = []
-        for config, (name, kernel, plain, hold, work) in \
+        for config, (name, kernel, plain, hold, work, kept) in \
                 sweep_configs(x, y).items():
             got, want = kernel(), plain()
             torch.cuda.synchronize()
@@ -1453,10 +1483,17 @@ def check_sweep_folds(dev):
             plain_ms = cuda_ms(plain, 3)
             width, n_bytes, product, ops = work
             bound, by = pair_bound_ms(dev, m, n, width, n_bytes, product, ops)
+            parent_ms = None
+            if kept:
+                if not all(torch.equal(a, b) for a, b in zip(kept(), want)):
+                    raise AssertionError(f"{name} {config}: the CUDA-core "
+                                         "body differs from plain")
+                parent_ms = chain_ms(kept, dev)
             log(f"phase 2 {name} {config} {m}x{n}, width {width}: kernel "
                 f"{ms:.4f} ms device (chained), plain {plain_ms:.3f} ms, "
                 f"bound {bound:.4f} ms ({by}, {ops} instructions a pair), "
-                f"{bound / ms:.1%} of bound")
+                f"{bound / ms:.1%} of bound" + (
+                    f", CUDA-core body {parent_ms:.4f} ms" if kept else ""))
             if SWEEP_ENTRY.get(name) == config:
                 entries[name] = {
                     "name": SWEEP_NAMES[name], "route": "cuda",
@@ -1464,10 +1501,134 @@ def check_sweep_folds(dev):
                     "replaces": SWEEP_REPLACES[name], "ms": ms,
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                     "library_ms": None}
+                if kept:
+                    entries[name]["parent_ms"] = parent_ms
+                    log(f"phase 2 {name} {config} split (torch.profiler, "
+                        "us a call): " + "; ".join(
+                            f"{k} {us:.1f}" for k, us in kernel_split(kernel)))
         log(f"phase 2 sweep folds {label} m={m} n={n}: " + "; ".join(notes))
     for name, entry in entries.items():
         entry["max_abs_err"] = err[name]
     return entries
+
+
+# K11 and K12 at the edges of the int8 tensor-core body: every width edge
+# of one k-step of 32 bytes at every n_acc, on 1,000 test rows (no multiple
+# of a block's 128) and 5,000 train rows; N below B and one past a whole
+# number of steps, where a zero pad row's cross term 0 would beat the
+# positive metrics; duplicated rows of small integers (ties everywhere,
+# negative metrics); operands at +-127; K12's metrics at +-(2**18 - 1)
+INT8_EDGE_WIDTHS = (1, 4, 9, 16, 17, 19, 32)
+INT8_PAD_CASES = ((4, 300), (4, 1537), (1, 129), (8, 1025), (16, 2049))
+
+
+def check_int8_edges(dev):
+    """K11 (with and without y2) and K12 through their wrappers at the
+    edges above, each equal to its plain version bit for bit, metrics and
+    columns."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.ops import fold as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    held = collections.Counter()
+
+    def ints(shape, lo, hi):
+        return torch.randint(lo, hi + 1, shape, generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+
+    def hold(what, xa, ya, n_acc, k=16, y2=None, packed=False):
+        kw = dict(k=k, n_acc=n_acc, tile_n=max(4096, n_acc * 128))
+        if packed:
+            bound = F.packed_metric_bound(xa, ya)
+            got = CF.packed_fold(xa, ya, metric_bound=bound, **kw)
+            want = F.packed_fold_plain(xa, ya, metric_bound=bound, **kw)
+        else:
+            got = CF.int8_fold(xa, ya, y2, **kw)
+            want = F.int8_fold_plain(xa, ya, y2, **kw)
+        name = "K12" if packed else "K11"
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(
+                f"{name} {what} n_acc={n_acc}: differs from plain in "
+                f"{int((got[0] != want[0]).sum())} metrics and "
+                f"{int((got[1] != want[1]).sum())} columns")
+        held[name] += 1
+        return want
+
+    m, n = 1000, 5000
+    for w in INT8_EDGE_WIDTHS:
+        xa, ya = ints((m, w), -127, 127), ints((n, w), -127, 127)
+        y2 = torch.randint(-2 ** 20, 2 ** 20, (n,), generator=gen,
+                           device=dev, dtype=torch.int32)
+        hi = min(127, math.isqrt((F.PACKED_METRIC_LIMIT - 1) // w))
+        xp, yp = ints((m, w), -hi, hi), ints((n, w), -hi, hi)
+        for n_acc in F.PACKED_N_ACC_CHOICES:
+            if n_acc in F.N_ACC_CHOICES:
+                hold(f"w={w}", xa, ya, n_acc)
+                hold(f"w={w} y2", xa, ya, n_acc, y2=y2)
+            hold(f"w={w}", xp, yp, n_acc, packed=True)
+    for n_acc, n_pad in INT8_PAD_CASES:
+        xa, ya = ints((m, 19), 1, 59), ints((n_pad, 19), 1, 59)
+        if n_acc in F.N_ACC_CHOICES:
+            hold(f"n={n_pad}", xa, ya, n_acc)
+        hold(f"n={n_pad}", xa, ya, n_acc, packed=True)
+    m, n = 2051, 65536
+    xa, rows = ints((m, 9), -3, 3), ints((n // 8, 9), -3, 3)
+    ya = rows[torch.randint(0, n // 8, (n,), generator=gen, device=dev)]
+    y2 = (ya.to(torch.int32) ** 2).sum(dim=1, dtype=torch.int32)
+    for n_acc in (1, 4, 8, 16):
+        if n_acc < 16:
+            hold("ties", xa, ya, n_acc)
+            hold("ties y2", xa, ya, n_acc, y2=y2)
+        hold("ties", xa, ya, n_acc, packed=True)
+    m, n = 1000, 5000
+    xa, ya = ((ints(shape, 0, 1).to(torch.int32) * 254 - 127).to(torch.int8)
+              for shape in ((m, 32), (n, 32)))
+    xa[3], xa[4], ya[5] = 127, -127, 127
+    for n_acc in (2, 8):
+        want = hold("+-127", xa, ya, n_acc)
+        hold("+-127 y2", xa, ya, n_acc, y2=(ya.to(torch.int32) ** 2).sum(
+            dim=1, dtype=torch.int32))
+    if int(want[0][4, 0]) != -32 * 127 ** 2:
+        raise AssertionError("K11 +-127: the extreme cross term is missing")
+    # per-column ranges whose bound is 16 * 127^2 + 127 * 32 + 15 = 2^18 - 1
+    hi_x = torch.tensor([127] * 17 + [15], device=dev, dtype=torch.int32)
+    hi_y = torch.tensor([127] * 16 + [32, 1], device=dev, dtype=torch.int32)
+    xa = ((ints((m, 18), 0, 1).to(torch.int32) * 2 - 1) * hi_x).to(torch.int8)
+    ya = ((ints((n, 18), 0, 1).to(torch.int32) * 2 - 1) * hi_y).to(torch.int8)
+    xa[3], xa[4], ya[5] = hi_x.to(torch.int8), -hi_x.to(torch.int8), \
+        hi_y.to(torch.int8)
+    if F.packed_metric_bound(xa, ya) != F.PACKED_METRIC_LIMIT - 1:
+        raise AssertionError("K12 extremes: the bound is not 2**18 - 1")
+    for n_acc in (2, 16):
+        want = hold("+-(2**18-1)", xa, ya, n_acc, packed=True)
+        if int(want[0][4, 0]) != 1 - F.PACKED_METRIC_LIMIT:
+            raise AssertionError("K12 extremes: -(2**18 - 1) is missing")
+    log(f"phase 2 int8 tensor-core edges: K11 {held['K11']} and K12 "
+        f"{held['K12']} calls equal to plain, metrics and columns (w "
+        f"{', '.join(map(str, INT8_EDGE_WIDTHS))} at every n_acc; N "
+        + ", ".join(f"{b} at n_acc {a}" for a, b in INT8_PAD_CASES)
+        + "; 2051 x 65536 duplicated rows; operands at +-127; K12 metrics "
+        "at +-(2**18 - 1))")
+
+
+def check_int8_packing(dev):
+    """The int8 tensor-core body's packed rows (and y2 padded) equal
+    ``int8_tc_packed`` (and y2 then zeros) bit for bit, at the sweeps'
+    shape on ``int8epi``'s operands."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.scripts import _sweep as S
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    x = torch.rand((8192, 9), generator=gen, device=dev)
+    y = torch.rand((65536, 9), generator=gen, device=dev)
+    x8, y8, _ = S.quant(x, y, 127.0)
+    y2 = S._int8_sq_norm(y8)
+    yp, y2p, _, _ = CF._launch_int8(x8, y8, y2, S.K, S.N_ACC, "tensor",
+                                    dev)[2]
+    n = y8.shape[0]
+    if not (torch.equal(yp, CF.int8_tc_packed(y8, yp.shape[0]))
+            and torch.equal(y2p[:n], y2) and not y2p[n:].any()):
+        raise AssertionError("K11's packed rows differ from int8_tc_packed")
+    log(f"phase 2 int8 packed rows: K11's [{yp.shape[0]}, 32] equal "
+        "int8_tc_packed(y8), its y2 padded with zeros, bit for bit")
 
 
 def sweep_harnesses():
@@ -2027,13 +2188,16 @@ def main() -> int:
         f"from {len(_build.sources())} sources, sm_90a)")
     log("phase 1 registers per thread, spills (ptxas): " + kernel_registers(
         (lib_path.parent / "build.log").read_text()))
-    hmma = hmma_counts(lib_path)
-    log("phase 1 HMMA instructions (cuobjdump -sass): " + "; ".join(
-        f"{name} {count}" for name, count in hmma.items())
+    mma = mma_counts(lib_path)
+    log("phase 1 HMMA and IMMA instructions (cuobjdump -sass): " + "; ".join(
+        f"{name} {op} {count}" for name, (op, count) in mma.items())
         + " (K9 runs K6's instantiations, tc_sweep_kernel<true, S>, through "
-        "its strides; K8's tc_nodot_kernel has no product)")
-    if len(hmma) != 8 or not all(hmma.values()):
-        raise AssertionError(f"the tensor-core sweeps lack HMMA: {hmma}")
+        "its strides; K8's tc_nodot_kernel has no product; "
+        "tc_int8_sweep_kernel<0, 1, 2> are K11, K11 with y2, K12)")
+    ops = collections.Counter(op for op, count in mma.values() if count)
+    if ops != {"HMMA": 8, "IMMA": 3} or len(mma) != 11:
+        raise AssertionError(f"the tensor-core sweeps lack HMMA or IMMA: "
+                             f"{mma}")
 
     rng = np.random.default_rng(SEED)
     k1 = check_k1(dev, rng)
@@ -2044,6 +2208,8 @@ def main() -> int:
     for name, err in check_tc_edges(dev).items():
         folds[name]["max_abs_err"] = max(folds[name]["max_abs_err"], err)
     folds.update(check_sweep_folds(dev))
+    check_int8_edges(dev)
+    check_int8_packing(dev)
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
         launches = cli_phase(work)

@@ -187,15 +187,23 @@ def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
 
 
 def test_refusals_name_roadmap_items_that_exist():
-    """Every ROADMAP item a refusal names is a title of queue A."""
-    from avenir_tpu_torch.cli import main as cli
+    """Every ROADMAP item a refusal names, in any module of the port, is a
+    title of queue A; no message names an item by its number, which
+    changes when the queue is reordered."""
     queue = (REPO / "ROADMAP.md").read_text().split("### A.")[1] \
         .split("### B.")[0]
     titles = set(re.findall(r"^\d+\. \*\*(.+?)\.?\*\*", queue, re.M))
-    named = set(re.findall(r"_item\([\"'](.+?)[\"']\)",
-                           Path(cli.__file__).read_text()))
+    named, by_number = set(), []
+    for path in sorted((REPO / "avenir_tpu_torch").rglob("*.py")):
+        text = path.read_text()
+        named |= set(re.findall(r"roadmap_item\(\s*[\"'](.+?)[\"']\s*\)",
+                                text))
+        by_number += [f"{path.name}: {m}" for m in
+                      re.findall(r"queue A,? item \d+", text)]
     assert len(named) >= 14
+    assert "Multi-device layer" in named
     assert named <= titles, named - titles
+    assert not by_number, by_number
 
 
 # a two-part elearn directory: the JAX CLI scores it on its part-file path,
