@@ -8,11 +8,11 @@
 // an epilogue (scripts/sweep16_kernels.py:71 `augbf16`,
 // scripts/sweep16b_kernels.py:77 `augv2`) and `_tpose_aug_kernel`
 // (scripts/sweep18_tpose_fold.py:110). Two bodies serve the five (below):
-// the tensor-core body (K6 with bf16 rounding, K7, K9; K8 on its tile) and
-// the CUDA-core template of PRs 3-4, with compile-time flags for the layout
-// (row-major or feature-major operands), the metric (a product or a
-// broadcast; with or without the y2 epilogue) and the output (indexed or
-// values only). The TPU's scalar-tag index fold is no different function
+// the tensor-core body (K6 with bf16 rounding, K7, K9, K10; K8 on its
+// tile) and the CUDA-core template of PRs 3-4, with compile-time flags for
+// the layout (row-major or feature-major operands), the metric (a product
+// or a broadcast; with or without the y2 epilogue) and the output (indexed
+// or values only). The TPU's scalar-tag index fold is no different function
 // here: both bodies visit a bucket's columns in increasing order, so the
 // column is rebuilt from the step whether the TPU kept an iota or a tag.
 //
@@ -28,10 +28,12 @@
 //   K10     metric = sum_c bf16(x[r][c]) * bf16(y[col][c]), the raw product
 //           of operands the caller augmented ([x | 1 | 1] against
 //           [-2y | y2hi | y2lo]): no y2 operand, no epilogue. The products
-//           of bf16 values are exact in f32; they are summed by FMAs in
-//           feature order, c = 0, 1, ..., which the plain version repeats
-//           (the y2 columns are some 2^8 times the others, so the order
-//           shows in the last bits). Row-major or feature-major.
+//           of bf16 values are exact in f32; the tensor cores sum them in
+//           their own order, the plain version in feature order, c = 0,
+//           1, ... (the y2 columns are some 2^8 times the others, so the
+//           order shows in the last bits): the two agree within 1e-5
+//           relative, columns differing at near-ties only, and exactly on
+//           integer operands. Row-major or feature-major.
 // Indexed kernels fold into B = n_acc * 128 buckets, col falling in bucket
 // col % B: each bucket keeps the smallest metric strictly below BIG and the
 // lowest column reaching it, else (BIG, -1). Then k rounds extract, per
@@ -41,14 +43,14 @@
 // What bounds them on an H100: the per-pair instructions on the CUDA cores.
 // A product of bf16-rounded operands summed in f32 is what the tensor cores
 // do at 989 TFLOP/s (2 * m * n * d flops: 0.010 ms at the bench shape), so
-// the floor of K6, K7 and K9 is the fold that consumes each pair: the
+// the floor of K6, K7, K9 and K10 is the fold that consumes each pair: the
 // metric, a compare and two selects (K7: the metric and a min), at 128
 // lanes per SM and clock; K8 has no product and the same fold. Memory is
 // not the limit: the train set is 2.4 MB at the bench shape, in the 50 MB
 // L2. Two bodies serve them.
 //
-// The tensor-core body (namespace tc): K6 with its round flag on, K7 and
-// K9; K8 runs its tile with an add for the product. Every time below is
+// The tensor-core body (namespace tc): K6 with its round flag on, K7, K9
+// and K10; K8 runs its tile with an add for the product. Every time below is
 // chained device time at the bench shape (8,192 x 65,536 x 9) on an NVIDIA
 // H100 80GB HBM3 at 700 W.
 // - The product is mma.sync m16n8k16 (bf16 operands, f32 sums) with y2 in
@@ -118,6 +120,27 @@
 //   rows) and take 5.5-5.7 us against K6's 4.3: K9 0.1643-0.1651 ms at
 //   n_acc 4 (K6 0.1622-0.1626), 0.1953-0.1963 at n_acc 8; its CUDA-core
 //   body 0.625-0.635 and 0.658-0.666.
+// - K10 is the body's raw mode (kRaw in pack_kernel and tc_sweep_kernel,
+//   compile-time, so that K6's, K7's and K9's instantiations keep their
+//   code): A = [bf16(x) | 1 1 1 | 0] against rows packed as [bf16(y) |
+//   0 0 0 | 0], so the accumulator is the raw metric and real columns take
+//   +0 from the padding, which changes no f32 sum. A pad row is 0 but for
+//   kPadY2 against the first 1, as K6's: its metric, 3.39e38, lies above
+//   BIG and never wins, with no bound test and no mask in the loop. ksteps
+//   stays (W + 3 + 15) / 16, K6's, so the planner, the packed layout and
+//   the sweep's instantiations (tc_sweep_kernel<true, S, true>) follow
+//   K6's; one pad column would save a k-step at W = 14 and 15 only, and
+//   the sweeps run W = 10 and 11 (one k-step). Masking the columns past N
+//   in the last round, as the int8 body does (fold_int8.cu), was the
+//   alternative: the int8 body must, since no int8 operand puts a pad's
+//   metric above every real one, whereas a bf16 pad value does that here
+//   for free. The feature-major arm (tpose_aug, [W][rows]) reads x and y
+//   through K9's strides and runs the same instantiations as augv2. K10
+//   runs 0.1692 ms (augbf16), 0.1695-0.1699 (augv2) and 0.1609-0.1615
+//   (tpose_aug) against its CUDA-core body's 0.854, 0.909-0.917 and 0.619:
+//   the sweep 133.5 us, as K6's, the extraction 17.7, the pack 2.9-3.1
+//   (5.7 strided), and 8.3 for widening the bf16 tensors augbf16 and
+//   augv2 arrive in.
 // - K8 (tc_nodot_kernel) is the sweep's tile with the product replaced by
 //   one add: the element of a thread's fragments for (row r, bucket b) at
 //   step t is y2p[t * B + b] + s[r], four row sums in registers, four
@@ -130,13 +153,12 @@
 //   two selects at 64 lanes, 0.096 ms.
 //
 // The CUDA-core body: K6 with its round flag off (f32 operands cannot
-// pass the bf16 tensor cores unchanged) and K10; K8 and K9 keep it to be
+// pass the bf16 tensor cores unchanged); K8, K9 and K10 keep it to be
 // timed against. It does the product on the CUDA cores, d FMAs a pair
 // beside the fold's 4, so it can reach at most 4 / (d + 4) of the floor;
-// K10's fold spends 3 (no epilogue) beside d + 2 FMAs. Where the TPU grid
-// carries its accumulators
-// across train tiles in VMEM, a Hopper block owns kR whole test rows and
-// sweeps all of n itself.
+// K10's fold spends 3 (no epilogue) beside W FMAs. Where the TPU grid
+// carries its accumulators across train tiles in VMEM, a Hopper block owns
+// kR whole test rows and sweeps all of n itself.
 // - A block has B threads, one per bucket, and kR test rows: 16, or 8 at
 //   B = 1024 where a thread may hold only 64 registers. The rows' features
 //   sit in shared memory, d-major, so a thread reads four rows of one
@@ -144,7 +166,7 @@
 // - Thread b visits columns b, b + B, b + 2B, ... in increasing order; a
 //   strict < gives the lowest column on ties for free. It keeps its kR
 //   (value, column) pairs in registers.
-// - Row-major operands (K6): each step stages B train rows of y, a
+// - Row-major operands (K6, K10): each step stages B train rows of y, a
 //   contiguous run of B * d floats, into shared memory with coalesced loads;
 //   a thread then reads its row at stride d, free of bank conflicts for odd
 //   d. Feature-major operands (K9, K10): thread b reads yt[c][col] straight
@@ -356,8 +378,8 @@ cudaError_t launch(const float* x, const float* y, const float* y2, int m,
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body of K6 (bf16 on), K7 and K9, and K8 on its tile: see
-// the note at the top.
+// The tensor-core body of K6 (bf16 on), K7, K9 and K10, and K8 on its
+// tile: see the note at the top.
 // ---------------------------------------------------------------------------
 namespace tc {
 
@@ -421,12 +443,14 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 }
 
 // Packed train rows: yp [n_pad][16 * ksteps(d)] bf16. Logically row j < n
-// holds bf16(y[j][0..d)), then y2[j] split exactly into three bf16 parts,
-// then zeros; a pad row holds zeros but for kPadY2 in column d, so that
-// its metric lies above BIG. In memory each k-step's eight 32-bit words
-// (two values each) lie in the order 0 4 1 5 2 6 3 7, so that the B
-// fragment of lane (g, tig), words tig and tig + 4 of row g, is one
-// 8-byte load. One thread writes one k-step of a row (32 bytes).
+// holds bf16(y[j][0..d)), then y2[j] split exactly into three bf16 parts
+// (kRaw, K10: zeros; y2 is not read), then zeros; a pad row holds zeros
+// but for kPadY2 in column d, so that its metric lies above BIG. In memory
+// each k-step's eight 32-bit words (two values each) lie in the order 0 4
+// 1 5 2 6 3 7, so that the B fragment of lane (g, tig), words tig and tig
+// + 4 of row g, is one 8-byte load. One thread writes one k-step of a row
+// (32 bytes).
+template <bool kRaw>
 __global__ void pack_kernel(const float* __restrict__ y, Strides ys,
                             const float* __restrict__ y2, int n, int n_pad,
                             int d, int steps, uint4* __restrict__ yp) {
@@ -436,7 +460,7 @@ __global__ void pack_kernel(const float* __restrict__ y, Strides ys,
     const int j = static_cast<int>(e / steps);
     const int c0 = static_cast<int>(e % steps) * 16;
     float part[3] = {0.f, 0.f, 0.f};
-    if (j < n) {
+    if (!kRaw && j < n) {
       const float s = y2[j];
       part[0] = bf16_round(s);
       const float r = s - part[0];         // exact
@@ -506,8 +530,9 @@ __device__ __forceinline__ void store_pairs(
 // The B fragments come straight from the packed rows (L1 serves the four
 // warps of a column group), steps_ahead() steps ahead of the fold.
 // K6 writes its (metric, column) pairs to vals / cols [m][buckets]; K7
-// its lane minima to vals [m][128].
-template <bool kIndexed, int kSteps>
+// its lane minima to vals [m][128]. kRaw (K10, indexed): the A fragments
+// carry bf16(x) in place of -2 bf16(x), against rows packed without y2.
+template <bool kIndexed, int kSteps, bool kRaw>
 __global__ void __launch_bounds__(kThreads, kSteps <= 2 ? 2 : 1)
 tc_sweep_kernel(const float* __restrict__ x, Strides xs,
                 const uint2* __restrict__ yp, int m, int d, int n_steps,
@@ -545,8 +570,9 @@ tc_sweep_kernel(const float* __restrict__ x, Strides xs,
 #pragma unroll
   for (int p = 0; p < kAhead; ++p) load(pf[p]);
 
-  // A fragments, fixed for the sweep: -2 bf16(x), then 1 against the
-  // three y2 parts, then 0; rows past m are 0. K7 reads row-major x only:
+  // A fragments, fixed for the sweep: -2 bf16(x) (kRaw: bf16(x)), then 1
+  // against the three y2 parts, then 0; rows past m are 0. K7 reads
+  // row-major x only:
   // with its strides fixed ptxas schedules its loop as before the strides
   // (0.0622 ms at the bench shape against 0.0655 through xs)
   const Strides ax = kIndexed ? xs : Strides{d, 1};
@@ -564,7 +590,7 @@ tc_sweep_kernel(const float* __restrict__ x, Strides xs,
         for (int u = 0; u < 2; ++u) {
           const int cu = c + u;
           v[u] = r >= m ? 0.f
-                 : cu < d ? -2.f * x[ax.at(r, cu)]
+                 : cu < d ? (kRaw ? 1.f : -2.f) * x[ax.at(r, cu)]
                  : cu < d + 3 ? 1.f : 0.f;
         }
         a[i][q][h] = pack_bf16x2(v[0], v[1]);
@@ -730,31 +756,33 @@ int grid_for(size_t work) {
   return static_cast<int>(work / 256 + 1 < 4096 ? work / 256 + 1 : 4096);
 }
 
+template <bool kRaw>
 cudaError_t pack(const float* y, Strides ys, const float* y2, int n,
                  int n_pad, int d, uint4* yp, cudaStream_t s) {
   const int steps = ksteps(d);
-  pack_kernel<<<grid_for(static_cast<size_t>(n_pad) * steps), 256, 0, s>>>(
-      y, ys, y2, n, n_pad, d, steps, yp);
+  pack_kernel<kRaw>
+      <<<grid_for(static_cast<size_t>(n_pad) * steps), 256, 0, s>>>(
+          y, ys, y2, n, n_pad, d, steps, yp);
   return cudaGetLastError();
 }
 
-template <bool kIndexed, int kSteps>
+template <bool kIndexed, int kSteps, bool kRaw>
 cudaError_t sweep(const float* x, Strides xs, const uint4* yp, int m, int d,
                   int n, int buckets, float* vals, int* cols,
                   cudaStream_t s) {
   const dim3 grid((m + kTcRows - 1) / kTcRows, buckets / kTcSlice);
-  tc_sweep_kernel<kIndexed, kSteps><<<grid, kThreads, 0, s>>>(
+  tc_sweep_kernel<kIndexed, kSteps, kRaw><<<grid, kThreads, 0, s>>>(
       x, xs, reinterpret_cast<const uint2*>(yp), m, d,
       sweep_steps(n, d, buckets), buckets, vals, cols);
   return cudaGetLastError();
 }
 
-template <bool kIndexed>
+template <bool kIndexed, bool kRaw>
 cudaError_t sweep_any(const float* x, Strides xs, const uint4* yp, int m,
                       int d, int n, int buckets, float* vals, int* cols,
                       cudaStream_t s) {
 #define AVT_SWEEP(S) \
-  sweep<kIndexed, S>(x, xs, yp, m, d, n, buckets, vals, cols, s)
+  sweep<kIndexed, S, kRaw>(x, xs, yp, m, d, n, buckets, vals, cols, s)
   switch (ksteps(d)) {
     case 1: return AVT_SWEEP(1);
     case 2: return AVT_SWEEP(2);
@@ -782,18 +810,19 @@ cudaError_t extract_any(const float* vals, const int* cols, int m, int k,
 #undef AVT_EXTRACT
 }
 
-// K6 and K9 on the tensor cores: pack, sweep, k rounds, the operands read
-// through xs and ys (row-major K6, feature-major K9). yp, vals and cols are
-// the caller's scratch: [padded_rows][16 ksteps(d)] bf16, [m][buckets]
-// f32 and i32.
+// K6, K9 and (kRaw, y2 unread) K10 on the tensor cores: pack, sweep, k
+// rounds, the operands read through xs and ys (row-major or feature-major).
+// yp, vals and cols are the caller's scratch: [padded_rows][16 ksteps(d)]
+// bf16, [m][buckets] f32 and i32.
+template <bool kRaw>
 cudaError_t fold_acc(const float* x, Strides xs, const float* y, Strides ys,
                      const float* y2, int m, int n, int d, int k,
                      int buckets, uint4* yp, float* vals, int* cols,
                      float* out_d, int* out_i, cudaStream_t s) {
   cudaError_t err =
-      pack(y, ys, y2, n, padded_rows(n, d, buckets), d, yp, s);
+      pack<kRaw>(y, ys, y2, n, padded_rows(n, d, buckets), d, yp, s);
   if (err != cudaSuccess) return err;
-  err = sweep_any<true>(x, xs, yp, m, d, n, buckets, vals, cols, s);
+  err = sweep_any<true, kRaw>(x, xs, yp, m, d, n, buckets, vals, cols, s);
   if (err != cudaSuccess) return err;
   return extract_any(vals, cols, m, k, buckets, out_d, out_i, s);
 }
@@ -826,11 +855,11 @@ cudaError_t fold_dotmin(const float* x, const float* y, const float* y2,
   static_assert(kDotminBuckets == 4 * kLanes && kTcSlice == 4 * 16,
                 "a K7 block holds the four buckets of 16 lanes");
   const Strides rows{d, 1};
-  const cudaError_t err =
-      pack(y, rows, y2, n, padded_rows(n, d, kDotminBuckets), d, yp, s);
+  const cudaError_t err = pack<false>(
+      y, rows, y2, n, padded_rows(n, d, kDotminBuckets), d, yp, s);
   if (err != cudaSuccess) return err;
-  return sweep_any<false>(x, rows, yp, m, d, n, kDotminBuckets, out_d,
-                          nullptr, s);
+  return sweep_any<false, false>(x, rows, yp, m, d, n, kDotminBuckets,
+                                 out_d, nullptr, s);
 }
 
 }  // namespace tc
@@ -864,7 +893,8 @@ cudaError_t launch_indexed(const void* x, const void* y, const void* y2,
 #undef AVT_FOLD
 }
 
-// the sizes a tensor-core launch takes (K6 and K9 bf16, K8 on the tile)
+// the sizes a tensor-core launch takes (K6, K9 and K10 bf16, K8 on the
+// tile)
 bool tc_sizes_ok(int m, int n, int d, int k, int n_acc) {
   return m > 0 && n > 0 && d > 0 && d <= kMaxD && k >= 1 && k <= kLanes &&
          (n_acc == 1 || n_acc == 2 || n_acc == 4 || n_acc == 8);
@@ -891,7 +921,7 @@ int avt_fold_acc(const void* x, const void* y, const void* y2, int m, int n,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tc::fold_acc(
+  return static_cast<int>(tc::fold_acc<false>(
       static_cast<const float*>(x), tc::Strides{d, 1},
       static_cast<const float*>(y), tc::Strides{d, 1},
       static_cast<const float*>(y2), m, n, d, k, n_acc * kLanes,
@@ -970,7 +1000,7 @@ int avt_fold_tpose(const void* xt, const void* yt, const void* y2, int m,
   }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(tc::fold_acc(
+  return static_cast<int>(tc::fold_acc<false>(
       static_cast<const float*>(xt), tc::Strides{x_row, x_feat},
       static_cast<const float*>(yt), tc::Strides{y_row, y_feat},
       static_cast<const float*>(y2), m, n, d, k, n_acc * kLanes,
@@ -980,17 +1010,40 @@ int avt_fold_tpose(const void* xt, const void* yt, const void* y2, int m,
 }
 
 // K10: the raw product of augmented operands, rounded to bf16: x [m, d] and
-// y [n, d] row-major, or with tpose xt [d, m] and yt [d, n]; no y2.
+// y [n, d] row-major, or with tpose xt [d, m] and yt [d, n]; no y2. body 0:
+// the CUDA-core body (kept to be timed against), which takes the strides
+// of its layout only; 1: the tensor-core body in its raw mode
+// (tc::fold_acc<true>), reading x and y through the strides (x_row, x_feat)
+// and (y_row, y_feat), with the caller's scratch yp, vals, cols.
 int avt_fold_raw(const void* x, const void* y, int m, int n, int d, int k,
-                 int n_acc, int tpose, void* out_d, void* out_i, int device,
-                 void* stream) {
-  return static_cast<int>(
-      tpose ? launch_indexed<true, true, false>(x, y, nullptr, m, n, d, k,
-                                                n_acc, 1, out_d, out_i,
-                                                device, stream)
-            : launch_indexed<false, true, false>(x, y, nullptr, m, n, d, k,
-                                                 n_acc, 1, out_d, out_i,
-                                                 device, stream));
+                 int n_acc, int tpose, int body, int x_row, int x_feat,
+                 int y_row, int y_feat, void* yp, void* vals, void* cols,
+                 void* out_d, void* out_i, int device, void* stream) {
+  if (body == 0) {
+    const bool layout =
+        tpose ? x_row == 1 && x_feat == m && y_row == 1 && y_feat == n
+              : x_row == d && x_feat == 1 && y_row == d && y_feat == 1;
+    if (!layout) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(
+        tpose ? launch_indexed<true, true, false>(x, y, nullptr, m, n, d, k,
+                                                  n_acc, 1, out_d, out_i,
+                                                  device, stream)
+              : launch_indexed<false, true, false>(x, y, nullptr, m, n, d,
+                                                   k, n_acc, 1, out_d, out_i,
+                                                   device, stream));
+  }
+  if (body != 1 || !tc_sizes_ok(m, n, d, k, n_acc)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(tc::fold_acc<true>(
+      static_cast<const float*>(x), tc::Strides{x_row, x_feat},
+      static_cast<const float*>(y), tc::Strides{y_row, y_feat}, nullptr, m,
+      n, d, k, n_acc * kLanes, static_cast<uint4*>(yp),
+      static_cast<float*>(vals), static_cast<int*>(cols),
+      static_cast<float*>(out_d), static_cast<int*>(out_i),
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

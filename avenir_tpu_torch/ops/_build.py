@@ -132,7 +132,8 @@ _SIGNATURES = {
                         _I, _P], _I),
     "avt_fold_tpose": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _I, _P], _I),
-    "avt_fold_raw": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P], _I),
+    "avt_fold_raw": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _I, _P], _I),
     "avt_fold_int8": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P,
                        _P, _P, _I, _P], _I),
     "avt_fold_packed": ([_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P,

@@ -22,26 +22,30 @@ takes the plain version; a CUDA tensor launches the kernel or raises. Kernel
 and plain version agree up to the f32 summation order of the product:
 metrics within a few ulps, and columns equal except where two candidates'
 metrics lie that close. K8 does one f32 add a pair, as its plain version
-does, and equals it bit for bit; K10 sums in the same order as its plain
-version; K11 and K12 are integer and equal theirs bit for bit.
+does, and equals it bit for bit; K11 and K12 are integer and equal theirs
+bit for bit.
 
-**Bodies.** K6 with bf16 rounding, K7 and K9 run on the tensor-core body
-of ``csrc/fold.cu`` (namespace ``tc``: the train rows packed to bf16 with
-y2 in the padding of k, a block of ``TC_ROWS`` test rows × ``TC_SLICE``
-buckets, the fold on the accumulator fragments, K6's and K9's slices
-merged through an ``[M, B]`` scratch and an extraction kernel); K9 reads
-its feature-major operands through the strides of :func:`tc_strides`. K8
-runs that body's tile with the product replaced by an add, over y2 padded
-with +inf. K11 and K12 run the same tile on the int8 tensor cores
-(``csrc/fold_int8.cu``, namespace ``tc``: the train rows packed to 32
-bytes, the exact int32 cross term folded on the accumulator fragments,
-columns past N masked in the sweep's last round; :func:`int8_tc_plan`).
-The CUDA-core body (one thread per bucket) serves K6 with f32
-operands and K10, and stays reachable as ``_launch_acc``,
-``_launch_dotmin``, ``_launch_nodot``, ``_launch_tpose``, ``_launch_int8``
-and ``_launch_packed`` with ``body "cuda_cores"`` so that
-``chip_smoke.py`` can time it beside the new body; no public path selects
-it.
+**Bodies.** K6 with bf16 rounding, K7, K9 and K10 run on the tensor-core
+body of ``csrc/fold.cu`` (namespace ``tc``: the train rows packed to bf16
+with y2 in the padding of k, a block of ``TC_ROWS`` test rows ×
+``TC_SLICE`` buckets, the fold on the accumulator fragments, the indexed
+folds' slices merged through an ``[M, B]`` scratch and an extraction
+kernel); K9 and K10's ``tpose_aug`` read their feature-major operands
+through the strides of :func:`tc_strides`. K10 is the body's raw mode: A
+carries ``bf16(x)`` in place of ``−2·bf16(x)`` and the packed rows no y2
+(:func:`tc_operands` with ``y2`` None), so the accumulator is the raw
+product; it sums in the tensor cores' order, where its plain version sums
+in feature order. K8 runs that body's tile with the product replaced by
+an add, over y2 padded with +inf. K11 and K12 run the same tile on the
+int8 tensor cores (``csrc/fold_int8.cu``, namespace ``tc``: the train rows
+packed to 32 bytes, the exact int32 cross term folded on the accumulator
+fragments, columns past N masked in the sweep's last round;
+:func:`int8_tc_plan`). The CUDA-core body (one thread per bucket) serves
+K6 with f32 operands, and stays reachable as ``_launch_acc``,
+``_launch_dotmin``, ``_launch_nodot``, ``_launch_tpose``, ``_launch_raw``,
+``_launch_int8`` and ``_launch_packed`` with ``body "cuda_cores"`` so
+that ``chip_smoke.py`` can time it beside the new body; no public path
+selects it.
 
 **Padding.** The TPU launchers pad the train rows to a multiple of
 ``tile_n``. With a ``y2`` epilogue the pad's ``y2`` is ``BIG`` and never
@@ -111,7 +115,7 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-#: K6 (bf16 on), K7 and K9 on the tensor cores, K8 on their tile
+#: K6 (bf16 on), K7, K9 and K10 on the tensor cores, K8 on their tile
 #: (``csrc/fold.cu``, namespace ``tc``): a block owns TC_ROWS test rows and
 #: TC_SLICE buckets, and the train rows are packed first to bf16 rows of
 #: ``tc_width(d)`` values (K8: y2 padded to the same ``n_pad`` entries)
@@ -128,8 +132,8 @@ TC_PAD_Y2 = 0x7F7F
 #: then one 8-byte load
 TC_WORD_ORDER = (0, 4, 1, 5, 2, 6, 3, 7)
 #: the C entries' ``body`` argument: the CUDA-core body of PRs 3-4, one
-#: thread per bucket; the tensor-core body (K6, K7, K9); and its tile with
-#: the product replaced by an add (K8, which has no product)
+#: thread per bucket; the tensor-core body (K6, K7, K9, K10); and its tile
+#: with the product replaced by an add (K8, which has no product)
 BODIES = {"cuda_cores": 0, "tensor": 1, "tile": 1}
 
 
@@ -178,8 +182,8 @@ class TcPlan(NamedTuple):
 def tc_plan(m: int, n: int, d: int, buckets: int,
             indexed: bool = True) -> TcPlan:
     """Shapes of a tensor-core launch over m test rows, n train rows of d
-    features and ``buckets`` buckets: K6 (``indexed``, ``n_acc·128``
-    buckets) or K7 (``TC_DOTMIN_BUCKETS``)."""
+    features and ``buckets`` buckets: K6, K9 and K10 (``indexed``,
+    ``n_acc·128`` buckets) or K7 (``TC_DOTMIN_BUCKETS``)."""
     if buckets < F.LANES or buckets % TC_SLICE:
         raise ValueError(f"buckets must be a multiple of {TC_SLICE}, at "
                          f"least {F.LANES}, got {buckets}")
@@ -211,34 +215,38 @@ def _strided_rows(t: torch.Tensor, tpose: bool) -> torch.Tensor:
                         t.storage_offset())
 
 
-def tc_operands(x: torch.Tensor, y: torch.Tensor, y2: torch.Tensor,
-                buckets: int, tpose: bool = False
+def tc_operands(x: torch.Tensor, y: torch.Tensor,
+                y2: Optional[torch.Tensor], buckets: int, tpose: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The tensor-core body's operands, as f32 tensors of bf16 values in
     logical order: A ``[m, W]`` = (−2·bf16(x) | 1 1 1 | 0) and the packed
     train rows ``[n_pad, W]`` = (bf16(y) | y2 split exactly into three bf16
     parts | 0), a pad row 0 but for the largest finite bf16 against the
     first 1. ``A @ Yᵀ`` summed exactly is ``y2 − 2·bf16(x)·bf16(y)``; a pad
-    column's is above BIG. x ``[m, d]`` and y ``[n, d]`` are contiguous, or
-    with ``tpose`` feature-major ``[d, m]`` and ``[d, n]`` (K9), read
-    through :func:`tc_strides` as the kernel reads them.
-    :func:`tc_packed` gives the kernel's layout."""
+    column's is above BIG. With ``y2`` None, K10's raw mode: A = (bf16(x) |
+    1 1 1 | 0) against (bf16(y) | 0 0 0 | 0), so that ``A @ Yᵀ`` is the raw
+    product ``Σ_c bf16(x)·bf16(y)`` and the pad rows are as above. x ``[m,
+    d]`` and y ``[n, d]`` are contiguous, or with ``tpose`` feature-major
+    ``[d, m]`` and ``[d, n]`` (K9, K10's ``tpose_aug``), read through
+    :func:`tc_strides` as the kernel reads them. :func:`tc_packed` gives
+    the kernel's layout."""
     x, y = _strided_rows(x, tpose), _strided_rows(y, tpose)
     m, d = x.shape
     n = y.shape[0]
     w = tc_width(d)
     a = torch.zeros((m, w), dtype=torch.float32, device=x.device)
-    a[:, :d] = -2.0 * F.round_bf16(x)
+    a[:, :d] = F.round_bf16(x) if y2 is None else -2.0 * F.round_bf16(x)
     a[:, d:d + 3] = 1.0
-    hi = F.round_bf16(y2)
-    rest = y2 - hi
-    mid = F.round_bf16(rest)
     yp = torch.zeros((tc_padded_rows(n, d, buckets), w), dtype=torch.float32,
                      device=y.device)
     yp[:n, :d] = F.round_bf16(y)
-    yp[:n, d] = hi
-    yp[:n, d + 1] = mid
-    yp[:n, d + 2] = F.round_bf16(rest - mid)
+    if y2 is not None:
+        hi = F.round_bf16(y2)
+        rest = y2 - hi
+        mid = F.round_bf16(rest)
+        yp[:n, d] = hi
+        yp[:n, d + 1] = mid
+        yp[:n, d + 2] = F.round_bf16(rest - mid)
     pad = torch.tensor([TC_PAD_Y2], dtype=torch.int16).view(torch.bfloat16)
     yp[n:, d] = pad.to(torch.float32).item()
     return a, yp
@@ -444,21 +452,10 @@ def tpose_fold(xt: torch.Tensor, yt: torch.Tensor, y2: torch.Tensor, *,
 tpose_fold.launches = 0
 
 
-def raw_fold(x: torch.Tensor, y: torch.Tensor, *, k: int, n_acc: int = 4,
-             tile_n: int = 4096, tpose: bool = False
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K10 wrapper: the fold of the raw product of augmented operands, x
-    ``[M, W]`` and y ``[N, W]`` (``tpose``: ``[W, M]`` and ``[W, N]``), f32
-    or bf16 tensors, rounded to bf16 in the kernel and summed in f32 in
-    feature order → ``[M, 128]`` (metric f32, column int32); see
-    :func:`fold.raw_fold_plain`."""
-    x, y = _as_f32(x, y)
-    if x.device.type == "cpu":
-        return F.raw_fold_plain(x, y, k=k, n_acc=n_acc, tile_n=tile_n,
-                                tpose=tpose)
-    F.check_tiles(n_acc, tile_n)
-    F.check_k(k)
-    dev = _check_operands(x=x, y=y)
+def _raw_rows(x: torch.Tensor, y: torch.Tensor, tpose: bool
+              ) -> Tuple[int, int, int]:
+    """(m, n, W) of K10's operands: x ``[M, W]`` and y ``[N, W]``, or with
+    ``tpose`` ``[W, M]`` and ``[W, N]``."""
     feat = 0 if tpose else 1
     if x.dim() != 2 or y.dim() != 2 or x.shape[feat] != y.shape[feat]:
         want = "[W, M] and [W, N]" if tpose else "[M, W] and [N, W]"
@@ -469,12 +466,52 @@ def raw_fold(x: torch.Tensor, y: torch.Tensor, *, k: int, n_acc: int = 4,
         raise ValueError(f"width must be in [1, {MAX_D}], got {d}")
     if n < 1:
         raise ValueError("no train columns")
+    return m, n, d
+
+
+def _launch_raw(x: torch.Tensor, y: torch.Tensor, k: int, n_acc: int,
+                tpose: bool, body: str, dev: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor, Tuple]:
+    """Launch K10's ``body`` ("cuda_cores" or "tensor") on checked f32
+    operands, row-major or (``tpose``) feature-major, with their strides
+    (:func:`tc_strides`): (out_d, out_i, the tensor-core body's packed rows
+    and scratch, or ())."""
+    if body not in ("cuda_cores", "tensor"):
+        raise ValueError(f"K10 runs on 'cuda_cores' or 'tensor', got "
+                         f"{body!r}")
+    m, n, d = _raw_rows(x, y, tpose)
     out_d, out_i = _outputs(m, dev)
+    scratch: Tuple = ()
     if m:
+        if body == "tensor":
+            scratch = _tc_scratch(tc_plan(m, n, d, n_acc * F.LANES), dev)
+        ptrs = [t.data_ptr() for t in scratch] or [None] * 3
         _build.check(_build.load_library().avt_fold_raw(
             x.data_ptr(), y.data_ptr(), m, n, d, k, n_acc, int(tpose),
-            out_d.data_ptr(), out_i.data_ptr(), dev.index, _stream(dev)),
-            "K10 fold launch")
+            BODIES[body], *tc_strides(m, d, tpose), *tc_strides(n, d, tpose),
+            *ptrs, out_d.data_ptr(), out_i.data_ptr(), dev.index,
+            _stream(dev)), "K10 fold launch")
+    return out_d, out_i, scratch
+
+
+def raw_fold(x: torch.Tensor, y: torch.Tensor, *, k: int, n_acc: int = 4,
+             tile_n: int = 4096, tpose: bool = False
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K10 wrapper: the fold of the raw product of augmented operands, x
+    ``[M, W]`` and y ``[N, W]`` (``tpose``: ``[W, M]`` and ``[W, N]``), f32
+    or bf16 tensors, rounded to bf16 → ``[M, 128]`` (metric f32, column
+    int32); see :func:`fold.raw_fold_plain`. On the card it runs on the
+    tensor cores, row-major or reading the feature-major operands through
+    their strides; sizes the kernel does not take raise."""
+    x, y = _as_f32(x, y)
+    if x.device.type == "cpu":
+        return F.raw_fold_plain(x, y, k=k, n_acc=n_acc, tile_n=tile_n,
+                                tpose=tpose)
+    F.check_tiles(n_acc, tile_n)
+    F.check_k(k)
+    dev = _check_operands(x=x, y=y)
+    out_d, out_i, _ = _launch_raw(x, y, k, n_acc, tpose, "tensor", dev)
+    if out_d.shape[0]:
         raw_fold.launches += 1
     return out_d, out_i
 

@@ -223,8 +223,10 @@ def raw_fold_plain(x: torch.Tensor, y: torch.Tensor, *, k: int,
     there is no ``y2`` operand. Operands are rounded to bf16 (a no-op on
     operands cast already); the products of two bf16 values are exact in
     f32 and are summed in f32 **in feature order**, c = 0, 1, ..., as the
-    kernel does: with the ``y²`` of the hi and lo columns some 2⁸ times the
-    other terms the order shows in the last bits, so it is fixed."""
+    CUDA-core body does, bit for bit: with the ``y²`` of the hi and lo
+    columns some 2⁸ times the other terms the order shows in the last bits,
+    so it is fixed. The tensor-core body sums in its own order and agrees
+    within 1e-5 relative, columns differing at near-ties only."""
     buckets = check_tiles(n_acc, tile_n)
     check_k(k)
     if tpose:

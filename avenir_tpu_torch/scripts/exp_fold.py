@@ -7,7 +7,8 @@ sweep and extract k once. For each (n_acc, tile_n) configuration of the
 JAX experiment this prints the rows/s of the kernel on resident operands
 and its recall against the exact f32 top-k (the port's exact plain top-k on
 the CPU, K2 on the card), with the operands rounded to bf16 before the
-product (as the experiment runs it) and without.
+product (as the experiment runs it) and without, and the time a call of
+each arm (on the card: bf16 on the tensor cores, f32 on the CUDA cores).
 
     python -m avenir_tpu_torch.scripts.exp_fold [--device cpu] [--m M] ...
 """
@@ -94,15 +95,16 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                         n_acc=n_acc)[1])
         r_f32 = recall(exact, acc_topk(x, y, k=k, tile_n=tile_n,
                                        n_acc=n_acc, use_bf16=False)[1])
-        ms = chain_ms(lambda: cuda_fold.acc_fold(
-            x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n), dev)
+        ms, ms_f32 = (chain_ms(lambda bf16=bf16: cuda_fold.acc_fold(
+            x, y, y2, k=k, n_acc=n_acc, tile_n=tile_n, use_bf16=bf16), dev)
+            for bf16 in (True, False))
         rows = m / (ms / 1e3)
         print(f"n_acc={n_acc} tile_n={tile_n:5d}  {rows / 1e6:8.3f} M rows/s"
-              f"  {ms:.4f} ms  recall={r_bf16:.4f}  recall_f32={r_f32:.4f}",
-              flush=True)
+              f"  {ms:.4f} ms  recall={r_bf16:.4f}  f32 {ms_f32:.4f} ms  "
+              f"recall_f32={r_f32:.4f}", flush=True)
         results.append({"n_acc": n_acc, "tile_n": tile_n, "ms": ms,
-                        "rows_per_s": rows, "recall": r_bf16,
-                        "recall_f32": r_f32})
+                        "ms_f32": ms_f32, "rows_per_s": rows,
+                        "recall": r_bf16, "recall_f32": r_f32})
     return results
 
 

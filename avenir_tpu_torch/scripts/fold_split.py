@@ -3,8 +3,10 @@ fold configuration, split kernel by kernel (pack, sweep, extraction) by
 ``torch.profiler`` on the card.
 
 The configurations: K6 with bf16 rounding at n_acc 1, 4 and 8 (the
-experiment's), K8 at n_acc 4 and K9 at n_acc 8, and K11 and K12 at the six
-configurations the kernel-restructure sweeps launch (``int8epi``,
+experiment's), K8 at n_acc 4 and K9 at n_acc 8, K10 at the three
+configurations the kernel-restructure sweeps launch (``augbf16`` and
+``augv2`` on bf16 tensors, whose widening to f32 shows as its own kernel,
+and ``tpose_aug`` feature-major), and K11 and K12 at the six (``int8epi``,
 ``int8aug``, ``int8rr``, ``int8pk``, ``int8pk8``, ``int8pk16``), on the
 sweeps' data (8,192 test x 65,536 train x 9) and operand encoders. One
 line a configuration, in µs a call:
@@ -41,6 +43,16 @@ def configurations(x: torch.Tensor, y: torch.Tensor
     calls["K8 n_acc=4"] = lambda: cuda_fold.nodot_fold(x, y2, k=S.K, n_acc=4)
     calls["K9 n_acc=8"] = lambda: cuda_fold.tpose_fold(xt, yt, y2, k=S.K,
                                                        n_acc=8)
+    ones = torch.ones((x.shape[0], 1), device=x.device)
+    xa, ya = S.aug_operands(x, y)
+    for label, xr, yr, tpose in (
+            ("augbf16", torch.cat([x, ones], 1).to(torch.bfloat16),
+             torch.cat([-2.0 * y, y2.reshape(-1, 1)], 1).to(torch.bfloat16),
+             False),
+            ("augv2", xa.to(torch.bfloat16), ya.to(torch.bfloat16), False),
+            ("tpose_aug", xa.T.contiguous(), ya.T.contiguous(), True)):
+        calls[label] = (lambda xr=xr, yr=yr, tpose=tpose: cuda_fold.raw_fold(
+            xr, yr, k=S.K, n_acc=S.N_ACC, tile_n=S.TILE_N, tpose=tpose))
     x8, y8, _ = S.quant(x, y, 127.0)
     y8_sq = S._int8_sq_norm(y8)
     xa8, ya8, _ = S.int8_aug_operands(x, y)

@@ -10,9 +10,9 @@ Phases (one line each; any failure exits non-zero):
    ``torch.version.cuda``, the time to build ``avenir_tpu_torch/csrc/*.cu``
    with nvcc for sm_90a, each kernel's registers and spills (ptxas), and
    the HMMA instructions of each bf16 tensor-core sweep kernel of K6 and
-   K7, which K9 shares through its strides, and the IMMA instructions of
-   the int8 sweeps of K11 and K12 (``cuobjdump -sass``; none fails the
-   run);
+   K7, which K9 shares through its strides, and of K10's raw mode, and
+   the IMMA instructions of the int8 sweeps of K11 and K12 (``cuobjdump
+   -sass``; a sweep without them fails the run);
 2. each kernel against its plain version on the card, with times:
    K1 (NB joint counts) at 1,048,576 churn-shaped rows — unweighted and
    0/1-weighted counts exactly equal, float weights within rtol 1e-5 — plus
@@ -88,10 +88,16 @@ Phases (one line each; any failure exits non-zero):
    (K6) and sweep 14's ``tpose`` (K9); plus 2,051 × 16,383 and 1,000 × 300
    (N below every bucket count). K11 and K12 must equal their plain
    versions exactly, ids included; K10, K6 and K9 pass the fold gate.
-   K11 and K12 run on the int8 tensor cores: at the sweeps' shape their
-   former CUDA-core body (kept to be timed) is held exactly too and timed
-   beside them, with ``torch.profiler``'s split of the new body into pack,
-   sweep and extraction; they are also held exactly at every width edge
+   K10 runs on the bf16 tensor cores (the raw mode of K6's body), K11 and
+   K12 on the int8 tensor cores: at the sweeps' shape their former
+   CUDA-core body (kept to be timed) is held exactly and timed beside
+   them, with ``torch.profiler``'s split of the new body into pack, sweep
+   and extraction. K10 is also held by the fold gate at widths 1 to 48
+   across every k-step edge, at every n_acc, row-major and feature-major,
+   at N below B and one past a whole round of steps on positive operands,
+   and at k = 128, and on augmented integer operands with duplicated rows
+   (exact ties) equal to its plain version position by position. K11 and
+   K12 are also held exactly at every width edge
    of one 32-byte k-step (1, 4, 9, 16, 17, 19, 32) at every n_acc (16 for
    K12), with and without y2, at N below B and one past a whole number of
    steps on positive operands (where a zero pad row would win), on
@@ -121,7 +127,8 @@ Phases (one line each; any failure exits non-zero):
    experiments' shape (8,192 test × 65,536 train × 9):
    ``avenir_tpu_torch.scripts.exp_fold.main`` (K6 at five
    configurations, recall against K2's exact top-k with and without bf16
-   rounding) and ``avenir_tpu_torch.scripts.roofline_knn.main`` (K2 beside
+   rounding, and the time of each arm: the f32 one, on the CUDA cores,
+   beside the bound of its f32 product and its fold's floor) and ``avenir_tpu_torch.scripts.roofline_knn.main`` (K2 beside
    its two ablations, K7, K8, K9, the plain path and cdist + topk, each
    against the ceilings of the units that do its work, then the fold
    variants' device time split kernel by kernel). K2's ablations and
@@ -140,7 +147,7 @@ through ``pair_counts_multi`` from the CLI phase; K4's through
 points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
-K10-K12's from phase 5; K6-K9, K11 and K12 add ``parent_ms``, the
+K10-K12's from phase 5; K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -1355,8 +1362,10 @@ def sweep_configs(x, y):
     """Every fold launch of the sweeps on operands their encoders make from
     x and y: label → (kernel, wrapper call, plain call, how to hold it,
     (width, bytes, product, instructions a pair) for the bound, the
-    CUDA-core body's call where the kernel has left it: K11 and K12). ``hold``
-    is "exact" or (metric of given columns, row scale) for the fold gate."""
+    CUDA-core body's call where the kernel has left it: K10 on f32
+    operands cast once here, K11 and K12). ``hold`` is "exact" or (metric
+    of given columns, row scale) for the fold gate; the CUDA-core body is
+    held exactly (K10's sums in feature order, as its plain version)."""
     from avenir_tpu_torch.ops import cuda_fold as CF
     from avenir_tpu_torch.ops import fold as F
     from avenir_tpu_torch.ops.distance import row_sq_norm
@@ -1367,7 +1376,8 @@ def sweep_configs(x, y):
     configs = {}
 
     def raw(label, xa, ya, tpose=False):
-        xr, yr = F.round_bf16(xa.float()), F.round_bf16(ya.float())
+        xf, yf = xa.float(), ya.float()
+        xr, yr = F.round_bf16(xf), F.round_bf16(yf)
         if tpose:
             xr, yr = xr.T.contiguous(), yr.T.contiguous()
         w = xr.shape[1]
@@ -1377,10 +1387,11 @@ def sweep_configs(x, y):
         kw = dict(k=S.K, n_acc=S.N_ACC, tile_n=S.TILE_N, tpose=tpose)
         configs[label] = (
             "K10", lambda: CF.raw_fold(xa, ya, **kw),
-            lambda: F.raw_fold_plain(xa.float(), ya.float(), **kw),
+            lambda: F.raw_fold_plain(xf, yf, **kw),
             (metric, row_sq_norm(xr)),
             (w, (m + n) * w * xa.element_size() + out_bytes, "bf16", 3),
-            None)
+            lambda: CF._launch_raw(xf, yf, S.K, S.N_ACC, tpose,
+                                   "cuda_cores", x.device))
 
     def int8(label, xa, ya, k, y2=None, packed=False, n_acc=S.N_ACC):
         w = xa.shape[1]
@@ -1448,9 +1459,9 @@ def sweep_configs(x, y):
 
 def check_sweep_folds(dev):
     """K10-K12, and the sweeps' uses of K6 and K9, against their plain
-    versions at SWEEP_SHAPES; times at the sweeps' shape, K11's and K12's
-    beside their CUDA-core body's. Returns the kernels line's entries of
-    K10-K12 (launches from phase 5)."""
+    versions at SWEEP_SHAPES; times at the sweeps' shape, K10's, K11's and
+    K12's beside their CUDA-core body's. Returns the kernels line's entries
+    of K10-K12 (launches from phase 5)."""
     from avenir_tpu_torch.scripts._timing import chain_ms
     from avenir_tpu_torch.scripts.roofline_knn import kernel_split
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
@@ -1510,6 +1521,104 @@ def check_sweep_folds(dev):
     for name, entry in entries.items():
         entry["max_abs_err"] = err[name]
     return entries
+
+
+# K10 at the edges of the tensor-core body's raw mode: widths across each
+# k-step edge of W + 3 (13/14, 29/30, 45/46) and the sweeps' 10 and 11, at
+# every n_acc, row-major and feature-major, on 1,000 test rows (no multiple
+# of a block's 128) and 5,000 train rows of signed operands; then (W,
+# n_acc, N) with N below B and one past a whole round of steps (three at
+# one k-step, two at more) on positive operands, where a pad column that
+# won would show; k = 128; exact ties
+RAW_EDGE_WIDTHS = (1, 10, 11, 13, 14, 29, 30, 45, 46, 48)
+RAW_PAD_CASES = ((11, 1, 50), (11, 4, 300), (11, 4, 1537), (11, 8, 3073),
+                 (14, 2, 513), (14, 8, 1000), (48, 1, 257))
+
+
+def check_raw_edges(dev):
+    """K10 through its wrapper at the edges above, held by
+    ``compare_fold`` (the row scale Σ_c |bf16(x_c)| · max |bf16(y)|, which
+    bounds every term of a metric); then the exact-tie hold: augmented
+    integer operands ([x | 1] against [-2y | |y|²], x and y in [0, 4), the
+    train rows drawn from an eighth as many), whose products and sums are
+    exact in any order, equal to the plain version position by position,
+    columns included, at every n_acc and in both layouts; and the packed
+    rows of both layouts equal ``tc_packed(tc_operands(x, y, None, ...))``
+    bit for bit. Returns K10's largest error."""
+    from avenir_tpu_torch.ops import cuda_fold as CF
+    from avenir_tpu_torch.ops import fold as F
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    err, held, other = 0.0, 0, 0
+
+    def hold(what, x, y, n_acc, k=5):
+        nonlocal err, held, other
+        xr, yr = F.round_bf16(x), F.round_bf16(y)
+        scale = xr.abs().sum(1) * yr.abs().max()
+
+        def metric(ids):
+            return (yr[ids.long()] * xr.unsqueeze(1)).sum(-1)
+        kw = dict(k=k, n_acc=n_acc, tile_n=max(4096, n_acc * 128))
+        want = F.raw_fold_plain(x, y, **kw)
+        for layout, got in (
+                ("rows", CF.raw_fold(x, y, **kw)),
+                ("tpose", CF.raw_fold(x.T.contiguous(), y.T.contiguous(),
+                                      tpose=True, **kw))):
+            c = compare_fold(f"K10 {what} n_acc={n_acc} {layout}", got,
+                             want, metric, scale)
+            err = max(err, c["err"])
+            other += c["differ"]
+            held += 1
+
+    m, n = 1000, 5000
+    for w in RAW_EDGE_WIDTHS:
+        x = torch.rand((m, w), generator=gen, device=dev) * 2 - 1
+        y = torch.rand((n, w), generator=gen, device=dev) * 2 - 1
+        for n_acc in F.N_ACC_CHOICES:
+            hold(f"W={w}", x, y, n_acc)
+    for w, n_acc, n_pad in RAW_PAD_CASES:
+        x = torch.rand((m, w), generator=gen, device=dev)
+        y = torch.rand((n_pad, w), generator=gen, device=dev)
+        hold(f"W={w} N={n_pad}", x, y, n_acc)
+    x = torch.rand((2048, 11), generator=gen, device=dev) * 2 - 1
+    y = torch.rand((16384, 11), generator=gen, device=dev) * 2 - 1
+    hold("k=128", x, y, 2, k=128)
+    m, n, d = 2051, 65536, 9
+    x = torch.randint(0, 4, (m, d), generator=gen, device=dev).float()
+    rows = torch.randint(0, 4, (n // 8, d), generator=gen, device=dev).float()
+    y = rows[torch.randint(0, n // 8, (n,), generator=gen, device=dev)]
+    xa = torch.cat([x, torch.ones((m, 1), device=dev)], 1)
+    ya = torch.cat([-2.0 * y, (y * y).sum(1, keepdim=True)], 1)
+    for n_acc in F.N_ACC_CHOICES:
+        kw = dict(k=5, n_acc=n_acc)
+        want = F.raw_fold_plain(xa, ya, **kw)
+        for layout, got in (
+                ("rows", CF.raw_fold(xa, ya, **kw)),
+                ("tpose", CF.raw_fold(xa.T.contiguous(), ya.T.contiguous(),
+                                      tpose=True, **kw))):
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"K10 exact ties n_acc={n_acc} {layout}"
+                                     ": differs from plain")
+    x = torch.rand((2051, 11), generator=gen, device=dev)
+    y = torch.rand((16383, 11), generator=gen, device=dev)
+    yp = CF._launch_raw(x, y, 5, 4, False, "tensor", dev)[2][0]
+    yt = CF._launch_raw(x.T.contiguous(), y.T.contiguous(), 5, 4, True,
+                        "tensor", dev)[2][0]
+    want = CF.tc_packed(CF.tc_operands(x, y, None, 512)[1]).view(torch.int16)
+    if not (torch.equal(yp.view(torch.int16), want)
+            and torch.equal(yt.view(torch.int16), want)):
+        raise AssertionError("K10 packed rows differ from "
+                             "tc_packed(tc_operands(x, y, None, ...))")
+    log(f"phase 2 K10 tensor-core edges: {held} calls within 1e-5 of plain, "
+        f"{other} other columns (near-ties), err {err:.3g} (W "
+        f"{', '.join(map(str, RAW_EDGE_WIDTHS))} at every n_acc, rows and "
+        "tpose; (W, n_acc, N) " + ", ".join(
+            f"({w}, {a}, {b})" for w, a, b in RAW_PAD_CASES)
+        + "; k=128 at 2048 x 16384); exact ties 2051 x 65536 (integer "
+        "operands, duplicated rows) at n_acc 1, 2, 4, 8, rows and tpose: "
+        "equal to plain, position by position; packed rows of both layouts "
+        "equal tc_packed(tc_operands(x, y, None, ...)) bit for bit")
+    return err
 
 
 # K11 and K12 at the edges of the int8 tensor-core body: every width edge
@@ -1676,9 +1785,11 @@ def sweep_harnesses():
     return launches
 
 
-def fold_harnesses():
+def fold_harnesses(dev):
     """Phase 4: the experiment harnesses of the slice, in-process on the
-    card, each fold kernel's launches counted from 0."""
+    card, each fold kernel's launches counted from 0; K6's f32 arm (the
+    CUDA-core body) beside the bound of its f32 product and the floor of
+    its fold's four instructions a pair at 64 lanes an SM and clock."""
     from avenir_tpu_torch.ops import cuda_fold as CF
     from avenir_tpu_torch.scripts import exp_fold, roofline_knn
     from avenir_tpu_torch.ops import cuda_distance as D
@@ -1704,6 +1815,17 @@ def fold_harnesses():
                                  f"{row}")
     if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in roof.values()):
         raise AssertionError(f"phase 4 roofline_knn times: {roof}")
+    from avenir_tpu_torch.scripts.roofline_knn import lane_ops_per_s
+    m, n, d = exp_fold.M, exp_fold.N, exp_fold.D
+    bound, by = bound_ms((m * d + n * d + n) * 4 + m * 128 * 8,
+                         2.0 * m * n * d)
+    floor = m * n * 4 / (lane_ops_per_s(dev) / 2) * 1e3
+    log(f"phase 4 K6 f32 arm (CUDA cores, {len(folds)} launches, {m}x{n}, "
+        f"d={d}): " + "; ".join(
+            f"n_acc={r['n_acc']} tile_n={r['tile_n']} {r['ms_f32']:.4f} ms "
+            f"({bound / r['ms_f32']:.1%} of bound)" for r in folds)
+        + f"; bound {bound:.4f} ms ({by}: the f32 product 2*M*N*D at 67 "
+        f"TFLOP/s), the fold's floor {floor:.4f} ms")
     full = roof["full"]["ms"]
     log("phase 4 decomposition: full (K2) " + f"{full:.4f} ms; " + "; ".join(
         f"{v} {roof[v]['ms']:.4f} ms = {roof[v]['ms'] / full:.0%} of full"
@@ -2191,11 +2313,14 @@ def main() -> int:
     mma = mma_counts(lib_path)
     log("phase 1 HMMA and IMMA instructions (cuobjdump -sass): " + "; ".join(
         f"{name} {op} {count}" for name, (op, count) in mma.items())
-        + " (K9 runs K6's instantiations, tc_sweep_kernel<true, S>, through "
-        "its strides; K8's tc_nodot_kernel has no product; "
-        "tc_int8_sweep_kernel<0, 1, 2> are K11, K11 with y2, K12)")
+        + " (tc_sweep_kernel<true, S, false> K6, and K9 through its strides; "
+        "<false, S, false> K7; <true, S, true> K10, both layouts; K8's "
+        "tc_nodot_kernel has no product; tc_int8_sweep_kernel<0, 1, 2> are "
+        "K11, K11 with y2, K12)")
     ops = collections.Counter(op for op, count in mma.values() if count)
-    if ops != {"HMMA": 8, "IMMA": 3} or len(mma) != 11:
+    # every bf16 sweep (K6 and K7 at four k-steps, K10 at four) and every
+    # int8 one must hold tensor-core instructions
+    if ops != {"HMMA": 12, "IMMA": 3} or len(mma) != 15:
         raise AssertionError(f"the tensor-core sweeps lack HMMA or IMMA: "
                              f"{mma}")
 
@@ -2208,6 +2333,8 @@ def main() -> int:
     for name, err in check_tc_edges(dev).items():
         folds[name]["max_abs_err"] = max(folds[name]["max_abs_err"], err)
     folds.update(check_sweep_folds(dev))
+    folds["K10"]["max_abs_err"] = max(folds["K10"]["max_abs_err"],
+                                      check_raw_edges(dev))
     check_int8_edges(dev)
     check_int8_packing(dev)
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
@@ -2215,7 +2342,7 @@ def main() -> int:
         launches = cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    launches.update(fold_harnesses())
+    launches.update(fold_harnesses(dev))
     for name, count in sweep_harnesses().items():
         launches[name] = launches.get(name, 0) + count
 

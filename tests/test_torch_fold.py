@@ -249,7 +249,7 @@ def test_tc_planner_mirrors_the_kernel_constants():
     assert "if (steps_ahead(ksteps(d)) == 2) {" in src
     assert "tc_nodot_kernel<2>" in src and "tc_nodot_kernel<1>" in src
     # tc_strides: element (i, c) at i·row + c·feature; K6 and K7 row-major,
-    # K9's CUDA-core body feature-major only
+    # K9's CUDA-core body feature-major only, K10's that of its layout
     assert "static_cast<size_t>(i) * row + static_cast<size_t>(c) * feat" \
         in src
     assert src.count("tc::Strides{d, 1}") == 2
@@ -257,9 +257,12 @@ def test_tc_planner_mirrors_the_kernel_constants():
     assert cuda_fold.tc_strides(7, 9, False) == (9, 1)
     assert "x_row != 1 || x_feat != m || y_row != 1 || y_feat != n" in src
     assert cuda_fold.tc_strides(7, 9, True) == (1, 7)
-    # the C entries' body codes
+    assert ("tpose ? x_row == 1 && x_feat == m && y_row == 1 && y_feat == n"
+            "\n              : x_row == d && x_feat == 1 && y_row == d && "
+            "y_feat == 1;") in src
+    # the C entries' body codes: K6, K8, K9 and K10 keep the CUDA-core body
     assert cuda_fold.BODIES == {"cuda_cores": 0, "tensor": 1, "tile": 1}
-    assert src.count("if (body == 0) {") == 3
+    assert src.count("if (body == 0) {") == 4
 
 
 @pytest.mark.parametrize("d,n", [(1, 300), (9, 1000), (13, 129), (14, 700),

@@ -514,7 +514,7 @@ def test_fold_split_runs_every_configuration_and_needs_a_card():
     calls = fold_split.configurations(x, y)
     assert list(calls) == [
         "K6 n_acc=1", "K6 n_acc=4", "K6 n_acc=8", "K8 n_acc=4", "K9 n_acc=8",
-        "int8epi", "int8aug", "int8rr", "int8pk", "int8pk8", "int8pk16"]
+        "augbf16", "augv2", "tpose_aug", "int8epi", "int8aug", "int8rr", "int8pk", "int8pk8", "int8pk16"]
     for call in calls.values():
         out_d, out_i = call()
         assert out_d.shape == out_i.shape == (16, 128)

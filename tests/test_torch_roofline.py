@@ -62,7 +62,8 @@ def test_exp_fold_recalls_equal_the_jax_route(capsys):
         assert f"recall={r_bf16:.4f}" in line
         assert row["recall"] == pytest.approx(r_bf16, abs=1e-12)
         assert row["recall_f32"] == pytest.approx(r_f32, abs=1e-12)
-        assert row["ms"] > 0
+        assert row["ms"] > 0 and row["ms_f32"] > 0
+        assert f"f32 {row['ms_f32']:.4f} ms" in line
     # the rounding costs recall: the finding the experiment exists for
     assert all(r_bf16 < r_f32 for r_bf16, r_f32 in want)
 
