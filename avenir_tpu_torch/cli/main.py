@@ -42,20 +42,17 @@ _OBS = f"the observability layer ({_LAYERS})"
 _MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
 _STREAM_NB = ("streaming/sharded Naive Bayes "
               f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
-_QUANT = ("the quantized candidate pass "
-          f"({roadmap_item('`knn.quantized` (`ops/quantized.py`)')})")
-_IVF = f"the IVF index ({roadmap_item('IVF and live ANN')})"
+_LIVE_ANN = f"the live ANN index ({roadmap_item('Live ANN')})"
 _LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "streaming.train": _STREAM_NB, "shard.parts": _STREAM_NB,
              "job.resume": _STREAM_NB}
-_LATER_KNN = {"plan.enable": _PLAN, "knn.quantized": _QUANT,
-              "knn.ann": _IVF, "knn.sharded": _MULTI,
-              "job.resume": _STREAM_NB}
+_LATER_KNN = {"plan.enable": _PLAN, "knn.ann.live": _LIVE_ANN,
+              "knn.sharded": _MULTI, "job.resume": _STREAM_NB}
 _SHARD_MI = ("per-shard journaled MI "
              f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
-_LATER_PREFIXES = {"knn.ann.": _IVF, "knn.quantized.": _QUANT}
+_LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 # observability keys of the JAX CLI: refused when set, like their flags
 _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
               "obs.flight.path", "alerts.enable")
@@ -288,7 +285,15 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         algorithm=fz.schema.dist_algorithm or "euclidean",
         feed_chunk_rows=conf.get_int("feed.chunk.rows", 0),
         mode=conf.get("knn.mode", "fast"),
-        fused=conf.get_bool("knn.fused", True))
+        fused=conf.get_bool("knn.fused", True),
+        quantized=conf.get_bool("knn.quantized", False),
+        quantized_oversample=conf.get_int("knn.quantized.oversample", 4),
+        quantized_dtype=conf.get("knn.quantized.dtype", "int8"),
+        ann=conf.get_bool("knn.ann", False),
+        ann_nlist=conf.get_int("knn.ann.nlist", 0),
+        ann_nprobe=conf.get_int("knn.ann.nprobe", 0),
+        ann_iters=conf.get_int("knn.ann.iters", 15),
+        ann_seed=conf.get_int("knn.ann.seed", 0))
     delim = conf.get("field.delim.out", ",")
     test_rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
     # with the chunked feed the test table stays on the host and streams

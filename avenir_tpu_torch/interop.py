@@ -1,6 +1,7 @@
 """State carried across from numpy: a trained Naive Bayes model, a staged
-(encoded) table and the encoded operands of the KNN kernel sweeps, so the
-same state can drive both this port and the JAX package.
+(encoded) table, the encoded operands of the KNN kernel sweeps and a built
+IVF index, so the same state can drive both this port and the JAX
+package.
 
 The model file is the other carrier: each package's ``load_model`` reads
 what the other's ``save_model`` wrote.
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.models.naive_bayes import BayesModel, model_from_numpy
+from avenir_tpu_torch.ops.ivf import IvfIndex
 from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.schema import FeatureField
@@ -87,3 +89,26 @@ def sweep_operands_from_numpy(xa: np.ndarray, ya: np.ndarray, *, n: int,
                 device=dev),
             None if y2 is None else _operand_from_numpy(
                 np.asarray(y2).reshape(-1)[:n], dev))
+
+
+#: the array fields of an IVF index and their types
+_IVF_ARRAYS = {"centroids": np.float32, "cent_valid": np.bool_,
+               "flat": np.float32, "qflat": np.int8, "gids": np.int32,
+               "offsets": np.int32, "lengths": np.int32, "amax": np.float32}
+_IVF_STATICS = ("nlist", "probe_pad", "n_real", "n_attrs", "n_cat_bins",
+                "seed")
+
+
+def ivf_index_from_numpy(fields: dict, device: DeviceLike = "cuda"
+                         ) -> IvfIndex:
+    """The port's :class:`IvfIndex` on ``device`` from ``fields``: the
+    arrays of an index (``centroids``, ``cent_valid``, ``flat``,
+    ``qflat``, ``gids``, ``offsets``, ``lengths``, ``amax``) as numpy
+    arrays, and its static fields (``nlist``, ``probe_pad``, ``n_real``,
+    ``n_attrs``, ``n_cat_bins``, ``seed``) as ints."""
+    dev = resolve_device(device)
+    arrays = {name: torch.from_numpy(
+        np.array(np.asarray(fields[name]), dtype=dtype)).to(dev)
+        for name, dtype in _IVF_ARRAYS.items()}
+    return IvfIndex(**arrays,
+                    **{name: int(fields[name]) for name in _IVF_STATICS})

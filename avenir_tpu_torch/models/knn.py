@@ -1,11 +1,14 @@
 """K-nearest-neighbor classification on torch tensors.
 
 Counterpart of ``avenir_tpu/models/knn.py`` (``KnnConfig``,
-``validate_config``, the brute-force branches of ``neighbors``,
-``_vote_kernel``, ``_decide``, ``classify``, ``validate``). It collapses
-the reference's pipeline (distance MR, top-k by secondary sort, kernel
-weighting, class vote) into: pairwise distance + top-k (kernel K2, or K3
-on the chunked feed) → kernel weighting → class vote → arbitration.
+``validate_config``, the single-device branches of ``neighbors`` — brute
+force, ``knn.quantized`` and the frozen ``knn.ann`` index with its
+one-slot cache — ``_vote_kernel``, ``_decide``, ``classify``,
+``validate``). It collapses the reference's pipeline (distance MR, top-k
+by secondary sort, kernel weighting, class vote) into: pairwise distance +
+top-k (kernel K2, K3 on the chunked feed, the quantized scan of
+``ops/quantized.py`` or the IVF index of ``ops/ivf.py``) → kernel
+weighting → class vote → arbitration.
 
 Kernel/score semantics mirror Neighborhood.java:150-218 exactly, including
 the integer arithmetic (KERNEL_SCALE=100, truncating division):
@@ -28,7 +31,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from avenir_tpu_torch.ops import cuda_distance, cuda_fused, distance
+from avenir_tpu_torch.ops import (
+    cuda_distance, cuda_fused, distance, ivf, quantized)
 from avenir_tpu_torch.parallel.pipeline import iter_chunks
 from avenir_tpu_torch.utils.dataset import (
     EncodedTable, norm_range, normalize_numeric)
@@ -61,6 +65,22 @@ class KnnConfig:
     # normalize→distance→top-k kernel (K3); off normalizes the test table
     # where it lies, before chunking
     fused: bool = True                       # knn.fused
+    # knn.quantized: an int8 or bf16 candidate top-k' (k' = oversample·k)
+    # + exact f32 re-rank of the survivors (ops/quantized.py); euclidean
+    # only, and it takes precedence over K2 and K3
+    quantized: bool = False                  # knn.quantized
+    quantized_oversample: int = 4            # knn.quantized.oversample
+    quantized_dtype: str = "int8"            # knn.quantized.dtype int8|bf16
+    # knn.ann: the IVF index (ops/ivf.py): queries probe the knn.ann.nprobe
+    # nearest of knn.ann.nlist k-means lists and run the quantized scan
+    # (knn.quantized.dtype / .oversample) over their rows only; nprobe =
+    # nlist gives knn.quantized's result exactly (int8). 0 auto-sizes
+    # (~√N lists of ≥ 64 rows; a quarter probed, at least 8)
+    ann: bool = False                        # knn.ann
+    ann_nlist: int = 0                       # knn.ann.nlist (0 = auto)
+    ann_nprobe: int = 0                      # knn.ann.nprobe (0 = auto)
+    ann_iters: int = 15                      # knn.ann.iters (k-means)
+    ann_seed: int = 0                        # knn.ann.seed (build seed)
 
 
 def _num_cat_idx(table: EncodedTable):
@@ -111,6 +131,56 @@ def validate_config(config: KnnConfig) -> None:
         raise ValueError(
             "schema distAlgorithm must be 'euclidean' or 'manhattan', "
             f"got {config.algorithm!r}")
+    if config.quantized or config.ann:
+        if config.quantized_dtype not in quantized.QDTYPES:
+            raise ValueError(
+                f"knn.quantized.dtype must be one of {quantized.QDTYPES}, "
+                f"got {config.quantized_dtype!r}")
+        if config.quantized_oversample < 1:
+            raise ValueError(
+                "knn.quantized.oversample must be >= 1, got "
+                f"{config.quantized_oversample}")
+    if config.quantized and config.algorithm != "euclidean":
+        raise ValueError("knn.quantized supports euclidean only; got "
+                         f"distAlgorithm {config.algorithm!r}")
+    if config.ann:
+        if config.quantized:
+            raise ValueError(
+                "knn.ann and knn.quantized conflict: the ANN query path "
+                "already runs the quantized candidate scan + exact f32 "
+                "re-rank over the probed lists (knn.quantized.dtype / "
+                "knn.quantized.oversample still apply); drop "
+                "knn.quantized")
+        if config.algorithm != "euclidean":
+            raise ValueError("knn.ann supports euclidean only; got "
+                             f"distAlgorithm {config.algorithm!r}")
+        if config.mode == "exact":
+            raise ValueError(
+                "knn.ann is approximate by construction (unprobed lists "
+                "are never scanned); knn.mode=exact requires the "
+                "brute-force path — drop knn.ann or use knn.mode=fast")
+        if config.ann_nlist < 0:
+            raise ValueError(
+                f"knn.ann.nlist must be >= 0 (0 = auto ~sqrt(N)), got "
+                f"{config.ann_nlist}")
+        if config.ann_nprobe < 0:
+            raise ValueError(
+                f"knn.ann.nprobe must be >= 0 (0 = auto), got "
+                f"{config.ann_nprobe}")
+        if (config.ann_nlist > 0 and config.ann_nprobe > 0
+                and config.ann_nprobe > config.ann_nlist):
+            raise ValueError(
+                f"knn.ann.nprobe ({config.ann_nprobe}) cannot exceed "
+                f"knn.ann.nlist ({config.ann_nlist}); accepted values "
+                "are 1..nlist (nlist probes everything = brute-force "
+                "parity)")
+        if config.ann_iters < 0:
+            raise ValueError(
+                f"knn.ann.iters must be >= 0, got {config.ann_iters}")
+    elif config.ann_nlist or config.ann_nprobe:
+        raise ValueError(
+            "knn.ann.nlist/knn.ann.nprobe are set but knn.ann=false; "
+            "set knn.ann=true (or drop the index parameters)")
 
 
 def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
@@ -119,27 +189,34 @@ def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
     table's device. The test table may lie on the host: the chunked feed
     moves its rows to the train table's device.
 
-    Euclidean fast-mode jobs with k ≤ 128 and an encoded width ≤ 512 go
+    ``knn.ann`` queries the IVF index (:func:`_neighbors_ann`);
+    ``knn.quantized`` runs the quantized scan, before the kernels. Else
+    euclidean fast-mode jobs with k ≤ 128 and an encoded width ≤ 512 go
     through the kernel family: K2, or K3 when ``feed_chunk_rows`` chunks
     the test rows and ``fused`` is on. Everything else takes the plain
     blocked top-k of ``ops/distance.py``."""
     validate_config(config)
+    if config.ann:
+        return _neighbors_ann(train, test, config)
     tr_num, tr_cat, n_bins = _split_features(train)
-    m = test.n_rows
     dev = train.device
-    feed_active = 0 < config.feed_chunk_rows < m
     encoded_width = ((tr_num.shape[1] if tr_num is not None else 0) +
                      (tr_cat.shape[1] if tr_cat is not None else 0) * n_bins)
-    use_kernel = cuda_distance.supported(
+    use_kernel = not config.quantized and cuda_distance.supported(
         algorithm=config.algorithm, k=config.top_match_count,
         mode=config.mode, encoded_width=encoded_width)
-    use_fused = feed_active and use_kernel and config.fused
-    # the test table stays where the caller put it: on the host it streams
-    # to the card chunk by chunk, on the card the chunks are slices of it
-    te_num, te_cat, _ = _split_features(test, raw=use_fused)
+    use_fused = (0 < config.feed_chunk_rows < test.n_rows and use_kernel
+                 and config.fused)
     mins, span = _numeric_range(test, dev) if use_fused else (None, None)
 
     def run(xn, xc):
+        if config.quantized:
+            return quantized.quantized_topk(
+                xn, tr_num, xc, tr_cat, k=config.top_match_count,
+                n_cat_bins=n_bins, distance_scale=config.distance_scale,
+                oversample=config.quantized_oversample,
+                qdtype=config.quantized_dtype, block_size=config.block_size,
+                device=dev)
         if use_fused:
             return cuda_fused.fused_topk_cuda(
                 xn, tr_num, xc, tr_cat, mins=mins, span=span,
@@ -155,19 +232,87 @@ def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
             n_cat_bins=n_bins, distance_scale=config.distance_scale,
             mode=config.mode)
 
-    if not feed_active:
-        return run(*(None if t is None else t.to(dev) for t in (te_num, te_cat)))
+    return _feed(run, test, config, dev, raw=use_fused)
+
+
+def _feed(run, test: EncodedTable, config: KnnConfig, dev: torch.device,
+          raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``run(x_num, x_cat)`` over the test rows on ``dev``: the whole table
+    at once, or chunk by chunk when ``feed_chunk_rows`` is below its row
+    count. The test table stays where the caller put it: on the host it
+    streams to the card chunk by chunk, on the card the chunks are slices
+    of it. ``raw`` keeps the numeric features on the fit scale."""
+    te_num, te_cat, _ = _split_features(test, raw=raw)
+    if not 0 < config.feed_chunk_rows < test.n_rows:
+        return run(*(None if t is None else t.to(dev)
+                     for t in (te_num, te_cat)))
     parts = [run(*chunk) for chunk in
              iter_chunks((te_num, te_cat), config.feed_chunk_rows, dev)]
     return (torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts]))
 
 
+# one-slot staged-IVF cache: a job that scores many test tables against one
+# train table builds the index once. Keyed on the table's identity and the
+# build parameters; the strong table reference pins the id against reuse.
+_ANN_INDEX_CACHE: dict = {}
+
+
+def _resolved_ann_params(train: EncodedTable, config: KnnConfig
+                         ) -> Tuple[int, int]:
+    """(nlist, n_probe) with 0s auto-sized from the train row count."""
+    nlist = config.ann_nlist or ivf.default_nlist(train.n_rows)
+    n_probe = config.ann_nprobe or ivf.default_nprobe(nlist)
+    if n_probe > nlist:
+        raise ValueError(
+            f"knn.ann.nprobe ({n_probe}) cannot exceed the index's nlist "
+            f"({nlist}); accepted values are 1..nlist")
+    return nlist, n_probe
+
+
+def _staged_ann_index(train: EncodedTable, config: KnnConfig
+                      ) -> ivf.IvfIndex:
+    """Build (or reuse) the IVF index of this train table."""
+    nlist, _ = _resolved_ann_params(train, config)
+    key = (id(train), nlist, config.ann_iters, config.ann_seed)
+    hit = _ANN_INDEX_CACHE.get(key)
+    if hit is not None and hit[0] is train:
+        return hit[1]
+    tr_num, tr_cat, n_bins = _split_features(train)
+    index = ivf.build_ivf(tr_num, tr_cat, n_cat_bins=n_bins, nlist=nlist,
+                          n_iters=config.ann_iters, seed=config.ann_seed,
+                          device=train.device)
+    _ANN_INDEX_CACHE.clear()
+    _ANN_INDEX_CACHE[key] = (train, index)
+    return index
+
+
+def _neighbors_ann(train: EncodedTable, test: EncodedTable,
+                   config: KnnConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """IVF-indexed scoring: build or reuse the index of the train table,
+    then each test chunk probes its ``n_probe`` nearest lists and runs the
+    quantized scan over their rows only."""
+    _, n_probe = _resolved_ann_params(train, config)
+    index = _staged_ann_index(train, config)
+
+    def run(xn, xc):
+        return ivf.ann_topk(
+            index, xn, xc, k=config.top_match_count, n_probe=n_probe,
+            oversample=config.quantized_oversample,
+            qdtype=config.quantized_dtype,
+            distance_scale=config.distance_scale)
+
+    return _feed(run, test, config, train.device)
+
+
 def _vote_kernel(dist: torch.Tensor, nbr_labels: torch.Tensor,
                  nbr_post: Optional[torch.Tensor], kernel_function: str,
                  kernel_param: int, n_classes: int, class_cond_weighted: bool,
-                 inverse_distance_weighted: bool
+                 inverse_distance_weighted: bool,
+                 valid: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Kernel scores + per-class vote: (votes [M, C] f32, scores [M, k])."""
+    """Kernel scores + per-class vote: (votes [M, C] f32, scores [M, k]).
+    ``valid`` (0/1 [M, k]) weighs out neighbor slots that hold no
+    neighbor."""
     if kernel_function == "none":
         score = torch.ones_like(dist)
     elif kernel_function == "linearMultiplicative":
@@ -186,6 +331,8 @@ def _vote_kernel(dist: torch.Tensor, nbr_labels: torch.Tensor,
         w = torch.where(nbr_post > 0, w * nbr_post, w)
     if inverse_distance_weighted:
         w = w / torch.clamp(dist.to(torch.float32), min=1.0)
+    if valid is not None:
+        w = w * valid
 
     # one neighbor slot at a time: the same summation order for any batch
     votes = torch.zeros((dist.shape[0], n_classes), dtype=torch.float32,
@@ -234,6 +381,19 @@ def classify(train: EncodedTable, test: EncodedTable, config: KnnConfig,
     weighted by P(features | its own class)."""
     dist, idx = neighbors(train, test, config)
     idx_l = idx.long()
+    valid = None
+    if config.ann:
+        # a sparse probe can return fewer than k neighbors, as (INT_BIG,
+        # -1) slots: they vote with weight 0 (the gathers read row 0); a
+        # query with no neighbor at all has no sound vote and is refused
+        found = idx_l >= 0
+        if bool((~found.any(dim=1)).any()):
+            raise ValueError(
+                "knn.ann found no neighbors at all for some queries "
+                "(every probed list was empty); raise knn.ann.nprobe or "
+                "lower knn.ann.nlist")
+        valid = found.to(torch.float32)
+        idx_l = torch.clamp(idx_l, min=0)
     nbr_labels = train.labels[idx_l]                              # [M, k]
     nbr_post = None
     use_post = config.class_cond_weighted and feature_post is not None
@@ -243,7 +403,7 @@ def classify(train: EncodedTable, test: EncodedTable, config: KnnConfig,
     votes, _ = _vote_kernel(
         dist, nbr_labels, nbr_post, config.kernel_function,
         config.kernel_param, train.n_classes, use_post,
-        config.inverse_distance_weighted)
+        config.inverse_distance_weighted, valid)
     votes_np = votes.cpu().numpy()
     predicted, prob = _decide(votes_np, config, train.class_values)
     return KnnPrediction(predicted=predicted, class_votes=votes_np,

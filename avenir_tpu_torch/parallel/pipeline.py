@@ -1,7 +1,10 @@
-"""Chunked feed of test rows to the device.
+"""Chunked feed of test rows to the device, and the power-of-two row
+buckets.
 
-Counterpart of the chunk loop of ``avenir_tpu/parallel/pipeline.py``
-(``DeviceFeed``) as ``models/knn.py`` uses it (``feed.chunk.rows``): test
+Counterpart of ``bucket_rows`` and ``pad_rows`` of
+``avenir_tpu/parallel/pipeline.py`` (the IVF index pads each inverted list
+to a bucket, ``ops/ivf.py``) and of its chunk loop (``DeviceFeed``) as
+``models/knn.py`` uses it (``feed.chunk.rows``): test
 rows reach the device in chunks. A table kept on the host is pinned once
 and each chunk leaves it with a ``non_blocking`` copy, so a chunk's
 transfer is queued on the stream ahead of its kernel instead of blocking
@@ -15,7 +18,32 @@ from __future__ import annotations
 
 from typing import Iterator, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
+
+#: the shape-bucket floor of the JAX package's staging paths
+BUCKET_FLOOR = 512
+
+
+def bucket_rows(n: int, floor: int = BUCKET_FLOOR) -> int:
+    """Smallest power of two ≥ ``max(n, floor)``."""
+    if n < 0:
+        raise ValueError(f"negative row count {n}")
+    b = max(int(floor), 1)
+    while b < n:
+        b *= 2
+    return b
+
+
+def pad_rows(a: np.ndarray, bucket: int) -> np.ndarray:
+    """``a`` with its leading axis zero-padded to ``bucket`` rows."""
+    n = a.shape[0]
+    if n == bucket:
+        return a
+    if n > bucket:
+        raise ValueError(f"chunk of {n} rows exceeds bucket {bucket}")
+    width = ((0, bucket - n),) + ((0, 0),) * (a.ndim - 1)
+    return np.pad(a, width)
 
 
 def _source(t: torch.Tensor, device: torch.device) -> torch.Tensor:

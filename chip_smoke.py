@@ -109,7 +109,10 @@ Phases (one line each; any failure exits non-zero):
    CSVs written from the port's generators: BayesianDistribution +
    BayesianPredictor on churn (200,000 train / 50,000 test), NearestNeighbor
    on elearn (100,000 / 20,000) staged (K2) and chunked (K3) with
-   byte-identical outputs, NearestNeighbor on churn with class-conditional
+   byte-identical outputs, the same with ``knn.quantized=true`` and with
+   ``knn.ann=true`` (the IVF index, K1 counting its lists), each one-shot
+   and chunked with byte-identical outputs and no K2 or K3 launch,
+   NearestNeighbor on churn with class-conditional
    weighting (K1 + K2), MutualInformation on 100,000 hospital-readmission
    rows with all five selection algorithms (K4, one launch for the F² =
    100 pairs), CramerCorrelation and HeterogeneityReductionCorrelation on
@@ -139,7 +142,20 @@ Phases (one line each; any failure exits non-zero):
    ``sweep16c_kernels`` and ``sweep18_tpose_fold``, each gating its arms on
    recall against the exact top-k and timing those it keeps against K2 by
    the interleaved differential protocol. K6, K9, K10, K11 and K12 must
-   each have launched in this phase, and K2 must pass its own gate.
+   each have launched in this phase, and K2 must pass its own gate;
+6. the quantized and IVF KNN paths (``ops/quantized.py``, ``ops/ivf.py``:
+   plain torch ops around K1) at the bench shape: ``quantized_topk`` int8
+   and bf16 held to ``bench.py``'s parity gate (recall ≥ 0.985 of K2's
+   exact top-k, matched scaled distances within 25, vote agreement ≥ 0.99)
+   and timed chained, in rows/s beside K2's whole function; the IVF index
+   (defaults nlist 256, nprobe 64) built twice and identical, full probing
+   equal to ``quantized_topk`` int8 position by position, the default
+   probe held to the gate and timed; every K1 launch of the builds held
+   exactly against its plain version on its own operands and K1 timed
+   there (chained and from graph replays reading HBM) beside its bytes
+   bound; then the IVF at 1,048,576 train rows (nlist 1,024, nprobe 256):
+   its build time, 8,192 queries' rows/s and the gate on a 512-row slice
+   against K2, its K1 launches held and timed the same way.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -147,7 +163,8 @@ through ``pair_counts_multi`` from the CLI phase; K4's through
 points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
-K10-K12's from phase 5; K6-K12 add ``parent_ms``, the
+K10-K12's from phase 5; a second K1 entry at the IVF shape, with the
+launches of phase 6's builds; K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -1835,6 +1852,257 @@ def fold_harnesses(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 6: the quantized and IVF KNN paths
+# --------------------------------------------------------------------------
+
+# bench.py's shape (bench.py:78-83) and the IVF scale case of its ANN arm
+BENCH_M, BENCH_N, BENCH_D, BENCH_K = 8192, 65536, 9, 5
+SCALE_N = 1_048_576
+# bench.py's parity gate (bench.py:150-157, 198-200)
+GATE_RECALL, GATE_VOTE, GATE_DIST_ERR = 0.985, 0.99, 25
+IVF_FIELDS = ("centroids", "cent_valid", "flat", "qflat", "gids", "offsets",
+              "lengths", "amax", "nlist", "probe_pad", "n_real", "n_attrs",
+              "n_cat_bins", "seed")
+
+
+def knn_gate(label, exact, got, y):
+    """``bench.py``'s parity gate (``_parity_gate``, bench.py:158-207, and
+    ``_ann_bench``'s sentinel rule, :368-378): recall of the exact top-k
+    ≥ 0.985, the scaled distances of the neighbors both report within 25,
+    and the majority vote over labels planted on the train rows (first
+    feature > 0.5) agreeing on ≥ 99% of the rows, a row with a (-1) slot
+    counting as a disagreement. Returns (recall, max error, matched pairs,
+    vote agreement)."""
+    d_ex, i_ex = (t.cpu().numpy() for t in exact)
+    d_got, i_got = (t.cpu().numpy() for t in got)
+    k = i_ex.shape[1]
+    recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                            for a, b in zip(i_ex, i_got)]))
+    err = matched = 0
+    for r in range(i_ex.shape[0]):
+        ex = dict(zip(i_ex[r].tolist(), d_ex[r].tolist()))
+        for i, d in zip(i_got[r].tolist(), d_got[r].tolist()):
+            if i in ex:
+                err = max(err, abs(d - ex[i]))
+                matched += 1
+    labels = (y[:, 0] > 0.5).cpu().numpy().astype(np.int64)
+    vote = lambda idx: labels[idx].mean(axis=1) > 0.5  # noqa: E731
+    short = (i_got < 0).any(axis=1)
+    agree = float(((vote(i_ex) == vote(np.maximum(i_got, 0)))
+                   & ~short).mean())
+    if (recall < GATE_RECALL or matched == 0 or err > GATE_DIST_ERR
+            or agree < GATE_VOTE):
+        raise AssertionError(
+            f"{label}: gate failed: recall {recall:.4f}, scaled-distance "
+            f"error {err} over {matched} pairs, vote agreement {agree:.4f}")
+    return recall, err, matched, agree
+
+
+def same_index(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               if isinstance(getattr(a, f), torch.Tensor)
+               else getattr(a, f) == getattr(b, f) for f in IVF_FIELDS)
+
+
+def hold_k1_calls(label, calls):
+    """Each recorded K1 call against its plain version on its own
+    operands, exactly; returns the count and the operands of the last."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    mine = [a for name, a, out in calls if name == "K1"
+            and torch.equal(out, H.class_feature_bin_counts_plain(
+                a["bins"], a["labels"], a["n_classes"], a["n_bins"],
+                a["weights"]))]
+    held = len(mine)
+    total = sum(name == "K1" for name, _, _ in calls)
+    if held != total or not total:
+        raise AssertionError(f"{label}: {total - held} of {total} K1 calls "
+                             "differ from plain")
+    return total, mine[-1]
+
+
+def time_k1_at(dev, a):
+    """K1 on recorded operands: chained, from graph replays reading HBM,
+    plain, ``bincount`` and the bytes bound."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    bins, labels, c, b = a["bins"], a["labels"], a["n_classes"], a["n_bins"]
+    n, f = bins.shape
+    n_bytes = n * (f + 1) * 4 + f * c * b * 4
+    ms = chain_ms(lambda: H.class_feature_bin_counts(bins, labels, c, b), dev)
+    graph = hbm_graph_ms(lambda u, v: H.class_feature_bin_counts(u, v, c, b),
+                         (bins, labels), n * (f + 1) * 4, dev)
+    plain = cuda_ms(lambda: H.class_feature_bin_counts_plain(bins, labels, c,
+                                                             b), 5)
+    flat = bins.reshape(-1).long()
+    library = cuda_ms(lambda: torch.bincount(flat, minlength=b), 20)
+    bound, by = bound_ms(n_bytes, n * f)
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={n} F={f} C={c} B={b}"}
+
+
+def profile_ops(label, fn, top=6):
+    """One call of ``fn`` under ``torch.profiler``: its wall time, the
+    device's busy time (the sum of its kernels' and copies' device time)
+    and the operators that launched the most device time. Prints "not
+    measured" where the profiler recorded no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    if not device:
+        log(f"{label} under torch.profiler: wall {wall:.1f} ms; device "
+            "time not measured (the profiler recorded none)")
+        return
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    # aten operators only: the profiler also charges device time to its
+    # own markers ("Command Buffer Full": the host waiting on a full
+    # launch queue)
+    ops = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CPU
+                  and e.key.startswith("aten::")
+                  and e.self_device_time_total > 0),
+                 key=lambda e: -e.self_device_time_total)[:top]
+    log(f"{label} under torch.profiler: wall {wall:.1f} ms, device busy "
+        f"{busy:.2f} ms ({busy / wall:.1%}); largest operators by device "
+        "time: " + "; ".join(f"{e.key} x{e.count} "
+                             f"{e.self_device_time_total / 1e3:.2f} ms"
+                             for e in ops))
+
+
+def quantized_ivf_phase(dev):
+    """``quantized_topk`` (int8, bf16) and the IVF index at the bench shape
+    against K2's exact top-k, the IVF build twice (identical), full probing
+    against ``quantized_topk``, every K1 launch of the builds against its
+    plain version, and the IVF at 1,048,576 train rows. Returns K1's
+    kernels-line entry at the IVF shape."""
+    from avenir_tpu_torch.ops import cuda_distance as D
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.ops import ivf, quantized
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    m, n, d, k = BENCH_M, BENCH_N, BENCH_D, BENCH_K
+    x = torch.rand((m, d), generator=gen, device=dev)
+    y = torch.rand((n, d), generator=gen, device=dev)
+    exact = D.pairwise_topk_cuda(x, y, k=k)
+    k2_ms = chain_ms(lambda: D.pairwise_topk_cuda(x, y, k=k), dev)
+    rate = lambda ms: m / ms * 1e3  # noqa: E731
+    notes = []
+    for qdtype in ("int8", "bf16"):
+        def call(qdtype=qdtype):
+            return quantized.quantized_topk(x, y, k=k, qdtype=qdtype,
+                                            device=dev)
+        got = call()
+        recall, err, matched, agree = knn_gate(f"quantized {qdtype}", exact,
+                                               got, y)
+        ms = chain_ms(call, dev)
+        notes.append(f"{qdtype}: recall {recall:.4f}, scaled-distance error "
+                     f"{err} over {matched} pairs, vote {agree:.4f}; "
+                     f"{ms:.3f} ms, {rate(ms):,.0f} rows/s")
+    quant_int8 = quantized.quantized_topk(x, y, k=k, device=dev)
+    profile_ops("phase 6 quantized_topk int8",
+                lambda: quantized.quantized_topk(x, y, k=k, device=dev))
+    log(f"phase 6 quantized_topk {m}x{n}x{d} k={k} against K2's exact top-k "
+        f"(gate recall >= {GATE_RECALL}, error <= {GATE_DIST_ERR}, vote >= "
+        f"{GATE_VOTE}), chained: " + "; ".join(notes)
+        + f"; K2 (pairwise_topk_cuda) {k2_ms:.4f} ms, {rate(k2_ms):,.0f} "
+        "rows/s")
+
+    # the IVF index at the bench shape, built twice: the path's K1 launches
+    H.class_feature_bin_counts.launches = 0
+    calls = []
+    with recording(calls):
+        build_ms, index = host_ms(lambda: ivf.build_ivf(y, device=dev))
+        again = ivf.build_ivf(y, device=dev)
+    launches = H.class_feature_bin_counts.launches
+    if not same_index(index, again):
+        raise AssertionError("phase 6: two IVF builds differ")
+    held, k1_args = hold_k1_calls("phase 6 IVF build", calls)
+    if held != launches:
+        raise AssertionError(f"phase 6: {launches} K1 launches, {held} "
+                             "recorded")
+    lengths = index.lengths.cpu()
+    full = ivf.ann_topk(index, x, k=k, n_probe=index.nlist)
+    if not all(torch.equal(a, b) for a, b in zip(full, quant_int8)):
+        raise AssertionError("phase 6: full-probe IVF differs from "
+                             "quantized_topk (int8)")
+
+    def query():
+        return ivf.ann_topk(index, x, k=k)
+    recall, err, matched, agree = knn_gate("IVF default probe", exact,
+                                           query(), y)
+    ann_ms = chain_ms(query, dev)
+    profile_ops("phase 6 IVF default probe", query)
+    k1 = time_k1_at(dev, k1_args)
+    log(f"phase 6 IVF {n} rows, nlist {index.nlist} (lists of "
+        f"{int(lengths.min())}-{int(lengths.max())} rows, probe_pad "
+        f"{index.probe_pad}): built twice, identical, {build_ms / 1e3:.2f} s "
+        f"the first; full probe ({index.nlist}) equals quantized_topk int8 "
+        f"exactly; default probe {ivf.default_nprobe(index.nlist)}: recall "
+        f"{recall:.4f}, error {err} over {matched} pairs, vote {agree:.4f}, "
+        f"{ann_ms:.3f} ms chained, {rate(ann_ms):,.0f} rows/s")
+    log(f"phase 6 K1 in the two builds: {held} launches, each exact "
+        "against plain; "
+        f"at {k1['shape']}: {k1['ms']:.4f} ms chained, "
+        f"{k1['graph_ms']:.4f} ms from graph replays reading HBM "
+        f"({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+        f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, bound "
+        f"{k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    del index, again, full, quant_int8
+
+    # at scale: 1,048,576 train rows, the default nlist 1,024 and nprobe 256
+    y_big = torch.rand((SCALE_N, d), generator=gen, device=dev)
+    H.class_feature_bin_counts.launches = 0
+    calls = []
+    with recording(calls):
+        build_ms, big = host_ms(lambda: ivf.build_ivf(y_big, device=dev))
+    held_big, big_args = hold_k1_calls("phase 6 IVF build at scale", calls)
+    if held_big != H.class_feature_bin_counts.launches:
+        raise AssertionError("phase 6: K1 launches at scale not all "
+                             "recorded")
+    launches += held_big
+    k1_big = time_k1_at(dev, big_args)
+    big_ms = cuda_ms(lambda: ivf.ann_topk(big, x, k=k), 2)
+    profile_ops("phase 6 IVF at scale", lambda: ivf.ann_topk(big, x, k=k))
+    recall, err, matched, agree = knn_gate(
+        "IVF at scale", D.pairwise_topk_cuda(x[:512], y_big, k=k),
+        ivf.ann_topk(big, x[:512], k=k), y_big)
+    lengths = big.lengths.cpu()
+    log(f"phase 6 IVF {SCALE_N} rows, nlist {big.nlist} (lists of "
+        f"{int(lengths.min())}-{int(lengths.max())} rows, probe_pad "
+        f"{big.probe_pad}), nprobe {ivf.default_nprobe(big.nlist)}: build "
+        f"{build_ms / 1e3:.2f} s; query {m} rows {big_ms:.1f} ms, "
+        f"{rate(big_ms):,.0f} rows/s; 512-row slice against K2: recall "
+        f"{recall:.4f}, error {err} over {matched} pairs, vote {agree:.4f}")
+    log(f"phase 6 K1 in the build at scale: {held_big} calls exact against "
+        f"plain; at {k1_big['shape']}: {k1_big['ms']:.4f} ms chained, "
+        f"{k1_big['graph_ms']:.4f} ms from graph replays reading HBM "
+        f"({k1_big['bound_ms'] / k1_big['graph_ms']:.1%} of bound), plain "
+        f"{k1_big['plain_ms']:.4f} ms, bincount {k1_big['library_ms']:.4f} "
+        f"ms, bound {k1_big['bound_ms']:.4f} ms ({k1_big['bound_by']})")
+    return {"name": "cfb_counts (K1) at the IVF shape (k-means list "
+                    "counts, C = 1, F = 1, B = nlist)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
+            "launches": launches, "max_abs_err": 0.0,
+            **{key: k1[key] for key in ("ms", "graph_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+            "shape": k1["shape"],
+            "scale": {key: k1_big[key] for key in (
+                "shape", "ms", "graph_ms", "plain_ms", "bound_ms",
+                "library_ms")}}
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -2196,6 +2464,25 @@ def cli_phase(work: str):
             raise AssertionError("staged (K2) and fused (K3) KNN outputs "
                                  "differ")
     log("phase 3 staged (K2) and chunked fused (K3) outputs byte-identical")
+    # knn.quantized and knn.ann take precedence over K2 and K3; the index
+    # build counts its lists with K1
+    for key, tag, must in (("knn.quantized", "quant", []),
+                           ("knn.ann", "ann", ["K1"])):
+        for chunk in (0, FEED_CHUNK_ROWS):
+            feed = [] if not chunk else ["-D", f"feed.chunk.rows={chunk}"]
+            job(f"NearestNeighbor elearn {shape} {key}=true"
+                + (f" feed.chunk.rows={chunk}" if chunk else ""),
+                ["NearestNeighbor", p("elearn_test.csv"),
+                 p(f"knn_{tag}_{chunk}.txt")] + knn_conf
+                + ["-D", f"{key}=true"] + feed, 0.8, must,
+                n_attrs=elearn_attrs, launches={"K2": 0, "K3": 0})
+        with open(p(f"knn_{tag}_0.txt"), "rb") as a, \
+                open(p(f"knn_{tag}_{FEED_CHUNK_ROWS}.txt"), "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{key}: chunked output differs from "
+                                     "one-shot")
+        log(f"phase 3 {key}=true: one-shot and chunked outputs "
+            "byte-identical")
     job(f"NearestNeighbor churn {CHURN_TRAIN}x{CHURN_TEST} "
         "class.condtion.weighted",
         ["NearestNeighbor", p("churn_test.csv"), p("knn_churn.txt")]
@@ -2346,6 +2633,8 @@ def main() -> int:
     for name, count in sweep_harnesses().items():
         launches[name] = launches.get(name, 0) + count
 
+    k1_ivf = quantized_ivf_phase(dev)
+
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
     kernels = []
@@ -2357,6 +2646,7 @@ def main() -> int:
         entry = dict(entry)
         entry["launches"] = launches[name]
         kernels.append(entry)
+    kernels.append(k1_ivf)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

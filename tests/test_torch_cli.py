@@ -116,8 +116,8 @@ def test_elearn_nearest_neighbor_matches(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("plan.enable", "true"), ("knn.quantized", "true"), ("knn.ann", "true"),
-    ("knn.ann.nlist", "16"), ("knn.sharded", "true"),
+    ("plan.enable", "true"), ("knn.ann.live", "true"),
+    ("knn.ann.live.tail.budget", "64"), ("knn.sharded", "true"),
     ("neighbor.data.path", "n.txt"), ("prediction.mode", "regression"),
     ("job.resume", "true"), ("feed.depth", "3"), ("mesh.shape", "2"),
     ("profile.trace.dir", "trace"), ("obs.live", "true"),
@@ -131,6 +131,51 @@ def test_knn_refuses_later_keys(tmp_path, key, value):
         tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
                str(tmp_path / "o.txt"), "--conf", props, "-D",
                f"{key}={value}", "--device", "cpu"])
+    assert not (tmp_path / "o.txt").exists()
+
+
+@pytest.mark.parametrize("extra", [
+    ["-D", "knn.quantized=true"],
+    ["-D", "knn.quantized=true", "-D", "knn.quantized.oversample=2"],
+    ["-D", "knn.ann=true", "-D", "knn.ann.nlist=8", "-D", "knn.ann.nprobe=8"],
+    ["-D", "knn.ann=true", "-D", "knn.ann.nlist=8", "-D", "knn.ann.nprobe=8",
+     "-D", "feed.chunk.rows=96", "-D", "knn.ann.seed=3"]],
+    ids=["quantized", "quantized-oversample2", "ann-full-probe",
+         "ann-full-probe-chunked"])
+def test_quantized_and_ann_outputs_byte_identical(tmp_path, capsys, extra):
+    """knn.quantized (int8) and knn.ann probing every list: the output
+    file and the Validation JSON byte-identical to the JAX CLI's (full
+    probing makes the ANN result independent of the clustering)."""
+    write_fixture(tmp_path, "elearn", 1600, 400, seed=56)
+    props = _props(tmp_path / "knn.properties", **{
+        "field.delim.regex": ",",
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "top.match.count": "5", "kernel.function": "none",
+        "distance.scale": "1000", "validation.mode": "true",
+        "positive.class.value": "fail", "output.class.distr": "true"})
+    j_out, t_out = _run_both(
+        capsys,
+        ["NearestNeighbor", str(tmp_path / "test.csv"),
+         str(tmp_path / "j.txt"), "--conf", props] + extra,
+        ["NearestNeighbor", str(tmp_path / "test.csv"),
+         str(tmp_path / "t.txt"), "--conf", props] + extra)
+    assert (tmp_path / "j.txt").read_bytes() == (tmp_path / "t.txt") \
+        .read_bytes()
+    assert j_out == t_out
+    assert json.loads(t_out.splitlines()[-1])["Validation.Accuracy"] > 0.8
+
+
+def test_live_ann_refused_by_its_roadmap_title(tmp_path):
+    write_fixture(tmp_path, "elearn", 50, 10)
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv"})
+    with pytest.raises(ValueError, match=r"knn\.ann\.live=true .*ROADMAP "
+                       r"queue A, 'Live ANN'"):
+        tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
+               str(tmp_path / "o.txt"), "--conf", props, "-D", "knn.ann=true",
+               "-D", "knn.ann.live=true", "--device", "cpu"])
     assert not (tmp_path / "o.txt").exists()
 
 
