@@ -8,23 +8,36 @@
     python -m avenir_tpu_torch HeterogeneityReductionCorrelation IN OUT ...
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
-``_knn_feature_post``, ``_emit_mi_scores`` and the hand-wired bodies of
-the six verbs), with the same ``.properties`` keys, schemas and output
-files. ``--device {cuda,cpu}`` (default cuda) picks where the job runs;
-with no GPU and no ``--device cpu`` the job raises.
+``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
+six verbs, and the part-file KNN path: ``_shard_resilience_kwargs``,
+``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``), with
+the same ``.properties`` keys, schemas and output files. ``--device
+{cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
+``--device cpu`` the job raises.
 
-Keys that select something this port does not carry yet (among them the
-keys of the JAX CLI's part-file KNN path, on the inputs that take it), and
-the JAX CLI's other verbs, raise a ValueError naming the key or verb and
-the ROADMAP item that ports it; nothing is silently ignored.
+NearestNeighbor over a directory of more than one MR part file scores it
+shard by shard, as the JAX CLI does unless ``shard.prefetch=false``: the
+prefetching loader featurizes each part with the native encoder and
+stages it to the device while the shard before is scored, under the
+``on.bad.row``, ``max.bad.fraction``, ``quarantine.dir``, ``shard.*`` keys,
+and each shard commits to a journal that ``--resume`` (``job.resume``)
+picks up after a kill.
+
+Keys that select something this port does not carry yet, and the JAX
+CLI's other verbs, raise a ValueError naming the key or verb and the
+ROADMAP item that ports it; nothing is silently ignored.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import os
 import sys
 from typing import Callable, Dict, List
 
+import numpy as np
 import torch
 
 from avenir_tpu_torch.utils.config import JobConfig
@@ -47,7 +60,7 @@ _LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "streaming.train": _STREAM_NB, "shard.parts": _STREAM_NB,
              "job.resume": _STREAM_NB}
 _LATER_KNN = {"plan.enable": _PLAN, "knn.ann.live": _LIVE_ANN,
-              "knn.sharded": _MULTI, "job.resume": _STREAM_NB}
+              "knn.sharded": _MULTI}
 _SHARD_MI = ("per-shard journaled MI "
              f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
@@ -56,19 +69,6 @@ _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 # observability keys of the JAX CLI: refused when set, like their flags
 _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
               "obs.flight.path", "alerts.enable")
-# The JAX CLI scores a directory of more than one part file on its
-# part-file path unless shard.prefetch=false (avenir_tpu/cli/main.py:953-964)
-# and reads these keys only there; this port merges the parts, so a key set
-# off its JAX default (:420-488, :732) is refused
-_PART_PATH = "the part-file KNN path ({})".format(
-    roadmap_item("Native CSV loader and the part-file KNN path"))
-_PART_KEYS = {"on.bad.row": "raise", "max.bad.fraction": 0.1,
-              "quarantine.dir": None, "shard.retries": 1,
-              "shard.timeout.s": 0.0, "shard.speculate": True,
-              "shard.speculative.factor": 4.0,
-              "shard.speculative.min.wait.s": 2.0,
-              "shard.prefetch.depth": 2, "shard.journal": True,
-              "shard.journal.keep": False, "shard.report": False}
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
 _SIMILARITY = roadmap_item(
@@ -116,28 +116,8 @@ def _refuse(key: str, later: str) -> None:
 def _check_keys(conf: JobConfig, later: Dict[str, str]) -> None:
     for key, work in later.items():
         if conf.get_bool(key, False):
-            _refuse(f"{key}={conf.get(key)}", work)
-
-
-def _check_part_keys(conf: JobConfig, in_path: str) -> None:
-    """Refuse the keys of the JAX CLI's part-file KNN path where the JAX
-    CLI would take it and read them."""
-    if (len(part_file_paths(in_path)) < 2
-            or not conf.get_bool("shard.prefetch", True)):
-        return
-    for key, default in _PART_KEYS.items():
-        if key not in conf:
-            continue
-        if isinstance(default, bool):
-            value = conf.get_bool(key, default)
-        elif isinstance(default, int):
-            value = conf.get_int(key, default)
-        elif isinstance(default, float):
-            value = conf.get_float(key, default)
-        else:
-            value = conf.get(key)
-        if value != default:
-            _refuse(f"{key}={conf.get(key)}", _PART_PATH)
+            flag = " (--resume)" if key == "job.resume" else ""
+            _refuse(f"{key}={conf.get(key)}{flag}", work)
 
 
 def _load_table(conf: JobConfig, in_path: str, device: torch.device,
@@ -241,6 +221,181 @@ def _knn_feature_post(train, cfg):
     return torch.from_numpy(bp.feature_post).to(train.device)
 
 
+# -- the part-file KNN path ---------------------------------------------------
+
+def _shard_resilience_kwargs(conf: JobConfig, parse_stats) -> Dict:
+    """The PrefetchLoader's retry, speculation and bad-row knobs from the
+    job's config."""
+    return dict(
+        retries=conf.get_int("shard.retries", 1),
+        shard_timeout_s=conf.get_float("shard.timeout.s", 0.0) or None,
+        speculate=conf.get_bool("shard.speculate", True),
+        speculative_factor=conf.get_float("shard.speculative.factor", 4.0),
+        speculative_min_wait_s=conf.get_float(
+            "shard.speculative.min.wait.s", 2.0),
+        on_bad_row=conf.get("on.bad.row", "raise"),
+        max_bad_fraction=conf.get_float("max.bad.fraction", 0.1),
+        quarantine_dir=conf.get("quarantine.dir"),
+        parse_stats=parse_stats)
+
+
+def _shard_journal(conf: JobConfig, verb: str, shard_paths, out_path: str):
+    """(journal, completed records, nonce) of a sharded job, under
+    ``shard.journal`` (default on: a killed job stays resumable) and
+    ``job.resume`` (``--resume``). The fingerprint covers the verb, the
+    shard list (name and size) and the config without the switches that
+    change only what is printed, so ``--resume`` into a journal another
+    job wrote refuses instead of mixing outputs."""
+    from avenir_tpu_torch.utils.resume import (
+        ShardJournal, job_fingerprint, run_nonce, shard_file_facts)
+    resume = conf.get_bool("job.resume", False)
+    use_journal = conf.get_bool("shard.journal", True)
+    if resume and not use_journal:
+        raise ValueError("--resume (job.resume) needs shard.journal=true")
+    if not use_journal:
+        return None, {}, run_nonce()
+    # a resumed run differs from the killed one in exactly these keys
+    conf_fp = {k: v for k, v in conf.as_dict().items()
+               if k not in ("job.resume", "shard.journal.keep",
+                            "shard.report")}
+    journal = ShardJournal(
+        out_path + ".shards",
+        job_fingerprint({"verb": verb,
+                         "shards": shard_file_facts(shard_paths),
+                         "conf": conf_fp}),
+        len(shard_paths))
+    return journal, journal.open(resume=resume), run_nonce()
+
+
+def _print_shard_report(conf: JobConfig, *, shards_total: int,
+                        shards_resumed: int, shards_computed: int,
+                        rows_quarantined: int, loader) -> None:
+    """The exact-accounting JSON line, printed only when resilience is
+    armed (a default run prints what the merged path prints)."""
+    if not (conf.get_bool("job.resume", False)
+            or conf.get("on.bad.row", "raise") != "raise"
+            or conf.get_bool("shard.report", False)):
+        return
+    stats = loader.stats
+    print(json.dumps({
+        "shards_total": shards_total,
+        "shards_resumed": shards_resumed,
+        "shards_computed": shards_computed,
+        "rows_quarantined": rows_quarantined,
+        "shard_retries": stats.shard_retries,
+        "speculative_launches": stats.speculative_launches,
+        "speculative_wins": stats.speculative_wins,
+        "duplicates_discarded": stats.duplicates_discarded,
+    }, sort_keys=True))
+
+
+def _run_knn_sharded(conf: JobConfig, cfg, fz, train, shard_paths, out_path,
+                     validation: bool, delim: str,
+                     device: torch.device) -> None:
+    """Classification over an MR part-file dir, one shard at a time: a
+    PrefetchLoader worker featurizes shard n+1 and stages it on the device
+    while shard n scores (K2, one launch a shard). The output rows come in
+    the merged path's order (the same sorted walk; each row is scored on
+    its own).
+
+    Attempts retry and speculate under the ``shard.*`` keys, bad rows
+    follow ``on.bad.row``, and with ``shard.journal`` (default on) each
+    shard's output fragment and completion record commit rename-atomically
+    to ``<out>.shards/``, so a killed job run again with ``--resume``
+    skips every completed shard; the output is put together from the
+    fragments in shard order, the bytes of an uninterrupted run."""
+    from avenir_tpu_torch.models import knn
+    from avenir_tpu_torch.native.loader import ParseStats
+    from avenir_tpu_torch.native.prefetch import PrefetchLoader
+    from avenir_tpu_torch.utils.metrics import ConfusionMatrix
+    feature_post = _knn_feature_post(train, cfg)
+    # shard tables arrive on the device: the chunked feed (which streams a
+    # host table) stays off
+    cfg = dataclasses.replace(cfg, feed_chunk_rows=0)
+    parse_stats = ParseStats()
+    journal, completed, nonce = _shard_journal(
+        conf, "NearestNeighbor", shard_paths, out_path)
+    output_distr = conf.get_bool("output.class.distr", False)
+    positive_class = conf.get("positive.class.value")
+    cm = (ConfusionMatrix(train.class_values, positive_class=positive_class)
+          if validation else None)
+    cm_updated = False
+    quarantined_resumed = 0
+    for i in sorted(completed):
+        rec = completed[i]
+        quarantined_resumed += int(rec.get("rows_quarantined", 0))
+        if cm is not None and rec.get("cm") is not None:
+            cm.matrix += np.asarray(rec["cm"], dtype=np.int64)
+            cm.invalid += int(rec.get("cm_invalid", 0))
+            cm_updated = True
+
+    pending = [(i, p) for i, p in enumerate(shard_paths)
+               if i not in completed]
+    loader = PrefetchLoader(
+        fz, [p for _, p in pending], conf.get("field.delim.regex", ","),
+        with_labels=validation,
+        depth=conf.get_int("shard.prefetch.depth", 2),
+        to_device=True, bucket=True, device=device,
+        **_shard_resilience_kwargs(conf, parse_stats))
+    direct = open(out_path, "w") if journal is None else None
+    try:
+        tables = iter(loader)
+        for i, path in pending:
+            test = next(tables)
+            pred = knn.classify(train, test, cfg, feature_post=feature_post)
+            lines = []
+            for r in range(test.n_rows):
+                parts = [test.ids[r],
+                         train.class_values[int(pred.predicted[r])]]
+                if output_distr and pred.class_prob is not None:
+                    for ci, cls in enumerate(train.class_values):
+                        parts += [cls, str(int(pred.class_prob[r, ci]))]
+                lines.append(delim.join(parts))
+            shard_cm = None
+            if cm is not None and test.labels is not None:
+                shard_cm = ConfusionMatrix(train.class_values,
+                                           positive_class=positive_class)
+                shard_cm.update(pred.predicted, test.labels)
+                cm.matrix += shard_cm.matrix
+                cm.invalid += shard_cm.invalid
+                cm_updated = True
+            text = "\n".join(lines) + ("\n" if lines else "")
+            if journal is not None:
+                # the fragment first, the record after: a kill between the
+                # two leaves a shard to recompute
+                journal.write_fragment(i, text)
+                journal.mark_done(i, {
+                    "file": os.path.basename(path),
+                    "rows": int(test.n_rows),
+                    "rows_quarantined":
+                        int(parse_stats.per_file.get(path, 0)),
+                    "cm": (None if shard_cm is None
+                           else shard_cm.matrix.tolist()),
+                    "cm_invalid": (0 if shard_cm is None
+                                   else int(shard_cm.invalid)),
+                    "fragment": True,
+                    "run": nonce})
+            else:
+                direct.write(text)
+    finally:
+        if direct is not None:
+            direct.close()
+    if journal is not None:
+        journal.assemble(out_path)
+    # as the merged path: shards without labels print no report
+    if cm is not None and cm_updated:
+        print(cm.report().to_json())
+    _print_shard_report(
+        conf, shards_total=len(shard_paths), shards_resumed=len(completed),
+        shards_computed=len(pending),
+        rows_quarantined=(quarantined_resumed
+                          + sum(parse_stats.per_file.values())),
+        loader=loader)
+    if journal is not None and not conf.get_bool("shard.journal.keep",
+                                                 False):
+        journal.cleanup()
+
+
 def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
                          device: torch.device) -> None:
     """KNN classification (reference NearestNeighbor job, fused with the
@@ -265,7 +420,6 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
     if conf.get("prediction.mode", "classification") != "classification":
         _refuse(f"prediction.mode={conf.get('prediction.mode')}",
                 f"KNN regression ({roadmap_item('KNN regression')})")
-    _check_part_keys(conf, in_path)
     validation = conf.get_bool("validation.mode", False)
     fz, train_rows = _load_table(conf, conf.get_required("train.data.path"),
                                  device)
@@ -295,6 +449,11 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         ann_iters=conf.get_int("knn.ann.iters", 15),
         ann_seed=conf.get_int("knn.ann.seed", 0))
     delim = conf.get("field.delim.out", ",")
+    shard_paths = part_file_paths(in_path)
+    if len(shard_paths) > 1 and conf.get_bool("shard.prefetch", True):
+        _run_knn_sharded(conf, cfg, fz, train, shard_paths, out_path,
+                         validation, delim, device)
+        return
     test_rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
     # with the chunked feed the test table stays on the host and streams
     # to the device chunk by chunk
@@ -430,20 +589,24 @@ def main(argv: List[str] = None) -> int:
     parser.add_argument("--obs-port", type=int, default=None, metavar="PORT",
                         help="not supported yet (refused)")
     parser.add_argument("--resume", action="store_true",
-                        help="not supported yet (refused)")
+                        help="resume a killed NearestNeighbor job over a "
+                             "part-file dir from its per-shard journal "
+                             "(<out>.shards/): completed shards are "
+                             "skipped and the output is the bytes of an "
+                             "uninterrupted run (sets job.resume=true)")
     args = parser.parse_args(argv)
 
     if args.verb in _LATER_VERBS:
         _refuse(f"the verb {args.verb}", _LATER_VERBS[args.verb])
     if args.metrics_out is not None or args.obs_port is not None:
         _refuse("--metrics-out/--obs-port", _OBS)
-    if args.resume:
-        _refuse("--resume", _STREAM_NB)
 
     conf = JobConfig.from_file(args.conf)
     for override in args.D:
         key, _, value = override.partition("=")
         conf.set(key, value)
+    if args.resume:
+        conf.set("job.resume", "true")
     for key in _LATER_OBS:
         if key in conf:
             _refuse(key, _OBS)

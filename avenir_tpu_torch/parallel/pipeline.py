@@ -1,7 +1,7 @@
-"""Chunked feed of test rows to the device, and the power-of-two row
-buckets.
+"""Test rows to the device: the chunked feed, the shard stage and the
+power-of-two row buckets.
 
-Counterpart of ``bucket_rows`` and ``pad_rows`` of
+Counterpart of ``bucket_rows``, ``pad_rows`` and ``stage_table`` of
 ``avenir_tpu/parallel/pipeline.py`` (the IVF index pads each inverted list
 to a bucket, ``ops/ivf.py``) and of its chunk loop (``DeviceFeed``) as
 ``models/knn.py`` uses it (``feed.chunk.rows``): test
@@ -12,14 +12,21 @@ the host; a table already on the device is sliced. The JAX package pads
 chunks to power-of-two buckets to keep its jit cache flat; PyTorch
 compiles nothing per shape, so chunks keep their real row count. The
 threaded, double buffered ``DeviceFeed`` is later work.
+
+``stage_table`` moves a whole shard's table to the card on the prefetching
+loader's worker thread (``native/prefetch.py``), on a stream of its own,
+and ``claim_table`` hands it to the consumer's stream.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 
 #: the shape-bucket floor of the JAX package's staging paths
 BUCKET_FLOOR = 512
@@ -67,3 +74,43 @@ def iter_chunks(tensors: Sequence[Optional[torch.Tensor]], chunk_rows: int,
         yield tuple(None if t is None else
                     t[r0:r0 + chunk_rows].to(device, non_blocking=True)
                     for t in sources)
+
+
+def stage_table(table, device: DeviceLike = "cuda", bucket: bool = False):
+    """``table`` with its arrays (binned, numeric, labels) on ``device``;
+    ``n_rows`` and the host-side fields unchanged. Runs on the loader's
+    worker thread: on a card, each array is pinned on the host and copied
+    on a stream of this call's own, inside ``torch.cuda.device``, and the
+    call returns once that stream has finished, so the table it hands over
+    is whole (the JAX stage's ``block_until_ready``) while the copy
+    overlaps the consumer's kernels on its stream. The consumer passes the
+    table through :func:`claim_table` before it computes on it.
+
+    ``bucket`` is the JAX stage's power-of-two row padding, which keeps its
+    jit cache small. It pads nothing here: PyTorch compiles nothing per
+    shape, and padded rows would cost K2 work on rows that are dropped.
+    Each row is scored on its own, so the outputs are the same."""
+    dev = resolve_device(device)
+    arrays = (table.binned, table.numeric, table.labels)
+    if dev.type == "cuda":
+        stream = torch.cuda.Stream(device=dev)
+        with torch.cuda.device(dev), torch.cuda.stream(stream):
+            staged = [None if t is None else
+                      _source(t, dev).to(dev, non_blocking=True)
+                      for t in arrays]
+        stream.synchronize()
+    else:
+        staged = [None if t is None else t.to(dev) for t in arrays]
+    return replace(table, binned=staged[0], numeric=staged[1],
+                   labels=staged[2], n_rows=table.n_rows)
+
+
+def claim_table(table):
+    """Mark a staged table's card arrays as used on the current stream, so
+    that the caching allocator hands their blocks to no later copy before
+    the kernels queued here have read them (they were allocated on the
+    stage's stream)."""
+    for t in (table.binned, table.numeric, table.labels):
+        if t is not None and t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+    return table

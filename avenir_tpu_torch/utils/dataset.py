@@ -144,6 +144,10 @@ class Featurizer:
         self._fitted = False
 
     @property
+    def fitted(self) -> bool:
+        return self._fitted
+
+    @property
     def schema_data_dependent(self) -> bool:
         """True when featurization depends on the rows it is fitted on (a
         categorical without a cardinality list, or a bucketed numeric

@@ -113,7 +113,23 @@ Phases (one line each; any failure exits non-zero):
    ``knn.ann=true`` (the IVF index, K1 counting its lists), each one-shot
    and chunked with byte-identical outputs and no K2 or K3 launch,
    NearestNeighbor on churn with class-conditional
-   weighting (K1 + K2), MutualInformation on 100,000 hospital-readmission
+   weighting (K1 + K2); the elearn test rows of a part dir (200,000 rows,
+   written also as one file) through the native C++ encoder at 1 thread
+   and at the host's default and through the port's Python path,
+   bit-identical tables, each one's host time; NearestNeighbor over that
+   part dir (8 part files of 25,000 rows and ``_SUCCESS``) on its
+   shard-by-shard path (each shard featurized and staged on a worker
+   thread, K2 exactly once a shard) with output and Validation JSON
+   byte-identical to the merged path (``shard.prefetch=false``, one K2
+   call), then once more under ``torch.profiler`` for the device's busy
+   share; a copy of the dir with 1% of its rows made bad (ragged,
+   non-numeric, unseen class) under ``on.bad.row=quarantine``, whose
+   shard report counts exactly the planted rows, whose sidecars list
+   exactly them and whose surviving rows' output equals the clean run's;
+   a run with ``shard.journal.keep=true`` whose records of 3 shards are
+   deleted, resumed with ``--resume``: output byte-identical, 5 shards
+   resumed and 3 computed (K2 exactly 3 times), the 5 kept records'
+   nonces unchanged; MutualInformation on 100,000 hospital-readmission
    rows with all five selection algorithms (K4, one launch for the F² =
    100 pairs), CramerCorrelation and HeterogeneityReductionCorrelation on
    the churn train file (K4, one launch each), and small card-vs-CPU runs
@@ -207,6 +223,10 @@ SEED = 20261016
 CHURN_TRAIN, CHURN_TEST = 200_000, 50_000
 ELEARN_TRAIN, ELEARN_TEST = 100_000, 20_000
 HOSP_ROWS = 100_000          # 5x the MI tutorial's 20,000 records
+# the part dir of the CLI phase: 8 MR part files of 25,000 elearn test rows,
+# one row in 100 of its copy made bad
+PART_FILES, PART_ROWS = 8, 25_000
+BAD_EVERY = 100
 FEED_CHUNK_ROWS = 4096
 MI_ALGORITHMS = ("mutualInfoMaximizer,mutualInfoFeatureSelection,"
                  "jointMutualInfo,doubleInputSymmetricalRelevance,"
@@ -2315,6 +2335,174 @@ def hold_main_path(label, calls, n_attrs):
             f"({by})")
 
 
+def bits_equal(a, b) -> bool:
+    """Two encoded tables equal bit for bit (floats compared as bits)."""
+    return (torch.equal(a.binned, b.binned)
+            and torch.equal(a.numeric.view(torch.int32),
+                            b.numeric.view(torch.int32))
+            and torch.equal(a.labels, b.labels) and a.ids == b.ids)
+
+
+def native_vs_python(path, train_rows):
+    """The part dir's test rows, as one file, through the native encoder
+    at 1 thread and at the host's default, and through the port's Python
+    path: the same table bit for bit; each one's host time."""
+    from avenir_tpu_torch import native
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.native import loader as L
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    from avenir_tpu_torch.utils.schema import FeatureSchema
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    build_s = time.perf_counter() - t0
+    fz = Featurizer(FeatureSchema.from_json(G.elearn_schema_json()),
+                    device="cpu").fit(train_rows)
+    tables, secs = {}, {}
+    for label, fn in (
+            ("python", lambda: L.transform_file(fz, path, force_python=True)),
+            ("native, 1 thread", lambda: L.encode_file(fz, path,
+                                                       n_threads=1)),
+            ("native, default threads", lambda: L.encode_file(fz, path))):
+        t0 = time.perf_counter()
+        tables[label] = fn()
+        secs[label] = time.perf_counter() - t0
+    ref = tables["python"]
+    for label, table in tables.items():
+        if not bits_equal(table, ref):
+            raise AssertionError(f"{label} encode differs from the Python "
+                                 "path's table")
+    log(f"phase 3 native encode ({lib.name}, g++ {build_s:.1f} s, "
+        f"{os.cpu_count()} host cores) of {ref.n_rows} elearn rows: "
+        "binned, numeric, labels and ids bit-identical to the Python path; "
+        "host time " + ", ".join(f"{label} {t:.3f} s"
+                                 for label, t in secs.items())
+        + f"; Python over native default {secs['python'] / secs['native, default threads']:.1f}x")
+
+
+def write_parts(directory, rows):
+    os.makedirs(directory)
+    for i in range(PART_FILES):
+        write_csv(os.path.join(directory, f"part-{i:05d}"),
+                  rows[i * PART_ROWS:(i + 1) * PART_ROWS])
+    open(os.path.join(directory, "_SUCCESS"), "w").close()
+
+
+def plant_bad_rows(rows, rng):
+    """A copy of ``rows`` with one in ``BAD_EVERY`` of each part made bad:
+    ragged, non-numeric and unseen-class rows in turn (elearn's one
+    categorical column is its class). Returns the rows and the planted
+    {(part file, physical line): (id, reason)}."""
+    rows = [list(r) for r in rows]
+    planted = {}
+    reasons = ("ragged", "non-numeric", "unseen-class")
+    for part in range(PART_FILES):
+        picks = rng.choice(PART_ROWS, PART_ROWS // BAD_EVERY, replace=False)
+        for j, r in enumerate(sorted(picks)):
+            row = rows[part * PART_ROWS + r]
+            reason = reasons[j % 3]
+            planted[(f"part-{part:05d}", int(r) + 1)] = (row[0], reason)
+            if reason == "ragged":
+                rows[part * PART_ROWS + r] = row[:3]
+            elif reason == "non-numeric":
+                row[4] = "n/a"
+            else:
+                row[-1] = "withdrawn"
+    return rows, planted
+
+
+def part_file_jobs(p, job, knn_conf, n_attrs):
+    """NearestNeighbor over the part dir: the shard-by-shard path (K2 once
+    a shard, each call held against plain) byte-identical to the merged
+    path; the quarantine of planted bad rows; a resume after three shard
+    records were lost."""
+    from avenir_tpu_torch.datagen import generators as G
+    n_test = PART_FILES * PART_ROWS
+    rows = G.elearn_rows(n_test, seed=SEED + 2)
+    write_csv(p("elearn_parts_test.csv"), rows)
+    native_vs_python(p("elearn_parts_test.csv"),
+                     [line.split(",") for line in
+                      open(p("elearn_train.csv")).read().splitlines()])
+    write_parts(p("elearn_parts"), rows)
+    knn = ["NearestNeighbor", p("elearn_parts")]
+    label = (f"NearestNeighbor elearn {ELEARN_TRAIN}x{n_test} part dir of "
+             f"{PART_FILES} files")
+    sharded, sharded_s = job(label, knn + [p("knn_parts.txt")] + knn_conf,
+                             0.8, ["K2"], n_attrs=n_attrs,
+                             launches={"K2": PART_FILES})
+    merged, merged_s = job(label + " shard.prefetch=false",
+                           knn + [p("knn_merged.txt")] + knn_conf
+                           + ["-D", "shard.prefetch=false"], 0.8, ["K2"],
+                           n_attrs=n_attrs, launches={"K2": 1})
+    clean = open(p("knn_parts.txt"), "rb").read()
+    if clean != open(p("knn_merged.txt"), "rb").read() or sharded != merged:
+        raise AssertionError("part-file KNN output or report differs from "
+                             "the merged path's")
+    log(f"phase 3 part dir: output and Validation JSON byte-identical to the "
+        f"merged path; job wall part-file {sharded_s:.2f} s, merged "
+        f"{merged_s:.2f} s ({merged_s / sharded_s:.2f}x)")
+    profile_job(label, knn + [p("knn_parts_prof.txt")] + knn_conf,
+                "topk_kernel")
+
+    bad_rows, planted = plant_bad_rows(rows, np.random.default_rng(SEED))
+    write_parts(p("elearn_parts_bad"), bad_rows)
+    report, _ = job(label + ", 1% bad rows, on.bad.row=quarantine",
+                 ["NearestNeighbor", p("elearn_parts_bad"),
+                  p("knn_parts_bad.txt")] + knn_conf
+                 + ["-D", "on.bad.row=quarantine"], None, ["K2"],
+                 n_attrs=n_attrs, launches={"K2": PART_FILES})
+    gone = {row_id for row_id, _ in planted.values()}
+    want = [line for line in clean.decode().splitlines()
+            if line.split(",")[0] not in gone]
+    if open(p("knn_parts_bad.txt")).read().splitlines() != want:
+        raise AssertionError("quarantine: surviving rows differ from the "
+                             "clean run's")
+    if report.get("rows_quarantined") != len(planted):
+        raise AssertionError(f"quarantine report {report}, planted "
+                             f"{len(planted)}")
+    listed = {}
+    qdir = p("elearn_parts_bad/quarantine")
+    for name in sorted(os.listdir(qdir)):
+        for line in open(os.path.join(qdir, name)):
+            rec = json.loads(line)
+            listed[(os.path.basename(rec["file"]), rec["line"])] = \
+                rec["reason"]
+    if listed != {k: reason for k, (_, reason) in planted.items()}:
+        raise AssertionError("quarantine sidecars do not list exactly the "
+                             "planted rows")
+    log(f"phase 3 quarantine: {len(planted)} planted rows ("
+        f"{PART_FILES} parts, ragged, non-numeric, unseen-class) reported "
+        f"and listed in {len(os.listdir(qdir))} sidecars exactly; the "
+        "surviving rows' output equals the clean run's lines")
+
+    out = p("knn_parts_resume.txt")
+    keep = ["-D", "shard.journal.keep=true"]
+    job(label + " shard.journal.keep=true", knn + [out] + knn_conf + keep,
+        0.8, ["K2"], n_attrs=n_attrs, launches={"K2": PART_FILES})
+    journal = out + ".shards"
+    dropped = (1, 4, 6)
+    nonces = {i: json.load(open(f"{journal}/shard-{i:05d}.json"))["run"]
+              for i in range(PART_FILES)}
+    for i in dropped:
+        os.remove(f"{journal}/shard-{i:05d}.json")
+    report, _ = job(label + " --resume after 3 lost shard records",
+                 knn + [out] + knn_conf + keep + ["--resume"], None, ["K2"],
+                 n_attrs=n_attrs, launches={"K2": len(dropped)})
+    after = {i: json.load(open(f"{journal}/shard-{i:05d}.json"))["run"]
+             for i in range(PART_FILES)}
+    if (open(out, "rb").read() != clean
+            or report.get("shards_resumed") != PART_FILES - len(dropped)
+            or report.get("shards_computed") != len(dropped)
+            or any(after[i] != nonces[i] for i in range(PART_FILES)
+                   if i not in dropped)
+            or any(after[i] == nonces[i] for i in dropped)):
+        raise AssertionError(f"resume: report {report}, output equal "
+                             f"{open(out, 'rb').read() == clean}")
+    log(f"phase 3 resume: shards_resumed {report['shards_resumed']}, "
+        f"shards_computed {report['shards_computed']}, output byte-identical, "
+        f"the {PART_FILES - len(dropped)} kept records' nonces unchanged")
+
+
 def mi_card_vs_cpu(p, hosp_conf, churn_conf):
     """MI and correlation on small inputs, card against CPU: the MI count
     families equal, the MI output values within rtol 1e-5 (f32 logs of
@@ -2407,7 +2595,7 @@ def cli_phase(work: str):
         log(f"phase 3 {label}: {secs:.2f} s, launches {counts}"
             + (f", accuracy {acc:.4f} (bar {bar})" if bar else ""))
         hold_main_path(label, calls, n_attrs)
-        return report
+        return report, secs
 
     p = lambda name: os.path.join(work, name)  # noqa: E731
     churn = G.churn_rows(CHURN_TRAIN + CHURN_TEST, seed=SEED)
@@ -2483,6 +2671,7 @@ def cli_phase(work: str):
                                      "one-shot")
         log(f"phase 3 {key}=true: one-shot and chunked outputs "
             "byte-identical")
+    part_file_jobs(p, job, knn_conf, elearn_attrs)
     job(f"NearestNeighbor churn {CHURN_TRAIN}x{CHURN_TEST} "
         "class.condtion.weighted",
         ["NearestNeighbor", p("churn_test.csv"), p("knn_churn.txt")]

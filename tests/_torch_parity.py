@@ -77,3 +77,29 @@ def near_tie_rows(metrics: np.ndarray, k: int, rtol: float = 1e-5
     part = np.sort(metrics, axis=1)
     kth, nxt = part[:, k - 1], part[:, k]
     return (nxt - kth) <= rtol * np.maximum(np.abs(kth), 1e-12)
+
+
+def featurizers(schema_json, rows, unseen: str = "error"):
+    """(jax featurizer, torch featurizer on the CPU), both fitted on
+    ``rows``."""
+    from avenir_tpu.utils.schema import FeatureSchema as JSchema
+    jfz = JFeaturizer(JSchema.from_json(schema_json), unseen=unseen)
+    tfz = TFeaturizer(TSchema.from_json(schema_json), unseen=unseen,
+                      device="cpu")
+    return jfz.fit(rows), tfz.fit(rows)
+
+
+def assert_tables_equal(a, b):
+    """Two encoded tables (of either package) equal bit for bit."""
+    for name in ("binned", "numeric"):
+        np.testing.assert_array_equal(np.asarray(getattr(a, name)),
+                                      np.asarray(getattr(b, name)))
+    assert (a.labels is None) == (b.labels is None)
+    if a.labels is not None:
+        np.testing.assert_array_equal(np.asarray(a.labels),
+                                      np.asarray(b.labels))
+    assert a.n_rows == b.n_rows
+    assert list(a.ids) == list(b.ids)
+    assert tuple(a.bins_per_feature) == tuple(b.bins_per_feature)
+    assert a.bin_labels == b.bin_labels
+    assert list(a.class_values) == list(b.class_values)

@@ -119,7 +119,7 @@ def test_elearn_nearest_neighbor_matches(tmp_path, capsys, extra):
     ("plan.enable", "true"), ("knn.ann.live", "true"),
     ("knn.ann.live.tail.budget", "64"), ("knn.sharded", "true"),
     ("neighbor.data.path", "n.txt"), ("prediction.mode", "regression"),
-    ("job.resume", "true"), ("feed.depth", "3"), ("mesh.shape", "2"),
+    ("feed.depth", "3"), ("mesh.shape", "2"),
     ("profile.trace.dir", "trace"), ("obs.live", "true"),
     ("alerts.enable", "true")])
 def test_knn_refuses_later_keys(tmp_path, key, value):
@@ -184,7 +184,7 @@ def test_live_ann_refused_by_its_roadmap_title(tmp_path):
 @pytest.mark.parametrize("key,value", [
     ("train.sharded", "true"), ("streaming.train", "true"),
     ("shard.parts", "true"), ("tabular.input", "false"),
-    ("plan.enable", "true")])
+    ("plan.enable", "true"), ("job.resume", "true")])
 def test_nb_refuses_later_keys(tmp_path, verb, key, value):
     write_fixture(tmp_path, "churn", 50, 10)
     props = _props(tmp_path / "p.properties", **{
@@ -219,7 +219,7 @@ _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
     (["Lifecycle"], _BANDITS),
     (["NearestNeighbor", "--metrics-out", "m.jsonl"], _LAYERS),
     (["NearestNeighbor", "--obs-port", "0"], _LAYERS),
-    (["NearestNeighbor", "--resume"],
+    (["MutualInformation", "--resume"],
      "'Streaming/sharded NB and per-shard MI'")])
 def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
     """The refusal names the verb or flag and the ROADMAP item by title."""
@@ -245,24 +245,15 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    assert len(named) >= 14
+    assert len(named) >= 13
     assert "Multi-device layer" in named
+    assert "Streaming/sharded NB and per-shard MI" in named
     assert named <= titles, named - titles
     assert not by_number, by_number
 
 
-# a two-part elearn directory: the JAX CLI scores it on its part-file path,
-# which reads these keys; the port refuses them there (ROADMAP fault C1)
-_PART_CASES = [("shard.report", "true"), ("on.bad.row", "skip"),
-               ("on.bad.row", "quarantine"), ("quarantine.dir", "q"),
-               ("max.bad.fraction", "0.5"), ("shard.retries", "3"),
-               ("shard.timeout.s", "30"), ("shard.speculate", "false"),
-               ("shard.speculative.factor", "2"),
-               ("shard.speculative.min.wait.s", "5"),
-               ("shard.prefetch.depth", "4"), ("shard.journal", "false"),
-               ("shard.journal.keep", "true")]
-
-
+# a two-part elearn directory: both CLIs score it on their part-file path
+# (tests/test_torch_shards.py holds the keys that path reads)
 def _two_parts(tmp_path, n_train=800, n_test=200):
     train, test = write_fixture(tmp_path, "elearn", n_train, n_test,
                                 seed=55)
@@ -283,25 +274,14 @@ def _two_parts(tmp_path, n_train=800, n_test=200):
     return parts, props
 
 
-@pytest.mark.parametrize("key,value", _PART_CASES)
-def test_knn_refuses_part_file_keys(tmp_path, key, value):
-    parts, props = _two_parts(tmp_path, 200, 40)
-    match = (f"{re.escape(key)}={re.escape(value)} .*ROADMAP queue A, "
-             "'Native CSV loader and the part-file KNN path'")
-    with pytest.raises(ValueError, match=match):
-        tmain(["NearestNeighbor", str(parts), str(tmp_path / "o.txt"),
-               "--conf", props, "-D", f"{key}={value}", "--device", "cpu"])
-    assert not (tmp_path / "o.txt").exists()
-
-
 @pytest.mark.parametrize("extra", [
     ["-D", "shard.retries=1", "-D", "on.bad.row=raise"],
     ["-D", "shard.prefetch=false", "-D", "shard.report=true",
      "-D", "on.bad.row=skip"]])
 def test_knn_part_file_keys_at_defaults_or_merged(tmp_path, capsys, extra):
-    """Keys at their JAX defaults, or shard.prefetch=false (the JAX CLI's
-    merged path, which reads none of them), are not refused, and the
-    outputs stay byte-identical to the JAX CLI's."""
+    """Keys at their JAX defaults (both CLIs' part-file path), or
+    shard.prefetch=false (both CLIs' merged path, which reads none of
+    them): outputs byte-identical to the JAX CLI's."""
     parts, props = _two_parts(tmp_path)
     j_out, t_out = _run_both(
         capsys,
@@ -316,15 +296,17 @@ def test_knn_part_file_keys_at_defaults_or_merged(tmp_path, capsys, extra):
 
 
 def test_knn_single_file_ignores_part_file_keys(tmp_path, capsys):
-    """A single file takes the merged path in both CLIs, keys and all."""
+    """A single file takes the merged path in both CLIs, which reads
+    neither the part-file keys nor job.resume."""
     write_fixture(tmp_path, "elearn", 200, 40, seed=55)
     props = _props(tmp_path / "p.properties", **{
         "feature.schema.file.path": tmp_path / "schema.json",
         "train.data.path": tmp_path / "train.csv"})
     tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
            str(tmp_path / "o.txt"), "--conf", props, "-D",
-           "shard.report=true", "--device", "cpu"])
+           "shard.report=true", "--resume", "--device", "cpu"])
     assert len((tmp_path / "o.txt").read_text().splitlines()) == 40
+    assert capsys.readouterr().out == ""
 
 
 def test_cli_knows_every_verb_of_the_jax_cli():
