@@ -6,11 +6,19 @@
     python -m avenir_tpu_torch MutualInformation    IN OUT --conf P
     python -m avenir_tpu_torch CramerCorrelation    IN OUT --conf P
     python -m avenir_tpu_torch HeterogeneityReductionCorrelation IN OUT ...
+    python -m avenir_tpu_torch TreeBuilder          IN MODEL --conf P
+    python -m avenir_tpu_torch TreePredictor        IN OUT --conf P
+    python -m avenir_tpu_torch ClassPartitionGenerator IN OUT --conf P
+    python -m avenir_tpu_torch SplitGenerator       IN OUT --conf P
+    python -m avenir_tpu_torch DataPartitioner      IN NODE_DIR --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
-six verbs, and the part-file KNN path: ``_shard_resilience_kwargs``,
-``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``), with
+six verbs, the part-file KNN path: ``_shard_resilience_kwargs``,
+``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``, and the
+five tree verbs with ``_write_predictions``, ``_find_used_attributes``,
+``_select_split_attributes``, ``_split_algorithm``, ``_read_raw_lines``,
+``_run_data_partitioner_batched``), with
 the same ``.properties`` keys, schemas and output files. ``--device
 {cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
 ``--device cpu`` the job raises.
@@ -73,22 +81,17 @@ _LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
 # item that ports them
 _SIMILARITY = roadmap_item(
     "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
-_TREES = roadmap_item("Trees, forests and boosting")
+_FORESTS = roadmap_item("Forests and boosting")
 _EXPLORE = roadmap_item("Explore, regress, discriminant and text")
 _SEQUENCES = roadmap_item("Sequences")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
     "FeatureCondProbJoiner": _SIMILARITY,
-    "ClassPartitionGenerator": _TREES,
-    "SplitGenerator": _TREES,
-    "DataPartitioner": _TREES,
-    "TreeBuilder": _TREES,
-    "TreePredictor": _TREES,
-    "RandomForestBuilder": _TREES,
-    "RandomForestPredictor": _TREES,
-    "GradientBoostBuilder": _TREES,
-    "GradientBoostPredictor": _TREES,
+    "RandomForestBuilder": _FORESTS,
+    "RandomForestPredictor": _FORESTS,
+    "GradientBoostBuilder": _FORESTS,
+    "GradientBoostPredictor": _FORESTS,
     "Projection": _EXPLORE,
     "WordCounter": _EXPLORE,
     "UnderSamplingBalancer": _EXPLORE,
@@ -559,6 +562,364 @@ def run_correlation(conf: JobConfig, in_path: str, out_path: str,
             fh.write(delim.join([str(a), str(b), repr(value)]) + "\n")
 
 
+# -- the decision-tree verbs --------------------------------------------------
+
+# TreePredictor routes on the device from this many rows on (below it, the
+# host walk); device.predict overrides. Both give the same output.
+_DEVICE_PREDICT_ROWS = 100_000
+USED_ATTRS_SIDECAR = "_used.attributes"
+
+
+def _tree_depth(node) -> int:
+    return 0 if not node.children else 1 + max(
+        _tree_depth(c) for c in node.children.values())
+
+
+def run_tree_builder(conf: JobConfig, in_path: str, out_path: str,
+                     device: torch.device) -> None:
+    """Grow a complete decision tree in one job, written as the JSON model
+    ``{"classValues": [...], "root": {classCounts, attr, splitKey,
+    children}}`` that TreePredictor reads. ``best`` selection grows on the
+    device (one readback a tree); past the device node budget it falls
+    back to the per-level host loop, as the JAX CLI does; randomFromTop
+    grows on the host loop (it draws from ``random.seed``)."""
+    from avenir_tpu_torch.models import tree as T
+    from avenir_tpu_torch.utils.atomicio import atomic_json_dump
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    strategy = conf.get("split.selection.strategy", "best")
+    cfg = T.TreeConfig(
+        split_attributes=tuple(conf.get_int_list("split.attributes") or ()),
+        algorithm=_split_algorithm(conf),
+        max_depth=conf.get_int("max.depth", 3),
+        min_node_size=conf.get_int("min.node.size", 10),
+        max_cat_attr_split_groups=conf.get_int(
+            "max.cat.attr.split.groups", 3),
+        split_selection_strategy=strategy,
+        num_top_splits=conf.get_int("num.top.splits", 5),
+        min_gain=conf.get_float("min.gain", 1e-6),
+        device_node_budget=conf.get_int("device.node.budget", 2048))
+    if strategy == "best":
+        try:
+            tree = T.grow_tree_device(table, cfg)
+        except ValueError as exc:
+            # only the frontier budget's error names the alternative
+            if "use grow_tree" not in str(exc):
+                raise
+            print(f"TreeBuilder: device growth unavailable ({exc}); "
+                  "using the per-level host loop", file=sys.stderr)
+            tree = T.grow_tree(table, cfg)
+    else:
+        rng = np.random.default_rng(conf.get_int("random.seed", 0))
+        tree = T.grow_tree(table, cfg, rng=rng)
+    atomic_json_dump({"classValues": table.class_values,
+                      "root": tree.to_dict()}, out_path)
+    print(json.dumps({"Tree.Depth": _tree_depth(tree),
+                      "Tree.Rows": table.n_rows}))
+
+
+def _write_predictions(conf: JobConfig, out_path: str, table, pred,
+                       class_values: List[str]) -> None:
+    """``id,class`` lines, and the confusion-matrix report under
+    ``validation.mode``."""
+    from avenir_tpu_torch.utils.metrics import ConfusionMatrix
+    delim = conf.get("field.delim.out", ",")
+    with open(out_path, "w") as fh:
+        for i in range(table.n_rows):
+            fh.write(delim.join(
+                [table.ids[i] if table.ids else str(i),
+                 class_values[int(pred[i])]]) + "\n")
+    if conf.get_bool("validation.mode", False) and table.labels is not None:
+        cm = ConfusionMatrix(class_values,
+                             positive_class=conf.get("positive.class.value"))
+        cm.update(pred, table.labels)
+        print(cm.report().to_json())
+
+
+def run_tree_predictor(conf: JobConfig, in_path: str, out_path: str,
+                       device: torch.device) -> None:
+    """Classify rows down a TreeBuilder model (``tree.model.file.path``);
+    ``validation.mode=true`` prints the confusion-matrix report."""
+    from avenir_tpu_torch.models import tree as T
+    validation = conf.get_bool("validation.mode", False)
+    fz, rows = _load_table(conf, in_path, device, for_predict=True)
+    table = fz.transform(rows, with_labels=validation)
+    with open(conf.get_required("tree.model.file.path")) as fh:
+        model = json.load(fh)
+    tree = T.TreeNode.from_dict(model["root"], model["classValues"])
+    on_device = conf.get_bool("device.predict",
+                              table.n_rows >= _DEVICE_PREDICT_ROWS)
+    pred = (T.predict_device if on_device else T.predict)(tree, table)
+    _write_predictions(conf, out_path, table, pred, model["classValues"])
+
+
+def _find_used_attributes(in_path: str) -> List[int]:
+    """The attributes split on along the path into a node: the
+    ``_used.attributes`` sidecar DataPartitioner leaves in each
+    ``split=<i>`` directory, found by walking up ``data`` /
+    ``segment=<j>`` / ``split=<i>`` components; the walk stops at the
+    first other directory."""
+    d = in_path if os.path.isdir(in_path) else os.path.dirname(in_path)
+    d = os.path.abspath(d)
+    while True:
+        base = os.path.basename(d)
+        if base.startswith("split="):
+            cand = os.path.join(d, USED_ATTRS_SIDECAR)
+            if os.path.isfile(cand):
+                with open(cand) as fh:
+                    text = fh.read().strip()
+                return [int(t) for t in text.split(",")] if text else []
+            return []
+        if base != "data" and not base.startswith("segment="):
+            return []
+        parent = os.path.dirname(d)
+        if parent == d:
+            return []
+        d = parent
+
+
+def _select_split_attributes(conf: JobConfig, table,
+                             in_path: str = "") -> List[int]:
+    """``split.attribute.selection.strategy`` (ClassPartitionGenerator.java
+    :141, :160-196): userSpecified (``split.attributes``, else every
+    splittable one), all, random (``random.split.set.size`` distinct
+    attributes drawn with ``np.random.default_rng(random.seed)``), and
+    notUsedYet (those not in ``used.split.attributes``, else not on the
+    path's ``_used.attributes`` sidecars)."""
+    from avenir_tpu_torch.models.tree import splittable_ordinals
+    splittable = splittable_ordinals(table)
+    strategy = conf.get("split.attribute.selection.strategy", "userSpecified")
+    if strategy == "userSpecified":
+        attrs = conf.get_int_list("split.attributes")
+        return attrs if attrs is not None else splittable
+    if strategy == "all":
+        return splittable
+    if strategy == "random":
+        size = min(conf.get_int("random.split.set.size", 3), len(splittable))
+        rng = np.random.default_rng(conf.get_int("random.seed"))
+        return sorted(int(o) for o in
+                      rng.choice(splittable, size=size, replace=False))
+    if strategy == "notUsedYet":
+        used = conf.get_int_list("used.split.attributes")
+        if used is None:
+            used = _find_used_attributes(in_path) if in_path else []
+        remaining = [a for a in splittable if a not in set(used)]
+        if not remaining:
+            raise ValueError(
+                f"notUsedYet: every splittable attribute {splittable} is "
+                f"already used on this path ({sorted(set(used))}); this "
+                "node cannot split further")
+        return remaining
+    raise ValueError(
+        f"invalid splitting attribute selection strategy {strategy!r}")
+
+
+def _split_algorithm(conf: JobConfig) -> str:
+    """``split.algorithm``, with ``hellinger.absent.class.value=reference``
+    as the ``hellingerDistance:reference`` variant."""
+    algorithm = conf.get("split.algorithm", "giniIndex")
+    if (algorithm == "hellingerDistance" and
+            conf.get("hellinger.absent.class.value") == "reference"):
+        algorithm = "hellingerDistance:reference"
+    return algorithm
+
+
+def run_class_partition_generator(conf: JobConfig, in_path: str,
+                                  out_path: str,
+                                  device: torch.device) -> None:
+    """Candidate-split gains (ClassPartitionGenerator): one
+    ``attr;splitKey;gainRatio`` line per candidate split, or with
+    ``at.root=true`` only the node's information."""
+    from avenir_tpu_torch.models import tree as T
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    algorithm = _split_algorithm(conf)
+    delim = conf.get("field.delim.out", ";")
+    if conf.get_bool("at.root", False):
+        with open(out_path, "w") as fh:
+            fh.write(repr(T.root_info(table, algorithm)) + "\n")
+        return
+    attrs = _select_split_attributes(conf, table, in_path=in_path)
+    parent = conf.get_float("parent.info")
+    max_groups = conf.get_int("max.cat.attr.split.groups", 3)
+    class_probs = None
+    # the class-prob suffix only for entropy/giniIndex
+    # (ClassPartitionGenerator.java:531-545)
+    if (conf.get_bool("output.split.prob", False)
+            and algorithm in ("entropy", "giniIndex")):
+        splits, class_probs = T.split_gains_with_class_probs(
+            table, attrs, algorithm, parent, max_groups)
+    else:
+        splits = T.split_gains(table, attrs, algorithm, parent, max_groups)
+    T.write_candidate_splits(splits, out_path, delim,
+                             class_probs=class_probs)
+
+
+def _read_raw_lines(path: str) -> List[str]:
+    """The raw non-empty lines of a file or part-file dir: exactly the rows
+    ``read_csv_lines`` parses, in its order."""
+    lines: List[str] = []
+    for full in part_file_paths(path):
+        with open(full) as fh:
+            lines.extend(line.rstrip("\n") for line in fh
+                         if line.rstrip("\n"))
+    return lines
+
+
+def run_split_generator(conf: JobConfig, in_path: str, out_path: str,
+                        device: torch.device) -> None:
+    """ClassPartitionGenerator with SplitGenerator's paths
+    (SplitGenerator.java:39-54): with ``project.base.path`` the input is
+    ``<base>/split=root/data[/<split.path>]`` and the output its sibling
+    ``splits/part-r-00000``."""
+    base = conf.get("project.base.path")
+    if base:
+        split_path = conf.get("split.path")
+        in_path = os.path.join(base, "split=root", "data")
+        if split_path:
+            in_path = os.path.join(in_path, split_path)
+        out_dir = os.path.join(os.path.dirname(in_path), "splits")
+        os.makedirs(out_dir, exist_ok=True)
+        out_path = os.path.join(out_dir, "part-r-00000")
+    run_class_partition_generator(conf, in_path, out_path, device)
+
+
+def _write_partition(seg_dir: str, raw_lines: List[str], rows) -> None:
+    os.makedirs(seg_dir, exist_ok=True)
+    with open(os.path.join(seg_dir, "partition.txt"), "w") as fh:
+        for i in rows:
+            fh.write(raw_lines[i] + "\n")
+
+
+def _write_used(split_dir: str, used: List[int]) -> None:
+    with open(os.path.join(split_dir, USED_ATTRS_SIDECAR), "w") as fh:
+        fh.write(",".join(str(a) for a in used) + "\n")
+
+
+def _run_data_partitioner_batched(conf: JobConfig, in_path: str,
+                                  out_path: str, table, raw_lines,
+                                  levels: int) -> None:
+    """``levels`` SplitGenerator→DataPartitioner rounds in one invocation
+    and one device pass (``grow_levels_batched``), writing every node's
+    ``splits/part-r-00000`` (unless one exists), its
+    ``split=<i>/segment=<j>/data/partition.txt`` and the
+    ``_used.attributes`` sidecars, as the sequential rounds would. Needs a
+    path-independent attribute selection (all, userSpecified) and ``best``
+    selection; descent stops at pure or singleton children."""
+    from avenir_tpu_torch.models import tree as T
+    strategy = conf.get("split.attribute.selection.strategy", "all")
+    if strategy not in ("all", "userSpecified"):
+        raise ValueError(
+            f"tree.levels.per.invocation={levels} requires a "
+            "path-independent attribute selection strategy ('all' or "
+            f"'userSpecified'), got {strategy!r} — run per-level instead")
+    if conf.get("split.selection.strategy", "best") != "best":
+        raise ValueError(
+            "tree.levels.per.invocation requires "
+            "split.selection.strategy=best (device selection is argmax)")
+    algorithm = _split_algorithm(conf)
+    delim = conf.get("field.delim.out", ";")
+    attrs = _select_split_attributes(conf, table, in_path=in_path)
+    records, keys = T.grow_levels_batched(
+        table, attrs, algorithm, levels,
+        max_cat_attr_split_groups=conf.get_int(
+            "max.cat.attr.split.groups", 3),
+        min_node_size=conf.get_int("tree.batch.min.node.rows", 2),
+        node_budget=conf.get_int("tree.device.node.budget", 2048))
+
+    data_dir = (in_path if os.path.isdir(in_path)
+                else os.path.dirname(in_path))
+    root_splits = conf.get("candidate.splits.path") or os.path.join(
+        os.path.dirname(data_dir), "splits", "part-r-00000")
+    seg_cache: dict = {}
+    # slot -> (node dir, its rows, attributes used above it, splits file)
+    nodes = {0: (out_path, np.arange(table.n_rows),
+                 _find_used_attributes(in_path), root_splits)}
+    n_nodes_written = 0
+    for level, rec in enumerate(records):
+        ratio = rec["ratio"]
+        next_nodes: dict = {}
+        for slot, (node_dir, row_idx, used, splits_path) in nodes.items():
+            cands = [T.CandidateSplit(a, k, float(ratio[t, slot]),
+                                      float(ratio[t, slot]),
+                                      float(ratio[t, slot]))
+                     for t, (a, k, _s) in enumerate(keys)]
+            splits_dir = os.path.dirname(splits_path)
+            if splits_dir:
+                os.makedirs(splits_dir, exist_ok=True)
+            if not os.path.exists(splits_path):
+                T.write_candidate_splits(cands, splits_path, delim)
+            n_nodes_written += 1
+            # the root is partitioned whatever its gain, as a sequential
+            # DataPartitioner would; children stop at pure or singleton
+            if not bool(rec["split"][slot]) and level > 0:
+                continue
+            t_best = int(rec["best_t"][slot])
+            attr, key, _n_seg = keys[t_best]
+            if t_best not in seg_cache:
+                seg_cache[t_best] = T.segment_of_rows(table, attr, key)
+            segs = seg_cache[t_best][row_idx]
+            split_dir = os.path.join(node_dir, f"split={t_best}")
+            for seg in sorted(set(int(s) for s in segs)):
+                _write_partition(
+                    os.path.join(split_dir, f"segment={seg}", "data"),
+                    raw_lines, row_idx[segs == seg])
+            new_used = used if attr in used else used + [attr]
+            _write_used(split_dir, new_used)
+            if level + 1 < len(records):
+                for seg in range(rec["child_slot"].shape[1]):
+                    child = int(rec["child_slot"][slot, seg])
+                    if child < 0:
+                        continue
+                    child_dir = os.path.join(split_dir, f"segment={seg}")
+                    next_nodes[child] = (
+                        child_dir, row_idx[segs == seg], new_used,
+                        os.path.join(child_dir, "splits", "part-r-00000"))
+        nodes = next_nodes
+        if not nodes:
+            break
+    print(f'{{"tree.levels": {len(records)}, '
+          f'"tree.nodes.visited": {n_nodes_written}}}')
+
+
+def run_data_partitioner(conf: JobConfig, in_path: str, out_path: str,
+                         device: torch.device) -> None:
+    """Partition a node's data by its best candidate split
+    (tree.DataPartitioner): reads the sibling ``splits/part-r-00000`` (or
+    ``candidate.splits.path``), sorts by stat descending, and writes each
+    segment's rows, verbatim, to
+    ``<out>/split=<rank>/segment=<j>/data/partition.txt``
+    (DataPartitioner.java:59-129), with the ``_used.attributes`` sidecar
+    in ``split=<rank>``. ``tree.levels.per.invocation=L`` (> 1) runs L
+    rounds at once (:func:`_run_data_partitioner_batched`)."""
+    from avenir_tpu_torch.models import tree as T
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    levels = conf.get_int("tree.levels.per.invocation", 1)
+    if levels > 1:
+        _run_data_partitioner_batched(conf, in_path, out_path, table,
+                                      _read_raw_lines(in_path), levels)
+        return
+    delim = conf.get("field.delim.out", ";")
+    data_dir = in_path if os.path.isdir(in_path) else os.path.dirname(in_path)
+    splits_path = conf.get("candidate.splits.path") or os.path.join(
+        os.path.dirname(data_dir), "splits", "part-r-00000")
+    candidates = T.read_candidate_splits(splits_path, delim)
+    split_index, (attr, key, _stat) = T.select_split(
+        candidates, conf.get("split.selection.strategy", "best"),
+        conf.get_int("num.top.splits", 5))
+    segs = T.segment_of_rows(table, attr, key)
+    raw_lines = _read_raw_lines(in_path)
+    split_dir = os.path.join(out_path, f"split={split_index}")
+    for seg in sorted(set(int(s) for s in segs)):
+        _write_partition(os.path.join(split_dir, f"segment={seg}", "data"),
+                         raw_lines, np.nonzero(segs == seg)[0])
+    used = _find_used_attributes(in_path)
+    _write_used(split_dir, used if attr in used else used + [attr])
+    print(f'{{"split.attribute": {attr}, "split.key": "{key}", '
+          f'"split.index": {split_index}}}')
+
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
@@ -568,6 +929,11 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
         c, i, o, d, "cramerIndex"),
     "HeterogeneityReductionCorrelation": lambda c, i, o, d: run_correlation(
         c, i, o, d, "concentrationCoeff"),
+    "ClassPartitionGenerator": run_class_partition_generator,
+    "SplitGenerator": run_split_generator,
+    "DataPartitioner": run_data_partitioner,
+    "TreeBuilder": run_tree_builder,
+    "TreePredictor": run_tree_predictor,
 }
 
 

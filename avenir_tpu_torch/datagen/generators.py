@@ -1,8 +1,8 @@
 """Seeded workload generators with planted signal: the churn (Naive Bayes,
-Cramér correlation), elearn (KNN) and hospital-readmission (mutual
-information) tutorials.
+Cramér correlation), elearn (KNN), hospital-readmission (mutual
+information) and abandoned-cart retarget (decision tree) tutorials.
 
-A copy of the churn, elearn and hospital-readmission sections of
+A copy of the churn, elearn, hospital-readmission and retarget sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -230,4 +230,49 @@ def hosp_readmit_rows(n: int, seed: int = 13) -> List[List[str]]:
         rows.append([f"H{i:010d}", str(age), str(weight), str(height), emp,
                      family, diet, exercise, follow_up, smoking, alcohol,
                      readmitted])
+    return rows
+
+
+# --------------------------------------------------------------------------
+# retarget (decision-tree tutorial: resource/retarget.py)
+# --------------------------------------------------------------------------
+
+_RETARGET_SCHEMA_JSON = {
+    "fields": [
+        {"name": "id", "ordinal": 0, "id": True, "dataType": "string"},
+        {"name": "cartValue", "ordinal": 1, "dataType": "int",
+         "min": 0, "max": 500, "bucketWidth": 50, "maxSplit": 4,
+         "feature": True},
+        {"name": "visitCount", "ordinal": 2, "dataType": "int",
+         "min": 0, "max": 40, "bucketWidth": 10, "maxSplit": 4,
+         "feature": True},
+        {"name": "loyalty", "ordinal": 3, "dataType": "categorical",
+         "cardinality": ["bronze", "silver", "gold"], "maxSplit": 3,
+         "feature": True},
+        {"name": "converted", "ordinal": 4, "dataType": "categorical",
+         "cardinality": ["yes", "no"]},
+    ]
+}
+
+
+def retarget_schema() -> FeatureSchema:
+    return FeatureSchema.from_json(_RETARGET_SCHEMA_JSON)
+
+
+def retarget_rows(n: int, seed: int = 5) -> List[List[str]]:
+    """Conversion is planted on cartValue > 250 and loyalty == gold, so a
+    depth-2 tree recovers the rule."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        cart = int(rng.integers(0, 501))
+        visits = int(rng.integers(0, 41))
+        loyalty = ["bronze", "silver", "gold"][int(rng.integers(0, 3))]
+        p = 0.15
+        if cart > 250:
+            p += 0.45
+        if loyalty == "gold":
+            p += 0.25
+        converted = "yes" if rng.random() < p else "no"
+        rows.append([f"R{i:06d}", str(cart), str(visits), loyalty, converted])
     return rows

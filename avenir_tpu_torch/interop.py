@@ -3,8 +3,10 @@
 IVF index, so the same state can drive both this port and the JAX
 package.
 
-The model file is the other carrier: each package's ``load_model`` reads
-what the other's ``save_model`` wrote.
+The model files are the other carrier: each package's ``load_model``
+reads what the other's ``save_model`` wrote, and a decision tree crosses
+over as TreeBuilder's JSON artifact (``TreeNode.to_dict`` /
+``TreeNode.from_dict``), which each package's TreePredictor reads.
 """
 
 from __future__ import annotations

@@ -1,9 +1,11 @@
 """Device kernels and the plain PyTorch ops around them:
 
 - ``histogram``      — one-hot/segment count reductions (class, feature and
-  joint counts, per-class moments, pair counts); the joint counts go
-  through K1, the pair counts through K4
-- ``infotheory``     — entropy and mutual information over count tensors
+  joint counts, a tree level's node histogram, per-class moments, pair
+  counts); the joint counts and node histograms go through K1, the pair
+  counts through K4
+- ``infotheory``     — entropy, mutual information and the decision
+  tree's split statistics over count tensors
 - ``distance``       — blocked pairwise distance + top-k in plain PyTorch
   (what the JAX package leaves to XLA)
 - ``cuda_histogram`` — K1, the NB joint-count kernel, and K4, the pair

@@ -2,13 +2,16 @@
 
 Counterpart of ``avenir_tpu/ops/histogram.py`` (``class_counts``,
 ``feature_bin_counts``, ``class_feature_bin_counts``,
-``per_class_moments``, ``pair_counts``). Every counting MR job of the
-reference is a map-side emit of small count keys + a keyed shuffle + a
-reduce-side sum; here each is one reduction over the row axis.
+``node_class_bin_counts``, ``per_class_moments``, ``pair_counts``). Every
+counting MR job of the reference is a map-side emit of small count keys +
+a keyed shuffle + a reduce-side sum; here each is one reduction over the
+row axis.
 
 Ids outside their range drop out (the one-hot behavior), and integer
 counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
-counts — goes through K1, and ``pair_counts`` and ``pair_counts_multi`` —
+counts — goes through K1, as does ``node_class_bin_counts``, a tree
+level's histogram (one K1 launch for each chunk of its nodes), and
+``pair_counts`` and ``pair_counts_multi`` —
 the contingency counts of MI and correlation, one pair or every pair of a
 job in one launch — through K4 (``ops/cuda_histogram.py``), whose wrappers
 take their plain versions for CPU tensors and launch the kernels for CUDA
@@ -64,6 +67,43 @@ def class_feature_bin_counts(bins: torch.Tensor, labels: torch.Tensor,
         n_classes, n_bins,
         None if weights is None
         else weights.to(torch.float32).contiguous())
+
+
+#: most combined (node, bin) cells of one K1 launch in node_class_bin_counts
+#: (the JAX package's chunk, so that launches correspond)
+_NODE_CHUNK_CB = 8192
+
+
+def node_class_bin_counts(bins: torch.Tensor, node_id: torch.Tensor,
+                          labels: torch.Tensor, n_nodes: int, n_bins: int,
+                          n_classes: int,
+                          weights: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """[N, A] bins × [N] node ids × [N] labels -> [A, n_nodes, n_bins,
+    n_classes] counts: a tree level's (node, feature, bin, class)
+    histogram. The node id folds into the bin axis (``node · n_bins +
+    bin``) of ``class_feature_bin_counts``, one call for each chunk of
+    ``_NODE_CHUNK_CB // n_bins`` nodes; rows outside the chunk, and bins
+    or nodes out of range, take the combined id -1 and drop out, so the
+    chunks partition the rows and the counts equal an unchunked pass."""
+    n, n_a = bins.shape
+    bins = bins.to(torch.int32)
+    node_id = node_id.to(torch.int32)
+    bin_ok = (bins >= 0) & (bins < n_bins)
+    node_ok = (node_id >= 0) & (node_id < n_nodes)
+    chunk = max(1, _NODE_CHUNK_CB // max(n_bins, 1))
+    parts = []
+    for k0 in range(0, n_nodes, chunk):
+        k1 = min(k0 + chunk, n_nodes)
+        in_chunk = node_ok & (node_id >= k0) & (node_id < k1)
+        combined = torch.where(bin_ok & in_chunk[:, None],
+                               (node_id[:, None] - k0) * n_bins + bins, -1)
+        flat = class_feature_bin_counts(combined, labels, n_classes,
+                                        (k1 - k0) * n_bins, weights)
+        # [C, A, (k1-k0)·B] -> [A, k1-k0, B, C]
+        parts.append(flat.reshape(n_classes, n_a, k1 - k0, n_bins)
+                     .permute(1, 2, 3, 0))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,

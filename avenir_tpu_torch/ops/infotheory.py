@@ -1,10 +1,30 @@
 """Information-theoretic statistics over count tensors, log0-safe.
 
-Counterpart of ``avenir_tpu/ops/infotheory.py`` (``xlogx``, ``entropy``,
-``mutual_information``): f32 torch on the counts' device, with the same
-``where`` masking, so empty segments and classes contribute exactly 0.
-The split statistics (gini, Hellinger, confidence ratio) come with the
-tree slice.
+Counterpart of ``avenir_tpu/ops/infotheory.py``: ``xlogx``, ``entropy``,
+``mutual_information``, and the decision tree's split statistics
+(``gini``, ``weighted_segment_stat``, ``split_info_content``,
+``intrinsic_info_content``, ``hellinger_distance``,
+``class_confidence_ratio``, ``split_stat``). f32 torch on the counts'
+device, with the same ``where`` masking, so empty segments and classes
+contribute exactly 0.
+
+Every statistic rounds each f32 operation as eager JAX does, and gives
+the same bits on the CPU and on the GPU:
+
+- ``log`` is XLA's CPU logarithm (``xla_log``: the Cephes polynomial with
+  its fused multiply-adds, each computed in float64, where the product of
+  two f32 values is exact, and rounded once), not torch's, which differs
+  from it in the last bit for about one input in eight;
+- sums over the short axes (classes, segments) run sequentially from
+  index 0, so their order does not depend on the device;
+- ``sqrt`` goes through float64, and the division by ln 2 divides by a
+  tensor on the device, so both round correctly on the GPU too.
+
+JAX's compiled kernels (``jit``) round differently: XLA contracts a
+product into the add that consumes it and reduces a short minor axis as a
+vector tree, so the JAX package's own jitted and eager statistics differ
+in the last bit. The port's equal the eager ones exactly and the jitted
+ones within a few ulps.
 """
 
 from __future__ import annotations
@@ -15,11 +35,74 @@ import torch
 
 LOG2 = math.log(2.0)
 
+# XLA's CPU logarithm (the Cephes single-precision polynomial)
+_MIN_NORM = 1.17549435e-38
+_SQRTHF = 0.707106781186547524
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1,
+          -1.2420140846e-1, 1.4249322787e-1, -1.6668057665e-1,
+          2.0000714765e-1, -2.4999993993e-1, 3.3333331174e-1)
+_LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """f32 ``a * b + c`` rounded once."""
+    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
+            + torch.as_tensor(c).double()).float()
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of positive normal f32 ``x``, bit for bit as XLA's CPU
+    backend computes it: the mantissa in [sqrt(1/2), sqrt(2)) less one,
+    a degree-8 polynomial in fused multiply-adds, the exponent added back
+    in two parts of ln 2."""
+    x = torch.clamp(x.float(), min=_MIN_NORM)
+    bits = x.view(torch.int32)
+    e = ((bits >> 23) - 126).float()
+    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    low = m < torch.full((), _SQRTHF, dtype=torch.float32)
+    e = e - low.float()
+    m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    m2 = m * m
+    m3 = m2 * m
+    p = _LOG_P
+    y = fma(fma(m, p[0], p[1]), m, p[2])
+    y1 = fma(fma(m, p[3], p[4]), m, p[5])
+    y2 = fma(fma(m, p[6], p[7]), m, p[8])
+    y = fma(fma(y, m3, y1), m3, y2)
+    y = fma(y, m3, _LOG_Q1 * e)
+    m = fma(-m2, 0.5, m)
+    return fma(_LOG_Q2, e, m + y)
+
+
+def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sequential f32 sum along ``dim`` from index 0."""
+    x = x.movedim(dim, -1)
+    acc = torch.zeros_like(x[..., 0])
+    for i in range(x.shape[-1]):
+        acc = acc + x[..., i]
+    return acc
+
+
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """f32 square root, correctly rounded on every device (through float64:
+    CUDA's f32 ``sqrt`` differs from the CPU's in the last bit)."""
+    return torch.sqrt(x.double()).float()
+
+
+def _nonzero(t: torch.Tensor) -> torch.Tensor:
+    return torch.where(t > 0, t, torch.ones_like(t))
+
+
+def _over_log2(x: torch.Tensor) -> torch.Tensor:
+    """``x / ln 2``, correctly rounded: the divisor is a tensor on ``x``'s
+    device, since CUDA divides by a host scalar as a multiply by its
+    reciprocal, which the CPU does not."""
+    return x / torch.full((), LOG2, dtype=x.dtype, device=x.device)
+
 
 def xlogx(p: torch.Tensor) -> torch.Tensor:
     """p * log2(p) with 0*log0 := 0."""
-    safe = torch.where(p > 0, p, torch.ones_like(p))
-    return torch.where(p > 0, p * torch.log(safe) / LOG2,
+    return torch.where(p > 0, _over_log2(p * xla_log(_nonzero(p))),
                        torch.zeros_like(p))
 
 
@@ -27,8 +110,100 @@ def entropy(counts: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Shannon entropy (bits) of count vectors along ``dim``
     (AttributeSplitStat.java:387-394)."""
     total = counts.sum(dim=dim, keepdim=True)
-    p = counts / torch.where(total > 0, total, torch.ones_like(total))
-    return -xlogx(p).sum(dim=dim)
+    return -_sum(xlogx(counts / _nonzero(total)), dim)
+
+
+def gini(counts: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Gini index 1 - sum(p^2) (AttributeSplitStat.java:396-407)."""
+    total = counts.sum(dim=dim, keepdim=True)
+    p = counts / _nonzero(total)
+    return 1.0 - _sum(p * p, dim)
+
+
+def info(counts: torch.Tensor, algorithm: str) -> torch.Tensor:
+    """The node information of ``split.algorithm``: entropy for
+    ``entropy``, else gini (the root and parent information)."""
+    return entropy(counts) if algorithm == "entropy" else gini(counts)
+
+
+def weighted_segment_stat(seg_stats: torch.Tensor, seg_counts: torch.Tensor,
+                          dim: int = -1) -> torch.Tensor:
+    """Count-weighted average of per-segment stats — the split-level roll-up
+    (SplitInfoContent.processStat, AttributeSplitStat.java:191-218)."""
+    total = seg_counts.sum(dim=dim)
+    return _sum(seg_stats * seg_counts, dim) / _nonzero(total)
+
+
+def split_info_content(counts: torch.Tensor, algorithm: str = "entropy"
+                       ) -> torch.Tensor:
+    """Weighted entropy/gini over segments: ``counts`` [..., S, C] per-segment
+    class counts -> [...] stats."""
+    stat_fn = {"entropy": entropy, "giniIndex": gini}[algorithm]
+    return weighted_segment_stat(stat_fn(counts, dim=-1),
+                                 counts.sum(dim=-1), dim=-1)
+
+
+def intrinsic_info_content(counts: torch.Tensor) -> torch.Tensor:
+    """Entropy of the segment-size distribution — denominator of gain ratio
+    (SplitStat.getInfoContent, AttributeSplitStat.java:153-170)."""
+    return entropy(counts.sum(dim=-1), dim=-1)
+
+
+def hellinger_distance(counts: torch.Tensor,
+                       reference_absent: bool = False) -> torch.Tensor:
+    """Hellinger distance between per-class segment distributions,
+    ``counts`` [..., S, C]: the mean over class pairs of
+    sqrt(sum over segments of (sqrt(n_sa/n_a) - sqrt(n_sb/n_b))^2), which
+    is the reference's binary formula at C = 2
+    (AttributeSplitStat.java:244-282). Pairs with an absent class are left
+    out of the mean unless ``reference_absent``
+    (``hellinger.absent.class.value=reference``), which keeps the
+    reference's constant 1.0 in that edge (the JAX package's docstring
+    gives the reasoning)."""
+    class_tot = counts.sum(dim=-2, keepdim=True)             # [..., 1, C]
+    root = _sqrt(counts / _nonzero(class_tot))               # [..., S, C]
+    diff = root[..., :, None] - root[..., None, :]           # [..., S, C, C]
+    pair_d = _sqrt(_sum(diff * diff, -3))                    # [..., C, C]
+    c = counts.shape[-1]
+    triu = torch.triu(torch.ones((c, c), dtype=counts.dtype,
+                                 device=counts.device), diagonal=1)
+    if reference_absent:
+        pairs = triu.expand(pair_d.shape)
+    else:
+        present = (class_tot[..., 0, :] > 0).to(counts.dtype)
+        pairs = triu * present[..., :, None] * present[..., None, :]
+    n_pairs = torch.clamp(_sum(pairs.flatten(-2), -1), min=1.0)
+    return _sum((pair_d * pairs).flatten(-2), -1) / n_pairs
+
+
+def class_confidence_ratio(counts: torch.Tensor) -> torch.Tensor:
+    """Weighted entropy of per-segment class-confidence ratios
+    (SplitClassCofidenceRatio.processStat, AttributeSplitStat.java:298-336):
+    confidence(s, c) = n_sc / n_c, normalized within each segment."""
+    class_tot = counts.sum(dim=-2, keepdim=True)
+    conf = counts / _nonzero(class_tot)                      # [..., S, C]
+    ratio = conf / _nonzero(_sum(conf, -1)[..., None])
+    seg_entropy = -_sum(xlogx(ratio), -1)                    # [..., S]
+    return weighted_segment_stat(seg_entropy, counts.sum(dim=-1), dim=-1)
+
+
+SPLIT_ALGORITHMS = ("entropy", "giniIndex", "hellingerDistance",
+                    "classConfidenceRatio")
+
+
+def split_stat(counts: torch.Tensor, algorithm: str) -> torch.Tensor:
+    """Dispatch on the reference's ``split.algorithm`` values;
+    ``hellingerDistance:reference`` is the absent-class compat variant
+    (``hellinger.absent.class.value=reference``)."""
+    if algorithm in ("entropy", "giniIndex"):
+        return split_info_content(counts, algorithm)
+    if algorithm == "hellingerDistance":
+        return hellinger_distance(counts)
+    if algorithm == "hellingerDistance:reference":
+        return hellinger_distance(counts, reference_absent=True)
+    if algorithm == "classConfidenceRatio":
+        return class_confidence_ratio(counts)
+    raise ValueError(f"unknown split algorithm {algorithm!r}")
 
 
 def mutual_information(joint: torch.Tensor) -> torch.Tensor:
@@ -36,13 +211,11 @@ def mutual_information(joint: torch.Tensor) -> torch.Tensor:
     MI of MutualInformation's reducer cleanup
     (MutualInformation.java:598-678)."""
     total = joint.sum(dim=(-2, -1), keepdim=True)
-    p = joint / torch.where(total > 0, total, torch.ones_like(total))
+    p = joint / _nonzero(total)
     px = p.sum(dim=-1, keepdim=True)
     py = p.sum(dim=-2, keepdim=True)
     denom = px * py
     ok = (p > 0) & (denom > 0)
-    safe_ratio = torch.where(
-        ok, p / torch.where(denom > 0, denom, torch.ones_like(denom)),
-        torch.ones_like(p))
-    return torch.where(p > 0, p * torch.log(safe_ratio) / LOG2,
+    safe_ratio = torch.where(ok, p / _nonzero(denom), torch.ones_like(p))
+    return torch.where(p > 0, _over_log2(p * xla_log(safe_ratio)),
                        torch.zeros_like(p)).sum(dim=(-2, -1))

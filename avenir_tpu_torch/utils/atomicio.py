@@ -10,6 +10,7 @@ write the same quarantine sidecar.
 
 from __future__ import annotations
 
+import json
 import os
 import threading
 from typing import Callable
@@ -31,6 +32,13 @@ def atomic_write_text(path: str, emit: Callable, mode: str = "w") -> None:
             pass
         raise
     os.replace(tmp, path)
+
+
+def atomic_json_dump(obj, path: str, **dump_kwargs) -> None:
+    """``json.dump`` through :func:`atomic_write_text`: serialization runs
+    inside the temporary write, so an object that fails mid-way never
+    tears the destination."""
+    atomic_write_text(path, lambda fh: json.dump(obj, fh, **dump_kwargs))
 
 
 def atomic_write_data(path: str, data) -> None:

@@ -171,7 +171,32 @@ Phases (one line each; any failure exits non-zero):
    there (chained and from graph replays reading HBM) beside its bytes
    bound; then the IVF at 1,048,576 train rows (nlist 1,024, nprobe 256):
    its build time, 8,192 queries' rows/s and the gate on a 512-row slice
-   against K2, its K1 launches held and timed the same way.
+   against K2, its K1 launches held and timed the same way;
+7. the decision-tree family (``models/tree.py``: plain torch ops around
+   K1, which counts each tree level's (node, feature, bin, class)
+   histogram, weighted, one launch for each chunk of 8,192 // 10 nodes):
+   ``grow_tree_device`` with giniIndex at depths 4 and 8 on the repo's
+   tree workload, 1,048,576 rows (``retarget_rows(4096, seed=1)`` tiled
+   256 times; 3 attributes of 10, 4 and 3 bins, 140 candidate splits,
+   level widths 1, 4, 16, 64 and on to 2,048, the budget, so K1 runs at
+   combined bins 10, 40, 160, 640, 2,560 and in chunks of 8,190, 2,050
+   and 4,100: 4 and 13 launches a tree), each tree equal to the same
+   port's growth on the CPU, every K1 launch held exactly against its
+   plain version on its own operands, a tree's seconds on the host clock
+   (its one readback included), the split statistics of every algorithm
+   on 200,000 seeded candidates equal to the CPU's bit for bit, the
+   depth-8 growth under ``torch.profiler``, and K1 at every level shape (chained, from graph
+   replays reading HBM, plain, ``bincount`` of the weights over the same
+   combined ids, bytes bound); then the five tree verbs on 200,000
+   retarget train and 50,000 test rows, each on the card and with
+   ``--device cpu``: TreeBuilder (max.depth=4), TreePredictor with
+   validation (host walk and device routing), the tutorial's
+   ClassPartitionGenerator at.root → SplitGenerator → DataPartitioner
+   round and DataPartitioner with tree.levels.per.invocation=3, every
+   file and stdout line of the card's jobs byte-identical to the CPU's,
+   the root split on cartValue or loyalty and validation accuracy at
+   least 0.70 (the planted rule caps it near 0.725), K1 launched (and
+   each launch held) in TreeBuilder and the batched DataPartitioner.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -180,7 +205,9 @@ points' runs in phase 2: no CLI job counts a single pair, and no CLI key
 selects the tpose layout; K2's
 ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
 K10-K12's from phase 5; a second K1 entry at the IVF shape, with the
-launches of phase 6's builds; K6-K12 add ``parent_ms``, the
+launches of phase 6's builds, and a third at the tree shape, with the
+launches of phase 7's two trees (its CLI jobs' in ``cli_launches``) and
+each level shape's times in ``levels``; K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -2123,6 +2150,290 @@ def quantized_ivf_phase(dev):
 
 
 # --------------------------------------------------------------------------
+# phase 7: the decision-tree family
+# --------------------------------------------------------------------------
+
+# the repo's tree workload: retarget_rows(4096, seed=1) tiled 256 times
+TREE_BASE_ROWS, TREE_REPS = 4096, 256
+TREE_DEPTHS = (4, 8)
+# the CLI jobs' retarget rows
+TREE_TRAIN, TREE_TEST = 200_000, 50_000
+TREE_ACCURACY_BAR = 0.70
+
+
+def retarget_big_table(dev):
+    """1,048,576 retarget rows on ``dev``: 4,096 rows featurized, then
+    tiled (a tree's counts depend on the rows' distribution, not their
+    uniqueness)."""
+    import dataclasses
+    from avenir_tpu_torch.datagen import retarget_rows, retarget_schema
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    base = retarget_rows(TREE_BASE_ROWS, seed=1)
+    table = Featurizer(retarget_schema(), device=dev).fit(base) \
+        .transform(base)
+    return dataclasses.replace(
+        table, binned=table.binned.repeat(TREE_REPS, 1),
+        numeric=table.numeric.repeat(TREE_REPS, 1),
+        labels=table.labels.repeat(TREE_REPS), ids=[],
+        n_rows=table.n_rows * TREE_REPS)
+
+
+def time_k1_weighted(dev, a):
+    """K1 on the recorded operands of a weighted call: chained, from graph
+    replays reading HBM, plain, the library call (one ``bincount`` of the
+    weights over the same combined ids, built beforehand) and the bytes
+    bound (ids, labels and weights read once, the counts written once)."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    bins, labels, w = a["bins"], a["labels"], a["weights"]
+    c, b = a["n_classes"], a["n_bins"]
+    n, f = bins.shape
+    cells = f * c * b
+    in_bytes = n * (f + 2) * 4
+    ms = chain_ms(lambda: H.class_feature_bin_counts(bins, labels, c, b, w),
+                  dev)
+    graph = hbm_graph_ms(
+        lambda u, v, x: H.class_feature_bin_counts(u, v, c, b, x),
+        (bins, labels, w), in_bytes, dev)
+    plain = cuda_ms(lambda: H.class_feature_bin_counts_plain(
+        bins, labels, c, b, w), 5)
+    ids = bins.long()
+    flat = (torch.arange(f, device=dev)[None, :] * (c * b)
+            + labels.long()[:, None] * b + ids)
+    flat = torch.where(ids >= 0, flat, cells).reshape(-1)   # -1: a spare cell
+    wide = w.reshape(n, 1).expand(n, f).reshape(-1).contiguous()
+    library = cuda_ms(lambda: torch.bincount(flat, weights=wide,
+                                             minlength=cells + 1), 20)
+    bound, by = bound_ms(in_bytes + cells * 4, n * f)
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={n} F={f} C={c} B={b} weighted"}
+
+
+def same_files(a_dir, b_dir):
+    """Relative paths of the files under two directories, and those whose
+    bytes differ or that only one of them holds."""
+    def files(d):
+        return {os.path.relpath(os.path.join(r, n), d)
+                for r, _, names in os.walk(d) for n in names}
+    fa, fb = files(a_dir), files(b_dir)
+    differ = sorted(fa ^ fb) + sorted(
+        rel for rel in fa & fb
+        if open(os.path.join(a_dir, rel), "rb").read()
+        != open(os.path.join(b_dir, rel), "rb").read())
+    return sorted(fa), differ
+
+
+def tree_library_growth(dev):
+    """``grow_tree_device`` (giniIndex) at depths 4 and 8 on 1,048,576 rows:
+    each tree equal to the same port's growth on the CPU, every K1 launch
+    held exactly against its plain version, a tree's seconds (host clock,
+    the readback included), K1 timed at every level shape, and the depth-8
+    growth profiled. Returns (K1's launches, the timings by shape)."""
+    import dataclasses
+    from avenir_tpu_torch.models import tree as T
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    table = retarget_big_table(dev)
+    cpu_table = dataclasses.replace(
+        table, binned=table.binned.cpu(), numeric=table.numeric.cpu(),
+        labels=table.labels.cpu())
+    launches, by_shape = 0, {}
+    for depth in TREE_DEPTHS:
+        cfg = T.TreeConfig(max_depth=depth, algorithm="giniIndex")
+        calls = []
+        H.class_feature_bin_counts.launches = 0
+        with recording(calls):
+            tree = T.grow_tree_device(table, cfg)
+        count = H.class_feature_bin_counts.launches
+        held, _ = hold_k1_calls(f"phase 7 depth {depth}", calls)
+        if held != count:
+            raise AssertionError(f"phase 7 depth {depth}: {count} K1 "
+                                 f"launches, {held} recorded")
+        launches += count
+        t0 = time.perf_counter()
+        on_cpu = T.grow_tree_device(cpu_table, cfg)
+        cpu_s = time.perf_counter() - t0
+        if T.canonical_tree(tree) != T.canonical_tree(on_cpu):
+            raise AssertionError(f"phase 7 depth {depth}: the card's tree "
+                                 "differs from the CPU's")
+        secs = [host_ms(lambda: T.grow_tree_device(table, cfg))[0] / 1e3
+                for _ in range(3)]
+        for name, a, _ in calls:
+            by_shape.setdefault((a["n_bins"], a["bins"].shape), a)
+        log(f"phase 7 grow_tree_device giniIndex depth {depth}, "
+            f"{table.n_rows} rows: {count} K1 launches (combined bins "
+            f"{[a['n_bins'] for _, a, _ in calls]}), each exact against "
+            f"plain; tree equal to the CPU's ({cpu_s:.2f} s there); "
+            f"{', '.join(f'{t:.4f}' for t in secs)} s a tree on the card "
+            f"(host clock, one readback); depth reached "
+            f"{max_depth(tree)}, root attr {tree.attr_ordinal}")
+    # the split statistics on the card against the CPU's, bit for bit, on
+    # seeded counts
+    from avenir_tpu_torch.ops import infotheory as I
+    rng = np.random.default_rng(SEED + 7)
+    counts = rng.integers(0, 3000, (200_000, 4, 2)).astype(np.float32)
+    counts[rng.random(counts.shape) < 0.3] = 0
+    notes = []
+    for alg in ("giniIndex", "entropy", "hellingerDistance",
+                "hellingerDistance:reference", "classConfidenceRatio"):
+        card = I.split_stat(torch.from_numpy(counts).to(dev), alg).cpu()
+        cpu = I.split_stat(torch.from_numpy(counts), alg)
+        if not torch.equal(card, cpu):
+            raise AssertionError(
+                f"phase 7 split_stat {alg}: {int((card != cpu).sum())} of "
+                f"{cpu.numel()} differ from the CPU's")
+        notes.append(alg)
+    log(f"phase 7 split statistics of {counts.shape[0]} candidates on the "
+        "card equal the CPU's bit for bit: " + ", ".join(notes))
+    profile_ops("phase 7 grow_tree_device depth 8",
+                lambda: T.grow_tree_device(
+                    table, T.TreeConfig(max_depth=8)))
+    timings = []
+    for (b, _), a in sorted(by_shape.items()):
+        k1 = time_k1_weighted(dev, a)
+        timings.append(k1)
+        log(f"phase 7 K1 at {k1['shape']}: {k1['ms']:.4f} ms chained, "
+            f"{k1['graph_ms']:.4f} ms from graph replays reading HBM "
+            f"({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+            f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, "
+            f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    return launches, timings
+
+
+def max_depth(node) -> int:
+    return 0 if not node.children else 1 + max(
+        max_depth(c) for c in node.children.values())
+
+
+def tree_cli_jobs(work):
+    """The five tree verbs on 200,000 retarget train rows and 50,000 test
+    rows, each on the card and with ``--device cpu`` in a directory of its
+    own: TreeBuilder (max.depth=4) + TreePredictor (validation.mode, host
+    walk and device routing), the tutorial's ClassPartitionGenerator
+    at.root → SplitGenerator → DataPartitioner round, and DataPartitioner
+    with tree.levels.per.invocation=3. Every file the card's jobs write
+    equals the CPU's byte for byte, the root splits on cartValue (1) or
+    loyalty (3), validation accuracy reaches the bar, and K1 launches
+    (TreeBuilder, batched DataPartitioner), each launch held exactly.
+    Returns K1's launches."""
+    from avenir_tpu_torch.datagen import retarget_rows
+    from avenir_tpu_torch.datagen.generators import _RETARGET_SCHEMA_JSON
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.cli.main import main
+    rows = retarget_rows(TREE_TRAIN + TREE_TEST, seed=SEED)
+    schema = os.path.join(work, "retarget.json")
+    with open(schema, "w") as fh:
+        json.dump(_RETARGET_SCHEMA_JSON, fh)
+    dirs = {dev: os.path.join(work, f"tree_{dev}") for dev in ("cuda", "cpu")}
+    for dev, d in dirs.items():
+        os.makedirs(d)
+        write_csv(os.path.join(d, "train.csv"), rows[:TREE_TRAIN])
+        write_csv(os.path.join(d, "test.csv"), rows[TREE_TRAIN:])
+        with open(os.path.join(work, f"tree_{dev}.properties"), "w") as fh:
+            fh.write(f"feature.schema.file.path={schema}\n"
+                     "field.delim.regex=,\nfield.delim.out=;\n"
+                     f"tree.model.file.path={os.path.join(d, 'model.json')}\n"
+                     "positive.class.value=yes\nmax.depth=4\n")
+    launches = 0
+
+    def both(label, verb, inp, out, *extra, k1=False):
+        nonlocal launches
+        reports, walls = {}, {}
+        for dev, d in dirs.items():
+            args = [verb, os.path.join(d, inp), os.path.join(d, out),
+                    "--conf", os.path.join(work, f"tree_{dev}.properties"),
+                    *[e.replace("{d}", d) for e in extra], "--device", dev]
+            calls = []
+            H.class_feature_bin_counts.launches = 0
+            t0 = time.perf_counter()
+            with recording(calls):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    if main(args) != 0:
+                        raise AssertionError(f"phase 7 {label}: {dev} run "
+                                             "failed")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            reports[dev] = buf.getvalue()
+            if dev == "cuda":
+                count = H.class_feature_bin_counts.launches
+                if k1 and not count:
+                    raise AssertionError(f"phase 7 {label}: K1 not launched")
+                if count:
+                    held, _ = hold_k1_calls(f"phase 7 {label}", calls)
+                    if held != count:
+                        raise AssertionError(f"phase 7 {label}: {count} K1 "
+                                             f"launches, {held} recorded")
+                launches += count
+        if reports["cuda"] != reports["cpu"]:
+            raise AssertionError(f"phase 7 {label}: stdout differs: "
+                                 f"{reports}")
+        names, differ = same_files(dirs["cuda"], dirs["cpu"])
+        if differ:
+            raise AssertionError(f"phase 7 {label}: files differ between "
+                                 f"the card and the CPU: {differ[:10]}")
+        log(f"phase 7 {label}: card {walls['cuda']:.2f} s, CPU "
+            f"{walls['cpu']:.2f} s (host clock); {len(names)} files "
+            "byte-identical to the CPU's")
+        lines = [line for line in reports["cuda"].splitlines() if line]
+        return json.loads(lines[-1]) if lines else {}
+
+    built = both(f"TreeBuilder {TREE_TRAIN} rows max.depth=4", "TreeBuilder",
+                 "train.csv", "model.json", k1=True)
+    with open(os.path.join(dirs["cuda"], "model.json")) as fh:
+        root_attr = json.load(fh)["root"]["attr"]
+    if root_attr not in (1, 3):
+        raise AssertionError(f"phase 7: the root splits on {root_attr}, not "
+                             "cartValue (1) or loyalty (3)")
+    for on_device in ("false", "true"):
+        report = both(f"TreePredictor {TREE_TEST} rows device.predict="
+                      f"{on_device}", "TreePredictor", "test.csv",
+                      f"pred_{on_device}.txt", "-D", "validation.mode=true",
+                      "-D", f"device.predict={on_device}")
+        acc = report["Validation.Accuracy"]
+        if acc < TREE_ACCURACY_BAR:
+            raise AssertionError(f"phase 7: accuracy {acc} below "
+                                 f"{TREE_ACCURACY_BAR}")
+    log(f"phase 7 planted rule: depth {built['Tree.Depth']}, root on "
+        f"attribute {root_attr}, validation accuracy {acc:.4f} (bar "
+        f"{TREE_ACCURACY_BAR})")
+    both("ClassPartitionGenerator at.root", "ClassPartitionGenerator",
+         "train.csv", "root.txt", "-D", "at.root=true")
+    with open(os.path.join(dirs["cuda"], "root.txt")) as fh:
+        parent = fh.read().strip()
+    both("SplitGenerator", "SplitGenerator", "train.csv", "splits.txt",
+         "-D", f"parent.info={parent}")
+    picked = both("DataPartitioner", "DataPartitioner", "train.csv", "node",
+                  "-D", "candidate.splits.path={d}/splits.txt")
+    if picked["split.attribute"] not in (1, 3):
+        raise AssertionError(f"phase 7: DataPartitioner split on {picked}")
+    both("DataPartitioner tree.levels.per.invocation=3", "DataPartitioner",
+         "train.csv", "batched", "-D", "tree.levels.per.invocation=3",
+         "-D", "candidate.splits.path={d}/batched_splits.txt", k1=True)
+    return launches
+
+
+def tree_phase(dev, work):
+    """Phase 7; returns K1's kernels-line entry at the tree shape."""
+    launches, timings = tree_library_growth(dev)
+    cli_launches = tree_cli_jobs(work)
+    widest = max(timings, key=lambda k: k["bound_ms"])
+    return {"name": "cfb_counts (K1) at the tree shape (a level's "
+                    "(node, feature, bin, class) histogram, weighted)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
+            "launches": launches, "cli_launches": cli_launches,
+            "max_abs_err": 0.0,
+            **{key: widest[key] for key in ("ms", "graph_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "shape")},
+            "levels": [{key: k[key] for key in (
+                "shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                "bound_ms")} for k in timings]}
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -2823,6 +3134,11 @@ def main() -> int:
         launches[name] = launches.get(name, 0) + count
 
     k1_ivf = quantized_ivf_phase(dev)
+    work = tempfile.mkdtemp(prefix="smoke-tree-", dir=str(_build.BUILD_DIR))
+    try:
+        k1_tree = tree_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
@@ -2836,6 +3152,7 @@ def main() -> int:
         entry["launches"] = launches[name]
         kernels.append(entry)
     kernels.append(k1_ivf)
+    kernels.append(k1_tree)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -196,7 +196,7 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
 
 
 _SIMILARITY = "'`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs'"
-_TREES = "'Trees, forests and boosting'"
+_TREES = "'Forests and boosting'"
 _EXPLORE = "'Explore, regress, discriminant and text'"
 _SEQUENCES = "'Sequences'"
 _BANDITS = "'Bandits and streaming serving'"
@@ -206,8 +206,8 @@ _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
 @pytest.mark.parametrize("args,title", [
     (["SameTypeSimilarity"], _SIMILARITY),
     (["FeatureCondProbJoiner"], _SIMILARITY),
-    (["TreeBuilder"], _TREES),
-    (["ClassPartitionGenerator"], _TREES),
+    (["RandomForestBuilder"], _TREES),
+    (["GradientBoostBuilder"], _TREES),
     (["GradientBoostPredictor"], _TREES),
     (["LogisticRegressionJob"], _EXPLORE),
     (["UnderSamplingBalancer"], _EXPLORE),
