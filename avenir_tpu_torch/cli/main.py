@@ -11,6 +11,10 @@
     python -m avenir_tpu_torch ClassPartitionGenerator IN OUT --conf P
     python -m avenir_tpu_torch SplitGenerator       IN OUT --conf P
     python -m avenir_tpu_torch DataPartitioner      IN NODE_DIR --conf P
+    python -m avenir_tpu_torch MarkovStateTransitionModel IN MODEL --conf P
+    python -m avenir_tpu_torch MarkovModelClassifier IN OUT --conf P
+    python -m avenir_tpu_torch HiddenMarkovModelBuilder IN MODEL --conf P
+    python -m avenir_tpu_torch ViterbiStatePredictor IN OUT --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
@@ -18,7 +22,7 @@ six verbs, the part-file KNN path: ``_shard_resilience_kwargs``,
 ``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``, and the
 five tree verbs with ``_write_predictions``, ``_find_used_attributes``,
 ``_select_split_attributes``, ``_split_algorithm``, ``_read_raw_lines``,
-``_run_data_partitioner_batched``), with
+``_run_data_partitioner_batched``, and the four sequence verbs), with
 the same ``.properties`` keys, schemas and output files. ``--device
 {cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
 ``--device cpu`` the job raises.
@@ -74,16 +78,13 @@ _SHARD_MI = ("per-shard journaled MI "
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
 _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
-# observability keys of the JAX CLI: refused when set, like their flags
-_LATER_OBS = ("profile.trace.dir", "obs.http.port", "obs.live",
-              "obs.flight.path", "alerts.enable")
+
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
 _SIMILARITY = roadmap_item(
     "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
 _FORESTS = roadmap_item("Forests and boosting")
 _EXPLORE = roadmap_item("Explore, regress, discriminant and text")
-_SEQUENCES = roadmap_item("Sequences")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
@@ -98,10 +99,6 @@ _LATER_VERBS = {
     "BaggingSampler": _EXPLORE,
     "LogisticRegressionJob": _EXPLORE,
     "FisherDiscriminant": _EXPLORE,
-    "MarkovStateTransitionModel": _SEQUENCES,
-    "MarkovModelClassifier": _SEQUENCES,
-    "HiddenMarkovModelBuilder": _SEQUENCES,
-    "ViterbiStatePredictor": _SEQUENCES,
     "GreedyRandomBandit": _BANDITS,
     "AuerDeterministic": _BANDITS,
     "SoftMaxBandit": _BANDITS,
@@ -121,6 +118,21 @@ def _check_keys(conf: JobConfig, later: Dict[str, str]) -> None:
         if conf.get_bool(key, False):
             flag = " (--resume)" if key == "job.resume" else ""
             _refuse(f"{key}={conf.get(key)}{flag}", work)
+
+
+def _armed_obs_keys(conf: JobConfig) -> List[str]:
+    """The observability keys of ``conf`` at values with which the JAX CLI
+    arms its layer (``avenir_tpu/cli/main.py``'s ``main``): a non-empty
+    trace dir or flight path, ``obs.http.port >= 0``, ``obs.live=true``,
+    ``alerts.enable=true``. At their off values the JAX CLI does nothing
+    with them, and neither does this one."""
+    armed = [key for key in ("profile.trace.dir", "obs.flight.path")
+             if conf.get(key)]
+    if conf.get_int("obs.http.port", -1) >= 0:
+        armed.append("obs.http.port")
+    armed += [key for key in ("obs.live", "alerts.enable")
+              if conf.get_bool(key, False)]
+    return armed
 
 
 def _load_table(conf: JobConfig, in_path: str, device: torch.device,
@@ -412,11 +424,13 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         for prefix, work in _LATER_PREFIXES.items():
             if key.startswith(prefix):
                 _refuse(key, work)
-    feed = roadmap_item("Threaded `DeviceFeed` (`feed.depth`)")
-    for key, work in (("feed.depth", f"the threaded DeviceFeed ({feed})"),
-                      ("mesh.shape", _MULTI)):
-        if key in conf:
-            _refuse(key, work)
+    # feed.depth sizes the JAX CLI's threaded feed, which runs only with
+    # feed.chunk.rows > 0; mesh.shape is read only with knn.sharded, which
+    # _LATER_KNN refuses
+    if "feed.depth" in conf and conf.get_int("feed.chunk.rows", 0) > 0:
+        feed = roadmap_item("Threaded `DeviceFeed` (`feed.depth`)")
+        _refuse("feed.depth with feed.chunk.rows > 0",
+                f"the threaded DeviceFeed ({feed})")
     if conf.get("neighbor.data.path"):
         _refuse("neighbor.data.path", "neighbor-record replay "
                 f"({roadmap_item('Neighbor-record replay')})")
@@ -920,6 +934,161 @@ def run_data_partitioner(conf: JobConfig, in_path: str, out_path: str,
           f'"split.index": {split_index}}}')
 
 
+
+def run_markov_state_transition_model(conf: JobConfig, in_path: str,
+                                      out_path: str,
+                                      device: torch.device) -> None:
+    """Train a (optionally class-conditional) Markov transition model
+    (reference MarkovStateTransitionModel), its counts through K4. Input
+    rows: ``id[,classLabel],state,state,...`` — controlled by
+    ``skip.field.count`` and ``class.label.field.ord`` like the reference
+    mapper (:99-133); ``streaming.train=true`` streams the file in chunks
+    of ``stream.chunk.rows`` rows (the same model)."""
+    from avenir_tpu_torch.models import markov as M
+    delim = conf.get("field.delim.regex", ",")
+    skip = conf.get_int("skip.field.count", 0)
+    class_ord = conf.get_int("class.label.field.ord", -1)
+    states = conf.get_list("model.states")
+    if states is None:
+        raise ValueError("model.states must list the state symbols")
+    if conf.get_bool("streaming.train", False):
+        model = M.train_streamed(
+            in_path, states, delim, skip_fields=skip,
+            class_label_ord=class_ord,
+            label_values=conf.get_list("class.labels"),
+            scale=conf.get_int("trans.prob.scale", 1000),
+            chunk_rows=conf.get_int("stream.chunk.rows", 65536),
+            device=device)
+    else:
+        rows = read_csv_lines(in_path, delim)
+        eff_skip = skip + (1 if class_ord >= 0 else 0)
+        seqs = [r[eff_skip:] for r in rows]
+        labels = [r[class_ord] for r in rows] if class_ord >= 0 else None
+        model = M.train(seqs, states, class_labels=labels,
+                        scale=conf.get_int("trans.prob.scale", 1000),
+                        device=device)
+    M.save_model(model, out_path,
+                 output_states=conf.get_bool("output.states", True),
+                 delim=conf.get("field.delim.out", ","))
+
+
+def run_markov_model_classifier(conf: JobConfig, in_path: str,
+                                out_path: str, device: torch.device) -> None:
+    """Classify sequences by class-conditional log odds
+    (reference MarkovModelClassifier.java:121-144)."""
+    from avenir_tpu_torch.models import markov as M
+    delim = conf.get("field.delim.regex", ",")
+    delim_out = conf.get("field.delim.out", ",")
+    skip = conf.get_int("skip.field.count", 1)
+    id_ord = conf.get_int("id.field.ord", 0)
+    validation = conf.get_bool("validation.mode", False)
+    class_ord = conf.get_int("class.label.field.ord", -1)
+    if validation and class_ord < 0:
+        raise ValueError("in validation mode actual class labels must be "
+                         "provided (class.label.field.ord)")
+    labels = conf.get_list("class.labels")
+    model = M.load_model(conf.get_required("mm.model.path"),
+                         class_label_based=True,
+                         scale=conf.get_int("trans.prob.scale", 1000))
+    rows = read_csv_lines(in_path, delim)
+    eff_skip = skip + (1 if validation else 0)
+    seqs = [r[eff_skip:] for r in rows]
+    pred, odds = M.classify(model, seqs, (labels[0], labels[1]),
+                            device=device)
+    with open(out_path, "w") as fh:
+        for i, row in enumerate(rows):
+            parts = [row[id_ord]]
+            if validation:
+                parts.append(row[class_ord])
+            parts += [str(pred[i]), str(float(odds[i]))]
+            fh.write(delim_out.join(parts) + "\n")
+    if validation:
+        truth = [r[class_ord] for r in rows]
+        cm = M.validate(pred, truth, labels, positive_class=labels[0])
+        print(cm.report().to_json())
+
+
+def run_hmm_builder(conf: JobConfig, in_path: str, out_path: str,
+                    device: torch.device) -> None:
+    """Build an HMM from tagged data (reference HiddenMarkovModelBuilder),
+    on the host — or, with ``training.mode=untagged``, from raw observation
+    sequences by Baum-Welch EM on the device (``num.states`` hidden
+    states, ``num.iterations`` EM steps, ``convergence.threshold``,
+    ``prob.smoothing``, ``random.seed``; ``checkpoint.file.path`` with
+    ``iteration.chunk.size`` makes it resumable), printing the
+    ``BaumWelch.*`` JSON line."""
+    from avenir_tpu_torch.models import hmm as H
+    delim = conf.get("field.delim.regex", ",")
+    rows = read_csv_lines(in_path, delim)
+    # the reference builder scales with trans.prob.scale, default 1000
+    # (HiddenMarkovModelBuilder.java:293)
+    scale = conf.get_int("trans.prob.scale", 1000)
+    if conf.get("training.mode", "tagged") == "untagged":
+        # empty tokens of trailing delimiters are not observations, and a
+        # row the filter empties is not a trainable sequence
+        rows = [row for row in ([t for t in r if t] for r in rows) if row]
+        if not rows:
+            raise ValueError(f"no non-empty observation rows in {in_path}")
+        observations = conf.get_list("model.observations")
+        if observations is None:
+            observations = sorted({t for r in rows for t in r})
+        n_states = conf.get_int("num.states")
+        if n_states is None:
+            raise ValueError("training.mode=untagged needs num.states")
+        tol = conf.get_float("convergence.threshold", 1e-6)
+        model, ll = H.train_baum_welch(
+            rows, observations, n_states,
+            n_iters=conf.get_int("num.iterations", 50),
+            seed=conf.get_int("random.seed", 0), scale=scale,
+            state_names=conf.get_list("model.states"),
+            smoothing=conf.get_float("prob.smoothing", 1e-4),
+            ll_rel_tol=tol,
+            chunk_size=conf.get_int("iteration.chunk.size", 10),
+            checkpoint_path=conf.get("checkpoint.file.path"),
+            device=device)
+        H.save_model(model, out_path, delim=conf.get("field.delim.out", ","))
+        converged = H.ll_converged(ll.tolist(), tol)
+        print(f'{{"BaumWelch.LogLikelihood": {float(ll[-1])}, '
+              f'"BaumWelch.Iterations": {len(ll)}, '
+              f'"BaumWelch.Converged": {str(converged).lower()}}}')
+        return
+    states = conf.get_list("model.states")
+    observations = conf.get_list("model.observations")
+    if states is None or observations is None:
+        raise ValueError("model.states and model.observations are required")
+    if conf.get_bool("partially.tagged", False):
+        wf = conf.get_int_list("window.function", [1])
+        model = H.train_partially_tagged(rows, states, observations, wf,
+                                         scale=scale)
+    else:
+        model = H.train_fully_tagged(
+            rows, states, observations,
+            sub_field_delim=conf.get("sub.field.delim", ":"),
+            scale=scale,
+            skip_field_count=conf.get_int("skip.field.count", 0))
+    H.save_model(model, out_path, delim=conf.get("field.delim.out", ","))
+
+
+def run_viterbi_state_predictor(conf: JobConfig, in_path: str,
+                                out_path: str, device: torch.device) -> None:
+    """Most-likely state path per row (reference ViterbiStatePredictor);
+    emits the reversed path like the reference (:136-140). The model file's
+    scale is irrelevant to the arg-max, so both float and scaled-int model
+    files decode alike."""
+    from avenir_tpu_torch.models import hmm as H
+    delim = conf.get("field.delim.regex", ",")
+    delim_out = conf.get("field.delim.out", ",")
+    skip = conf.get_int("skip.field.count", 1)
+    id_ord = conf.get_int("id.field.ordinal", 0)
+    model = H.load_model(conf.get_required("hmm.model.path"), scale=1)
+    rows = read_csv_lines(in_path, delim)
+    obs_rows = [r[skip:] for r in rows]
+    paths = H.predict_states(model, obs_rows, reversed_output=True,
+                             device=device)
+    with open(out_path, "w") as fh:
+        for row, path in zip(rows, paths):
+            fh.write(delim_out.join([row[id_ord]] + path) + "\n")
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
@@ -934,6 +1103,10 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "DataPartitioner": run_data_partitioner,
     "TreeBuilder": run_tree_builder,
     "TreePredictor": run_tree_predictor,
+    "MarkovStateTransitionModel": run_markov_state_transition_model,
+    "MarkovModelClassifier": run_markov_model_classifier,
+    "HiddenMarkovModelBuilder": run_hmm_builder,
+    "ViterbiStatePredictor": run_viterbi_state_predictor,
 }
 
 
@@ -973,9 +1146,8 @@ def main(argv: List[str] = None) -> int:
         conf.set(key, value)
     if args.resume:
         conf.set("job.resume", "true")
-    for key in _LATER_OBS:
-        if key in conf:
-            _refuse(key, _OBS)
+    for key in _armed_obs_keys(conf):
+        _refuse(f"{key}={conf.get(key)}", _OBS)
 
     from avenir_tpu_torch.utils import profiling
     from avenir_tpu_torch.utils.device import resolve_device

@@ -2,5 +2,5 @@
 
 from avenir_tpu_torch.datagen.generators import (  # noqa: F401
     churn_rows, churn_schema, elearn_rows, elearn_schema, elearn_schema_json,
-    hosp_readmit_rows, hosp_readmit_schema, retarget_rows,
-    retarget_schema)
+    hmm_tagged_rows, hosp_readmit_rows, hosp_readmit_schema, markov_sequences,
+    retarget_rows, retarget_schema)

@@ -1,8 +1,11 @@
 """Seeded workload generators with planted signal: the churn (Naive Bayes,
 Cramér correlation), elearn (KNN), hospital-readmission (mutual
-information) and abandoned-cart retarget (decision tree) tutorials.
+information) and abandoned-cart retarget (decision tree) tutorials, and
+the Markov-chain and HMM sequences (the email-marketing and
+customer-loyalty tutorials).
 
-A copy of the churn, elearn, hospital-readmission and retarget sections of
+A copy of the churn, elearn, hospital-readmission, retarget, Markov
+sequence and tagged HMM sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -10,7 +13,7 @@ the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -275,4 +278,68 @@ def retarget_rows(n: int, seed: int = 5) -> List[List[str]]:
             p += 0.25
         converted = "yes" if rng.random() < p else "no"
         rows.append([f"R{i:06d}", str(cart), str(visits), loyalty, converted])
+    return rows
+
+
+# --------------------------------------------------------------------------
+# Markov state sequences (resource/xaction_state.rb / event_seq.rb)
+# --------------------------------------------------------------------------
+
+def markov_sequences(n: int, states: List[str], trans: np.ndarray,
+                     min_len: int = 5, max_len: int = 30, seed: int = 3
+                     ) -> List[Tuple[str, List[str]]]:
+    """Sample (id, state sequence) rows from a known transition matrix, so
+    tests can recover the planted matrix."""
+    rng = np.random.default_rng(seed)
+    n_states = len(states)
+    rows = []
+    for i in range(n):
+        length = int(rng.integers(min_len, max_len + 1))
+        seq = [int(rng.integers(0, n_states))]
+        for _ in range(length - 1):
+            seq.append(int(rng.choice(n_states, p=trans[seq[-1]])))
+        rows.append((f"X{i:06d}", [states[s] for s in seq]))
+    return rows
+
+
+# --------------------------------------------------------------------------
+# tagged HMM sequences (the customer-loyalty tutorial)
+# --------------------------------------------------------------------------
+
+#: the customer-loyalty tutorial's model
+#: (resource/customer_loyalty_trajectory_tutorial.txt:18-30): loyalty
+#: low / neutral / high, observations (purchase gap S/M/L) x (amount
+#: L/S/M), the constants ``tests/test_markov_hmm.py`` holds
+LOYALTY_STATES = ["L", "N", "H"]
+LOYALTY_OBSERVATIONS = ["SL", "SS", "SM", "ML", "MS", "MM", "LL", "LS", "LM"]
+LOYALTY_TRANS = np.asarray([[.30, .45, .25], [.35, .40, .25],
+                            [.25, .35, .40]])
+LOYALTY_EMIT = np.asarray([
+    [.08, .05, .01, .15, .12, .07, .21, .17, .14],
+    [.10, .09, .08, .17, .15, .12, .11, .10, .08],
+    [.13, .18, .21, .08, .12, .14, .03, .04, .07]])
+LOYALTY_INITIAL = np.asarray([.38, .36, .26])
+
+
+def hmm_tagged_rows(n: int, states: List[str], observations: List[str],
+                    trans: np.ndarray, emit: np.ndarray,
+                    initial: np.ndarray, min_len: int = 8,
+                    max_len: int = 40, seed: int = 19,
+                    sub_field_delim: str = ":") -> List[List[str]]:
+    """Fully tagged ``obs:state`` sequences sampled from a known HMM, so
+    ``hmm.train_fully_tagged`` recovers the planted matrices (the fixture the
+    reference's customer-loyalty tutorial builds by hand,
+    customer_loyalty_trajectory_tutorial.txt:18-30)."""
+    rng = np.random.default_rng(seed)
+    n_states = len(states)
+    rows = []
+    for i in range(n):
+        length = int(rng.integers(min_len, max_len + 1))
+        s = int(rng.choice(n_states, p=initial))
+        row = [f"T{i:08d}"]
+        for _ in range(length):
+            o = int(rng.choice(len(observations), p=emit[s]))
+            row.append(f"{observations[o]}{sub_field_delim}{states[s]}")
+            s = int(rng.choice(n_states, p=trans[s]))
+        rows.append(row)
     return rows

@@ -1,7 +1,7 @@
 """State carried across from numpy: a trained Naive Bayes model, a staged
-(encoded) table, the encoded operands of the KNN kernel sweeps and a built
-IVF index, so the same state can drive both this port and the JAX
-package.
+(encoded) table, the encoded operands of the KNN kernel sweeps, a built
+IVF index, and a Markov or hidden Markov model, so the same state can
+drive both this port and the JAX package.
 
 The model files are the other carrier: each package's ``load_model``
 reads what the other's ``save_model`` wrote, and a decision tree crosses
@@ -11,11 +11,13 @@ over as TreeBuilder's JSON artifact (``TreeNode.to_dict`` /
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from avenir_tpu_torch.models.hmm import HmmModel
+from avenir_tpu_torch.models.markov import MarkovModel
 from avenir_tpu_torch.models.naive_bayes import BayesModel, model_from_numpy
 from avenir_tpu_torch.ops.ivf import IvfIndex
 from avenir_tpu_torch.utils.dataset import EncodedTable
@@ -114,3 +116,28 @@ def ivf_index_from_numpy(fields: dict, device: DeviceLike = "cuda"
         for name, dtype in _IVF_ARRAYS.items()}
     return IvfIndex(**arrays,
                     **{name: int(fields[name]) for name in _IVF_STATICS})
+
+
+def markov_model_from_numpy(states: Sequence[str], scale: int,
+                            trans: Optional[np.ndarray] = None,
+                            class_trans: Optional[Dict[str, np.ndarray]]
+                            = None) -> MarkovModel:
+    """The port's :class:`MarkovModel` from a Markov model's fields: the
+    states, ``trans.prob.scale``, and the global [S, S] matrix or the
+    class-conditional ones by label (numpy arrays, dtypes kept)."""
+    return MarkovModel(
+        states=list(states), scale=int(scale),
+        trans=None if trans is None else np.array(trans),
+        class_trans=None if class_trans is None else {
+            label: np.array(m) for label, m in class_trans.items()})
+
+
+def hmm_model_from_numpy(states: Sequence[str], observations: Sequence[str],
+                         trans: np.ndarray, emit: np.ndarray,
+                         initial: np.ndarray, scale: int = 1) -> HmmModel:
+    """The port's :class:`HmmModel` from an HMM's fields: states,
+    observations, trans [S, S], emit [S, O], initial [S] (numpy arrays,
+    dtypes kept) and the scale."""
+    return HmmModel(states=list(states), observations=list(observations),
+                    trans=np.array(trans), emit=np.array(emit),
+                    initial=np.array(initial), scale=int(scale))

@@ -1,7 +1,7 @@
 """CSV → dense torch tensors on an explicit device.
 
 Counterpart of ``avenir_tpu/utils/dataset.py`` (``part_file_paths``,
-``read_csv_lines``, ``FieldEncoder``, ``EncodedTable``, ``Featurizer``,
+``read_csv_lines``, ``iter_csv_rows``, ``FieldEncoder``, ``EncodedTable``, ``Featurizer``,
 ``normalize_numeric``). Featurization happens once, on the host, into the
 same dense arrays the JAX package builds:
 
@@ -59,6 +59,39 @@ def read_csv_lines(path: str, delim_regex: str = ",") -> List[List[str]]:
             if line:
                 rows.append([t.strip() for t in splitter.split(line)])
     return rows
+
+
+def iter_csv_rows(path: str, delim_regex: str = ",",
+                  byte_window: Optional[Tuple[int, int]] = None):
+    """Stream tokenized non-empty rows of ONE file without ever holding it
+    in memory (a buffered binary reader: one line at a time).
+
+    ``byte_window=(w0, w1)`` restricts the stream to lines whose FIRST byte
+    lies in ``[w0, w1)`` — the HDFS-split boundary rule (SURVEY.md §1 L0):
+    the line straddling ``w0`` belongs to the previous window (resolved by
+    peeking one byte back and reading through its newline), and the line
+    straddling ``w1`` is read to completion by the window that owns its
+    start. Windows therefore partition the file's lines exactly, whatever
+    the byte cuts hit. Handles LF and CRLF endings; a lone-CR (classic Mac)
+    file needs the in-memory text-mode reader."""
+    splitter = re.compile(delim_regex)
+    size = os.path.getsize(path)
+    w0, w1 = (0, size) if byte_window is None else byte_window
+    w1 = min(w1, size)
+    if w0 >= w1:
+        return
+    with open(path, "rb") as fh:
+        if w0 > 0:
+            fh.seek(w0 - 1)
+            if fh.read(1) != b"\n":
+                fh.readline()        # partial line: the previous window's
+        while fh.tell() < w1:
+            raw = fh.readline()
+            if not raw:
+                break
+            line = raw.rstrip(b"\r\n").decode()
+            if line:
+                yield [t.strip() for t in splitter.split(line)]
 
 
 @dataclass

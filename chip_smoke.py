@@ -196,7 +196,38 @@ Phases (one line each; any failure exits non-zero):
    file and stdout line of the card's jobs byte-identical to the CPU's,
    the root split on cartValue or loyalty and validation accuracy at
    least 0.70 (the planted rule caps it near 0.725), K1 launched (and
-   each launch held) in TreeBuilder and the batched DataPartitioner.
+   each launch held) in TreeBuilder and the batched DataPartitioner;
+8. the sequence models (``models/markov.py``: K4 counts the transitions,
+   ``a = class·S + src`` by ``b = dst``, in launches of fewer than 2^24
+   transitions; ``models/hmm.py``, ``ops/scanops.py``: plain torch ops):
+   Markov training on 1,048,576 class-conditional sequences of 5-30 of
+   the email-marketing tutorial's 9 states, 2 classes, drawn vectorized
+   from planted matrices (about 17.3M transitions, 2 launches), each
+   launch held exactly against its plain version, the int64 counts equal
+   to the CPU's, the planted matrices recovered within 0.01, the
+   training's seconds, K4 timed at the launch's shape (chained, from
+   graph replays reading HBM, plain, ``bincount``, bytes bound), then the
+   same sequences classified, labels equal to the CPU's and log odds
+   within rtol 1e-6; ``predict_states`` on 1,048,576 sequences of the
+   loyalty tutorial's HMM (3 states, 9 observations, 8-40 steps), the
+   paths equal to the CPU's on 65,536 rows, its time, the decode's, and
+   the decode under ``torch.profiler``; Baum-Welch on 8,192 (the
+   associative E-step) and 81,920 (the sequential) loyalty sequences, 10
+   iterations each, the LL never falling by more than 1e-2, within rtol
+   1e-5 of the CPU's at every iteration, the log-parameters within 1e-4,
+   a checkpointed run stopped after one chunk and resumed equal to the
+   uninterrupted one, seconds an iteration and 3 iterations under
+   ``torch.profiler``; then the four verbs, each on the card and with
+   ``--device cpu``: MarkovStateTransitionModel on 200,000 rows (in
+   memory and ``streaming.train``, K4 launched and held),
+   MarkovModelClassifier (validation) on 50,000 held-out rows,
+   HiddenMarkovModelBuilder on 100,000 tagged rows and untagged
+   (checkpointed) on 8,192, ViterbiStatePredictor on the tagged rows'
+   observations: every file and stdout line equal to the CPU's but the
+   float fields (log odds within rtol 1e-6, the BaumWelch LL within rtol
+   1e-5, the untagged model within 1e-4 in log space and its six printed
+   digits), classifier accuracy at least 0.95 and Viterbi accuracy
+   against the planted states at least 0.45.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -207,7 +238,9 @@ ablations' and K7-K8's from phase 4, K6's and K9's from phases 4 and 5,
 K10-K12's from phase 5; a second K1 entry at the IVF shape, with the
 launches of phase 6's builds, and a third at the tree shape, with the
 launches of phase 7's two trees (its CLI jobs' in ``cli_launches``) and
-each level shape's times in ``levels``; K6-K12 add ``parent_ms``, the
+each level shape's times in ``levels``; a fourth, K4 at the Markov
+shape, with the launches of phase 8's training at scale (its CLI jobs' in
+``cli_launches``); K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -2434,6 +2467,514 @@ def tree_phase(dev, work):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the sequence models
+# --------------------------------------------------------------------------
+
+SEQ_SCALE = 1_048_576
+MARKOV_LEN = (5, 30)          # states a sequence: the tutorial's 5-30
+HMM_LEN = (8, 40)             # steps a loyalty sequence (hmm_tagged_rows')
+MARKOV_LABELS = ("churn", "loyal")
+VITERBI_CPU_ROWS = 65_536
+BW_SIZES = (8_192, 81_920)    # the associative and the sequential E-step
+BW_ITERS, BW_CHUNK = 10, 5
+MARKOV_CLI_TRAIN, MARKOV_CLI_TEST = 200_000, 50_000
+HMM_CLI_ROWS, BW_CLI_ROWS = 100_000, 8_192
+# the gates: the planted matrix recovered, the classifier's and Viterbi's
+# accuracy on the planted signal, and the tolerances of the float results
+# (the log odds are f32 sums in one order on both devices; Baum-Welch
+# runs exp and log, which differ between the card and the CPU)
+MARKOV_PLANTED_ATOL = 0.01
+MARKOV_ACCURACY_BAR = 0.95
+VITERBI_ACCURACY_BAR = 0.45
+ODDS_RTOL, LL_RTOL, PARAM_ATOL, LL_SLACK = 1e-6, 1e-5, 1e-4, 1e-2
+
+
+def markov_planted():
+    """The two classes' planted [S, S] transition matrices over the
+    email-marketing tutorial's nine states, [2, 9, 9]."""
+    rng = np.random.default_rng(SEED + 8)
+    return np.stack([rng.dirichlet(np.ones(9) * 0.7, size=9)
+                     for _ in MARKOV_LABELS])
+
+
+def draw_categorical(rng, probs):
+    """One draw from each row of [n, K] ``probs`` (inverse CDF)."""
+    cdf = np.cumsum(probs, axis=1)
+    u = rng.random(len(probs))
+    return np.minimum((u[:, None] >= cdf).sum(1), probs.shape[1] - 1)
+
+
+def draw_markov(n, planted, seed):
+    """``n`` class-conditional sequences of MARKOV_LEN states drawn
+    vectorized (a row generator's per-step ``rng.choice`` would take
+    minutes at this size): codes [n, 30] int32 padded with 0 as
+    ``encode_sequences`` pads, lengths [n] int32, class ids [n] int32."""
+    rng = np.random.default_rng(seed)
+    n_states = planted.shape[1]
+    labels = rng.integers(0, len(planted), n).astype(np.int32)
+    lengths = rng.integers(MARKOV_LEN[0], MARKOV_LEN[1] + 1, n) \
+        .astype(np.int32)
+    codes = np.zeros((n, MARKOV_LEN[1]), np.int32)
+    codes[:, 0] = rng.integers(0, n_states, n)
+    for t in range(1, MARKOV_LEN[1]):
+        codes[:, t] = draw_categorical(rng, planted[labels, codes[:, t - 1]])
+    codes[np.arange(MARKOV_LEN[1])[None, :] >= lengths[:, None]] = 0
+    return codes, lengths, labels
+
+
+def draw_hmm(n, seed):
+    """``n`` sequences of the loyalty tutorial's HMM of HMM_LEN steps,
+    drawn vectorized: observation codes and hidden states [n, 40] int32
+    (0 past a row's length), lengths [n] int32."""
+    from avenir_tpu_torch.datagen import generators as G
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(HMM_LEN[0], HMM_LEN[1] + 1, n).astype(np.int32)
+    obs = np.zeros((n, HMM_LEN[1]), np.int32)
+    states = np.zeros((n, HMM_LEN[1]), np.int32)
+    s = draw_categorical(rng, np.broadcast_to(G.LOYALTY_INITIAL, (n, 3)))
+    for t in range(HMM_LEN[1]):
+        states[:, t] = s
+        obs[:, t] = draw_categorical(rng, G.LOYALTY_EMIT[s])
+        s = draw_categorical(rng, G.LOYALTY_TRANS[s])
+    past = np.arange(HMM_LEN[1])[None, :] >= lengths[:, None]
+    obs[past] = 0
+    states[past] = 0
+    return obs, states, lengths
+
+
+def code_rows(codes, lengths, symbols):
+    """Token rows of ``codes`` cut at each row's length (the symbols are
+    shared objects, so 40M tokens cost no new strings)."""
+    table = np.asarray(symbols, dtype=object)[codes]
+    return [row[:n] for row, n in zip(table.tolist(), lengths.tolist())]
+
+
+def hold_k4_pair_calls(label, calls):
+    """Each recorded one-pair K4 call against its plain version on its own
+    operands, exactly; returns the calls."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    mine = [(a, out) for name, a, out in calls if name == "K4-pair"]
+    if not mine:
+        raise AssertionError(f"{label}: K4 was not called")
+    for a, out in mine:
+        want = H.pair_counts_plain(a["a"], a["b"], a["n_a"], a["n_b"],
+                                   a["weights"])
+        if not torch.equal(out, want):
+            raise AssertionError(f"{label}: a K4 launch of "
+                                 f"{a['a'].shape[0]} rows differs from plain "
+                                 f"in {int((out != want).sum())} cells")
+    return mine
+
+
+def time_k4_pair(dev, a, b, n_a, n_b):
+    """K4 on a recorded launch's operands, ``b`` at a fixed stride past
+    ``a`` as the Markov path lays them: chained, from graph replays
+    reading HBM, plain, ``bincount`` over the combined ids and the bytes
+    bound (both id rows read once, the counts written once)."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    ids = torch.stack([a, b])
+    n = ids.shape[1]
+
+    def timed(t):
+        return H.pair_counts(t[0], t[1], n_a, n_b)
+    ms = chain_ms(lambda: timed(ids), dev)
+    graph = hbm_graph_ms(timed, (ids,), 2 * n * 4, dev)
+    plain = cuda_ms(lambda: H.pair_counts_plain(ids[0], ids[1], n_a, n_b), 5)
+    flat = pair_flat(ids[0], ids[1], n_a, n_b)
+    library = cuda_ms(lambda: torch.bincount(flat, minlength=n_a * n_b), 20)
+    bound, by = bound_ms(2 * n * 4 + n_a * n_b * 4, n)
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={n} n_a={n_a} n_b={n_b}"}
+
+
+def markov_at_scale(dev):
+    """Markov training on SEQ_SCALE class-conditional sequences: every K4
+    launch held exactly, the int64 counts equal to the CPU's, the planted
+    matrices recovered, the training time; K4 timed at the launch's
+    shape; the sequences classified, the labels equal to the CPU's and
+    the odds within ODDS_RTOL. Returns K4's launches and timing."""
+    from avenir_tpu_torch.models import markov as M
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    planted = markov_planted()
+    codes, lengths, labels = draw_markov(SEQ_SCALE, planted, SEED + 81)
+    host = [torch.from_numpy(x) for x in (codes, lengths, labels)]
+    seqs, lens, cids = (x.to(dev) for x in host)
+    n_trans = int(np.maximum(lengths - 1, 0).sum())
+    calls = []
+    H.pair_counts.launches = 0
+    with recording(calls):
+        counts = M._bigram_counts(seqs, lens, cids, 9, 2)
+    launches = H.pair_counts.launches
+    mine = hold_k4_pair_calls("phase 8 Markov at scale", calls)
+    if launches != len(mine) or launches != -(-n_trans
+                                              // M.MAX_LAUNCH_TRANSITIONS):
+        raise AssertionError(f"phase 8: {launches} K4 launches, "
+                             f"{len(mine)} recorded, for {n_trans} "
+                             "transitions")
+    cpu = M._bigram_counts(*host, 9, 2)
+    if not torch.equal(counts.cpu(), cpu):
+        raise AssertionError("phase 8: the card's int64 counts differ from "
+                             "the CPU's")
+    states = list(M.XACTION_STATES)
+    secs = [host_ms(lambda: M.train_encoded(
+        seqs, lens, states, cids, list(MARKOV_LABELS), scale=1))[0] / 1e3
+        for _ in range(3)]
+    model = M.train_encoded(seqs, lens, states, cids, list(MARKOV_LABELS),
+                            scale=1)
+    err = max(float(np.abs(model.class_trans[label] - planted[i]).max())
+              for i, label in enumerate(MARKOV_LABELS))
+    if err > MARKOV_PLANTED_ATOL:
+        raise AssertionError(f"phase 8: planted matrices recovered within "
+                             f"{err}, not {MARKOV_PLANTED_ATOL}")
+    log(f"phase 8 Markov at scale: {SEQ_SCALE} sequences of "
+        f"{MARKOV_LEN[0]}-{MARKOV_LEN[1]} states, {n_trans} transitions, "
+        f"{launches} K4 launches of {[a['a'].shape[0] for a, _ in mine]} "
+        f"steps (fewer than 2^24 of them transitions), each exact against "
+        "plain; int64 counts equal the CPU's; planted matrices recovered "
+        f"within {err:.5f} (gate {MARKOV_PLANTED_ATOL}); training "
+        f"{', '.join(f'{s:.4f}' for s in secs)} s (host clock, counts read "
+        "back and normalized)")
+    first = mine[0][0]
+    k4 = time_k4_pair(dev, first["a"], first["b"], first["n_a"],
+                      first["n_b"])
+    log(f"phase 8 K4 at the Markov shape {k4['shape']}: {k4['ms']:.4f} ms "
+        f"chained, {k4['graph_ms']:.4f} ms from graph replays reading HBM "
+        f"({k4['bound_ms'] / k4['graph_ms']:.1%} of bound), plain "
+        f"{k4['plain_ms']:.4f} ms, bincount {k4['library_ms']:.4f} ms, "
+        f"bound {k4['bound_ms']:.4f} ms ({k4['bound_by']})")
+    del calls, mine, first
+    model = M.train_encoded(seqs, lens, states, cids, list(MARKOV_LABELS))
+    t_card, (pred, odds) = host_ms(lambda: M.classify_encoded(
+        model, seqs, lens, MARKOV_LABELS))
+    t0 = time.perf_counter()
+    cpu_pred, cpu_odds = M.classify_encoded(model, host[0], host[1],
+                                            MARKOV_LABELS)
+    t_cpu = time.perf_counter() - t0
+    if not np.array_equal(pred, cpu_pred):
+        raise AssertionError("phase 8: the card's Markov labels differ from "
+                             "the CPU's")
+    if not np.allclose(odds, cpu_odds, rtol=ODDS_RTOL, atol=0.0):
+        raise AssertionError("phase 8: the card's log odds beyond rtol "
+                             f"{ODDS_RTOL} of the CPU's")
+    acc = float((pred == np.asarray(MARKOV_LABELS)[labels]).mean())
+    log(f"phase 8 Markov classify {SEQ_SCALE} sequences: card "
+        f"{t_card / 1e3:.3f} s, CPU {t_cpu:.3f} s (host clock); labels equal "
+        f"the CPU's, log odds bit-identical in "
+        f"{int((odds == cpu_odds).sum())} of {len(odds)} (rtol "
+        f"{ODDS_RTOL}); accuracy on the planted classes {acc:.4f}")
+    return launches, k4
+
+
+def viterbi_at_scale(dev):
+    """``predict_states`` on SEQ_SCALE loyalty sequences: the paths equal
+    the CPU's on a VITERBI_CPU_ROWS slice; its wall time, the decode alone
+    (``viterbi_batch`` on the encoded batch) and its busy share under
+    ``torch.profiler``."""
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.models import hmm as HM
+    from avenir_tpu_torch.ops.scanops import viterbi_batch
+    obs, states, lengths = draw_hmm(SEQ_SCALE, SEED + 82)
+    rows = code_rows(obs, lengths, G.LOYALTY_OBSERVATIONS)
+    model = HM.HmmModel(G.LOYALTY_STATES, G.LOYALTY_OBSERVATIONS,
+                        G.LOYALTY_TRANS, G.LOYALTY_EMIT, G.LOYALTY_INITIAL)
+    wall, paths = host_ms(lambda: HM.predict_states(
+        model, rows, reversed_output=False, device=dev))
+    cpu = HM.predict_states(model, rows[:VITERBI_CPU_ROWS],
+                            reversed_output=False, device="cpu")
+    if paths[:VITERBI_CPU_ROWS] != cpu:
+        raise AssertionError("phase 8: the card's Viterbi paths differ from "
+                             "the CPU's")
+    index = {s: i for i, s in enumerate(G.LOYALTY_STATES)}
+    got = np.zeros_like(states)
+    for b, path in enumerate(paths):
+        got[b, :len(path)] = [index[s] for s in path]
+    live = np.arange(states.shape[1])[None, :] < lengths[:, None]
+    acc = float((got == states)[live].mean())
+    li, lt, le = HM._log_params(model, dev)
+    ob, ln = torch.from_numpy(obs).to(dev), torch.from_numpy(lengths).to(dev)
+    decode = [host_ms(lambda: viterbi_batch(li, lt, le, ob, ln))[0]
+              for _ in range(3)]
+    log(f"phase 8 Viterbi predict_states {SEQ_SCALE} loyalty sequences of "
+        f"{HMM_LEN[0]}-{HMM_LEN[1]} steps: {wall / 1e3:.2f} s (host clock, "
+        "encoding and output included); the decode alone "
+        f"{', '.join(f'{t:.1f}' for t in decode)} ms; paths equal the CPU's "
+        f"on {VITERBI_CPU_ROWS} rows; accuracy against the planted states "
+        f"{acc:.4f}")
+    profile_ops("phase 8 viterbi_batch at scale",
+                lambda: viterbi_batch(li, lt, le, ob, ln))
+
+
+def baum_welch_phase(dev, work):
+    """Baum-Welch on BW_SIZES loyalty sequences (the associative and the
+    sequential E-step), BW_ITERS iterations each: the LL history never
+    decreasing beyond LL_SLACK, within LL_RTOL of the CPU's at every
+    iteration with the same iterations run and the log-parameters within
+    PARAM_ATOL; a checkpointed run stopped after one chunk and resumed
+    equal to the uninterrupted checkpointed run; seconds an iteration and
+    the busy share under ``torch.profiler``."""
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.models import hmm as HM
+    for n in BW_SIZES:
+        obs, _, lengths = draw_hmm(n, SEED + 83)
+        rows = code_rows(obs, lengths, G.LOYALTY_OBSERVATIONS)
+        form = "associative" if n * 3 <= 65536 else "sequential"
+        kwargs = dict(n_iters=BW_ITERS, seed=1)
+        t0 = time.perf_counter()
+        model, ll = HM.train_baum_welch(rows, G.LOYALTY_OBSERVATIONS, 3,
+                                        device=dev, **kwargs)
+        secs = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu_model, cpu_ll = HM.train_baum_welch(
+            rows, G.LOYALTY_OBSERVATIONS, 3, device="cpu", **kwargs)
+        cpu_secs = time.perf_counter() - t0
+        if len(ll) != BW_ITERS or len(cpu_ll) != BW_ITERS:
+            raise AssertionError(f"phase 8 Baum-Welch {n}: {len(ll)} and "
+                                 f"{len(cpu_ll)} iterations run")
+        if not np.all(np.diff(ll) >= -LL_SLACK):
+            raise AssertionError(f"phase 8 Baum-Welch {n}: the LL decreased: "
+                                 f"{ll.tolist()}")
+        ll_err = float(np.max(np.abs(ll - cpu_ll) / np.abs(cpu_ll)))
+        p_err = max(float(np.abs(np.log(getattr(model, k))
+                                 - np.log(getattr(cpu_model, k))).max())
+                    for k in ("trans", "emit", "initial"))
+        if ll_err > LL_RTOL or p_err > PARAM_ATOL:
+            raise AssertionError(f"phase 8 Baum-Welch {n}: LL {ll_err:.3g} "
+                                 f"relative, log-parameters {p_err:.3g} from "
+                                 "the CPU's")
+        ck = os.path.join(work, f"bw_{n}.npz")
+        full = os.path.join(work, f"bw_{n}_full.npz")
+        ck_kwargs = dict(kwargs, chunk_size=BW_CHUNK, device=dev)
+        HM.train_baum_welch(rows, G.LOYALTY_OBSERVATIONS, 3,
+                            **dict(ck_kwargs, n_iters=BW_CHUNK),
+                            checkpoint_path=ck)
+        resumed, r_ll = HM.train_baum_welch(rows, G.LOYALTY_OBSERVATIONS, 3,
+                                            checkpoint_path=ck, **ck_kwargs)
+        whole, w_ll = HM.train_baum_welch(rows, G.LOYALTY_OBSERVATIONS, 3,
+                                          checkpoint_path=full, **ck_kwargs)
+        if not (np.array_equal(r_ll, w_ll) and all(
+                np.array_equal(getattr(resumed, k), getattr(whole, k))
+                for k in ("trans", "emit", "initial"))):
+            raise AssertionError(f"phase 8 Baum-Welch {n}: the resumed run "
+                                 "differs from the uninterrupted one")
+        same = np.array_equal(w_ll, ll)
+        log(f"phase 8 Baum-Welch {n} sequences ({form} E-step), "
+            f"{BW_ITERS} iterations: {secs / BW_ITERS:.4f} s an iteration on "
+            f"the card, {cpu_secs / BW_ITERS:.4f} s on the CPU (host clock); "
+            f"LL {ll[0]:.6g} -> {ll[-1]:.6g}, non-decreasing (slack "
+            f"{LL_SLACK}); against the CPU's: LL within {ll_err:.3g} "
+            f"relative, log-parameters within {p_err:.3g}; resumed after "
+            f"one chunk of {BW_CHUNK} equal to the uninterrupted run; the "
+            f"chunked path's LL {'equal to' if same else 'differs from'} "
+            "the single-dispatch one's")
+        profile_ops(f"phase 8 Baum-Welch {n} sequences, 3 iterations",
+                    lambda: HM.train_baum_welch(
+                        rows, G.LOYALTY_OBSERVATIONS, 3, n_iters=3, seed=1,
+                        device=dev))
+
+
+def sequence_cli_jobs(work):
+    """The four verbs, each on the card and with ``--device cpu`` in a
+    directory of its own: MarkovStateTransitionModel on MARKOV_CLI_TRAIN
+    class-conditional rows (in memory and streamed, K4 launched and each
+    launch held), MarkovModelClassifier (validation) on MARKOV_CLI_TEST
+    held-out rows, HiddenMarkovModelBuilder on HMM_CLI_ROWS tagged
+    loyalty rows and untagged (Baum-Welch, checkpointed) on BW_CLI_ROWS,
+    ViterbiStatePredictor on the tagged rows' observations. Every file
+    and stdout line of the card's jobs equals the CPU's byte for byte
+    but the float fields: the log odds within ODDS_RTOL, the BaumWelch
+    log-likelihood within LL_RTOL and the untagged model file's
+    probabilities within PARAM_ATOL in log space (and the file's six
+    digits). The classifier and Viterbi clear their planted-signal bars.
+    Returns K4's launches."""
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.models import markov as M
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.cli.main import main
+    planted = markov_planted()
+    codes, lengths, labels = draw_markov(MARKOV_CLI_TRAIN + MARKOV_CLI_TEST,
+                                         planted, SEED + 84)
+    seqs = code_rows(codes, lengths, M.XACTION_STATES)
+    markov_rows = [[f"C{i:07d}", MARKOV_LABELS[c]] + s
+                   for i, (c, s) in enumerate(zip(labels.tolist(), seqs))]
+    obs, states, hmm_lengths = draw_hmm(HMM_CLI_ROWS, SEED + 85)
+    obs_rows = code_rows(obs, hmm_lengths, G.LOYALTY_OBSERVATIONS)
+    state_rows = code_rows(states, hmm_lengths, G.LOYALTY_STATES)
+    tagged = [[f"T{i:08d}"] + [f"{o}:{s}" for o, s in zip(orow, srow)]
+              for i, (orow, srow) in enumerate(zip(obs_rows, state_rows))]
+    plain_obs = [[f"T{i:08d}"] + orow for i, orow in enumerate(obs_rows)]
+    dirs = {dev: os.path.join(work, f"seq_{dev}") for dev in ("cuda", "cpu")}
+    for dev, d in dirs.items():
+        os.makedirs(d)
+        write_csv(os.path.join(d, "markov_train.csv"),
+                  markov_rows[:MARKOV_CLI_TRAIN])
+        write_csv(os.path.join(d, "markov_test.csv"),
+                  markov_rows[MARKOV_CLI_TRAIN:])
+        write_csv(os.path.join(d, "tagged.csv"), tagged)
+        write_csv(os.path.join(d, "obs.csv"), plain_obs)
+        write_csv(os.path.join(d, "untagged.csv"), obs_rows[:BW_CLI_ROWS])
+        with open(os.path.join(work, f"seq_{dev}.properties"), "w") as fh:
+            fh.write("field.delim.regex=,\n"
+                     f"model.states={','.join(M.XACTION_STATES)}\n"
+                     "skip.field.count=1\nclass.label.field.ord=1\n"
+                     f"class.labels={','.join(MARKOV_LABELS)}\n"
+                     "validation.mode=true\n"
+                     f"mm.model.path={os.path.join(d, 'markov.txt')}\n")
+        with open(os.path.join(work, f"hmm_{dev}.properties"), "w") as fh:
+            fh.write("field.delim.regex=,\nskip.field.count=1\n"
+                     f"model.states={','.join(G.LOYALTY_STATES)}\n"
+                     "model.observations="
+                     f"{','.join(G.LOYALTY_OBSERVATIONS)}\n"
+                     f"hmm.model.path={os.path.join(d, 'hmm.txt')}\n")
+    launches = 0
+
+    def both(label, verb, inp, out, conf, *extra, k4=False):
+        nonlocal launches
+        reports, walls = {}, {}
+        for dev, d in dirs.items():
+            args = [verb, os.path.join(d, inp), os.path.join(d, out),
+                    "--conf", os.path.join(work, f"{conf}_{dev}.properties"),
+                    *[e.replace("{d}", d) for e in extra], "--device", dev]
+            calls = []
+            H.pair_counts.launches = 0
+            t0 = time.perf_counter()
+            with recording(calls):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    if main(args) != 0:
+                        raise AssertionError(f"phase 8 {label}: {dev} run "
+                                             "failed")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            reports[dev] = buf.getvalue()
+            if dev == "cuda":
+                count = H.pair_counts.launches
+                if k4 and not count:
+                    raise AssertionError(f"phase 8 {label}: K4 not launched")
+                if count and len(hold_k4_pair_calls(
+                        f"phase 8 {label}", calls)) != count:
+                    raise AssertionError(f"phase 8 {label}: {count} K4 "
+                                         "launches, not all recorded")
+                launches += count
+        log(f"phase 8 {label}: card {walls['cuda']:.2f} s, CPU "
+            f"{walls['cpu']:.2f} s (host clock)")
+        return reports
+
+    def same_file(name, reports):
+        a, b = (open(os.path.join(d, name), "rb").read()
+                for d in dirs.values())
+        if a != b or reports["cuda"] != reports["cpu"]:
+            raise AssertionError(f"phase 8: {name} or stdout differs between "
+                                 "the card and the CPU")
+
+    for streamed in ("false", "true"):
+        same_file(f"markov_{streamed}.txt", both(
+            f"MarkovStateTransitionModel {MARKOV_CLI_TRAIN} rows "
+            f"streaming.train={streamed}", "MarkovStateTransitionModel",
+            "markov_train.csv", f"markov_{streamed}.txt", "seq", "-D",
+            f"streaming.train={streamed}", k4=True))
+    for d in dirs.values():
+        shutil.copy(os.path.join(d, "markov_false.txt"),
+                    os.path.join(d, "markov.txt"))
+    if open(os.path.join(dirs["cuda"], "markov_true.txt")).read() != open(
+            os.path.join(dirs["cuda"], "markov_false.txt")).read():
+        raise AssertionError("phase 8: the streamed Markov model differs "
+                             "from the in-memory one")
+    reports = both(f"MarkovModelClassifier {MARKOV_CLI_TEST} rows",
+                   "MarkovModelClassifier", "markov_test.csv", "pred.txt",
+                   "seq")
+    if reports["cuda"] != reports["cpu"]:
+        raise AssertionError(f"phase 8 classifier: stdout differs: "
+                             f"{reports}")
+    lines = {dev: open(os.path.join(d, "pred.txt")).read().splitlines()
+             for dev, d in dirs.items()}
+    fields = {dev: [line.split(",") for line in rows]
+              for dev, rows in lines.items()}
+    if [f[:3] for f in fields["cuda"]] != [f[:3] for f in fields["cpu"]]:
+        raise AssertionError("phase 8 classifier: ids or labels differ")
+    odds = {dev: np.asarray([float(f[3]) for f in rows])
+            for dev, rows in fields.items()}
+    if not np.allclose(odds["cuda"], odds["cpu"], rtol=ODDS_RTOL, atol=0.0):
+        raise AssertionError("phase 8 classifier: log odds beyond rtol "
+                             f"{ODDS_RTOL}")
+    acc = json.loads(reports["cuda"].splitlines()[-1])["Validation.Accuracy"]
+    if acc < MARKOV_ACCURACY_BAR:
+        raise AssertionError(f"phase 8 classifier: accuracy {acc} below "
+                             f"{MARKOV_ACCURACY_BAR}")
+    whole = sum(a == b for a, b in zip(*lines.values()))
+    log(f"phase 8 MarkovModelClassifier: ids, labels and Validation JSON "
+        f"byte-identical to the CPU's, {whole} of {len(lines['cuda'])} "
+        f"lines whole; accuracy {acc:.4f} (bar {MARKOV_ACCURACY_BAR})")
+    same_file("hmm.txt", both(
+        f"HiddenMarkovModelBuilder {HMM_CLI_ROWS} tagged rows",
+        "HiddenMarkovModelBuilder", "tagged.csv", "hmm.txt", "hmm"))
+    same_file("paths.txt", both(
+        f"ViterbiStatePredictor {HMM_CLI_ROWS} rows",
+        "ViterbiStatePredictor", "obs.csv", "paths.txt", "hmm"))
+    index = {s: i for i, s in enumerate(G.LOYALTY_STATES)}
+    hits = total = 0
+    with open(os.path.join(dirs["cuda"], "paths.txt")) as fh:
+        for line, srow in zip(fh, state_rows):
+            path = line.rstrip("\n").split(",")[1:][::-1]
+            hits += sum(index[p] == index[s] for p, s in zip(path, srow))
+            total += len(srow)
+    acc = hits / total
+    if acc < VITERBI_ACCURACY_BAR:
+        raise AssertionError(f"phase 8 Viterbi: accuracy {acc} below "
+                             f"{VITERBI_ACCURACY_BAR}")
+    log(f"phase 8 tagged model and Viterbi paths byte-identical to the "
+        f"CPU's; Viterbi accuracy against the planted states {acc:.4f} "
+        f"(bar {VITERBI_ACCURACY_BAR})")
+    reports = both(f"HiddenMarkovModelBuilder untagged {BW_CLI_ROWS} rows "
+                   f"checkpointed", "HiddenMarkovModelBuilder",
+                   "untagged.csv", "bw.txt", "hmm", "-D",
+                   "training.mode=untagged", "-D", "num.states=3", "-D",
+                   f"num.iterations={BW_ITERS}", "-D",
+                   "trans.prob.scale=1", "-D",
+                   "checkpoint.file.path={d}/bw.npz", "-D",
+                   f"iteration.chunk.size={BW_CHUNK}")
+    bw = {dev: json.loads(r.splitlines()[-1]) for dev, r in reports.items()}
+    ll = [bw[d].pop("BaumWelch.LogLikelihood") for d in ("cuda", "cpu")]
+    if bw["cuda"] != bw["cpu"] or abs(ll[0] - ll[1]) > LL_RTOL * abs(ll[1]):
+        raise AssertionError(f"phase 8 untagged builder: {bw}, LL {ll}")
+    files = {dev: open(os.path.join(d, "bw.txt")).read().splitlines()
+             for dev, d in dirs.items()}
+    if files["cuda"][:2] != files["cpu"][:2]:
+        raise AssertionError("phase 8 untagged builder: states or "
+                             "observations differ")
+    p_err = max(float(np.abs(np.log([float(v) for v in a.split(",")])
+                             - np.log([float(v) for v in b.split(",")]))
+                      .max())
+                for a, b in zip(files["cuda"][2:], files["cpu"][2:]))
+    if p_err > 2 * PARAM_ATOL:
+        raise AssertionError(f"phase 8 untagged builder: model file "
+                             f"probabilities {p_err} apart in log space")
+    log(f"phase 8 untagged builder: {bw['cuda']} on both, LL {ll[0]!r} "
+        f"against {ll[1]!r}; model files within {p_err:.3g} in log space "
+        "(six printed digits)")
+    return launches
+
+
+def sequence_phase(dev, work):
+    """Phase 8; returns K4's kernels-line entry at the Markov shape."""
+    launches, k4 = markov_at_scale(dev)
+    viterbi_at_scale(dev)
+    baum_welch_phase(dev, work)
+    cli_launches = sequence_cli_jobs(work)
+    return {"name": "pair_counts (K4) at the Markov shape (class-conditional "
+                    "transitions: a = class·S + src, b = dst)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:133",
+            "launches": launches, "cli_launches": cli_launches,
+            "max_abs_err": 0.0,
+            **{key: k4[key] for key in ("ms", "graph_ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms",
+                                        "shape")}}
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -2457,7 +2998,8 @@ def run_cli(args):
 @contextlib.contextmanager
 def recording(calls):
     """Record every call of the kernel wrappers of K1-K4 (K4 through
-    ``pair_counts_multi``, the wrapper the path calls) while the main path
+    ``pair_counts_multi``, the wrapper the MI and correlation jobs call,
+    and ``pair_counts``, the Markov path's) while the main path
     runs — its operands and the result the path went on with — so that
     each can be held against its plain version afterwards. The wrappers
     themselves run unchanged and count their launches: they count through
@@ -2467,7 +3009,8 @@ def recording(calls):
     sites = [(cuda_histogram, "class_feature_bin_counts", "K1"),
              (cuda_distance, "topk_raw", "K2"),
              (cuda_fused, "fused_topk_raw", "K3"),
-             (cuda_histogram, "pair_counts_multi", "K4")]
+             (cuda_histogram, "pair_counts_multi", "K4"),
+             (cuda_histogram, "pair_counts", "K4-pair")]
     originals = [getattr(module, attr) for module, attr, _ in sites]
 
     def recorder(fn, name):
@@ -3139,6 +3682,11 @@ def main() -> int:
         k1_tree = tree_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="smoke-seq-", dir=str(_build.BUILD_DIR))
+    try:
+        k4_markov = sequence_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
@@ -3153,6 +3701,7 @@ def main() -> int:
         kernels.append(entry)
     kernels.append(k1_ivf)
     kernels.append(k1_tree)
+    kernels.append(k4_markov)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -119,19 +119,62 @@ def test_elearn_nearest_neighbor_matches(tmp_path, capsys, extra):
     ("plan.enable", "true"), ("knn.ann.live", "true"),
     ("knn.ann.live.tail.budget", "64"), ("knn.sharded", "true"),
     ("neighbor.data.path", "n.txt"), ("prediction.mode", "regression"),
-    ("feed.depth", "3"), ("mesh.shape", "2"),
+    ("feed.depth", "3"),
     ("profile.trace.dir", "trace"), ("obs.live", "true"),
     ("alerts.enable", "true")])
 def test_knn_refuses_later_keys(tmp_path, key, value):
+    """Keys at values that select work the port does not carry;
+    feed.depth sizes the threaded feed, which runs with feed.chunk.rows
+    > 0."""
     write_fixture(tmp_path, "elearn", 50, 10)
     props = _props(tmp_path / "p.properties", **{
         "feature.schema.file.path": tmp_path / "schema.json",
         "train.data.path": tmp_path / "train.csv"})
+    chunked = ["-D", "feed.chunk.rows=4"] if key == "feed.depth" else []
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
                str(tmp_path / "o.txt"), "--conf", props, "-D",
-               f"{key}={value}", "--device", "cpu"])
+               f"{key}={value}", *chunked, "--device", "cpu"])
     assert not (tmp_path / "o.txt").exists()
+
+
+_OFF_OBS = [("profile.trace.dir", ""), ("obs.flight.path", ""),
+            ("obs.http.port", "-1"), ("obs.live", "false"),
+            ("alerts.enable", "false")]
+
+
+@pytest.mark.parametrize("verb,key,value", [
+    *[("BayesianDistribution", k, v) for k, v in _OFF_OBS],
+    *[("NearestNeighbor", k, v) for k, v in _OFF_OBS],
+    ("NearestNeighbor", "feed.depth", "3"),
+    ("NearestNeighbor", "mesh.shape", "2")])
+def test_off_values_of_later_keys_match_the_jax_cli(tmp_path, capsys, verb,
+                                                    key, value):
+    """Keys at values with which the JAX CLI does nothing — the
+    observability keys off, feed.depth without the chunked feed,
+    mesh.shape without knn.sharded — run, and every output is the JAX
+    CLI's, byte for byte."""
+    name = "churn" if verb == "BayesianDistribution" else "elearn"
+    write_fixture(tmp_path, name, 400, 100, seed=21)
+    props = _props(tmp_path / "p.properties", **{
+        "field.delim.regex": ",", "field.delim": ",",
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "validation.mode": "true", "positive.class.value":
+            "closed" if name == "churn" else "fail"})
+    data = "train.csv" if name == "churn" else "test.csv"
+    extra = ["-D", f"{key}={value}"]
+    if verb == "NearestNeighbor":
+        extra += ["-D", "knn.mode=exact"]
+    j_out, t_out = _run_both(
+        capsys,
+        [verb, str(tmp_path / data), str(tmp_path / "j.txt"), "--conf",
+         props] + extra,
+        [verb, str(tmp_path / data), str(tmp_path / "t.txt"), "--conf",
+         props] + extra)
+    assert j_out == t_out
+    assert (tmp_path / "j.txt").read_bytes() == (tmp_path / "t.txt") \
+        .read_bytes()
 
 
 @pytest.mark.parametrize("extra", [
@@ -198,7 +241,6 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
 _SIMILARITY = "'`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs'"
 _TREES = "'Forests and boosting'"
 _EXPLORE = "'Explore, regress, discriminant and text'"
-_SEQUENCES = "'Sequences'"
 _BANDITS = "'Bandits and streaming serving'"
 _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
 
@@ -212,8 +254,8 @@ _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
     (["LogisticRegressionJob"], _EXPLORE),
     (["UnderSamplingBalancer"], _EXPLORE),
     (["WordCounter"], _EXPLORE),
-    (["MarkovStateTransitionModel"], _SEQUENCES),
-    (["ViterbiStatePredictor"], _SEQUENCES),
+    (["RandomForestPredictor"], _TREES),
+    (["SoftMaxBandit"], _BANDITS),
     (["GreedyRandomBandit"], _BANDITS),
     (["ReinforcementLearnerTopology"], _BANDITS),
     (["Lifecycle"], _BANDITS),
@@ -245,7 +287,7 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    assert len(named) >= 13
+    assert len(named) >= 12
     assert "Multi-device layer" in named
     assert "Streaming/sharded NB and per-shard MI" in named
     assert named <= titles, named - titles
