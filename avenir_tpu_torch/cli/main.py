@@ -15,6 +15,12 @@
     python -m avenir_tpu_torch MarkovModelClassifier IN OUT --conf P
     python -m avenir_tpu_torch HiddenMarkovModelBuilder IN MODEL --conf P
     python -m avenir_tpu_torch ViterbiStatePredictor IN OUT --conf P
+    python -m avenir_tpu_torch RandomForestBuilder  IN MODEL --conf P
+    python -m avenir_tpu_torch RandomForestPredictor IN OUT --conf P
+    python -m avenir_tpu_torch GreedyRandomBandit   IN OUT --conf P
+    python -m avenir_tpu_torch AuerDeterministic    IN OUT --conf P
+    python -m avenir_tpu_torch SoftMaxBandit        IN OUT --conf P
+    python -m avenir_tpu_torch RandomFirstGreedyBandit IN OUT --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
@@ -22,8 +28,9 @@ six verbs, the part-file KNN path: ``_shard_resilience_kwargs``,
 ``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``, and the
 five tree verbs with ``_write_predictions``, ``_find_used_attributes``,
 ``_select_split_attributes``, ``_split_algorithm``, ``_read_raw_lines``,
-``_run_data_partitioner_batched``, and the four sequence verbs), with
-the same ``.properties`` keys, schemas and output files. ``--device
+``_run_data_partitioner_batched``, the four sequence verbs, the two
+forest verbs and ``_run_batch_bandit``'s four bandit verbs), with the
+same ``.properties`` keys, schemas and output files. ``--device
 {cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
 ``--device cpu`` the job raises.
 
@@ -77,32 +84,27 @@ _SHARD_MI = ("per-shard journaled MI "
              f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
              "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
+_LATER_FOREST = {"plan.enable": _PLAN}
 _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
 _SIMILARITY = roadmap_item(
     "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
-_FORESTS = roadmap_item("Forests and boosting")
+_BOOSTING = roadmap_item("Forests and boosting")
 _EXPLORE = roadmap_item("Explore, regress, discriminant and text")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
     "FeatureCondProbJoiner": _SIMILARITY,
-    "RandomForestBuilder": _FORESTS,
-    "RandomForestPredictor": _FORESTS,
-    "GradientBoostBuilder": _FORESTS,
-    "GradientBoostPredictor": _FORESTS,
+    "GradientBoostBuilder": _BOOSTING,
+    "GradientBoostPredictor": _BOOSTING,
     "Projection": _EXPLORE,
     "WordCounter": _EXPLORE,
     "UnderSamplingBalancer": _EXPLORE,
     "BaggingSampler": _EXPLORE,
     "LogisticRegressionJob": _EXPLORE,
     "FisherDiscriminant": _EXPLORE,
-    "GreedyRandomBandit": _BANDITS,
-    "AuerDeterministic": _BANDITS,
-    "SoftMaxBandit": _BANDITS,
-    "RandomFirstGreedyBandit": _BANDITS,
     "ReinforcementLearnerTopology": _BANDITS,
     "Lifecycle": _BANDITS,
 }
@@ -935,6 +937,109 @@ def run_data_partitioner(conf: JobConfig, in_path: str, out_path: str,
 
 
 
+# -- the forest verbs ---------------------------------------------------------
+
+def run_forest_builder(conf: JobConfig, in_path: str, out_path: str,
+                       device: torch.device) -> None:
+    """Grow a random forest: ``num.trees`` trees, each on
+    ``random.split.set.size`` random attributes and (with ``bagging``) a
+    bootstrap of the rows, under ``random.seed``, ``forest.growth``
+    (auto|batched|serial) and the TreeBuilder keys. The artifact stacks
+    TreeBuilder's JSON tree format, written rename-atomically. The JAX
+    CLI runs this through its plan layer by default, with the same
+    artifact; an explicit ``plan.enable=true`` is refused."""
+    from avenir_tpu_torch.models import forest as F
+    from avenir_tpu_torch.models.tree import TreeConfig
+    _check_keys(conf, _LATER_FOREST)
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    cfg = F.ForestConfig(
+        n_trees=conf.get_int("num.trees", 10),
+        attrs_per_tree=conf.get_int("random.split.set.size", 3),
+        bagging=conf.get_bool("bagging", True),
+        seed=conf.get_int("random.seed", 0),
+        growth=conf.get("forest.growth", "auto"),
+        tree=TreeConfig(
+            algorithm=_split_algorithm(conf),
+            max_depth=conf.get_int("max.depth", 3),
+            min_node_size=conf.get_int("min.node.size", 10),
+            max_cat_attr_split_groups=conf.get_int(
+                "max.cat.attr.split.groups", 3),
+            split_selection_strategy=conf.get(
+                "split.selection.strategy", "best"),
+            num_top_splits=conf.get_int("num.top.splits", 5),
+            min_gain=conf.get_float("min.gain", 1e-6),
+            device_node_budget=conf.get_int("device.node.budget", 2048)))
+    trees = F.grow_forest(table, cfg)
+    F.save_forest(trees, out_path)
+    print(json.dumps({"Forest.Trees": len(trees),
+                      "Forest.Rows": table.n_rows}))
+
+
+def run_forest_predictor(conf: JobConfig, in_path: str, out_path: str,
+                         device: torch.device) -> None:
+    """Majority-vote classification down a RandomForestBuilder model
+    (``forest.model.file.path``): the host walk, or from
+    ``_DEVICE_PREDICT_ROWS`` rows on (``device.predict`` overrides) every
+    tree routed and voted on the device; both give the same output."""
+    from avenir_tpu_torch.models import forest as F
+    validation = conf.get_bool("validation.mode", False)
+    fz, rows = _load_table(conf, in_path, device, for_predict=True)
+    table = fz.transform(rows, with_labels=validation)
+    trees = F.load_forest(conf.get_required("forest.model.file.path"))
+    on_device = conf.get_bool("device.predict",
+                              table.n_rows >= _DEVICE_PREDICT_ROWS)
+    pred = F.predict_forest(trees, table, device=on_device)
+    _write_predictions(conf, out_path, table, pred, trees[0].class_values)
+
+
+# -- the batch bandit verbs ---------------------------------------------------
+
+def _run_batch_bandit(algorithm: str, conf: JobConfig, in_path: str,
+                      out_path: str, device: torch.device) -> None:
+    """The four MR batch bandits: sorted ``group,item,count,reward`` rows
+    in, ``group,item`` selections of the next round out
+    (``models/bandits/batch.py``, numpy on the host: the job launches
+    nothing on ``device``, as the JAX CLI launches nothing).
+    ``group.item.count.path`` gives per-group batch sizes."""
+    from avenir_tpu_torch.models import bandits as B
+    delim = conf.get("field.delim.regex", ",")
+    rows = read_csv_lines(in_path, delim)
+    count_ord = conf.get_int("count.ordinal", 2)
+    reward_ord = conf.get_int("reward.ordinal", 3)
+    groups: Dict[str, list] = {}
+    for r in rows:
+        groups.setdefault(r[0], []).append(r)
+    group_items = {g: B.GroupItems.from_rows(rs, count_ord, reward_ord)
+                   for g, rs in groups.items()}
+    batch_sizes = None
+    bc_path = conf.get("group.item.count.path")
+    if bc_path:
+        batch_sizes = {r[0]: int(r[1]) for r in read_csv_lines(bc_path, ",")}
+    cfg = B.BanditConfig(
+        round_num=conf.get_int("current.round.num", 1),
+        batch_size=conf.get_int("batch.size", 1),
+        random_selection_prob=conf.get_float("random.selection.prob", 0.5),
+        prob_reduction_constant=conf.get_float("prob.reduction.constant",
+                                               1.0),
+        prob_reduction_algorithm=conf.get("prob.reduction.algorithm",
+                                          "linear"),
+        auer_greedy_constant=conf.get_int("auer.greedy.constant", 5),
+        temp_constant=conf.get_float("temp.constant", 0.1),
+        exploration_count_factor=conf.get_int("exploration.count.factor", 2),
+        exploration_count_strategy=conf.get("exploration.count.strategy",
+                                            "simple"),
+        reward_diff=conf.get_float("reward.diff", 0.1),
+        prob_diff=conf.get_float("prob.diff", 0.1))
+    selections = B.select_all_groups(algorithm, group_items, cfg,
+                                     batch_sizes,
+                                     seed=conf.get_int("random.seed", 0))
+    delim_out = conf.get("field.delim", ",")
+    with open(out_path, "w") as fh:
+        for gid, item in selections:
+            fh.write(delim_out.join([gid, item]) + "\n")
+
+
 def run_markov_state_transition_model(conf: JobConfig, in_path: str,
                                       out_path: str,
                                       device: torch.device) -> None:
@@ -1107,6 +1212,12 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "MarkovModelClassifier": run_markov_model_classifier,
     "HiddenMarkovModelBuilder": run_hmm_builder,
     "ViterbiStatePredictor": run_viterbi_state_predictor,
+    "RandomForestBuilder": run_forest_builder,
+    "RandomForestPredictor": run_forest_predictor,
+    **{name: (lambda c, i, o, d, _name=name:
+              _run_batch_bandit(_name, c, i, o, d))
+       for name in ("GreedyRandomBandit", "AuerDeterministic",
+                    "SoftMaxBandit", "RandomFirstGreedyBandit")},
 }
 
 

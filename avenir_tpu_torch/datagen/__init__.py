@@ -3,4 +3,4 @@
 from avenir_tpu_torch.datagen.generators import (  # noqa: F401
     churn_rows, churn_schema, elearn_rows, elearn_schema, elearn_schema_json,
     hmm_tagged_rows, hosp_readmit_rows, hosp_readmit_schema, markov_sequences,
-    retarget_rows, retarget_schema)
+    price_opt_arms, retarget_rows, retarget_schema)

@@ -1,11 +1,11 @@
 """Seeded workload generators with planted signal: the churn (Naive Bayes,
 Cramér correlation), elearn (KNN), hospital-readmission (mutual
-information) and abandoned-cart retarget (decision tree) tutorials, and
-the Markov-chain and HMM sequences (the email-marketing and
-customer-loyalty tutorials).
+information) and abandoned-cart retarget (decision tree and forest)
+tutorials, the Markov-chain and HMM sequences (the email-marketing and
+customer-loyalty tutorials) and the price-optimization bandit's arms.
 
-A copy of the churn, elearn, hospital-readmission, retarget, Markov
-sequence and tagged HMM sections of
+A copy of the churn, elearn, hospital-readmission, retarget, price
+optimization, Markov sequence and tagged HMM sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -279,6 +279,30 @@ def retarget_rows(n: int, seed: int = 5) -> List[List[str]]:
         converted = "yes" if rng.random() < p else "no"
         rows.append([f"R{i:06d}", str(cart), str(visits), loyalty, converted])
     return rows
+
+
+# --------------------------------------------------------------------------
+# price optimization (bandit tutorial: resource/price_opt.py)
+# --------------------------------------------------------------------------
+
+def price_opt_arms(n_groups: int = 100, n_arms_lo: int = 6,
+                   n_arms_hi: int = 12, seed: int = 11
+                   ) -> Dict[str, Tuple[List[str], np.ndarray]]:
+    """Per-product candidate prices with a concave expected-revenue curve and
+    a known peak (resource/price_opt.py:7-27). Returns
+    {group: (arm_names, expected_reward[arm])}."""
+    rng = np.random.default_rng(seed)
+    groups = {}
+    for g in range(n_groups):
+        n_arms = int(rng.integers(n_arms_lo, n_arms_hi + 1))
+        base = rng.uniform(20, 80)
+        prices = np.round(base * (1 + 0.08 * np.arange(n_arms)), 2)
+        peak = rng.integers(0, n_arms)
+        # concave revenue curve peaking at `peak`
+        reward = 100 - 8.0 * (np.arange(n_arms) - peak) ** 2
+        reward = np.maximum(reward, 5.0) + rng.uniform(0, 1, n_arms)
+        groups[f"P{g:04d}"] = ([str(p) for p in prices], reward)
+    return groups
 
 
 # --------------------------------------------------------------------------

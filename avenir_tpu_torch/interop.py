@@ -6,7 +6,12 @@ drive both this port and the JAX package.
 The model files are the other carrier: each package's ``load_model``
 reads what the other's ``save_model`` wrote, and a decision tree crosses
 over as TreeBuilder's JSON artifact (``TreeNode.to_dict`` /
-``TreeNode.from_dict``), which each package's TreePredictor reads.
+``TreeNode.from_dict``), which each package's TreePredictor reads. A
+random forest crosses over as its stacked artifact (``save_forest`` /
+``load_forest``: the same bytes from both packages, each loader reading
+the other's), and a batch bandit round as its ``group,item,count,reward``
+file, which each package's four bandit verbs read into the same
+selections. Neither needs a converter here.
 """
 
 from __future__ import annotations

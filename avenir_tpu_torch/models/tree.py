@@ -13,7 +13,8 @@ same artifacts:
 - **Host growth** (``grow_tree``): the SplitGenerator → DataPartitioner
   rounds of a whole tree in memory, one pass of candidate counts for each
   level, ``best`` or ``randomFromTop`` selection.
-- **Device growth** (``grow_tree_device``, ``grow_levels_batched``): a
+- **Device growth** (``grow_tree_device``, ``grow_levels_batched``, and
+  ``models/forest.py``'s forests, with a leading tree axis): a
   level's (node, feature, bin, class) histogram from K1
   (``ops.histogram.node_class_bin_counts``, one launch for each chunk of
   8,192 (node, bin) cells), every candidate's segment counts summed from
@@ -684,7 +685,8 @@ def _device_candidates(table: EncodedTable, plans) -> _DeviceCandidates:
 
 def _level_hist(node_id, row_w, labels, bins_rows, *, k_nodes: int,
                 b_max: int, n_classes: int) -> torch.Tensor:
-    """The level's binned counts [A, K, B, C] through K1. Row weights pass
+    """The level's binned counts [A, K, B, C] through K1 ([Kt, A, K, B, C]
+    for node ids and weights with a leading tree axis). Row weights pass
     through bf16 first, as the JAX package's growth rounds them."""
     w = row_w.to(torch.bfloat16).to(torch.float32)
     return hg.node_class_bin_counts(bins_rows, node_id, labels, k_nodes,
@@ -693,63 +695,86 @@ def _level_hist(node_id, row_w, labels, bins_rows, *, k_nodes: int,
 
 def _counts_from_hist(hist: torch.Tensor, cand: _DeviceCandidates
                       ) -> torch.Tensor:
-    """[T, S, K, C] segment counts of every candidate, summed from the
-    level's histogram ``hist`` [A, K, B, C] over the bins of each segment
-    (integers, exact in any order)."""
-    h = hist[cand.col_of_t]                              # [T, K, B, C]
+    """[..., T, S, K, C] segment counts of every candidate, summed from the
+    level's histogram ``hist`` [..., A, K, B, C] over the bins of each
+    segment (integers, exact in any order); a leading tree axis rides
+    along."""
+    h = hist.index_select(-4, cand.col_of_t)             # [..., T, K, B, C]
     return torch.stack(
-        [(h * (cand.seg_of_bin == s)[:, None, :, None]).sum(dim=2)
-         for s in range(cand.s_max)], dim=1)
+        [(h * (cand.seg_of_bin == s)[:, None, :, None]).sum(dim=-2)
+         for s in range(cand.s_max)], dim=-3)
 
 
 def _level_select(counts: torch.Tensor, *, algorithm: str,
                   min_node_size: int, min_gain: float,
+                  cand_mask: Optional[torch.Tensor] = None,
                   with_ratio: bool = False):
     """Best split of every node from the level's [T, S, K, C] counts, the
     class counts of every child through it, and compact next-level slots
     for the children that can split again (a cumsum over their
-    liveness)."""
-    t_total, s_max, k_nodes, n_classes = counts.shape
-    node_counts = counts[0].sum(dim=0)                   # [K, C]
-    flat_sgc = counts.permute(0, 2, 1, 3).reshape(t_total * k_nodes, s_max,
-                                                  n_classes)
-    stat = it.split_stat(flat_sgc, algorithm).reshape(t_total, k_nodes)
+    liveness).
+
+    ``counts`` may carry a leading tree axis [Kt, T, S, K, C] (a forest's
+    level); every record then carries it too. ``cand_mask`` [Kt, T]
+    (each tree's attribute subset) sinks the ratios of the candidates
+    outside it to -inf before the first-index argmax: the catalog is
+    sorted by attribute, so this picks what the subset's own catalog
+    would. The statistics are elementwise over (tree, candidate, node),
+    so a tree's stats round as they do alone."""
+    single = counts.dim() == 4
+    if single:
+        counts = counts[None]
+    kt, t_total, s_max, k_nodes, n_classes = counts.shape
+    node_counts = counts[:, 0].sum(dim=1)                # [Kt, K, C]
+    flat_sgc = counts.permute(0, 1, 3, 2, 4).reshape(
+        kt * t_total * k_nodes, s_max, n_classes)
+    stat = it.split_stat(flat_sgc, algorithm).reshape(kt, t_total, k_nodes)
     if _info_algorithm(algorithm):
-        intr = it.intrinsic_info_content(flat_sgc).reshape(t_total, k_nodes)
-        gain = it.info(node_counts, algorithm)[None, :] - stat
+        intr = it.intrinsic_info_content(flat_sgc).reshape(kt, t_total,
+                                                           k_nodes)
+        gain = it.info(node_counts, algorithm)[:, None, :] - stat
         ratio = torch.where(intr > 0, gain / it._nonzero(intr),
                             torch.zeros_like(gain))
     else:
         ratio = stat
-    best_t = torch.argmax(ratio, dim=0)                  # [K], first max
-    best_ratio = ratio.gather(0, best_t[None, :])[0]
-    split_k = ((node_counts.sum(dim=1) >= min_node_size)
-               & ((node_counts > 0).sum(dim=1) > 1)
-               & (best_ratio > min_gain))
-    child_counts = counts.permute(2, 0, 1, 3)[
-        torch.arange(k_nodes, device=counts.device), best_t]   # [K, S, C]
+    if cand_mask is not None:
+        ratio = torch.where(cand_mask[:, :, None], ratio,
+                            torch.full_like(ratio, float("-inf")))
+    best_t = torch.argmax(ratio, dim=1)                  # [Kt, K], first max
+    best_ratio = ratio.gather(1, best_t[:, None, :])[:, 0]
+    split_k = ((node_counts.sum(dim=-1) >= min_node_size)
+               & ((node_counts > 0).sum(dim=-1) > 1)
+               & (best_ratio > min_gain))                # [Kt, K]
+    child_counts = counts.permute(0, 3, 1, 2, 4).gather(
+        2, best_t[:, :, None, None, None].expand(
+            kt, k_nodes, 1, s_max, n_classes))[:, :, 0]  # [Kt, K, S, C]
     # live = could split again: its own level's size and purity tests
-    live = (split_k[:, None] & (child_counts.sum(dim=-1) >= min_node_size)
-            & ((child_counts > 0).sum(dim=-1) > 1))            # [K, S]
-    ls = live.reshape(-1)
-    slot = torch.cumsum(ls.to(torch.int64), dim=0) - 1
+    live = (split_k[..., None] & (child_counts.sum(dim=-1) >= min_node_size)
+            & ((child_counts > 0).sum(dim=-1) > 1))      # [Kt, K, S]
+    ls = live.reshape(kt, -1)
+    slot = torch.cumsum(ls.to(torch.int64), dim=1) - 1
     rec = {"best_t": best_t, "split": split_k, "child_counts": child_counts,
-           "child_slot": torch.where(ls, slot, -1).reshape(k_nodes, s_max),
-           "n_live": ls.sum()}
+           "child_slot": torch.where(ls, slot, -1).reshape(kt, k_nodes,
+                                                           s_max),
+           "n_live": ls.sum(dim=1)}
     if with_ratio:
         rec["ratio"] = ratio
-    return rec
+    return {k: v[0] for k, v in rec.items()} if single else rec
 
 
 def _route_level_hist(node_id, row_w, best_t, child_slot_flat,
                       cand: _DeviceCandidates, *, k_next: int):
     """Each row's child slot: its segment under its node's chosen candidate
     is ``seg_of_bin[t, bin]``. Rows whose child is a leaf (or past the
-    budget) keep a slot and get weight 0."""
-    t_row = best_t[node_id]
-    bin_row = cand.bins_rows.gather(1, cand.col_of_t[t_row][:, None])[:, 0]
+    budget) keep a slot and get weight 0. ``node_id`` and ``row_w`` [N],
+    ``best_t`` [K] and ``child_slot_flat`` [K·S], or each with a leading
+    tree axis."""
+    t_row = best_t.gather(-1, node_id)
+    col_row = cand.col_of_t[t_row]
+    bin_row = cand.bins_rows.T.gather(
+        0, col_row.reshape(-1, col_row.shape[-1])).reshape(col_row.shape)
     seg_row = cand.seg_of_bin.reshape(-1)[t_row * cand.b_max + bin_row]
-    cs_row = child_slot_flat[node_id * cand.s_max + seg_row]
+    cs_row = child_slot_flat.gather(-1, node_id * cand.s_max + seg_row)
     in_budget = (cs_row >= 0) & (cs_row < k_next)
     return (cs_row.clamp(0, k_next - 1),
             row_w * in_budget.to(row_w.dtype))
@@ -768,11 +793,16 @@ def _level_widths(depth: int, s_max: int, budget: int) -> List[int]:
 def _grow_levels(labels: torch.Tensor, cand: _DeviceCandidates,
                  row_w0: torch.Tensor, *, depth: int, n_classes: int,
                  algorithm: str, min_node_size: int, min_gain: float,
-                 node_budget: int, with_ratio: bool = False):
+                 node_budget: int, with_ratio: bool = False,
+                 cand_mask: Optional[torch.Tensor] = None):
     """The level records of a depth-D growth, left on the device: for each
     level one K1 histogram (per chunk), selection, compaction and
-    routing, with no host synchronization."""
-    node_id = torch.zeros(labels.shape[0], dtype=torch.int64,
+    routing, with no host synchronization. A forest passes ``row_w0``
+    [Kt, N] (each tree's bootstrap weights) and ``cand_mask`` [Kt, T]
+    (each tree's attribute subset): the tree axis then leads every
+    tensor and record, and a level's torch operations do not multiply
+    with the trees (K1 launches once for each tree and chunk)."""
+    node_id = torch.zeros(row_w0.shape, dtype=torch.int64,
                           device=labels.device)
     row_w = row_w0
     records = []
@@ -784,9 +814,10 @@ def _grow_levels(labels: torch.Tensor, cand: _DeviceCandidates,
                            n_classes=n_classes)
         rec = _level_select(_counts_from_hist(hist, cand),
                             algorithm=algorithm, min_node_size=min_node_size,
-                            min_gain=min_gain, with_ratio=with_ratio)
+                            min_gain=min_gain, cand_mask=cand_mask,
+                            with_ratio=with_ratio)
         node_id, row_w = _route_level_hist(
-            node_id, row_w, rec["best_t"], rec["child_slot"].reshape(-1),
+            node_id, row_w, rec["best_t"], rec["child_slot"].flatten(-2),
             cand, k_next=k_next)
         records.append(rec)
     return records

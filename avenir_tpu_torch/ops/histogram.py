@@ -10,7 +10,8 @@ row axis.
 Ids outside their range drop out (the one-hot behavior), and integer
 counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
 counts — goes through K1, as does ``node_class_bin_counts``, a tree
-level's histogram (one K1 launch for each chunk of its nodes), and
+level's histogram (one K1 launch for each chunk of its nodes, and for a
+forest's level one for each tree and chunk), and
 ``pair_counts`` and ``pair_counts_multi`` —
 the contingency counts of MI and correlation, one pair or every pair of a
 job in one launch — through K4 (``ops/cuda_histogram.py``), whose wrappers
@@ -72,6 +73,9 @@ def class_feature_bin_counts(bins: torch.Tensor, labels: torch.Tensor,
 #: most combined (node, bin) cells of one K1 launch in node_class_bin_counts
 #: (the JAX package's chunk, so that launches correspond)
 _NODE_CHUNK_CB = 8192
+#: most (tree, row, feature) combined ids node_class_bin_counts builds at
+#: once for a forest's level (int32: 256 MiB)
+_FOREST_IDS = 1 << 26
 
 
 def node_class_bin_counts(bins: torch.Tensor, node_id: torch.Tensor,
@@ -85,25 +89,44 @@ def node_class_bin_counts(bins: torch.Tensor, node_id: torch.Tensor,
     bin``) of ``class_feature_bin_counts``, one call for each chunk of
     ``_NODE_CHUNK_CB // n_bins`` nodes; rows outside the chunk, and bins
     or nodes out of range, take the combined id -1 and drop out, so the
-    chunks partition the rows and the counts equal an unchunked pass."""
+    chunks partition the rows and the counts equal an unchunked pass.
+
+    A forest's level passes ``node_id`` and ``weights`` with a leading
+    tree axis [Kt, N] and gets [Kt, A, n_nodes, n_bins, n_classes]: the
+    combined ids of a group of trees are built together, then each tree
+    counts in its own K1 calls."""
     n, n_a = bins.shape
     bins = bins.to(torch.int32)
-    node_id = node_id.to(torch.int32)
+    labels = labels.to(torch.int32).contiguous()
+    forest = node_id.dim() == 2
+    node_b = node_id.to(torch.int32).reshape(-1, n)
+    w_b = None if weights is None else \
+        weights.to(torch.float32).reshape(-1, n)
+    kt = node_b.shape[0]
     bin_ok = (bins >= 0) & (bins < n_bins)
-    node_ok = (node_id >= 0) & (node_id < n_nodes)
+    node_ok = (node_b >= 0) & (node_b < n_nodes)
     chunk = max(1, _NODE_CHUNK_CB // max(n_bins, 1))
+    group = max(1, _FOREST_IDS // max(n * n_a, 1))
     parts = []
     for k0 in range(0, n_nodes, chunk):
         k1 = min(k0 + chunk, n_nodes)
-        in_chunk = node_ok & (node_id >= k0) & (node_id < k1)
-        combined = torch.where(bin_ok & in_chunk[:, None],
-                               (node_id[:, None] - k0) * n_bins + bins, -1)
-        flat = class_feature_bin_counts(combined, labels, n_classes,
-                                        (k1 - k0) * n_bins, weights)
-        # [C, A, (k1-k0)·B] -> [A, k1-k0, B, C]
-        parts.append(flat.reshape(n_classes, n_a, k1 - k0, n_bins)
-                     .permute(1, 2, 3, 0))
-    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+        flats = []
+        for g0 in range(0, kt, group):
+            g1 = min(g0 + group, kt)
+            nb = node_b[g0:g1]
+            in_chunk = node_ok[g0:g1] & (nb >= k0) & (nb < k1)
+            combined = torch.where(bin_ok & in_chunk[..., None],
+                                   (nb[..., None] - k0) * n_bins + bins, -1)
+            flats += [class_feature_bin_counts(
+                combined[i], labels, n_classes, (k1 - k0) * n_bins,
+                None if w_b is None else w_b[g0 + i])
+                for i in range(g1 - g0)]
+        flat = flats[0][None] if kt == 1 else torch.stack(flats)
+        # [Kt, C, A, (k1-k0)·B] -> [Kt, A, k1-k0, B, C]
+        parts.append(flat.reshape(kt, n_classes, n_a, k1 - k0, n_bins)
+                     .permute(0, 2, 3, 4, 1))
+    out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
+    return out if forest else out[0]
 
 
 def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,

@@ -227,7 +227,30 @@ Phases (one line each; any failure exits non-zero):
    float fields (log odds within rtol 1e-6, the BaumWelch LL within rtol
    1e-5, the untagged model within 1e-4 in log space and its six printed
    digits), classifier accuracy at least 0.95 and Viterbi accuracy
-   against the planted states at least 0.45.
+   against the planted states at least 0.45;
+9. forests and bandits (``models/forest.py``: K1 counts each tree's level
+   histogram, one launch for each tree and chunk of nodes, with the tree
+   axis leading the selection and routing; ``models/bandits``: numpy):
+   the forest tutorial's forest (50 trees, ``random.split.set.size=3``,
+   depth 6, bagging, seed 7, ``auto`` growth) on phase 7's 1,048,576
+   retarget rows and a 16-tree forest on 1,048,576 hospital rows tiled
+   alike, every K1 launch held exactly against its plain version and
+   their count one for each real tree and chunk, the batched forest equal
+   to the serial one tree by tree, the bootstrap draws, the batched growth
+   from the drawn plans and the serial growth each timed (host clock), the
+   batched growth under ``torch.profiler``, each forest equal to the
+   CPU's on 65,536 of its
+   rows; the device vote on 1,048,576 rows timed and equal to the host
+   walk on 65,536; K1 at every level shape of both forests (chained, from
+   graph replays reading HBM, plain, ``bincount``, bytes bound);
+   ``grow_forest_streaming`` over 8 part files of 16,384 retarget rows (10
+   trees), without bagging equal to ``grow_forest_batched`` over the same
+   rows and with bagging equal to the CPU's streamed forest; then
+   RandomForestBuilder (200,000 rows, 10 trees) and RandomForestPredictor
+   (50,000 rows, validation, host walk and device vote) and the four
+   bandit verbs on a round of 100 price-optimization groups with
+   ``group.item.count.path``, each on the card and with ``--device cpu``:
+   every file and stdout line equal, forest accuracy at least 0.65.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -240,7 +263,10 @@ launches of phase 6's builds, and a third at the tree shape, with the
 launches of phase 7's two trees (its CLI jobs' in ``cli_launches``) and
 each level shape's times in ``levels``; a fourth, K4 at the Markov
 shape, with the launches of phase 8's training at scale (its CLI jobs' in
-``cli_launches``); K6-K12 add ``parent_ms``, the
+``cli_launches``); a fifth, K1 at the forest shape (``K1-forest``), with
+the launches of phase 9's two forests at scale (its streamed growth's in
+``stream_launches``, its CLI jobs' in ``cli_launches``) and each level
+shape's times in ``levels``; K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -2975,6 +3001,393 @@ def sequence_phase(dev, work):
 
 
 # --------------------------------------------------------------------------
+# phase 9: forests and bandits
+# --------------------------------------------------------------------------
+
+# the forest tutorial (docs/TUTORIALS.md "Training forests at scale") on the
+# tree workload's 1,048,576 retarget rows, and hospital rows tiled alike
+FOREST_TREES, FOREST_SET, FOREST_DEPTH, FOREST_SEED = 50, 3, 6, 7
+HOSP_FOREST_TREES = 16
+FOREST_CPU_ROWS = 65_536
+# streamed growth: 8 part files of retarget rows
+STREAM_PARTS, STREAM_PART_ROWS, STREAM_TREES = 8, 16_384, 10
+# the CLI jobs: retarget rows, and the price tutorial's groups
+FOREST_TRAIN, FOREST_TEST = 200_000, 50_000
+CLI_FOREST_TREES = 10
+BANDIT_GROUPS = 100
+# the planted rule caps a tree near 0.725 and the majority class reads
+# ~0.54; a tree of random.split.set.size=2 sees only one of the rule's two
+# attributes a time in three, so the ten trees' vote reads ~0.69-0.72
+FOREST_ACCURACY_BAR = 0.65
+
+
+def hosp_big_table(dev):
+    """1,048,576 hospital rows on ``dev``: 4,096 rows featurized, then
+    tiled as ``retarget_big_table`` tiles its rows."""
+    import dataclasses
+    from avenir_tpu_torch.datagen import hosp_readmit_rows, hosp_readmit_schema
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    base = hosp_readmit_rows(TREE_BASE_ROWS, seed=1)
+    table = Featurizer(hosp_readmit_schema(), device=dev).fit(base) \
+        .transform(base)
+    return dataclasses.replace(
+        table, binned=table.binned.repeat(TREE_REPS, 1),
+        numeric=table.numeric.repeat(TREE_REPS, 1),
+        labels=table.labels.repeat(TREE_REPS), ids=[],
+        n_rows=table.n_rows * TREE_REPS)
+
+
+def rows_of(table, n, dev):
+    """The first ``n`` rows of ``table`` on ``dev``."""
+    import dataclasses
+    return dataclasses.replace(
+        table, binned=table.binned[:n].to(dev),
+        numeric=table.numeric[:n].to(dev), labels=table.labels[:n].to(dev),
+        ids=[], n_rows=n)
+
+
+def forest_config(n_trees, growth="auto", bagging=True, depth=FOREST_DEPTH):
+    from avenir_tpu_torch.models import forest as F
+    from avenir_tpu_torch.models import tree as T
+    return F.ForestConfig(n_trees=n_trees, attrs_per_tree=FOREST_SET,
+                          bagging=bagging, seed=FOREST_SEED, growth=growth,
+                          tree=T.TreeConfig(max_depth=depth))
+
+
+def canon(trees):
+    from avenir_tpu_torch.models import tree as T
+    return [T.canonical_tree(t) for t in trees]
+
+
+def forest_k1_launches(table, cfg):
+    """K1 launches a batched forest makes: one for each tree and chunk of
+    nodes of each level; none for padding."""
+    from avenir_tpu_torch.models import tree as T
+    from avenir_tpu_torch.ops import histogram as hg
+    splittable = sorted(T.splittable_ordinals(table))
+    cand = T._device_candidates(table, T._attr_plans(
+        table, splittable, cfg.tree.max_cat_attr_split_groups))
+    chunk = max(1, hg._NODE_CHUNK_CB // cand.b_max)
+    widths = T._level_widths(cfg.tree.max_depth, cand.s_max,
+                             cfg.tree.device_node_budget)
+    return cfg.n_trees * sum(-(-w // chunk) for w in widths)
+
+
+def forest_growth(table, cfg):
+    """The batched growth without its bootstrap draws: a callable that
+    grows the forest of ``cfg`` from its plans, drawn here once."""
+    from avenir_tpu_torch.models import forest as F
+    splittable = F._validate_forest_config(table, cfg)
+    plans = F._draw_tree_plans(np.random.default_rng(cfg.seed), splittable,
+                               cfg, table.n_rows)
+    return lambda: F._grow_drawn(table, cfg, splittable, plans)
+
+
+def forest_at_scale(dev, label, table, n_trees):
+    """One forest on ``table`` (1,048,576 rows): grown by ``grow_forest``
+    (auto: batched) with every K1 launch recorded and held exactly
+    against its plain version, their count equal to one for each real
+    tree and chunk of nodes; then the bootstrap draws alone, the batched
+    growth from the drawn plans and the serial growth each timed (host
+    clock), both forests equal to the recorded one tree by tree, and the
+    batched growth under ``torch.profiler``. Returns (trees, launches,
+    the recorded operands by K1 shape)."""
+    from avenir_tpu_torch.models import forest as F
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    cfg = forest_config(n_trees)
+    calls = []
+    H.class_feature_bin_counts.launches = 0
+    with recording(calls):
+        trees = F.grow_forest(table, cfg)
+    torch.cuda.synchronize()
+    count = H.class_feature_bin_counts.launches
+    held, _ = hold_k1_calls(f"phase 9 {label}", calls)
+    expected = forest_k1_launches(table, cfg)
+    if held != count or count != expected:
+        raise AssertionError(f"phase 9 {label}: {count} K1 launches, "
+                             f"{held} recorded, {expected} expected")
+    by_shape = {}
+    for _, a, _ in calls:
+        by_shape.setdefault((a["n_bins"], tuple(a["bins"].shape)), a)
+    del calls
+    splittable = F._validate_forest_config(table, cfg)
+    t0 = time.perf_counter()
+    F._draw_tree_plans(np.random.default_rng(cfg.seed), splittable, cfg,
+                       table.n_rows)
+    draw_s = time.perf_counter() - t0
+    serial_ms, serial = host_ms(lambda: F._grow_forest_serial(table, cfg))
+    growth = forest_growth(table, cfg)
+    growth_ms, grown = host_ms(growth)
+    if not canon(trees) == canon(grown) == canon(serial):
+        raise AssertionError(f"phase 9 {label}: the batched and serial "
+                             "forests differ on the card")
+    log(f"phase 9 {label}: {n_trees} trees, random.split.set.size="
+        f"{FOREST_SET}, depth {FOREST_DEPTH}, bagging, seed {FOREST_SEED}, "
+        f"{table.n_rows} rows: {count} K1 launches (one for each tree and "
+        f"chunk of nodes), each exact against plain; batched equals serial "
+        f"tree by tree; bootstrap draws {draw_s:.3f} s (host numpy), "
+        f"batched growth {growth_ms / 1e3:.3f} s (from the drawn plans), "
+        f"serial {serial_ms / 1e3:.3f} s (growth "
+        f"{serial_ms / 1e3 - draw_s:.3f} s), host clock; depths "
+        f"{sorted(collections.Counter(max_depth(t) for t in trees).items())}"
+        f", root attrs {sorted(collections.Counter(t.attr_ordinal for t in trees).items())}")
+    profile_ops(f"phase 9 {label} batched growth from drawn plans",
+                growth)
+    return trees, count, by_shape
+
+
+def forest_card_vs_cpu(label, table, n_trees):
+    """The same forest config grown on the first FOREST_CPU_ROWS rows on
+    the card and on the CPU: equal tree by tree."""
+    from avenir_tpu_torch.models import forest as F
+    cfg = forest_config(n_trees)
+    card_ms, card = host_ms(lambda: F.grow_forest(
+        rows_of(table, FOREST_CPU_ROWS, table.binned.device), cfg))
+    t0 = time.perf_counter()
+    cpu = F.grow_forest(rows_of(table, FOREST_CPU_ROWS, "cpu"), cfg)
+    cpu_s = time.perf_counter() - t0
+    if canon(card) != canon(cpu):
+        raise AssertionError(f"phase 9 {label}: the card's forest on "
+                             f"{FOREST_CPU_ROWS} rows differs from the CPU's")
+    log(f"phase 9 {label} on {FOREST_CPU_ROWS} rows: equal to the CPU's "
+        f"tree by tree (card {card_ms / 1e3:.3f} s, CPU {cpu_s:.2f} s)")
+
+
+def forest_prediction(trees, table):
+    """The stacked device vote on every row, timed, against the host walk
+    on the first FOREST_CPU_ROWS rows."""
+    from avenir_tpu_torch.models import forest as F
+    F.predict_forest(trees, rows_of(table, 4096, table.binned.device),
+                     device=True)
+    vote_ms, pred = host_ms(lambda: F.predict_forest(trees, table,
+                                                     device=True))
+    t0 = time.perf_counter()
+    walk = F.predict_forest(trees, rows_of(table, FOREST_CPU_ROWS, "cpu"))
+    walk_s = time.perf_counter() - t0
+    if not np.array_equal(pred[:FOREST_CPU_ROWS], walk):
+        raise AssertionError("phase 9: the device vote differs from the "
+                             "host walk")
+    truth = table.labels.cpu().numpy()
+    log(f"phase 9 predict_forest: the device vote of {len(trees)} trees on "
+        f"{table.n_rows} rows {vote_ms:.1f} ms (host clock), equal to the "
+        f"host walk on {FOREST_CPU_ROWS} rows ({walk_s:.2f} s on the CPU); "
+        f"training accuracy {(pred == truth).mean():.4f}")
+
+
+def forest_streamed(dev, work):
+    """``grow_forest_streaming`` over STREAM_PARTS part files of
+    STREAM_PART_ROWS retarget rows: without bagging equal to
+    ``grow_forest_batched`` over the same rows, with bagging equal to the
+    CPU's streamed forest; every K1 launch of the card's runs held.
+    Returns K1's launches."""
+    from avenir_tpu_torch.datagen import retarget_rows, retarget_schema
+    from avenir_tpu_torch.models import forest as F
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    rows = retarget_rows(STREAM_PARTS * STREAM_PART_ROWS, seed=SEED + 9)
+    d = os.path.join(work, "stream")
+    os.makedirs(d)
+    paths = []
+    for i in range(STREAM_PARTS):
+        paths.append(os.path.join(d, f"part-{i:05d}"))
+        write_csv(paths[-1], rows[i * STREAM_PART_ROWS:
+                                  (i + 1) * STREAM_PART_ROWS])
+    fz = Featurizer(retarget_schema(), device=dev).fit(rows)
+    fz_cpu = Featurizer(retarget_schema(), device="cpu").fit(rows)
+    launches, notes = 0, []
+    for bagging in (False, True):
+        cfg = forest_config(STREAM_TREES, bagging=bagging)
+        calls = []
+        H.class_feature_bin_counts.launches = 0
+        t0 = time.perf_counter()
+        with recording(calls):
+            streamed = F.grow_forest_streaming(fz, paths, cfg)
+        card_s = time.perf_counter() - t0
+        count = H.class_feature_bin_counts.launches
+        held, _ = hold_k1_calls(f"phase 9 streamed bagging={bagging}", calls)
+        if held != count:
+            raise AssertionError(f"phase 9 streamed: {count} K1 launches, "
+                                 f"{held} recorded")
+        del calls
+        launches += count
+        if bagging:
+            t0 = time.perf_counter()
+            want = F.grow_forest_streaming(fz_cpu, paths, cfg)
+            ref_s, ref = time.perf_counter() - t0, "the CPU's streamed"
+        else:
+            t0 = time.perf_counter()
+            want = F.grow_forest_batched(fz.transform(rows), cfg)
+            ref_s, ref = time.perf_counter() - t0, "in-core batched"
+        if canon(streamed) != canon(want):
+            raise AssertionError(f"phase 9 streamed bagging={bagging}: "
+                                 f"differs from {ref} growth")
+        notes.append(f"bagging={str(bagging).lower()} equal to {ref} growth "
+                     f"({card_s:.2f} s, {count} K1 launches; reference "
+                     f"{ref_s:.2f} s)")
+    log(f"phase 9 grow_forest_streaming, {STREAM_TREES} trees over "
+        f"{STREAM_PARTS} part files of {STREAM_PART_ROWS} rows: "
+        + "; ".join(notes))
+    return launches
+
+
+def forest_cli_jobs(work):
+    """RandomForestBuilder and RandomForestPredictor (validation, host walk
+    and device vote) on FOREST_TRAIN / FOREST_TEST retarget rows, and the
+    four bandit verbs on a round of BANDIT_GROUPS price-optimization
+    groups with ``group.item.count.path``, each on the card and with
+    ``--device cpu`` in a directory of its own: every file and stdout line
+    equal, RandomForestBuilder's K1 launches held, the bandits launching
+    nothing.
+    Returns K1's launches."""
+    from avenir_tpu_torch.datagen import price_opt_arms, retarget_rows
+    from avenir_tpu_torch.datagen.generators import _RETARGET_SCHEMA_JSON
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.cli.main import main
+    rows = retarget_rows(FOREST_TRAIN + FOREST_TEST, seed=SEED + 10)
+    rng = np.random.default_rng(SEED + 11)
+    round_rows, sizes = [], []
+    for g, (arms, expect) in price_opt_arms(n_groups=BANDIT_GROUPS,
+                                            seed=11).items():
+        for arm, reward in zip(arms, expect):
+            count = int(rng.integers(0, 4))
+            round_rows.append([g, arm, str(count),
+                               str(int(reward) if count else 0)])
+        sizes.append([g, str(int(rng.integers(1, 4)))])
+    schema = os.path.join(work, "retarget.json")
+    with open(schema, "w") as fh:
+        json.dump(_RETARGET_SCHEMA_JSON, fh)
+    dirs = {dev: os.path.join(work, f"forest_{dev}")
+            for dev in ("cuda", "cpu")}
+    for dev, d in dirs.items():
+        os.makedirs(d)
+        write_csv(os.path.join(d, "train.csv"), rows[:FOREST_TRAIN])
+        write_csv(os.path.join(d, "test.csv"), rows[FOREST_TRAIN:])
+        write_csv(os.path.join(d, "round.csv"), round_rows)
+        write_csv(os.path.join(d, "sizes.csv"), sizes[::2])
+        with open(os.path.join(work, f"forest_{dev}.properties"), "w") as fh:
+            fh.write(f"feature.schema.file.path={schema}\n"
+                     "field.delim.regex=,\nfield.delim.out=;\n"
+                     "field.delim=,\n"
+                     f"forest.model.file.path={os.path.join(d, 'forest.json')}"
+                     f"\npositive.class.value=yes\nmax.depth=4\n"
+                     f"num.trees={CLI_FOREST_TREES}\nrandom.split.set.size=2\n"
+                     f"random.seed={FOREST_SEED}\nbatch.size=2\n"
+                     "current.round.num=3\n"
+                     f"group.item.count.path={os.path.join(d, 'sizes.csv')}\n")
+    launches = 0
+
+    def both(label, verb, inp, out, *extra, k1=None):
+        nonlocal launches
+        reports, walls = {}, {}
+        for dev, d in dirs.items():
+            args = [verb, os.path.join(d, inp), os.path.join(d, out),
+                    "--conf", os.path.join(work, f"forest_{dev}.properties"),
+                    *extra, "--device", dev]
+            calls = []
+            H.class_feature_bin_counts.launches = 0
+            t0 = time.perf_counter()
+            with recording(calls):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    if main(args) != 0:
+                        raise AssertionError(f"phase 9 {label}: {dev} run "
+                                             "failed")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            walls[dev] = time.perf_counter() - t0
+            reports[dev] = buf.getvalue()
+            if dev == "cuda":
+                count = H.class_feature_bin_counts.launches
+                if k1 is not None and bool(count) != k1:
+                    raise AssertionError(f"phase 9 {label}: {count} K1 "
+                                         "launches")
+                if count:
+                    held, _ = hold_k1_calls(f"phase 9 {label}", calls)
+                    if held != count:
+                        raise AssertionError(f"phase 9 {label}: {count} K1 "
+                                             f"launches, {held} recorded")
+                launches += count
+        if reports["cuda"] != reports["cpu"]:
+            raise AssertionError(f"phase 9 {label}: stdout differs: "
+                                 f"{reports}")
+        names, differ = same_files(dirs["cuda"], dirs["cpu"])
+        if differ:
+            raise AssertionError(f"phase 9 {label}: files differ between "
+                                 f"the card and the CPU: {differ[:10]}")
+        log(f"phase 9 {label}: card {walls['cuda']:.2f} s, CPU "
+            f"{walls['cpu']:.2f} s (host clock); {len(names)} files "
+            "byte-identical to the CPU's")
+        lines = [line for line in reports["cuda"].splitlines() if line]
+        return json.loads(lines[-1]) if lines else {}
+
+    built = both(f"RandomForestBuilder {FOREST_TRAIN} rows num.trees="
+                 f"{CLI_FOREST_TREES}", "RandomForestBuilder", "train.csv",
+                 "forest.json", k1=True)
+    if built["Forest.Trees"] != CLI_FOREST_TREES:
+        raise AssertionError(f"phase 9: {built}")
+    for on_device in ("false", "true"):
+        report = both(f"RandomForestPredictor {FOREST_TEST} rows "
+                      f"device.predict={on_device}", "RandomForestPredictor",
+                      "test.csv", f"pred_{on_device}.txt", "-D",
+                      "validation.mode=true", "-D",
+                      f"device.predict={on_device}", k1=False)
+        acc = report["Validation.Accuracy"]
+        if acc < FOREST_ACCURACY_BAR:
+            raise AssertionError(f"phase 9: forest accuracy {acc} below "
+                                 f"{FOREST_ACCURACY_BAR}")
+    log(f"phase 9 forest planted rule: validation accuracy {acc:.4f} (bar "
+        f"{FOREST_ACCURACY_BAR})")
+    for verb in ("GreedyRandomBandit", "AuerDeterministic", "SoftMaxBandit",
+                 "RandomFirstGreedyBandit"):
+        both(f"{verb} {BANDIT_GROUPS} groups", verb, "round.csv",
+             f"{verb}.txt", k1=False)
+    return launches
+
+
+def forest_phase(dev, work):
+    """Phase 9; returns K1's kernels-line entry at the forest shape."""
+    tables = {"retarget": retarget_big_table(dev),
+              "hospital": hosp_big_table(dev)}
+    launches, by_shape = 0, {}
+    trees = None
+    for (name, table), n_trees in zip(tables.items(),
+                                      (FOREST_TREES, HOSP_FOREST_TREES)):
+        grown, count, shapes = forest_at_scale(dev, f"{name} forest", table,
+                                               n_trees)
+        launches += count
+        by_shape.update(shapes)
+        trees = grown if trees is None else trees
+        forest_card_vs_cpu(f"{name} forest", table, n_trees)
+    forest_prediction(trees, tables["retarget"])
+    del tables
+    timings = []
+    for (b, _), a in sorted(by_shape.items()):
+        k1 = time_k1_weighted(dev, a)
+        timings.append(k1)
+        log(f"phase 9 K1 at {k1['shape']}: {k1['ms']:.4f} ms chained, "
+            f"{k1['graph_ms']:.4f} ms from graph replays reading HBM "
+            f"({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+            f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, "
+            f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    del by_shape
+    stream_launches = forest_streamed(dev, work)
+    cli_launches = forest_cli_jobs(work)
+    widest = max(timings, key=lambda k: k["bound_ms"])
+    return {"name": "cfb_counts (K1-forest) at the forest shape (each "
+                    "tree's level histogram, bootstrap-weighted)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
+            "launches": launches, "stream_launches": stream_launches,
+            "cli_launches": cli_launches, "max_abs_err": 0.0,
+            **{key: widest[key] for key in ("ms", "graph_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "shape")},
+            "levels": [{key: k[key] for key in (
+                "shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                "bound_ms")} for k in timings]}
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -3687,6 +4100,12 @@ def main() -> int:
         k4_markov = sequence_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="smoke-forest-",
+                            dir=str(_build.BUILD_DIR))
+    try:
+        k1_forest = forest_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
@@ -3702,6 +4121,7 @@ def main() -> int:
     kernels.append(k1_ivf)
     kernels.append(k1_tree)
     kernels.append(k4_markov)
+    kernels.append(k1_forest)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

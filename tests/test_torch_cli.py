@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from avenir_tpu.cli.main import main as jmain
+from avenir_tpu.datagen import generators as JG
 
 from avenir_tpu_torch.cli.main import main as tmain
 from avenir_tpu_torch.models import knn as tknn
@@ -22,7 +23,7 @@ from avenir_tpu_torch.utils.dataset import Featurizer
 from avenir_tpu_torch.utils.schema import FeatureSchema
 
 from _torch_parity import (
-    exact_metrics, near_tie_rows, tables, write_fixture)
+    exact_metrics, near_tie_rows, tables, write_csv, write_fixture)
 
 torch.set_num_threads(2)
 
@@ -248,15 +249,15 @@ _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
 @pytest.mark.parametrize("args,title", [
     (["SameTypeSimilarity"], _SIMILARITY),
     (["FeatureCondProbJoiner"], _SIMILARITY),
-    (["RandomForestBuilder"], _TREES),
+    (["Projection"], _EXPLORE),
     (["GradientBoostBuilder"], _TREES),
     (["GradientBoostPredictor"], _TREES),
     (["LogisticRegressionJob"], _EXPLORE),
     (["UnderSamplingBalancer"], _EXPLORE),
     (["WordCounter"], _EXPLORE),
-    (["RandomForestPredictor"], _TREES),
-    (["SoftMaxBandit"], _BANDITS),
-    (["GreedyRandomBandit"], _BANDITS),
+    (["BaggingSampler"], _EXPLORE),
+    (["FisherDiscriminant"], _EXPLORE),
+    (["RandomForestBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
     (["ReinforcementLearnerTopology"], _BANDITS),
     (["Lifecycle"], _BANDITS),
     (["NearestNeighbor", "--metrics-out", "m.jsonl"], _LAYERS),
@@ -292,6 +293,124 @@ def test_refusals_name_roadmap_items_that_exist():
     assert "Streaming/sharded NB and per-shard MI" in named
     assert named <= titles, named - titles
     assert not by_number, by_number
+
+
+# -- the forest and batch bandit verbs ----------------------------------------
+
+def _forest_dirs(tmp_path):
+    """j/ and t/, each with 1,500 retarget train rows, 500 test rows, the
+    schema and a properties file naming its own model path."""
+    rows = JG.retarget_rows(2000, seed=41)
+    props = {}
+    for side in ("j", "t"):
+        d = tmp_path / side
+        d.mkdir()
+        write_csv(d / "train.csv", rows[:1500])
+        write_csv(d / "test.csv", rows[1500:])
+        with open(d / "schema.json", "w") as fh:
+            json.dump(JG._RETARGET_SCHEMA_JSON, fh)
+        props[side] = _props(
+            d / "f.properties", **{
+                "feature.schema.file.path": d / "schema.json",
+                "field.delim.regex": ",", "field.delim.out": ";",
+                "forest.model.file.path": d / "forest.json",
+                "positive.class.value": "yes", "num.trees": 5,
+                "random.split.set.size": 2, "max.depth": 3,
+                "random.seed": 3})
+    return props
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["-D", "forest.growth=serial", "-D", "bagging=false",
+         "-D", "split.algorithm=entropy"],
+    ["-D", "num.trees=4", "-D", "min.node.size=5",
+     "-D", "split.selection.strategy=randomFromTop"]])
+def test_forest_verbs_byte_identical(tmp_path, capsys, extra):
+    """RandomForestBuilder (the JAX CLI's default plan path and its
+    hand-wired body write the same artifact) and RandomForestPredictor with
+    validation, on the host walk and the device vote."""
+    props = _forest_dirs(tmp_path)
+    j, t = tmp_path / "j", tmp_path / "t"
+    built = _run_both(
+        capsys, ["RandomForestBuilder", str(j / "train.csv"),
+                 str(j / "forest.json"), "--conf", props["j"], *extra],
+        ["RandomForestBuilder", str(t / "train.csv"), str(t / "forest.json"),
+         "--conf", props["t"], *extra])
+    assert built[0] == built[1]
+    assert json.loads(built[1])["Forest.Rows"] == 1500
+    assert (j / "forest.json").read_bytes() == \
+        (t / "forest.json").read_bytes()
+    jmain(["RandomForestBuilder", str(j / "train.csv"),
+           str(j / "plan.json"), "--conf", props["j"], *extra])
+    assert capsys.readouterr().out == built[0]
+    assert (j / "plan.json").read_bytes() == (j / "forest.json").read_bytes()
+    for on_device in ("false", "true"):
+        keys = ["-D", "validation.mode=true",
+                "-D", f"device.predict={on_device}"]
+        pred = _run_both(
+            capsys, ["RandomForestPredictor", str(j / "test.csv"),
+                     str(j / "pred.txt"), "--conf", props["j"], *keys],
+            ["RandomForestPredictor", str(t / "test.csv"),
+             str(t / "pred.txt"), "--conf", props["t"], *keys])
+        assert pred[0] == pred[1]
+        assert json.loads(pred[1])["Validation.Accuracy"] > 0.65
+        assert (j / "pred.txt").read_bytes() == (t / "pred.txt").read_bytes()
+
+
+def test_forest_builder_refusals_and_errors(tmp_path):
+    props = _forest_dirs(tmp_path)
+    t = tmp_path / "t"
+    args = ["RandomForestBuilder", str(t / "train.csv"),
+            str(t / "forest.json"), "--conf", props["t"], "--device", "cpu"]
+    with pytest.raises(ValueError,
+                       match=r"plan\.enable=true.*ROADMAP queue A, " + _LAYERS):
+        tmain(args + ["-D", "plan.enable=true"])
+    with pytest.raises(ValueError, match="unknown forest growth mode"):
+        tmain(args + ["-D", "forest.growth=eager"])
+    with pytest.raises(ValueError, match="n_trees must be >= 1"):
+        tmain(args + ["-D", "num.trees=0"])
+    assert not (t / "forest.json").exists()
+
+
+def _bandit_files(tmp_path):
+    """A round's ``group,item,count,reward`` file for 40 price-optimization
+    groups (untried arms, equal rewards) and a per-group batch-size file."""
+    from avenir_tpu_torch.datagen import price_opt_arms
+    rng = np.random.default_rng(17)
+    lines, sizes = [], []
+    for g, (arms, expect) in price_opt_arms(n_groups=40, seed=11).items():
+        for a, reward in zip(arms, expect):
+            count = int(rng.integers(0, 4))
+            lines.append([g, a, str(count),
+                          str(int(reward) // 10 * 10 if count else 0)])
+        sizes.append([g, str(int(rng.integers(1, 4)))])
+    write_csv(tmp_path / "round.csv", lines)
+    write_csv(tmp_path / "sizes.csv", sizes[::2])
+    return str(tmp_path / "round.csv"), str(tmp_path / "sizes.csv")
+
+
+@pytest.mark.parametrize("verb,keys", [
+    ("GreedyRandomBandit", {"prob.reduction.algorithm": "logLinear",
+                            "random.selection.prob": 0.7}),
+    ("GreedyRandomBandit", {"prob.reduction.algorithm": "AuerGreedy"}),
+    ("AuerDeterministic", {}),
+    ("SoftMaxBandit", {"temp.constant": 0.5}),
+    ("RandomFirstGreedyBandit", {"exploration.count.strategy": "pac",
+                                 "current.round.num": 9}),
+    ("RandomFirstGreedyBandit", {"current.round.num": 30})])
+def test_batch_bandit_verbs_byte_identical(tmp_path, capsys, verb, keys):
+    data, sizes = _bandit_files(tmp_path)
+    props = _props(tmp_path / "b.properties", **{
+        "field.delim.regex": ",", "field.delim": ",", "batch.size": 2,
+        "current.round.num": 4, "random.seed": 5,
+        "group.item.count.path": sizes, **keys})
+    outs = _run_both(
+        capsys, [verb, data, str(tmp_path / "j.txt"), "--conf", props],
+        [verb, data, str(tmp_path / "t.txt"), "--conf", props])
+    assert outs[0] == outs[1]
+    got = (tmp_path / "t.txt").read_bytes()
+    assert got == (tmp_path / "j.txt").read_bytes()
+    assert len(got.splitlines()) > 40
 
 
 # a two-part elearn directory: both CLIs score it on their part-file path
