@@ -91,14 +91,11 @@ _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 # item that ports them
 _SIMILARITY = roadmap_item(
     "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
-_BOOSTING = roadmap_item("Forests and boosting")
 _EXPLORE = roadmap_item("Explore, regress, discriminant and text")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
     "SameTypeSimilarity": _SIMILARITY,
     "FeatureCondProbJoiner": _SIMILARITY,
-    "GradientBoostBuilder": _BOOSTING,
-    "GradientBoostPredictor": _BOOSTING,
     "Projection": _EXPLORE,
     "WordCounter": _EXPLORE,
     "UnderSamplingBalancer": _EXPLORE,
@@ -993,6 +990,94 @@ def run_forest_predictor(conf: JobConfig, in_path: str, out_path: str,
     _write_predictions(conf, out_path, table, pred, trees[0].class_values)
 
 
+# -- the boosting verbs ------------------------------------------------------
+
+def _boost_config(conf: JobConfig):
+    """The ``forest.boost.*`` keys on top of the TreeBuilder split keys;
+    every invalid value raises from ``BoostConfig``'s validation, naming
+    the key."""
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.models.tree import TreeConfig
+    return B.BoostConfig(
+        n_rounds=conf.get_int("forest.boost.num.rounds", 10),
+        learning_rate=conf.get_float("forest.boost.learning.rate", 0.3),
+        base_score=conf.get_float("forest.boost.base.score", 0.0),
+        reg_lambda=conf.get_float("forest.boost.reg.lambda", 1.0),
+        early_stop_rounds=conf.get_int("forest.boost.early.stop.rounds", 0),
+        holdout_fraction=conf.get_float(
+            "forest.boost.early.stop.holdout", 0.2),
+        tree=TreeConfig(
+            algorithm=_split_algorithm(conf),
+            max_depth=conf.get_int("max.depth", 3),
+            min_node_size=conf.get_int("min.node.size", 10),
+            max_cat_attr_split_groups=conf.get_int(
+                "max.cat.attr.split.groups", 3),
+            min_gain=conf.get_float("min.gain", 1e-6),
+            device_node_budget=conf.get_int("device.node.budget", 2048)))
+
+
+def run_boost_builder(conf: JobConfig, in_path: str, out_path: str,
+                      device: torch.device) -> None:
+    """Train a gradient-boosted forest: ``forest.boost.num.rounds`` Newton
+    rounds over one binned catalog (``forest.boost.learning.rate``,
+    ``.base.score``, ``.reg.lambda``, ``.early.stop.rounds``,
+    ``.early.stop.holdout`` and the TreeBuilder split keys), written as
+    the ``kind: "boosted"`` artifact. ``streaming.train=true`` boosts out
+    of core over a part-file dir (the same model; the schema fully
+    specified or ``featurizer.fit.data.path`` set). The JAX CLI runs the
+    in-core mode through its plan layer by default, with the same
+    artifact; an explicit ``plan.enable=true`` is refused."""
+    from avenir_tpu_torch.models import boost as B
+    _check_keys(conf, _LATER_FOREST)
+    cfg = _boost_config(conf)
+    if conf.get_bool("streaming.train", False):
+        schema = FeatureSchema.from_file(
+            conf.get_required("feature.schema.file.path"))
+        fz = Featurizer(schema,
+                        unseen=conf.get("unseen.value.handling", "error"),
+                        device=device)
+        if fz.schema_data_dependent:
+            fit_path = conf.get("featurizer.fit.data.path")
+            if fit_path is None:
+                raise ValueError(
+                    "streaming.train needs a fully-specified schema "
+                    "(cardinalities + min/max) or featurizer.fit.data.path "
+                    "pointing at a bounded sample — fitting vocabularies "
+                    "from the stream would materialize it")
+            fz.fit(read_csv_lines(fit_path,
+                                  conf.get("field.delim.regex", ",")))
+        else:
+            fz.fit([])
+        model = B.grow_boosted_streaming(
+            fz, part_file_paths(in_path), cfg,
+            delim_regex=conf.get("field.delim.regex", ","))
+    else:
+        fz, rows = _load_table(conf, in_path, device)
+        model = B.grow_boosted(fz.transform(rows), cfg)
+    B.save_boosted(model, out_path)
+    print(json.dumps({"Boost.Rounds": len(model.trees),
+                      "Boost.LearningRate": model.learning_rate}))
+
+
+def run_boost_predictor(conf: JobConfig, in_path: str, out_path: str,
+                        device: torch.device) -> None:
+    """Classify rows down a GradientBoostBuilder model
+    (``forest.boost.model.file.path``): base score plus the summed leaf
+    values, class 1 on a positive margin. The host walk, or from
+    ``_DEVICE_PREDICT_ROWS`` rows on (``device.predict`` overrides) every
+    tree routed on the device; a bagged artifact is refused by kind."""
+    from avenir_tpu_torch.models import boost as B
+    validation = conf.get_bool("validation.mode", False)
+    fz, rows = _load_table(conf, in_path, device, for_predict=True)
+    table = fz.transform(rows, with_labels=validation)
+    model = B.load_boosted(
+        conf.get_required("forest.boost.model.file.path"))
+    on_device = conf.get_bool("device.predict",
+                              table.n_rows >= _DEVICE_PREDICT_ROWS)
+    pred = model.predict(table, device=on_device)
+    _write_predictions(conf, out_path, table, pred, model.class_values)
+
+
 # -- the batch bandit verbs ---------------------------------------------------
 
 def _run_batch_bandit(algorithm: str, conf: JobConfig, in_path: str,
@@ -1214,6 +1299,8 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "ViterbiStatePredictor": run_viterbi_state_predictor,
     "RandomForestBuilder": run_forest_builder,
     "RandomForestPredictor": run_forest_predictor,
+    "GradientBoostBuilder": run_boost_builder,
+    "GradientBoostPredictor": run_boost_predictor,
     **{name: (lambda c, i, o, d, _name=name:
               _run_batch_bandit(_name, c, i, o, d))
        for name in ("GreedyRandomBandit", "AuerDeterministic",

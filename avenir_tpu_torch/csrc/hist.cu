@@ -42,6 +42,11 @@
 // - Weighted counts accumulate f32 with float atomics; 0/1 masks stay exact,
 //   other weights carry the usual f32 summation-order caveat
 //   (pallas_histogram.py:17-19).
+// - Integer sums (`avt_cfb_sums_int`, the boosting channels): the weights
+//   are integer-valued f32 (fixed-point gradient and hessian quanta), each
+//   cast once to int32 and added in int32, in shared memory and in the
+//   output, so the sums are exact and the same in any atomic order. The
+//   caller keeps every cell below 2^31: N * max|w| < 2^31 for one launch.
 //
 // Interface: plain C, bound from Python with ctypes. The caller allocates
 // `out` (int32 unweighted or f32 weighted); these functions zero it on
@@ -519,6 +524,21 @@ int avt_cfb_counts(const void* bins, const void* labels, const void* weights,
                              static_cast<const int*>(labels), nullptr, n, f,
                              c, b, static_cast<int*>(out), device, s);
   }
+  return static_cast<int>(err);
+}
+
+// K1's integer mode: weights [n] integer-valued f32, out [f, c * b] int32
+// exact sums, zeroed here on `stream`.
+int avt_cfb_sums_int(const void* bins, const void* labels, const void* weights,
+                     int n, int f, int c, int b, void* out, int device,
+                     void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = launch<int, true>(static_cast<const int*>(bins),
+                          static_cast<const int*>(labels),
+                          static_cast<const float*>(weights), n, f, c, b,
+                          static_cast<int*>(out), device,
+                          static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }
 

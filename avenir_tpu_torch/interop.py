@@ -11,7 +11,9 @@ random forest crosses over as its stacked artifact (``save_forest`` /
 ``load_forest``: the same bytes from both packages, each loader reading
 the other's), and a batch bandit round as its ``group,item,count,reward``
 file, which each package's four bandit verbs read into the same
-selections. Neither needs a converter here.
+selections. Neither needs a converter here. A boosted ensemble crosses
+over as its artifact too, or as the artifact's JSON object through
+:func:`boosted_model_from_dict`.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.models.boost import BoostedModel, model_from_payload
 from avenir_tpu_torch.models.hmm import HmmModel
 from avenir_tpu_torch.models.markov import MarkovModel
 from avenir_tpu_torch.models.naive_bayes import BayesModel, model_from_numpy
@@ -146,3 +149,14 @@ def hmm_model_from_numpy(states: Sequence[str], observations: Sequence[str],
     return HmmModel(states=list(states), observations=list(observations),
                     trans=np.array(trans), emit=np.array(emit),
                     initial=np.array(initial), scale=int(scale))
+
+
+def boosted_model_from_dict(payload: dict, device: DeviceLike = "cuda"
+                            ) -> BoostedModel:
+    """The port's :class:`BoostedModel` of a boosted artifact's JSON object
+    (the dict the JAX package's ``save_boosted`` writes), refused by kind
+    and format as ``load_boosted`` refuses a file. The trees live on the
+    host; ``device`` is checked as every entry point checks it, and the
+    model's margins run on the device of the table they are given."""
+    resolve_device(device)
+    return model_from_payload(payload)

@@ -420,11 +420,14 @@ def _validate_trees(trees: Sequence[TreeNode]) -> List[str]:
 def _route_forest(flat_segs: torch.Tensor, oks: torch.Tensor,
                   split_of_b: torch.Tensor, child_b: torch.Tensor,
                   pred_b: torch.Tensor, valid: torch.Tensor, *, depth: int,
-                  s_width: int, n_classes: int):
+                  s_width: int, n_classes: int, mode: str = "vote"):
     """Every tree's rows routed down its flattened tables at once (the
     tree axis leading), then the majority vote: each valid tree's routed
-    class counted, the first class of most votes taken. Returns (class
-    of each row, every segmentation found)."""
+    class counted, the first class of most votes taken. With
+    ``mode="sum"`` (boosted margins) ``pred_b`` holds each node's f32 leaf
+    value and the reduction is the sum of the valid trees' routed values.
+    Returns (class or summed value of each row, every segmentation
+    found)."""
     n = flat_segs.shape[1]
     fs = flat_segs.reshape(-1).long()
     idx = torch.arange(n, device=flat_segs.device)
@@ -435,6 +438,9 @@ def _route_forest(flat_segs: torch.Tensor, oks: torch.Tensor,
         ch = child_b.gather(1, node * s_width + seg)
         node = torch.where(ch >= 0, ch, node)
     preds = pred_b.gather(1, node)                            # [Kt, N]
+    if mode == "sum":
+        return (preds * valid[:, None].to(preds.dtype)).sum(dim=0), \
+            oks.all()
     votes = torch.stack([((preds == c) & valid[:, None]).sum(dim=0)
                          for c in range(n_classes)], dim=1)   # [N, C]
     return torch.argmax(votes, dim=1), oks.all()
@@ -445,8 +451,9 @@ def _stack_route_tables(trees: Sequence[TreeNode], table: EncodedTable):
     (attr, key) segmentation computed once across all trees, the
     flattened-tree tables padded to shared power-of-two (tree, node) axes
     (padding trees are not ``valid`` and never vote). Returns (segs, oks,
-    split_of_b, child_b, pred_b, valid, depth, s_width) on the table's
-    device."""
+    split_of_b, child_b, pred_b, val_b, valid, depth, s_width) on the
+    table's device: ``pred_b`` each node's class, ``val_b`` its f32 leaf
+    value (0 where unset)."""
     dev = T._table_device(table)
     flats = [T._flatten_tree(tree) for tree in trees]
     depth = max(f[4] for f in flats)
@@ -472,8 +479,9 @@ def _stack_route_tables(trees: Sequence[TreeNode], table: EncodedTable):
     split_of_b = np.zeros((kt, nn), np.int64)
     child_b = np.full((kt, nn * s_w), -1, np.int64)
     pred_b = np.zeros((kt, nn), np.int64)
+    val_b = np.zeros((kt, nn), np.float32)
     valid = np.zeros(kt, bool)
-    for i, (split_of, child_flat, s_width, pred, _d, splits) in \
+    for i, (split_of, child_flat, s_width, pred, _d, splits, val) in \
             enumerate(flats):
         n_nodes = len(pred)
         remap = (np.asarray([global_slot[k] for k in splits], np.int64)
@@ -483,9 +491,10 @@ def _stack_route_tables(trees: Sequence[TreeNode], table: EncodedTable):
         child[:n_nodes, :s_width] = child_flat.reshape(n_nodes, s_width)
         child_b[i] = child.reshape(-1)
         pred_b[i, :n_nodes] = pred
+        val_b[i, :n_nodes] = val
         valid[i] = True
     return (segs, oks, *(torch.from_numpy(a).to(dev) for a in
-                         (split_of_b, child_b, pred_b, valid)),
+                         (split_of_b, child_b, pred_b, val_b, valid)),
             depth, int(s_w))
 
 
@@ -500,7 +509,7 @@ def _predict_forest_device(trees: Sequence[TreeNode], table: EncodedTable
         for tree in trees:
             votes[tree.prediction] += 1
         return np.full(table.n_rows, votes.argmax(), np.int64)
-    (segs, oks, split_of_b, child_b, pred_b, valid, depth,
+    (segs, oks, split_of_b, child_b, pred_b, _val_b, valid, depth,
      s_w) = _stack_route_tables(trees, table)
     out, ok = _route_forest(segs, oks, split_of_b, child_b, pred_b, valid,
                             depth=depth, s_width=s_w, n_classes=n_classes)

@@ -25,8 +25,11 @@ same artifacts:
   device (``predict_device``), with the same output.
 
 Counts are integers, exact in f32, so every formulation gives the same
-counts; the statistics follow ``ops.infotheory``'s rounding. Entry points
-run on the device of the table they are given.
+counts; the statistics follow ``ops.infotheory``'s rounding (eager JAX's),
+but the device growth's level selection computes its gain ratios in the
+order XLA compiles the JAX package's (``_level_select``), bit for bit with
+two classes, so it breaks ties as the JAX package does. Entry points run
+on the device of the table they are given.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.schema import FeatureField
 
 SPLIT_SEP = ":"
+#: f32(1/ln 2): XLA's compiled x·log2 x multiplies by it
+_INV_LN2 = float(np.float32(1.0 / np.log(2.0)))
 
 
 # --------------------------------------------------------------------------
@@ -466,6 +471,10 @@ class TreeNode:
     attr_ordinal: Optional[int] = None
     split_key: Optional[str] = None
     children: Dict[int, "TreeNode"] = field(default_factory=dict)
+    # a boosted tree's Newton value of this node (models/boost.py): the
+    # margin a row adds when its route stops here. None for other trees,
+    # whose artifacts then carry no "value"
+    leaf_value: Optional[float] = None
 
     @property
     def is_leaf(self) -> bool:
@@ -476,19 +485,23 @@ class TreeNode:
         return int(np.argmax(self.class_counts))
 
     def to_dict(self) -> dict:
-        return {
+        d = {
             "classCounts": self.class_counts.tolist(),
             "attr": self.attr_ordinal,
             "splitKey": self.split_key,
             "children": {str(k): v.to_dict() for k, v in self.children.items()},
         }
+        if self.leaf_value is not None:
+            d["value"] = self.leaf_value
+        return d
 
     @classmethod
     def from_dict(cls, d: dict, class_values: List[str]) -> "TreeNode":
         node = cls(class_counts=np.asarray(d["classCounts"], np.float64),
                    class_values=list(class_values),
                    attr_ordinal=d.get("attr"),
-                   split_key=d.get("splitKey"))
+                   split_key=d.get("splitKey"),
+                   leaf_value=d.get("value"))
         for k, child in d.get("children", {}).items():
             node.children[int(k)] = cls.from_dict(child, class_values)
         return node
@@ -508,15 +521,21 @@ class TreeConfig:
     device_node_budget: int = 2048
 
 
-def canonical_tree(n: Optional[TreeNode]):
+def canonical_tree(n: Optional[TreeNode], with_values: bool = False):
     """Order-insensitive fingerprint of a tree — (attr, key, int class
-    counts, sorted children) per node: what "identical tree" means."""
+    counts, sorted children) per node: what "identical tree" means.
+    ``with_values`` appends each node's f32 ``leaf_value``, so that
+    boosted trees compare by their Newton values too."""
     if n is None:
         return None
-    return (n.attr_ordinal, n.split_key,
+    base = (n.attr_ordinal, n.split_key,
             tuple(int(c) for c in n.class_counts),
-            tuple(sorted((k, canonical_tree(v))
+            tuple(sorted((k, canonical_tree(v, with_values))
                          for k, v in n.children.items())))
+    if with_values:
+        return base + (None if n.leaf_value is None
+                       else float(np.float32(n.leaf_value)),)
+    return base
 
 
 def splittable_ordinals(table: EncodedTable) -> List[int]:
@@ -720,7 +739,15 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
     outside it to -inf before the first-index argmax: the catalog is
     sorted by attribute, so this picks what the subset's own catalog
     would. The statistics are elementwise over (tree, candidate, node),
-    so a tree's stats round as they do alone."""
+    so a tree's stats round as they do alone.
+
+    For ``entropy`` and ``giniIndex`` the gain ratio rounds as the JAX
+    package's compiled ``_level_select`` (XLA's CPU code) rounds it, not
+    as ``split_gains`` does: two candidates that split a node's rows into
+    the same children in another segment order tie only up to that
+    rounding, and the argmax then picks the candidate JAX picks. Bit for
+    bit with two classes; with more, XLA's order over the class axis is
+    not reproduced and the ratios agree within a few ulps."""
     single = counts.dim() == 4
     if single:
         counts = counts[None]
@@ -728,15 +755,41 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
     node_counts = counts[:, 0].sum(dim=1)                # [Kt, K, C]
     flat_sgc = counts.permute(0, 1, 3, 2, 4).reshape(
         kt * t_total * k_nodes, s_max, n_classes)
-    stat = it.split_stat(flat_sgc, algorithm).reshape(kt, t_total, k_nodes)
     if _info_algorithm(algorithm):
-        intr = it.intrinsic_info_content(flat_sgc).reshape(kt, t_total,
-                                                           k_nodes)
-        gain = it.info(node_counts, algorithm)[:, None, :] - stat
+        # the gain ratio in the order XLA's CPU code computes it compiled:
+        # x·log2 x as a product by f32(1/ln 2), and every sum of products
+        # (the gini's squares, the segments' count-weighted stats) as a
+        # chain of fused multiply-adds from +0
+        def xlog2x(p):
+            return torch.where(
+                p > 0, p * it.xla_log(it._nonzero(p)) * _INV_LN2,
+                torch.zeros_like(p))
+
+        def node_info(c):
+            p = c / it._nonzero(c.sum(dim=-1, keepdim=True))
+            if algorithm == "entropy":
+                return -it._sum(xlog2x(p), -1)
+            sq = torch.zeros_like(p[..., 0])
+            for j in range(n_classes):
+                sq = it.fma(p[..., j], p[..., j], sq)
+            return 1.0 - sq
+
+        seg_n = flat_sgc.sum(dim=-1)                     # [M, S]
+        seg_info = node_info(flat_sgc)
+        acc = torch.zeros_like(seg_n[:, 0])
+        for s in range(s_max):
+            acc = it.fma(seg_info[:, s], seg_n[:, s], acc)
+        stat = (acc / it._nonzero(seg_n.sum(dim=-1))).reshape(
+            kt, t_total, k_nodes)
+        intr = -it._sum(xlog2x(seg_n / it._nonzero(
+            seg_n.sum(dim=-1, keepdim=True))), -1).reshape(kt, t_total,
+                                                             k_nodes)
+        gain = node_info(node_counts)[:, None, :] - stat
         ratio = torch.where(intr > 0, gain / it._nonzero(intr),
                             torch.zeros_like(gain))
     else:
-        ratio = stat
+        ratio = it.split_stat(flat_sgc, algorithm).reshape(kt, t_total,
+                                                           k_nodes)
     if cand_mask is not None:
         ratio = torch.where(cand_mask[:, :, None], ratio,
                             torch.full_like(ratio, float("-inf")))
@@ -1011,7 +1064,7 @@ def _flatten_tree(tree: TreeNode):
     the unique (attr, key) list, 0 for leaves; child table
     [num_nodes * s_width], -1 for none; s_width, the most segments a split
     defines; prediction of each node; depth; the unique (attr, key) pairs
-    in first-use order)."""
+    in first-use order; f32 leaf value of each node, 0 where unset)."""
     nodes = [tree]
     i = 0
     while i < len(nodes):
@@ -1026,6 +1079,8 @@ def _flatten_tree(tree: TreeNode):
     split_of = np.zeros(len(nodes), np.int64)
     child = np.full((len(nodes), s_width), -1, np.int64)
     pred = np.asarray([n.prediction for n in nodes], np.int64)
+    val = np.asarray([0.0 if n.leaf_value is None else n.leaf_value
+                      for n in nodes], np.float32)
     for k, n in enumerate(nodes):
         if n.is_leaf:
             continue
@@ -1038,7 +1093,7 @@ def _flatten_tree(tree: TreeNode):
         return 0 if not n.children else 1 + max(
             depth_of(c) for c in n.children.values())
     return (split_of, child.reshape(-1), s_width, pred, depth_of(tree),
-            list(split_slot))
+            list(split_slot), val)
 
 
 def predict_device(tree: TreeNode, table: EncodedTable,
@@ -1046,7 +1101,8 @@ def predict_device(tree: TreeNode, table: EncodedTable,
     """Class index of every row, routed on the table's device with one
     readback; equal to :func:`predict`. ``seg_cache`` may be shared across
     trees."""
-    split_of, child_flat, s_width, pred, depth, splits = _flatten_tree(tree)
+    split_of, child_flat, s_width, pred, depth, splits, _ = \
+        _flatten_tree(tree)
     dev = _table_device(table)
     if depth == 0:
         return np.full(table.n_rows, tree.prediction, np.int64)

@@ -112,6 +112,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "avt_cfb_counts": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _P], _I),
+    "avt_cfb_sums_int": ([_P, _P, _P, _I, _I, _I, _I, _P, _I, _P], _I),
     "avt_pair_counts_multi": ([_P, ctypes.c_longlong, _P, _I, _P, _I, _I, _I,
                                _I, _I, _P, _I, _P], _I),
     "avt_topk_splits": ([_I, _I, _I, _I], _I),

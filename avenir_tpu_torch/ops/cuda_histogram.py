@@ -7,7 +7,10 @@ Replaces ``avenir_tpu/ops/pallas_histogram.py``'s ``_cfb_kernel`` and
 
 - K1: ``[N, F]`` bin ids × ``[N]`` labels (optional ``[N]`` weights) →
   ``[C, F, B]`` f32 joint counts; ids outside ``[0, B)`` and labels
-  outside ``[0, C)`` drop out; N = 0 or F = 0 give zeros.
+  outside ``[0, C)`` drop out; N = 0 or F = 0 give zeros. Its integer
+  mode, ``class_feature_bin_sums``, sums integer-valued f32 weights
+  exactly into ``[C, F, B]`` int64 (int32 in the kernel, rows split
+  across launches so that no cell can pass 2^31).
 - K4: ``[N]`` × ``[N]`` ids (optional ``[N]`` weights, folded into the
   ``a`` side) → ``[n_a, n_b]`` f32 contingency counts; ids outside their
   range drop out; N = 0 gives zeros. ``pair_counts_multi`` counts many
@@ -115,6 +118,103 @@ def class_feature_bin_counts(bins: torch.Tensor, labels: torch.Tensor,
 
 
 class_feature_bin_counts.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K1's integer mode: exact sums of integer-valued weights
+# --------------------------------------------------------------------------
+
+#: a launch's cells stay below this (int32 accumulators)
+INT_SUM_LIMIT = 2 ** 31
+
+
+def class_feature_bin_sums_plain(bins: torch.Tensor, labels: torch.Tensor,
+                                 n_classes: int, n_bins: int,
+                                 weights: torch.Tensor) -> torch.Tensor:
+    """Plain version: an int64 ``index_add_`` of the weights (each cast to
+    an integer, as the kernel casts it) over the masked combined ids
+    ``f·C·B + label·B + bin``; int64 needs no bound on the weights."""
+    n, n_f = bins.shape
+    cells = n_f * n_classes * n_bins
+    bins = bins.long()
+    labels = labels.long().reshape(n, 1)
+    valid = ((bins >= 0) & (bins < n_bins)
+             & (labels >= 0) & (labels < n_classes))
+    f_off = torch.arange(n_f, device=bins.device).reshape(1, n_f) * (
+        n_classes * n_bins)
+    flat = (f_off + labels * n_bins + bins)[valid]
+    w = weights.to(torch.int64).reshape(n, 1).expand(n, n_f)[valid]
+    sums = torch.zeros(cells, dtype=torch.int64, device=bins.device)
+    sums.index_add_(0, flat, w)
+    return sums.reshape(n_f, n_classes, n_bins).permute(1, 0, 2).contiguous()
+
+
+def class_feature_bin_sums(bins: torch.Tensor, labels: torch.Tensor,
+                           n_classes: int, n_bins: int,
+                           weights: torch.Tensor, max_abs_weight: float
+                           ) -> torch.Tensor:
+    """K1's integer mode: ``[N, F]`` int32 bins × ``[N]`` int32 labels ×
+    ``[N]`` integer-valued f32 weights, none of magnitude above
+    ``max_abs_weight`` → ``[C, F, B]`` int64 exact sums of the weights.
+    The rows go in launches of fewer than 2^31 / max|w| rows, so no int32
+    cell can overflow, and the launches' sums add in int64."""
+    if bins.dim() != 2:
+        raise ValueError(f"bins must be [N, F], got shape {tuple(bins.shape)}")
+    if bins.device.type == "cpu":
+        return class_feature_bin_sums_plain(bins, labels, n_classes, n_bins,
+                                            weights)
+    if bins.device.type != "cuda":
+        raise ValueError(f"unsupported device {bins.device}")
+    n, n_f = bins.shape
+    if labels.shape != (n,) or weights.shape != (n,):
+        raise ValueError(f"labels and weights must be [{n}], got "
+                         f"{tuple(labels.shape)}, {tuple(weights.shape)}")
+    _check_ids(bins, bins=bins, labels=labels, weights=weights)
+    if n_classes < 1 or n_bins < 1:
+        raise ValueError(f"n_classes and n_bins must be >= 1, got "
+                         f"{n_classes}, {n_bins}")
+    if n == 0 or n_f == 0:
+        return torch.zeros((n_classes, n_f, n_bins), dtype=torch.int64,
+                           device=bins.device)
+    sums = _int_sum_launches(bins, labels, weights, n_classes, n_bins,
+                             rows_per_launch(max_abs_weight))
+    return sums.reshape(n_f, n_classes, n_bins).permute(1, 0, 2).contiguous()
+
+
+def rows_per_launch(max_abs_weight: float) -> int:
+    """The most rows one launch of K1's integer mode may take when no
+    weight exceeds ``max_abs_weight`` in magnitude: fewer than
+    2^31 / max|w|, so that no int32 cell can overflow."""
+    if not max_abs_weight < INT_SUM_LIMIT:
+        raise ValueError(f"a weight of magnitude {max_abs_weight} does not "
+                         "fit an int32 sum")
+    return max(1, int((INT_SUM_LIMIT - 1) // max(max_abs_weight, 1.0)))
+
+
+def _int_sum_launches(bins, labels, weights, n_classes: int, n_bins: int,
+                      rows: int) -> torch.Tensor:
+    """[F, C·B] int64: K1's integer mode launched on ``rows`` rows at a
+    time (row r0's operands at their storage plus r0 rows), each launch's
+    int32 sums added in int64."""
+    n, n_f = bins.shape
+    lib = _build.load_library()
+    out = torch.empty((n_f, n_classes * n_bins), dtype=torch.int32,
+                      device=bins.device)
+    sums = torch.zeros((n_f, n_classes * n_bins), dtype=torch.int64,
+                       device=bins.device)
+    stream = torch.cuda.current_stream(bins.device).cuda_stream
+    for r0 in range(0, n, rows):
+        err = lib.avt_cfb_sums_int(
+            bins[r0:].data_ptr(), labels[r0:].data_ptr(),
+            weights[r0:].data_ptr(), min(rows, n - r0), n_f, n_classes,
+            n_bins, out.data_ptr(), bins.device.index, stream)
+        _build.check(err, "class_feature_bin_sums kernel launch")
+        class_feature_bin_sums.launches += 1
+        sums += out
+    return sums
+
+
+class_feature_bin_sums.launches = 0
 
 
 def pair_counts_plain(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,

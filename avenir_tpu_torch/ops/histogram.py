@@ -12,6 +12,8 @@ counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
 counts — goes through K1, as does ``node_class_bin_counts``, a tree
 level's histogram (one K1 launch for each chunk of its nodes, and for a
 forest's level one for each tree and chunk), and
+``node_channel_bin_sums``, a boosting level's exact int64 channel sums
+(K1's integer mode, two launches for each chunk of its nodes), and
 ``pair_counts`` and ``pair_counts_multi`` —
 the contingency counts of MI and correlation, one pair or every pair of a
 job in one launch — through K4 (``ops/cuda_histogram.py``), whose wrappers
@@ -127,6 +129,55 @@ def node_class_bin_counts(bins: torch.Tensor, node_id: torch.Tensor,
                      .permute(0, 2, 3, 4, 1))
     out = parts[0] if len(parts) == 1 else torch.cat(parts, dim=2)
     return out if forest else out[0]
+
+
+def node_channel_bin_sums(bins: torch.Tensor, node_id: torch.Tensor,
+                          labels: torch.Tensor, hess_w: torch.Tensor,
+                          grad_w: torch.Tensor, n_nodes: int, n_bins: int,
+                          n_classes: int, max_abs_weight: float
+                          ) -> torch.Tensor:
+    """[N, A] bins × [N] node ids × [N] labels and two [N] integer-valued
+    weight vectors -> [A, n_nodes, n_bins, n_classes + 1] int64 exact sums:
+    a boosting level's channel histogram. Channel c < C sums ``hess_w``
+    over the rows of label c (the hessian-weighted class counts), channel
+    C sums ``grad_w`` over every row (the gradient). For each chunk of
+    ``_NODE_CHUNK_CB // n_bins`` nodes, K1's integer mode runs twice on
+    the same combined ids (``node · n_bins + bin``, -1 for rows outside the
+    chunk or out of range, which drop out): once with the labels and the
+    hessian weights, once with a single class and the gradient weights.
+
+    The JAX package sums these quanta in f32 (exact below 2^24 a cell);
+    here they are integers at any size, so chunked, streamed and atomic
+    orders all give the same sums. ``max_abs_weight`` bounds the
+    magnitude of both weight vectors (see
+    ``cuda_histogram.class_feature_bin_sums``)."""
+    n, n_a = bins.shape
+    bins = bins.to(torch.int32)
+    node_id = node_id.to(torch.int32)
+    labels = labels.to(torch.int32).contiguous()
+    hess_w = hess_w.to(torch.float32).contiguous()
+    grad_w = grad_w.to(torch.float32).contiguous()
+    one_class = torch.zeros_like(labels)
+    bin_ok = (bins >= 0) & (bins < n_bins)
+    node_ok = (node_id >= 0) & (node_id < n_nodes)
+    chunk = max(1, _NODE_CHUNK_CB // max(n_bins, 1))
+    parts = []
+    for k0 in range(0, n_nodes, chunk):
+        k1 = min(k0 + chunk, n_nodes)
+        in_chunk = node_ok & (node_id >= k0) & (node_id < k1)
+        combined = torch.where(bin_ok & in_chunk[:, None],
+                               (node_id[:, None] - k0) * n_bins + bins,
+                               -1).contiguous()
+        width = (k1 - k0) * n_bins
+        hess = cuda_histogram.class_feature_bin_sums(
+            combined, labels, n_classes, width, hess_w, max_abs_weight)
+        grad = cuda_histogram.class_feature_bin_sums(
+            combined, one_class, 1, width, grad_w, max_abs_weight)
+        # [C+1, A, (k1-k0)·B] -> [A, k1-k0, B, C+1]
+        parts.append(torch.cat([hess, grad])
+                     .reshape(n_classes + 1, n_a, k1 - k0, n_bins)
+                     .permute(1, 2, 3, 0))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def pair_counts(a: torch.Tensor, b: torch.Tensor, n_a: int, n_b: int,

@@ -24,7 +24,12 @@ JAX's compiled kernels (``jit``) round differently: XLA contracts a
 product into the add that consumes it and reduces a short minor axis as a
 vector tree, so the JAX package's own jitted and eager statistics differ
 in the last bit. The port's equal the eager ones exactly and the jitted
-ones within a few ulps.
+ones within a few ulps (the tree's level selection reproduces the
+compiled gain ratio itself, ``models/tree._level_select``).
+
+Boosting's compiled elementwise functions are reproduced bit for bit:
+``xla_exp`` (XLA's CPU exponential), ``xla_sigmoid`` (its fusion, whose
+last multiply contracts into the add of one) and ``xla_softplus``.
 """
 
 from __future__ import annotations
@@ -72,6 +77,63 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = fma(y, m3, _LOG_Q1 * e)
     m = fma(-m2, 0.5, m)
     return fma(_LOG_Q2, e, m + y)
+
+
+# XLA's CPU exponential (the Cephes single-precision polynomial)
+_EXP_LO, _EXP_HI = -87.8, 88.8
+_LOG2E = 1.44269502162933349609375
+_EXP_C1, _EXP_C2 = 0.693359375, -2.12194440e-4
+_EXP_P = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3,
+          4.1665795894e-2, 1.6666665459e-1, 0.5)
+
+
+def _xla_exp_parts(x: torch.Tensor):
+    """(y, 2^n) with ``exp(x) = y · 2^n`` as XLA's CPU backend computes
+    them: x clamped to [-87.8, 88.8], n = floor(x·log2 e + 0.5) clamped to
+    [-127, 127] (2^-127 becomes 0 through the exponent bits, as there), the
+    remainder reduced in two parts of ln 2 and a degree-5 polynomial in
+    fused multiply-adds, plus one."""
+    x = torch.clamp(x.float(), min=_EXP_LO, max=_EXP_HI)
+    fx = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), min=-127.0,
+                     max=127.0)
+    r = fma(-fx, _EXP_C1, x)
+    r = fma(-fx, _EXP_C2, r)
+    y = torch.full_like(r, _EXP_P[0])
+    for p in _EXP_P[1:]:
+        y = fma(y, r, p)
+    y = fma(y, r * r, r) + 1.0
+    pow2n = ((fx.to(torch.int32) << 23) + (127 << 23)).view(torch.float32)
+    return y, pow2n
+
+
+def xla_exp(x: torch.Tensor) -> torch.Tensor:
+    """``exp`` of f32 ``x``, bit for bit as XLA's CPU backend computes it
+    (``jnp.exp`` under ``jit``; a result below the smallest normal f32 is
+    flushed to 0, as XLA's CPU code runs); torch's and CUDA's differ from
+    it in the last bit for about one input in ten."""
+    y, pow2n = _xla_exp_parts(x)
+    out = y * pow2n
+    return torch.where(out < _MIN_NORM, torch.zeros_like(out), out)
+
+
+def xla_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` under ``jit`` on the CPU, bit for bit: XLA fuses
+    ``negate → exponential → add → divide``, and the exponential's last
+    multiply contracts with the add of one into a fused multiply-add; a
+    quotient below the smallest normal f32 is flushed to 0. The divisor is
+    a tensor, so the CUDA division rounds correctly too."""
+    y, pow2n = _xla_exp_parts(-x.float())
+    out = torch.ones_like(y) / fma(y, pow2n, 1.0)
+    return torch.where(out < _MIN_NORM, torch.zeros_like(out), out)
+
+
+def xla_softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus`` as XLA compiles it: ``max(x, 0) +
+    log1p(exp(-|x|))`` (NaN passed through), with XLA's exponential; its
+    ``log1p`` is torch's, which may differ from XLA's in the last bit."""
+    x = x.float()
+    out = torch.clamp(x, min=0.0) + torch.log1p(xla_exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
 
 
 def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:

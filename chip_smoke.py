@@ -250,7 +250,28 @@ Phases (one line each; any failure exits non-zero):
    (50,000 rows, validation, host walk and device vote) and the four
    bandit verbs on a round of 100 price-optimization groups with
    ``group.item.count.path``, each on the card and with ``--device cpu``:
-   every file and stdout line equal, forest accuracy at least 0.65.
+   every file and stdout line equal, forest accuracy at least 0.65;
+10. gradient boosting (``models/boost.py``: K1's integer mode sums each
+   level's hessian and gradient quanta, two launches a chunk of nodes):
+   8 rounds at depth 3 (the churn tutorial's setting) and 10 at depth 6
+   on phase 7's 1,048,576 retarget rows, every K1 integer-mode launch held
+   exactly against its plain version (an int64 ``index_add_``) and their
+   count the expected one, the same fits on the CPU with the trees, leaf
+   values and artifact bytes equal; the device margins of the deeper
+   model against the host walk on every row (within 1e-5, the classes
+   equal); a round at each depth timed (host clock) and under
+   ``torch.profiler``; K1's integer mode at every level shape (chained,
+   from graph replays reading HBM, plain, ``bincount``, bytes bound);
+   K1's integer mode split across launches, exact against plain (a
+   level's operands under a weight bound of 2^12; 3,145,728 rows with a
+   cell past 2^31); ``grow_boosted_streaming`` over 8 part files of
+   16,384 retarget rows byte-identical to in-core growth; then
+   GradientBoostBuilder (200,000 rows, in core, early-stopped, and
+   streamed over 8 part files) and
+   GradientBoostPredictor (50,000 rows, validation, host walk and device
+   route), each on the card and with ``--device cpu``: every file and
+   stdout line equal, the streamed artifact equal to the in-core one,
+   accuracy at least 0.65.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -266,7 +287,11 @@ shape, with the launches of phase 8's training at scale (its CLI jobs' in
 ``cli_launches``); a fifth, K1 at the forest shape (``K1-forest``), with
 the launches of phase 9's two forests at scale (its streamed growth's in
 ``stream_launches``, its CLI jobs' in ``cli_launches``) and each level
-shape's times in ``levels``; K6-K12 add ``parent_ms``, the
+shape's times in ``levels``; a sixth, K1's integer mode at the boosting
+shape (``K1-int``), with the launches of phase 10's two fits at scale
+(its streamed growth's in ``stream_launches``, its CLI jobs' in
+``cli_launches``), a round's time at each depth in ``round_ms`` and each
+level shape's times in ``levels``; K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -2010,19 +2035,22 @@ def same_index(a, b) -> bool:
                else getattr(a, f) == getattr(b, f) for f in IVF_FIELDS)
 
 
-def hold_k1_calls(label, calls):
-    """Each recorded K1 call against its plain version on its own
-    operands, exactly; returns the count and the operands of the last."""
+def hold_k1_calls(label, calls, name="K1"):
+    """Each recorded K1 call (``name`` "K1-int": of its integer mode)
+    against its plain version on its own operands, exactly; returns the
+    count and the operands of the last."""
     from avenir_tpu_torch.ops import cuda_histogram as H
-    mine = [a for name, a, out in calls if name == "K1"
-            and torch.equal(out, H.class_feature_bin_counts_plain(
-                a["bins"], a["labels"], a["n_classes"], a["n_bins"],
-                a["weights"]))]
+    plain = (H.class_feature_bin_sums_plain if name == "K1-int"
+             else H.class_feature_bin_counts_plain)
+    mine = [a for n, a, out in calls if n == name
+            and torch.equal(out, plain(a["bins"], a["labels"],
+                                       a["n_classes"], a["n_bins"],
+                                       a["weights"]))]
     held = len(mine)
-    total = sum(name == "K1" for name, _, _ in calls)
+    total = sum(n == name for n, _, _ in calls)
     if held != total or not total:
-        raise AssertionError(f"{label}: {total - held} of {total} K1 calls "
-                             "differ from plain")
+        raise AssertionError(f"{label}: {total - held} of {total} {name} "
+                             "calls differ from plain")
     return total, mine[-1]
 
 
@@ -3388,6 +3416,443 @@ def forest_phase(dev, work):
 
 
 # --------------------------------------------------------------------------
+# phase 10: gradient boosting
+# --------------------------------------------------------------------------
+
+# (rounds, depth): the churn tutorial's 8 rounds at depth 3, and deeper
+BOOST_RUNS = ((8, 3), (10, 6))
+BOOST_LEARNING_RATE = 0.3
+BOOST_ACCURACY_BAR = 0.65
+BOOST_MARGIN_ATOL = 1e-5
+# a CLI job whose holdout decides the rounds kept (as tests/test_torch_boost
+# stops early)
+BOOST_EARLY_STOP = ("-D", "forest.boost.num.rounds=30", "-D",
+                    "forest.boost.learning.rate=0.9", "-D",
+                    "forest.boost.early.stop.rounds=2")
+
+
+def boost_config(rounds, depth):
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.models.tree import TreeConfig
+    return B.BoostConfig(n_rounds=rounds, learning_rate=BOOST_LEARNING_RATE,
+                         tree=TreeConfig(max_depth=depth))
+
+
+def boost_k1_launches(table, cfg):
+    """K1's integer-mode launches of a boosted fit: two for each chunk of
+    nodes of every level of every round (one launch a chunk's rows while
+    N · 2^10 < 2^31)."""
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.models import tree as T
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.ops import histogram as hg
+    _, cand = B.build_boost_catalog(table, cfg.tree)
+    chunk = max(1, hg._NODE_CHUNK_CB // cand.b_max)
+    splits = math.ceil(table.n_rows / H.rows_per_launch(B._Q))
+    widths = T._level_widths(cfg.tree.max_depth, cand.s_max,
+                             cfg.tree.device_node_budget)
+    return cfg.n_rounds * sum(2 * splits * math.ceil(w / chunk)
+                              for w in widths)
+
+
+def boost_artifact(model, path):
+    from avenir_tpu_torch.models import boost as B
+    B.save_boosted(model, path)
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def boost_at_scale(dev, work, table, cpu_table):
+    """Each BOOST_RUNS config on ``table`` (1,048,576 rows) on the card,
+    every K1 launch (integer mode) recorded and held exactly against its
+    plain version, their count the expected one; the same config on the
+    CPU: trees with their leaf values and the artifact bytes equal.
+    Returns (the last model, launches, the recorded operands by K1
+    shape)."""
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.models import tree as T
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    launches, by_shape, model = 0, {}, None
+    for rounds, depth in BOOST_RUNS:
+        cfg = boost_config(rounds, depth)
+        label = f"phase 10 {rounds} rounds at depth {depth}"
+        calls = []
+        H.class_feature_bin_sums.launches = 0
+        t0 = time.perf_counter()
+        with recording(calls):
+            model = B.grow_boosted(table, cfg)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        count = H.class_feature_bin_sums.launches
+        held, _ = hold_k1_calls(label, calls, "K1-int")
+        expected = boost_k1_launches(table, cfg)
+        if held != count or count != expected:
+            raise AssertionError(f"{label}: {count} K1 integer-mode "
+                                 f"launches, {held} recorded, {expected} "
+                                 "expected")
+        for name, a, _ in calls:
+            if name == "K1-int":
+                by_shape.setdefault((a["n_bins"], a["n_classes"]), a)
+        del calls
+        launches += count
+        t0 = time.perf_counter()
+        cpu_model = B.grow_boosted(cpu_table, cfg)
+        cpu_s = time.perf_counter() - t0
+        depths = [max_depth(t) for t in model.trees]
+        card_trees = [T.canonical_tree(t, with_values=True)
+                      for t in model.trees]
+        cpu_trees = [T.canonical_tree(t, with_values=True)
+                     for t in cpu_model.trees]
+        if card_trees != cpu_trees:
+            raise AssertionError(f"{label}: the card's trees or leaf values "
+                                 "differ from the CPU's")
+        card_bytes = boost_artifact(model, os.path.join(work, "card.json"))
+        if card_bytes != boost_artifact(cpu_model,
+                                        os.path.join(work, "cpu.json")):
+            raise AssertionError(f"{label}: the card's artifact differs from "
+                                 "the CPU's")
+        log(f"{label} on {table.n_rows} rows (learning rate "
+            f"{BOOST_LEARNING_RATE}): {count} K1 integer-mode launches, "
+            f"each exact against plain; trees, leaf values and the "
+            f"{len(card_bytes)}-byte artifact equal to the CPU's; card "
+            f"{card_s:.3f} s, CPU {cpu_s:.2f} s (host clock); depths "
+            f"{sorted(collections.Counter(depths).items())}")
+    return model, launches, by_shape
+
+
+def boost_round(table, rounds, depth):
+    """One boosting round at ``depth`` from the base score, timed (host
+    clock, synchronized, after one warm-up round) and under
+    ``torch.profiler``."""
+    from avenir_tpu_torch.models import boost as B
+    cfg = boost_config(rounds, depth)
+    _, cand = B.build_boost_catalog(table, cfg.tree)
+    dev = table.binned.device
+    ones = torch.ones(table.n_rows, device=dev)
+    score = torch.zeros(table.n_rows, device=dev)
+    reg = torch.tensor(1.0, device=dev)
+    lr = torch.tensor(np.float32(BOOST_LEARNING_RATE), device=dev)
+
+    def one_round():
+        return B._boost_round(
+            [(cand, table.labels, ones, ones, score)], cand, reg, lr,
+            depth=depth,
+            n_classes=table.n_classes, algorithm=cfg.tree.algorithm,
+            min_node_size=cfg.tree.min_node_size,
+            min_gain=cfg.tree.min_gain,
+            node_budget=cfg.tree.device_node_budget)
+    one_round()
+    ms = min(host_ms(one_round)[0] for _ in range(3))
+    log(f"phase 10 a round at depth {depth} on {table.n_rows} rows: "
+        f"{ms:.2f} ms (host clock, best of 3)")
+    profile_ops(f"phase 10 a round at depth {depth}", one_round)
+    return ms
+
+
+def boost_margins(model, table):
+    """Device margins of every row against the host walk: within
+    BOOST_MARGIN_ATOL and the same classes."""
+    dev_ms, device = host_ms(lambda: model.margins(table, device=True))
+    t0 = time.perf_counter()
+    host = model.margins(table)
+    host_s = time.perf_counter() - t0
+    err = float(np.abs(device - host).max())
+    if err > BOOST_MARGIN_ATOL or not np.array_equal(device > 0, host > 0):
+        raise AssertionError(f"phase 10 margins: device against host walk "
+                             f"max |diff| {err}, classes "
+                             f"{int(((device > 0) != (host > 0)).sum())} "
+                             "apart")
+    truth = table.labels.cpu().numpy()
+    log(f"phase 10 margins of {len(model.trees)} trees on {table.n_rows} "
+        f"rows: device {dev_ms:.1f} ms, host walk {host_s:.2f} s (host "
+        f"clock); max |diff| {err:.3g} (atol {BOOST_MARGIN_ATOL}), classes "
+        f"equal; training accuracy {((host > 0) == truth).mean():.4f}")
+
+
+def time_k1_int(dev, a):
+    """K1's integer mode on recorded operands: chained, from graph replays
+    reading HBM, plain, the library call (``bincount`` of the weights over
+    the same combined ids, built beforehand) and the bytes bound (ids and
+    weights read once, labels too where C > 1, the int32 sums written
+    once)."""
+    from avenir_tpu_torch.models.boost import _Q
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    bins, labels, w = a["bins"], a["labels"], a["weights"]
+    c, b = a["n_classes"], a["n_bins"]
+    n, f = bins.shape
+    cells = f * c * b
+    in_bytes = n * (f + (2 if c > 1 else 1)) * 4
+    ms = chain_ms(lambda: H.class_feature_bin_sums(bins, labels, c, b, w,
+                                                   _Q), dev)
+    graph = hbm_graph_ms(
+        lambda u, v, x: H.class_feature_bin_sums(u, v, c, b, x, _Q),
+        (bins, labels, w), in_bytes, dev)
+    plain = cuda_ms(lambda: H.class_feature_bin_sums_plain(
+        bins, labels, c, b, w), 5)
+    ids = bins.long()
+    flat = (torch.arange(f, device=dev)[None, :] * (c * b)
+            + labels.long()[:, None] * b + ids)
+    flat = torch.where(ids >= 0, flat, cells).reshape(-1)   # -1: a spare cell
+    wide = w.double().reshape(n, 1).expand(n, f).reshape(-1).contiguous()
+    library = cuda_ms(lambda: torch.bincount(flat, weights=wide,
+                                             minlength=cells + 1), 20)
+    bound, by = bound_ms(in_bytes + cells * 4, n * f)
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={n} F={f} C={c} B={b} integer"}
+
+
+def check_k1_int_split(dev, a):
+    """K1's integer mode split across launches on the card, held exactly
+    against its plain version with the launches counted: one recorded
+    level's operands under a weight bound of 2^12 (three launches at
+    1,048,576 rows, the last of two rows); and 2^21 + 2^20 rows of weight
+    ±2^10 with one cell past 2^31, which the wrapper's bound of 2^10 splits
+    into two launches whose int32 sums add in int64."""
+    from avenir_tpu_torch.models.boost import _Q
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    n = (1 << 21) + (1 << 20)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    labels = (torch.rand(n, generator=gen, device=dev) < 0.1).to(torch.int32)
+    bins = torch.stack([torch.zeros(n, dtype=torch.int32, device=dev),
+                        torch.randint(-1, 9, (n,), generator=gen,
+                                      dtype=torch.int32, device=dev)], 1)
+    w = torch.where(labels == 0, _Q, -_Q).to(torch.float32)
+    cases = ((a["bins"], a["labels"], a["n_classes"], a["n_bins"],
+              a["weights"], 2.0 ** 12), (bins, labels, 2, 8, w, _Q))
+    for bins, labels, c, b, w, bound in cases:
+        expected = math.ceil(bins.shape[0] / H.rows_per_launch(bound))
+        H.class_feature_bin_sums.launches = 0
+        got = H.class_feature_bin_sums(bins, labels, c, b, w, bound)
+        count = H.class_feature_bin_sums.launches
+        want = H.class_feature_bin_sums_plain(bins, labels, c, b, w)
+        equal = torch.equal(got, want)
+        if count != expected or count < 2 or not equal:
+            raise AssertionError(
+                f"phase 10 K1 integer mode split over {count} launches "
+                f"({expected} expected) on {bins.shape[0]} rows, weights "
+                f"up to {bound}: equal to plain {equal}")
+        log(f"phase 10 K1 integer mode split: {bins.shape[0]} rows, "
+            f"weights up to {bound:g}, {count} launches, equal to plain "
+            f"(largest |cell| {int(want.abs().max())})")
+    if int(want.max()) < H.INT_SUM_LIMIT:
+        raise AssertionError("phase 10 K1 integer mode split: no cell past "
+                             "2^31")
+
+
+def boost_streamed(dev, work):
+    """``grow_boosted_streaming`` over STREAM_PARTS part files of
+    STREAM_PART_ROWS retarget rows against ``grow_boosted`` over the same
+    rows on the card: the artifacts byte for byte; every K1 launch of the
+    streamed run held. Returns its K1 launches."""
+    from avenir_tpu_torch.datagen import retarget_rows, retarget_schema
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    rows = retarget_rows(STREAM_PARTS * STREAM_PART_ROWS, seed=SEED + 12)
+    d = os.path.join(work, "boost_stream")
+    os.makedirs(d)
+    paths = []
+    for i in range(STREAM_PARTS):
+        paths.append(os.path.join(d, f"part-{i:05d}"))
+        write_csv(paths[-1], rows[i * STREAM_PART_ROWS:
+                                  (i + 1) * STREAM_PART_ROWS])
+    fz = Featurizer(retarget_schema(), device=dev).fit(rows)
+    rounds, depth = BOOST_RUNS[0]
+    cfg = boost_config(rounds, depth)
+    calls = []
+    H.class_feature_bin_sums.launches = 0
+    t0 = time.perf_counter()
+    with recording(calls):
+        streamed = B.grow_boosted_streaming(fz, paths, cfg)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    count = H.class_feature_bin_sums.launches
+    held, _ = hold_k1_calls("phase 10 streamed", calls, "K1-int")
+    if held != count:
+        raise AssertionError(f"phase 10 streamed: {count} K1 launches, "
+                             f"{held} recorded")
+    del calls
+    t0 = time.perf_counter()
+    incore = B.grow_boosted(fz.transform(rows), cfg)
+    incore_s = time.perf_counter() - t0
+    got = boost_artifact(streamed, os.path.join(d, "streamed.json"))
+    if got != boost_artifact(incore, os.path.join(d, "incore.json")):
+        raise AssertionError("phase 10 streamed: the artifact differs from "
+                             "in-core growth over the same rows")
+    log(f"phase 10 grow_boosted_streaming, {rounds} rounds at depth {depth} "
+        f"over {STREAM_PARTS} part files of {STREAM_PART_ROWS} rows: "
+        f"artifact byte-identical to in-core growth ({stream_s:.2f} s, "
+        f"{count} K1 launches, each exact; in-core {incore_s:.2f} s, host "
+        "clock)")
+    return count
+
+
+def boost_cli_jobs(work):
+    """GradientBoostBuilder (in core, early-stopped, and streamed over part
+    files) and GradientBoostPredictor (validation, host walk and device route) on
+    TREE_TRAIN / TREE_TEST retarget rows, each on the card and with
+    ``--device cpu`` in a directory of its own: every file and stdout
+    line equal, the builders' K1 launches held. Returns K1's launches."""
+    from avenir_tpu_torch.cli.main import main
+    from avenir_tpu_torch.datagen import retarget_rows
+    from avenir_tpu_torch.datagen.generators import _RETARGET_SCHEMA_JSON
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    rows = retarget_rows(TREE_TRAIN + TREE_TEST, seed=SEED + 13)
+    schema = os.path.join(work, "boost_schema.json")
+    with open(schema, "w") as fh:
+        json.dump(_RETARGET_SCHEMA_JSON, fh)
+    dirs = {dev: os.path.join(work, f"boost_{dev}") for dev in ("cuda", "cpu")}
+    rounds, depth = BOOST_RUNS[0]
+    part = TREE_TRAIN // STREAM_PARTS
+    for dev, d in dirs.items():
+        os.makedirs(os.path.join(d, "parts"))
+        write_csv(os.path.join(d, "train.csv"), rows[:TREE_TRAIN])
+        write_csv(os.path.join(d, "test.csv"), rows[TREE_TRAIN:])
+        for i in range(STREAM_PARTS):
+            write_csv(os.path.join(d, "parts", f"part-{i:05d}"),
+                      rows[i * part:(i + 1) * part])
+        with open(os.path.join(work, f"boost_{dev}.properties"), "w") as fh:
+            fh.write(f"feature.schema.file.path={schema}\n"
+                     "field.delim.regex=,\nfield.delim.out=;\n"
+                     "forest.boost.model.file.path="
+                     f"{os.path.join(d, 'boost.json')}\n"
+                     "featurizer.fit.data.path="
+                     f"{os.path.join(d, 'train.csv')}\n"
+                     f"positive.class.value=yes\nmax.depth={depth}\n"
+                     f"forest.boost.num.rounds={rounds}\n"
+                     f"forest.boost.learning.rate={BOOST_LEARNING_RATE}\n")
+    launches = 0
+
+    def both(label, verb, inp, out, *extra, k1):
+        nonlocal launches
+        reports, walls = {}, {}
+        for dev, d in dirs.items():
+            args = [verb, os.path.join(d, inp), os.path.join(d, out),
+                    "--conf", os.path.join(work, f"boost_{dev}.properties"),
+                    *extra, "--device", dev]
+            calls = []
+            H.class_feature_bin_sums.launches = 0
+            t0 = time.perf_counter()
+            with recording(calls):
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    if main(args) != 0:
+                        raise AssertionError(f"phase 10 {label}: {dev} run "
+                                             "failed")
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                count = H.class_feature_bin_sums.launches
+                if bool(count) != k1:
+                    raise AssertionError(f"phase 10 {label}: {count} K1 "
+                                         "launches")
+                if count:
+                    held, _ = hold_k1_calls(f"phase 10 {label}", calls,
+                                            "K1-int")
+                    if held != count:
+                        raise AssertionError(f"phase 10 {label}: {count} "
+                                             f"K1 launches, {held} recorded")
+                launches += count
+            walls[dev] = time.perf_counter() - t0
+            reports[dev] = buf.getvalue()
+        if reports["cuda"] != reports["cpu"]:
+            raise AssertionError(f"phase 10 {label}: stdout differs: "
+                                 f"{reports}")
+        names, differ = same_files(dirs["cuda"], dirs["cpu"])
+        if differ:
+            raise AssertionError(f"phase 10 {label}: files differ between "
+                                 f"the card and the CPU: {differ[:10]}")
+        log(f"phase 10 {label}: card {walls['cuda']:.2f} s, CPU "
+            f"{walls['cpu']:.2f} s (host clock); {len(names)} files "
+            "byte-identical to the CPU's")
+        lines = [line for line in reports["cuda"].splitlines() if line]
+        return json.loads(lines[-1]) if lines else {}
+
+    built = both(f"GradientBoostBuilder {TREE_TRAIN} rows",
+                 "GradientBoostBuilder", "train.csv", "boost.json", k1=True)
+    if built["Boost.Rounds"] != rounds:
+        raise AssertionError(f"phase 10: {built}")
+    stopped = both(f"GradientBoostBuilder {TREE_TRAIN} rows with early "
+                   "stopping", "GradientBoostBuilder", "train.csv",
+                   "early.json", *BOOST_EARLY_STOP, k1=True)
+    log(f"phase 10 early stopping: {stopped['Boost.Rounds']} of "
+        f"{BOOST_EARLY_STOP[1].split('=')[1]} rounds kept, the same on the "
+        "card and the CPU")
+    both(f"GradientBoostBuilder streaming.train over {STREAM_PARTS} part "
+         "files", "GradientBoostBuilder", "parts", "streamed.json", "-D",
+         "streaming.train=true", k1=True)
+    for d in dirs.values():
+        with open(os.path.join(d, "boost.json"), "rb") as fh, \
+                open(os.path.join(d, "streamed.json"), "rb") as gh:
+            if fh.read() != gh.read():
+                raise AssertionError("phase 10: the streamed CLI artifact "
+                                     "differs from the in-core one")
+    for on_device in ("false", "true"):
+        report = both(f"GradientBoostPredictor {TREE_TEST} rows "
+                      f"device.predict={on_device}",
+                      "GradientBoostPredictor", "test.csv",
+                      f"pred_{on_device}.txt", "-D", "validation.mode=true",
+                      "-D", f"device.predict={on_device}", k1=False)
+        acc = report["Validation.Accuracy"]
+        if acc < BOOST_ACCURACY_BAR:
+            raise AssertionError(f"phase 10: boosted accuracy {acc} below "
+                                 f"{BOOST_ACCURACY_BAR}")
+    log(f"phase 10 boosted planted rule: validation accuracy {acc:.4f} (bar "
+        f"{BOOST_ACCURACY_BAR}); the streamed CLI artifact equals the "
+        "in-core one")
+    return launches
+
+
+def boost_phase(dev, work):
+    """Phase 10; returns K1's integer mode's kernels-line entry."""
+    import dataclasses
+    table = retarget_big_table(dev)
+    cpu_table = dataclasses.replace(
+        table, binned=table.binned.cpu(), numeric=table.numeric.cpu(),
+        labels=table.labels.cpu())
+    model, launches, by_shape = boost_at_scale(dev, work, table, cpu_table)
+    del cpu_table
+    boost_margins(model, table)
+    round_ms = {depth: boost_round(table, rounds, depth)
+                for rounds, depth in BOOST_RUNS}
+    del table
+    # every level shape of the hessian channels, and the gradient
+    # channel's at the widest level
+    widest_b = max(b for b, _ in by_shape)
+    timings = []
+    for (b, c), a in sorted(by_shape.items()):
+        if c == 1 and b != widest_b:
+            continue
+        k1 = time_k1_int(dev, a)
+        timings.append(k1)
+        log(f"phase 10 K1 integer mode at {k1['shape']}: {k1['ms']:.4f} ms "
+            f"chained, {k1['graph_ms']:.4f} ms from graph replays reading "
+            f"HBM ({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+            f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, "
+            f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    check_k1_int_split(dev, by_shape[(widest_b, 2)])
+    del by_shape
+    stream_launches = boost_streamed(dev, work)
+    cli_launches = boost_cli_jobs(work)
+    widest = max(timings, key=lambda k: k["bound_ms"])
+    return {"name": "cfb_sums_int (K1-int) at the boosting shape (each "
+                    "level's hessian and gradient channels, exact int32 "
+                    "sums)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
+            "launches": launches, "stream_launches": stream_launches,
+            "cli_launches": cli_launches, "max_abs_err": 0.0,
+            "round_ms": round_ms,
+            **{key: widest[key] for key in ("ms", "graph_ms", "plain_ms",
+                                            "bound_ms", "bound_by",
+                                            "library_ms", "shape")},
+            "levels": [{key: k[key] for key in (
+                "shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                "bound_ms")} for k in timings]}
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -3410,7 +3875,8 @@ def run_cli(args):
 
 @contextlib.contextmanager
 def recording(calls):
-    """Record every call of the kernel wrappers of K1-K4 (K4 through
+    """Record every call of the kernel wrappers of K1-K4 (K1 also in its
+    integer mode, ``class_feature_bin_sums``; K4 through
     ``pair_counts_multi``, the wrapper the MI and correlation jobs call,
     and ``pair_counts``, the Markov path's) while the main path
     runs — its operands and the result the path went on with — so that
@@ -3420,6 +3886,7 @@ def recording(calls):
     stand-in carries the count and hands it back on exit."""
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
     sites = [(cuda_histogram, "class_feature_bin_counts", "K1"),
+             (cuda_histogram, "class_feature_bin_sums", "K1-int"),
              (cuda_distance, "topk_raw", "K2"),
              (cuda_fused, "fused_topk_raw", "K3"),
              (cuda_histogram, "pair_counts_multi", "K4"),
@@ -4106,6 +4573,11 @@ def main() -> int:
         k1_forest = forest_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="smoke-boost-", dir=str(_build.BUILD_DIR))
+    try:
+        k1_boost = boost_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
@@ -4122,6 +4594,7 @@ def main() -> int:
     kernels.append(k1_tree)
     kernels.append(k4_markov)
     kernels.append(k1_forest)
+    kernels.append(k1_boost)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

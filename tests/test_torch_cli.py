@@ -240,7 +240,6 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
 
 
 _SIMILARITY = "'`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs'"
-_TREES = "'Forests and boosting'"
 _EXPLORE = "'Explore, regress, discriminant and text'"
 _BANDITS = "'Bandits and streaming serving'"
 _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
@@ -250,8 +249,8 @@ _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
     (["SameTypeSimilarity"], _SIMILARITY),
     (["FeatureCondProbJoiner"], _SIMILARITY),
     (["Projection"], _EXPLORE),
-    (["GradientBoostBuilder"], _TREES),
-    (["GradientBoostPredictor"], _TREES),
+    (["GradientBoostBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
+    (["GradientBoostPredictor", "--obs-port", "0"], _LAYERS),
     (["LogisticRegressionJob"], _EXPLORE),
     (["UnderSamplingBalancer"], _EXPLORE),
     (["WordCounter"], _EXPLORE),
@@ -288,7 +287,7 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    assert len(named) >= 12
+    assert len(named) >= 11
     assert "Multi-device layer" in named
     assert "Streaming/sharded NB and per-shard MI" in named
     assert named <= titles, named - titles

@@ -8,14 +8,13 @@ The JAX package pins its batched, serial and auto forests equal
 (``tests/test_forest.py``), so each config grows the JAX forest once and
 the port's three growths are held against it.
 
-One known difference (ROADMAP queue C): two candidates that split a
-node's rows into the same children in another segment order tie
-exactly, but the JAX package computes their gain ratios compiled, where
-XLA's fused multiply-adds make the sum over segments depend on their
-order, so its argmax picks by rounding. The port's ratios of the two are
-equal and it takes the first. ``_assert_forests_match`` holds such a
-node to that: the same attribute, node counts and children (matched by
-their class counts), and the port's split earlier in the catalog."""
+The JAX package computes its level selection compiled, where XLA's fused
+multiply-adds make the sum over segments depend on their order; two
+candidates that split a node's rows into the same children in another
+segment order then tie only up to rounding, and its argmax picks the one
+that rounds higher. The port's ``_level_select`` computes the gain ratio
+in the compiled order (bit for bit with two classes, held below), so it
+picks the same candidate."""
 
 import json
 
@@ -59,47 +58,9 @@ def _canon(trees):
     return [TT.canonical_tree(t) for t in trees]
 
 
-def _child_counts(node):
-    return sorted(tuple(int(c) for c in ch.class_counts)
-                  for ch in node.children.values())
-
-
-def _assert_forests_match(got, want, keys):
-    """Each port tree equal to the JAX tree, node by node, but at exact
-    ties (module docstring); returns the number of such nodes."""
-    order = {(a, k): i for i, (a, k, _) in enumerate(keys)}
-    ties = 0
-
-    def walk(g, w):
-        nonlocal ties
-        assert [int(c) for c in g.class_counts] == \
-            [int(c) for c in w.class_counts]
-        if (g.attr_ordinal, g.split_key) == (w.attr_ordinal, w.split_key):
-            assert set(g.children) == set(w.children)
-            for seg, child in g.children.items():
-                walk(child, w.children[seg])
-            return
-        assert g.attr_ordinal == w.attr_ordinal
-        assert _child_counts(g) == _child_counts(w)
-        assert order[(g.attr_ordinal, g.split_key)] < \
-            order[(w.attr_ordinal, w.split_key)]
-        ties += 1
-        by_counts = lambda n: sorted(  # noqa: E731
-            n.children.values(),
-            key=lambda c: tuple(int(x) for x in c.class_counts))
-        for gc, wc in zip(by_counts(g), by_counts(w)):
-            walk(gc, wc)
-
-    assert len(got) == len(want)
-    for g, w in zip(got, want):
-        walk(g, w)
-    return ties
-
-
-def _catalog(table):
-    splittable = sorted(TT.splittable_ordinals(table))
-    return TT._device_candidates(
-        table, TT._attr_plans(table, splittable, 3)).keys
+def _assert_forests_match(got, want):
+    """Each port tree equal to the JAX tree, node by node."""
+    assert _canon(got) == [JT.canonical_tree(t) for t in want]
 
 
 def _configs(n_trees, attrs, bagging, seed, growth="auto", **tree):
@@ -146,7 +107,36 @@ def test_forest_equals_jax(tables, name, growth):
     want = _jax_forest(tables, name)
     got = TF.grow_forest(tables[fixture][1], tcfg)
     assert len(got) == len(want) == args[0]
-    _assert_forests_match(got, want, _catalog(tables[fixture][1]))
+    _assert_forests_match(got, want)
+
+
+@pytest.mark.parametrize("algorithm", ["entropy", "giniIndex"])
+@pytest.mark.parametrize("shape", [(33, 2, 4), (40, 3, 8), (16, 5, 2)])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
+    """The gain ratios of every (candidate, node) equal the JAX package's
+    compiled ``_level_select`` bit for bit, on integer counts and on
+    hessian-weighted ones (multiples of 2^-10), two classes: (33, 2, 4) is
+    the hospital catalog's shape."""
+    import jax
+    import jax.numpy as jnp
+    from functools import partial
+    t, s, k = shape
+    rng = np.random.default_rng(t * 100 + s * 10 + k)
+    if weighted:
+        counts = (rng.integers(0, 12_800, size=(t, s, k, 2))
+                  / 1024.0).astype(np.float32)
+    else:
+        counts = rng.integers(0, 50, size=(t, s, k, 2)).astype(np.float32)
+    counts[rng.random(counts.shape) < 0.3] = 0
+    want = np.asarray(jax.jit(partial(
+        JT._level_select, k_nodes=k, s_max=s, n_classes=2,
+        algorithm=algorithm, min_node_size=1, min_gain=-1.0,
+        with_ratio=True))(jnp.asarray(counts))["ratio"])
+    got = TT._level_select(torch.from_numpy(counts), algorithm=algorithm,
+                           min_node_size=1, min_gain=-1.0,
+                           with_ratio=True)["ratio"].numpy()
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 def test_random_from_top_grows_serially_as_jax(tables):
