@@ -21,16 +21,25 @@
     python -m avenir_tpu_torch AuerDeterministic    IN OUT --conf P
     python -m avenir_tpu_torch SoftMaxBandit        IN OUT --conf P
     python -m avenir_tpu_torch RandomFirstGreedyBandit IN OUT --conf P
+    python -m avenir_tpu_torch GradientBoostBuilder IN MODEL --conf P
+    python -m avenir_tpu_torch GradientBoostPredictor IN OUT --conf P
+    python -m avenir_tpu_torch SameTypeSimilarity   IN OUT --conf P
+    python -m avenir_tpu_torch FeatureCondProbJoiner IN OUT --conf P
+    python -m avenir_tpu_torch WordCounter          IN OUT --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
-six verbs, the part-file KNN path: ``_shard_resilience_kwargs``,
-``_shard_journal``, ``_print_shard_report``, ``_run_knn_sharded``, and the
+six verbs with the text branches of the two Naive Bayes verbs and
+NearestNeighbor's regression and neighbor-record replay
+(``_iter_rows_any``, ``_parse_neighbor_records``), the part-file KNN
+path: ``_shard_resilience_kwargs``, ``_shard_journal``,
+``_print_shard_report``, ``_run_knn_sharded``, and the
 five tree verbs with ``_write_predictions``, ``_find_used_attributes``,
 ``_select_split_attributes``, ``_split_algorithm``, ``_read_raw_lines``,
 ``_run_data_partitioner_batched``, the four sequence verbs, the two
-forest verbs and ``_run_batch_bandit``'s four bandit verbs), with the
-same ``.properties`` keys, schemas and output files. ``--device
+forest verbs, ``_run_batch_bandit``'s four bandit verbs, the two boosting
+verbs, SameTypeSimilarity, FeatureCondProbJoiner and WordCounter), with
+the same ``.properties`` keys, schemas and output files. ``--device
 {cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
 ``--device cpu`` the job raises.
 
@@ -61,7 +70,7 @@ import torch
 
 from avenir_tpu_torch.utils.config import JobConfig
 from avenir_tpu_torch.utils.dataset import (
-    Featurizer, part_file_paths, read_csv_lines)
+    Featurizer, iter_csv_rows, part_file_paths, read_csv_lines)
 from avenir_tpu_torch.utils.roadmap import roadmap_item
 from avenir_tpu_torch.utils.schema import FeatureSchema
 
@@ -89,15 +98,10 @@ _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
-_SIMILARITY = roadmap_item(
-    "`SameTypeSimilarity` and `FeatureCondProbJoiner` verbs")
 _EXPLORE = roadmap_item("Explore, regress, discriminant and text")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
-    "SameTypeSimilarity": _SIMILARITY,
-    "FeatureCondProbJoiner": _SIMILARITY,
     "Projection": _EXPLORE,
-    "WordCounter": _EXPLORE,
     "UnderSamplingBalancer": _EXPLORE,
     "BaggingSampler": _EXPLORE,
     "LogisticRegressionJob": _EXPLORE,
@@ -156,18 +160,22 @@ def _load_table(conf: JobConfig, in_path: str, device: torch.device,
     return fz, rows
 
 
-def _check_tabular(conf: JobConfig) -> None:
-    if not conf.get_bool("tabular.input", True):
-        _refuse("tabular.input=false",
-                f"text Naive Bayes ({roadmap_item('Text Naive Bayes')})")
-
-
 def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
                               device: torch.device) -> None:
-    """Train Naive Bayes distributions (reference BayesianDistribution)."""
+    """Train Naive Bayes distributions (reference BayesianDistribution).
+    ``tabular.input=false`` switches to text mode
+    (BayesianDistribution.java:115-131): rows are ``text<delim>classVal``
+    and every token becomes a bin of the text feature at ordinal 1."""
     from avenir_tpu_torch.models import naive_bayes as nb
     _check_keys(conf, _LATER_NB)
-    _check_tabular(conf)
+    if not conf.get_bool("tabular.input", True):
+        from avenir_tpu_torch.text import text_bayes
+        rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+        model, metrics = text_bayes.train(rows, device=device)
+        text_bayes.save_model(model, out_path,
+                              delim=conf.get("field.delim", ","))
+        print(metrics.to_json())
+        return
     fz, rows = _load_table(conf, in_path, device)
     table = fz.transform(rows)
     model, meta, metrics = nb.train(table)
@@ -179,10 +187,14 @@ def run_bayesian_predictor(conf: JobConfig, in_path: str, out_path: str,
                            device: torch.device) -> None:
     """Predict with a trained model (reference BayesianPredictor). Honors
     ``field.delim.out``, ``bp.predict.class``, ``bp.predict.class.cost``,
-    ``class.prob.diff.threshold`` and ``output.feature.prob.only``."""
+    ``class.prob.diff.threshold`` and ``output.feature.prob.only``; with
+    ``tabular.input=false`` it classifies ``text[<delim>classVal]`` rows
+    with a text model (``laplace.smoothing`` defaults to 1.0 there)."""
     from avenir_tpu_torch.models import naive_bayes as nb
     _check_keys(conf, _LATER_NB)
-    _check_tabular(conf)
+    if not conf.get_bool("tabular.input", True):
+        _run_text_bayes_predictor(conf, in_path, out_path, device)
+        return
     fz, rows = _load_table(conf, in_path, device, for_predict=True)
     table = fz.transform(rows)
     meta = nb.BayesModelMeta.from_table(table)
@@ -221,6 +233,212 @@ def run_bayesian_predictor(conf: JobConfig, in_path: str, out_path: str,
         cm = nb.validate(pred, table,
                          positive_class=conf.get("positive.class.value"))
         print(cm.report().to_json())
+
+
+def _run_text_bayes_predictor(conf: JobConfig, in_path: str, out_path: str,
+                              device: torch.device) -> None:
+    """The text branch of BayesianPredictor: each row with its predicted
+    class appended, and the report under ``validation.mode``."""
+    from avenir_tpu_torch.text import text_bayes
+    delim = conf.get("field.delim.out", ",")
+    rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+    model = text_bayes.load_model(
+        conf.get_required("bayesian.model.file.path"),
+        delim=conf.get("field.delim", ","), device=device)
+    truth = None
+    if conf.get_bool("validation.mode", False):
+        short = [i for i, r in enumerate(rows) if len(r) < 2]
+        if short:
+            raise ValueError(
+                f"validation.mode=true but rows {short[:5]} have no "
+                "class column (expected text<delim>classVal)")
+        truth = [r[1] for r in rows]
+    labels, _, cm = text_bayes.predict(
+        model, [r[0] for r in rows],
+        laplace=conf.get_float("laplace.smoothing", 1.0), truth=truth)
+    with open(out_path, "w") as fh:
+        for row, label in zip(rows, labels):
+            fh.write(delim.join([delim.join(row), label]) + "\n")
+    if cm is not None:
+        print(cm.report().to_json())
+
+
+def run_same_type_similarity(conf: JobConfig, in_path: str, out_path: str,
+                             device: torch.device) -> None:
+    """The pairwise scaled-int distance matrix (the sifarish
+    SameTypeSimilarity MR the reference shells out to, resource/knn.sh
+    :44-47), ``ops/distance.pairwise_full`` on ``device``. Output lines
+    ``id1,id2,distance``, without the self-pairs. ``inter.set.matching=true``
+    (resource/knn.properties:13) matches the input rows against
+    ``train.data.path``: lines ``testId,trainId,distance``, every pair,
+    both sets encoded by a featurizer fitted on the train set (the fused
+    NearestNeighbor path's convention). The lines are formatted a block of
+    about a million pairs at a time."""
+    from avenir_tpu_torch.models.knn import _split_features
+    from avenir_tpu_torch.ops.distance import pairwise_full
+    inter = conf.get_bool("inter.set.matching", False)
+    if inter:
+        fz, rows2 = _load_table(conf, conf.get_required("train.data.path"),
+                                device)
+        rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+        table = fz.transform(rows)
+        num, cat, n_bins = _split_features(table)
+        other = fz.transform(rows2)
+        o_num, o_cat, _ = _split_features(other)
+    else:
+        fz, rows = _load_table(conf, in_path, device)
+        table = fz.transform(rows)
+        num, cat, n_bins = _split_features(table)
+        other, o_num, o_cat = table, num, cat
+    dist = pairwise_full(
+        num, o_num, cat, o_cat,
+        algorithm=fz.schema.dist_algorithm or "euclidean",
+        n_cat_bins=n_bins,
+        distance_scale=conf.get_int("distance.scale", 1000)).cpu().numpy()
+    delim = conf.get("field.delim.out", ",")
+    left_ids = np.asarray(table.ids)
+    right_ids = np.asarray(other.ids)
+    n_right = len(right_ids)
+    block = max(1, (1 << 20) // max(n_right, 1))
+    with open(out_path, "w") as fh:
+        for i0 in range(0, table.n_rows, block):
+            i1 = min(i0 + block, table.n_rows)
+            b = i1 - i0
+            left = np.repeat(left_ids[i0:i1], n_right)
+            right = np.tile(right_ids, b)
+            d = np.char.mod("%d", dist[i0:i1].reshape(-1))
+            lines = np.char.add(
+                np.char.add(np.char.add(np.char.add(left, delim), right),
+                            delim), d)
+            if not inter:
+                # the reference emits i != j only
+                keep = np.ones(b * n_right, bool)
+                keep[np.arange(b) * n_right + np.arange(i0, i1)] = False
+                lines = lines[keep]
+            fh.write("\n".join(lines.tolist()))
+            fh.write("\n")
+
+
+def run_feature_cond_prob_joiner(conf: JobConfig, in_path: str,
+                                 out_path: str,
+                                 device: torch.device) -> None:
+    """Join each training item's class-conditional probability onto its
+    neighbor-distance records: the FeatureCondProbJoiner MR stage
+    (FeatureCondProbJoiner.java:95-178) as a file. ``in_path``: distance
+    records ``testId,trainId,distance`` (SameTypeSimilarity's output);
+    ``feature.prob.path``: BayesianPredictor's
+    ``output.feature.prob.only=true`` artifact
+    (``itemID,featurePriorProb,(classVal,postProb)*,classAttrVal``);
+    optional ``test.class.path``: the test CSV, for each test entity's
+    class. Output: the class-conditional layout ``testId,testClass,
+    trainId,rank,trainClass,postProb`` (NearestNeighbor.java:135-149;
+    testClass empty when unknown). A host job: nothing runs on
+    ``device``."""
+    delim = conf.get("field.delim.regex", ",")
+    out_delim = conf.get("field.delim.out", ",")
+    prob_path = conf.get_required("feature.prob.path")
+    train_class: dict = {}
+    train_post: dict = {}
+    for items in read_csv_lines(prob_path, delim):
+        tid, cls = items[0], items[-1]
+        pairs = items[2:-1]
+        post = dict(zip(pairs[0::2], pairs[1::2]))
+        train_class[tid] = cls
+        train_post[tid] = post.get(cls, "0")
+    test_class: dict = {}
+    tc_path = conf.get("test.class.path")
+    if tc_path:
+        fz, rows = _load_table(conf, tc_path, device)
+        id_f = fz.schema.find_id_field()
+        cls_f = fz.schema.find_class_attr_field()
+        for r in rows:
+            test_class[r[id_f.ordinal]] = r[cls_f.ordinal]
+    n = 0
+    with open(out_path, "w") as fh:
+        for items in _iter_rows_any(in_path, delim):
+            test_id, train_id, rank = items[0], items[1], items[2]
+            if train_id not in train_class:
+                raise ValueError(
+                    f"train entity {train_id!r} missing from the feature-"
+                    f"prob artifact {prob_path}")
+            fh.write(out_delim.join(
+                [test_id, test_class.get(test_id, ""), train_id, rank,
+                 train_class[train_id], train_post[train_id]]) + "\n")
+            n += 1
+    print(f'{{"Join.Records": {n}}}')
+
+
+def _iter_rows_any(path: str, delim: str):
+    """Tokenized rows one at a time, over a file or the files of an MR
+    part-file dir (``part_file_paths``): neighbor and distance files hold
+    |test| × |train| records, too many to hold as token lists."""
+    for full in part_file_paths(path):
+        yield from iter_csv_rows(full, delim)
+
+
+def _parse_neighbor_records(conf: JobConfig, path: str, class_cond: bool,
+                            validation: bool, device: torch.device):
+    """The reference TopMatchesMapper's input layouts
+    (NearestNeighbor.java:135-159) and the raw 3-field distance file, as
+    ``classify_from_neighbors`` record dicts. Returns ``(make_records,
+    width)``: ``make_records()`` streams the records one at a time (a
+    caller that needs a second pass calls it again), ``width`` is the
+    file's field count. The 3-field layout joins the train classes of
+    ``train.data.path`` and, for validation, the test classes of
+    ``test.class.path``, both loaded once, outside the stream."""
+    delim = conf.get("field.delim.regex", ",")
+    width = len(next(_iter_rows_any(path, delim), ()))
+    if width == 0:
+        return (lambda: iter(())), 0
+    if width == 3:
+        fz, train_rows = _load_table(
+            conf, conf.get_required("train.data.path"), device)
+        id_f = fz.schema.find_id_field()
+        cls_f = fz.schema.find_class_attr_field()
+        cls_of = {r[id_f.ordinal]: r[cls_f.ordinal] for r in train_rows}
+        tcls_of = {}
+        tcls_path = conf.get("test.class.path")
+        if validation and tcls_path:
+            _, test_rows = _load_table(conf, tcls_path, device)
+            tcls_of = {r[id_f.ordinal]: r[cls_f.ordinal] for r in test_rows}
+
+        def make_records():
+            for rec in _iter_rows_any(path, delim):
+                if rec[1] not in cls_of:
+                    raise ValueError(
+                        f"distance record references train entity "
+                        f"{rec[1]!r} not present in train.data.path "
+                        f"({conf.get('train.data.path')})")
+                if tcls_of and rec[0] not in tcls_of:
+                    raise ValueError(
+                        f"distance record references test entity "
+                        f"{rec[0]!r} not present in test.class.path "
+                        f"({tcls_path})")
+                yield {"test_id": rec[0], "rank": rec[2],
+                       "train_class": cls_of[rec[1]],
+                       "test_class": tcls_of.get(rec[0])}
+    elif class_cond:
+        # 6 fields: testId, testClass, trainId, rank, trainClass, postProb;
+        # 5 fields (emitters without the class column): testId, trainId,
+        # rank, trainClass, postProb
+        off = 1 if width >= 6 else 0
+
+        def make_records():
+            for rec in _iter_rows_any(path, delim):
+                yield {"test_id": rec[0],
+                       "test_class": (rec[1] or None) if off else None,
+                       "rank": rec[2 + off],
+                       "train_class": rec[3 + off],
+                       "post": rec[4 + off]}
+    else:
+        # trainId, testId, rank, trainClass [, testClass]
+        def make_records():
+            for rec in _iter_rows_any(path, delim):
+                yield {"test_id": rec[1], "rank": rec[2],
+                       "train_class": rec[3],
+                       "test_class": (rec[4] if validation
+                                      and len(rec) > 4 else None)}
+    return make_records, width
 
 
 def _knn_feature_post(train, cfg):
@@ -410,13 +628,121 @@ def _run_knn_sharded(conf: JobConfig, cfg, fz, train, shard_paths, out_path,
         journal.cleanup()
 
 
+def _run_knn_replay(conf: JobConfig, neighbor_path: str, out_path: str,
+                    validation: bool, device: torch.device) -> None:
+    """NearestNeighbor over precomputed neighbor records
+    (``neighbor.data.path``): a sifarish-format pipeline replays as it is.
+    The records stream twice, once for the class vocabulary and once
+    through ``classify_from_neighbors``' bounded heaps; the record file is
+    never held whole."""
+    from avenir_tpu_torch.models import knn
+    from avenir_tpu_torch.utils.metrics import ConfusionMatrix
+    class_cond = (conf.get_bool("class.condition.weighted", False)
+                  or conf.get_bool("class.condtion.weighted", False))
+    if conf.get("prediction.mode", "classification") != "classification":
+        raise ValueError("neighbor.data.path supports classification "
+                         "(regression needs the fused path)")
+    make_records, rec_width = _parse_neighbor_records(
+        conf, neighbor_path, class_cond, validation, device)
+    cls_set: set = set()
+    for r in make_records():
+        cls_set.add(r["train_class"])
+        if r.get("test_class") is not None:
+            cls_set.add(r["test_class"])
+    class_values = sorted(cls_set)
+    cfg = knn.KnnConfig(
+        top_match_count=conf.get_int("top.match.count", 5),
+        kernel_function=conf.get("kernel.function", "none"),
+        kernel_param=conf.get_int("kernel.param", 100),
+        class_cond_weighted=class_cond,
+        inverse_distance_weighted=conf.get_bool(
+            "inverse.distance.weighted", False),
+        decision_threshold=conf.get_float("decision.threshold", -1.0),
+        positive_class=conf.get("positive.class.value"))
+    pred, test_ids, test_classes = knn.classify_from_neighbors(
+        make_records(), cfg, class_values, device=device)
+    delim = conf.get("field.delim.out", ",")
+    with open(out_path, "w") as fh:
+        for i, tid in enumerate(test_ids):
+            fh.write(delim.join(
+                [tid, class_values[int(pred.predicted[i])]]) + "\n")
+    if not validation:
+        return
+    if not test_classes or any(c is None for c in test_classes):
+        if rec_width == 3 and not conf.get("test.class.path"):
+            # a raw 3-field distance file never carries test classes, and
+            # shared pipeline properties often leave validation.mode on
+            print("validation.mode=true skipped: 3-field distance records "
+                  "carry no test class (set test.class.path to join them)")
+            return
+        raise ValueError(
+            "validation.mode=true but the neighbor records carry no "
+            "test-class column; use the 5/6-field layouts with testClass "
+            "or drop validation.mode")
+    cm = ConfusionMatrix(class_values,
+                         positive_class=conf.get("positive.class.value"))
+    cm.update(np.asarray(pred.predicted),
+              np.asarray([class_values.index(c) for c in test_classes]))
+    print(cm.report().to_json())
+
+
+def _run_knn_regression(conf: JobConfig, cfg, fz, train_rows, in_path: str,
+                        out_path: str, validation: bool,
+                        device: torch.device) -> None:
+    """``prediction.mode=regression``: the class-attribute column holds the
+    numeric target; ``regression.method`` average, median,
+    linearRegression (its input variable at ``regr.input.field.ordinal``)
+    or multiLinearRegression (``regr.input.field.ordinals``, default every
+    numeric feature). A part-file dir is read merged. Output ``id,value``
+    lines; ``validation.mode`` prints the mean absolute error."""
+    from avenir_tpu_torch.models import knn
+    test_rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+    train = fz.transform(train_rows, with_labels=False)
+    test = fz.transform(test_rows, with_labels=False,
+                        device="cpu" if cfg.feed_chunk_rows > 0 else device)
+    target_ord = fz.schema.find_class_attr_field().ordinal
+
+    def column(rows, ords):
+        return torch.tensor([[float(r[o]) for o in ords] for r in rows],
+                            dtype=torch.float32, device=device)
+
+    targets = column(train_rows, [target_ord])[:, 0]
+    regr_input = None
+    if cfg.regression_method == "linearRegression":
+        x_ord = conf.get_int("regr.input.field.ordinal")
+        if x_ord is None:
+            raise ValueError("linearRegression needs "
+                             "regr.input.field.ordinal")
+        regr_input = (column(train_rows, [x_ord])[:, 0],
+                      column(test_rows, [x_ord])[:, 0])
+    elif cfg.regression_method == "multiLinearRegression":
+        ords = conf.get_int_list("regr.input.field.ordinals")
+        if ords is None:
+            ords = [f.ordinal for f in fz.schema.get_feature_fields()
+                    if not f.is_categorical]
+        regr_input = (column(train_rows, ords), column(test_rows, ords))
+    pred = knn.regress(train, test, cfg, targets, regr_input=regr_input)
+    delim = conf.get("field.delim.out", ",")
+    with open(out_path, "w") as fh:
+        for i in range(test.n_rows):
+            fh.write(delim.join(
+                [test.ids[i], str(int(pred.predicted[i]))]) + "\n")
+    if validation:
+        truth = np.asarray([float(r[target_ord]) for r in test_rows])
+        mae = float(np.abs(pred.predicted - truth).mean())
+        print(f'{{"Validation.MeanAbsoluteError": {mae}}}')
+
+
 def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
                          device: torch.device) -> None:
-    """KNN classification (reference NearestNeighbor job, fused with the
-    distance computation). ``in_path`` is the test data;
+    """KNN classification or regression (reference NearestNeighbor job,
+    fused with the distance computation). ``in_path`` is the test data;
     ``train.data.path`` points at the training data. Both spellings of the
     class-weighting key are honored (``class.condition.weighted`` and the
-    ``class.condtion.weighted`` typo of resource/knn.properties:34)."""
+    ``class.condtion.weighted`` typo of resource/knn.properties:34).
+    ``prediction.mode=regression`` regresses (``regression.method``);
+    ``neighbor.data.path`` classifies from precomputed neighbor records
+    instead, and ``in_path`` is then ignored."""
     from avenir_tpu_torch.models import knn
     _check_keys(conf, _LATER_KNN)
     for key in conf.keys():
@@ -430,16 +756,15 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         feed = roadmap_item("Threaded `DeviceFeed` (`feed.depth`)")
         _refuse("feed.depth with feed.chunk.rows > 0",
                 f"the threaded DeviceFeed ({feed})")
-    if conf.get("neighbor.data.path"):
-        _refuse("neighbor.data.path", "neighbor-record replay "
-                f"({roadmap_item('Neighbor-record replay')})")
-    if conf.get("prediction.mode", "classification") != "classification":
-        _refuse(f"prediction.mode={conf.get('prediction.mode')}",
-                f"KNN regression ({roadmap_item('KNN regression')})")
     validation = conf.get_bool("validation.mode", False)
+    neighbor_path = conf.get("neighbor.data.path")
+    if neighbor_path:
+        _run_knn_replay(conf, neighbor_path, out_path, validation, device)
+        return
     fz, train_rows = _load_table(conf, conf.get_required("train.data.path"),
                                  device)
-    train = fz.transform(train_rows)
+    regression = conf.get("prediction.mode",
+                          "classification") == "regression"
     cfg = knn.KnnConfig(
         top_match_count=conf.get_int("top.match.count", 5),
         kernel_function=conf.get("kernel.function", "none"),
@@ -453,6 +778,7 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         positive_class=conf.get("positive.class.value"),
         distance_scale=conf.get_int("distance.scale", 1000),
         algorithm=fz.schema.dist_algorithm or "euclidean",
+        regression_method=conf.get("regression.method", "average"),
         feed_chunk_rows=conf.get_int("feed.chunk.rows", 0),
         mode=conf.get("knn.mode", "fast"),
         fused=conf.get_bool("knn.fused", True),
@@ -464,6 +790,11 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
         ann_nprobe=conf.get_int("knn.ann.nprobe", 0),
         ann_iters=conf.get_int("knn.ann.iters", 15),
         ann_seed=conf.get_int("knn.ann.seed", 0))
+    if regression:
+        _run_knn_regression(conf, cfg, fz, train_rows, in_path, out_path,
+                            validation, device)
+        return
+    train = fz.transform(train_rows)
     delim = conf.get("field.delim.out", ",")
     shard_paths = part_file_paths(in_path)
     if len(shard_paths) > 1 and conf.get_bool("shard.prefetch", True):
@@ -1279,10 +1610,27 @@ def run_viterbi_state_predictor(conf: JobConfig, in_path: str,
         for row, path in zip(rows, paths):
             fh.write(delim_out.join([row[id_ord]] + path) + "\n")
 
+def run_word_counter(conf: JobConfig, in_path: str, out_path: str,
+                     device: torch.device) -> None:
+    """Lucene-style word count (reference text.WordCounter MR): honors
+    ``text.field.ordinal`` (< 0 means the whole line) and
+    ``field.delim.out`` for the sorted ``token,count`` lines."""
+    from avenir_tpu_torch.text.word_count import word_count_lines
+    rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+    lines = word_count_lines(
+        rows, text_field_ordinal=conf.get_int("text.field.ordinal", -1),
+        delim_out=conf.get("field.delim.out", ","), device=device)
+    with open(out_path, "w") as fh:
+        fh.write("\n".join(lines) + ("\n" if lines else ""))
+
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
     "NearestNeighbor": run_nearest_neighbor,
+    "SameTypeSimilarity": run_same_type_similarity,
+    "FeatureCondProbJoiner": run_feature_cond_prob_joiner,
+    "WordCounter": run_word_counter,
     "MutualInformation": run_mutual_information,
     "CramerCorrelation": lambda c, i, o, d: run_correlation(
         c, i, o, d, "cramerIndex"),

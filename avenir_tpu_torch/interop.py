@@ -1,7 +1,7 @@
-"""State carried across from numpy: a trained Naive Bayes model, a staged
-(encoded) table, the encoded operands of the KNN kernel sweeps, a built
-IVF index, and a Markov or hidden Markov model, so the same state can
-drive both this port and the JAX package.
+"""State carried across from numpy: a trained Naive Bayes model (tabular
+or text), a staged (encoded) table, the encoded operands of the KNN
+kernel sweeps, a built IVF index, and a Markov or hidden Markov model, so
+the same state can drive both this port and the JAX package.
 
 The model files are the other carrier: each package's ``load_model``
 reads what the other's ``save_model`` wrote, and a decision tree crosses
@@ -28,6 +28,7 @@ from avenir_tpu_torch.models.hmm import HmmModel
 from avenir_tpu_torch.models.markov import MarkovModel
 from avenir_tpu_torch.models.naive_bayes import BayesModel, model_from_numpy
 from avenir_tpu_torch.ops.ivf import IvfIndex
+from avenir_tpu_torch.text.text_bayes import TextBayesModel
 from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.schema import FeatureField
@@ -39,6 +40,24 @@ def bayes_model_from_numpy(arrays: dict, device: DeviceLike = "cuda"
     ``post_counts``, ``prior_counts``, ``cont_count``, ``cont_sum``,
     ``cont_sumsq``) as numpy arrays."""
     return model_from_numpy(arrays, device)
+
+
+def text_bayes_model_from_jax(class_values: Sequence[str],
+                              vocab: Dict[str, int],
+                              class_counts: np.ndarray,
+                              token_counts: np.ndarray,
+                              device: DeviceLike = "cuda") -> TextBayesModel:
+    """The port's :class:`TextBayesModel` on ``device`` from a JAX
+    ``TextBayesModel``'s fields: its class values, its vocabulary (token
+    -> id) and its [C] and [C, V] count arrays as numpy (held as float64,
+    as the port's model holds them)."""
+    dev = resolve_device(device)
+    return TextBayesModel(
+        class_values=tuple(class_values), vocab=dict(vocab),
+        class_counts=torch.from_numpy(
+            np.asarray(class_counts, np.float64)).to(dev),
+        token_counts=torch.from_numpy(
+            np.asarray(token_counts, np.float64)).to(dev))
 
 
 def encoded_table_from_numpy(binned: np.ndarray, numeric: np.ndarray,

@@ -1,14 +1,16 @@
-"""K-nearest-neighbor classification on torch tensors.
+"""K-nearest-neighbor classification and regression on torch tensors.
 
 Counterpart of ``avenir_tpu/models/knn.py`` (``KnnConfig``,
 ``validate_config``, the single-device branches of ``neighbors`` — brute
 force, ``knn.quantized`` and the frozen ``knn.ann`` index with its
 one-slot cache — ``_vote_kernel``, ``_decide``, ``classify``,
-``validate``). It collapses the reference's pipeline (distance MR, top-k
-by secondary sort, kernel weighting, class vote) into: pairwise distance +
-top-k (kernel K2, K3 on the chunked feed, the quantized scan of
-``ops/quantized.py`` or the IVF index of ``ops/ivf.py``) → kernel
-weighting → class vote → arbitration.
+``classify_from_neighbors`` (the replay of precomputed neighbor records),
+``regress``, ``validate``). It collapses the reference's pipeline
+(distance MR, top-k by secondary sort, kernel weighting, class vote)
+into: pairwise distance + top-k (kernel K2, K3 on the chunked feed, the
+quantized scan of ``ops/quantized.py`` or the IVF index of
+``ops/ivf.py``) → kernel weighting → class vote → arbitration, or the
+regression over the neighbors' targets.
 
 Kernel/score semantics mirror Neighborhood.java:150-218 exactly, including
 the integer arithmetic (KERNEL_SCALE=100, truncating division):
@@ -33,9 +35,11 @@ import torch
 
 from avenir_tpu_torch.ops import (
     cuda_distance, cuda_fused, distance, ivf, quantized)
+from avenir_tpu_torch.ops.infotheory import _sum
 from avenir_tpu_torch.parallel.pipeline import iter_chunks
 from avenir_tpu_torch.utils.dataset import (
     EncodedTable, norm_range, normalize_numeric)
+from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix
 
 KERNEL_SCALE = 100
@@ -57,6 +61,7 @@ class KnnConfig:
     algorithm: str = "euclidean"             # schema distAlgorithm
     block_size: int = 65536
     mode: str = "fast"                       # knn.mode: "fast" | "exact"
+    regression_method: str = "average"       # regression.method
     # feed.chunk.rows: >0 sends test rows to the device in chunks of this
     # many rows (pinned host memory, non_blocking copies); 0 scores the
     # whole test table at once
@@ -345,11 +350,13 @@ def _vote_kernel(dist: torch.Tensor, nbr_labels: torch.Tensor,
 
 @dataclass
 class KnnPrediction:
-    predicted: np.ndarray              # [M] class index
+    predicted: np.ndarray              # [M] class index or regressed int
     class_votes: Optional[np.ndarray]  # [M, C] kernel-weighted votes
     class_prob: Optional[np.ndarray]   # [M, C] int percent (PROB_SCALE)
     neighbor_idx: np.ndarray           # [M, k]
     neighbor_dist: np.ndarray          # [M, k] scaled int
+    # [M] f32 regressed values before their int cast (regression only)
+    regressed: Optional[np.ndarray] = None
 
 
 def _decide(votes_np: np.ndarray, config: KnnConfig,
@@ -416,3 +423,167 @@ def validate(pred: KnnPrediction, test: EncodedTable,
     cm = ConfusionMatrix(test.class_values, positive_class=positive_class)
     cm.update(pred.predicted, test.labels)
     return cm
+
+
+def classify_from_neighbors(records, config: KnnConfig, class_values,
+                            device: DeviceLike = "cuda"
+                            ) -> Tuple[KnnPrediction, list, list]:
+    """Classify from precomputed neighbor records, the reference
+    TopMatchesMapper's input (NearestNeighbor.java:150-159 plain layout
+    ``trainId,testId,rank,trainClass[,testClass]``; :135-149
+    class-conditional layout ``testId[,testClass],trainId,rank,trainClass,
+    postProb``), so that a pipeline holding sifarish-format distance files
+    replays without deriving the distances again.
+
+    ``records``: an iterable of dicts with keys ``test_id``,
+    ``train_class`` (name), ``rank`` (scaled-int distance), optional
+    ``post`` (the class-conditional probability) and ``test_class``. They
+    are grouped by test id (first-seen order) into a bounded heap of the k
+    best a test id, the secondary sort and reducer cutoff (:317-348) in
+    O(#test ids × k) memory however long the stream, with exactly the tie
+    order of ``sorted(...)[:k]``; then the vote and arbitration of
+    :func:`classify` run on ``device``. Returns (prediction, test ids in
+    order, test classes where present else None)."""
+    import heapq
+    dev = resolve_device(device)
+    k = config.top_match_count
+    cls_idx = {c: i for i, c in enumerate(class_values)}
+    order: list = []
+    groups: dict = {}
+    test_cls: dict = {}
+    for r in records:
+        tid = r["test_id"]
+        if tid not in groups:
+            groups[tid] = []
+            order.append(tid)
+        # a min-heap of the negated (rank, class, post) keeps the k smallest
+        # with the tie order of sorted(...)[:k]
+        neg = (-int(r["rank"]), -cls_idx[r["train_class"]],
+               -float(r.get("post") or 0.0))
+        g = groups[tid]
+        if len(g) < k:
+            heapq.heappush(g, neg)
+        else:
+            heapq.heappushpop(g, neg)
+        if r.get("test_class") is not None:
+            test_cls[tid] = r["test_class"]
+    m = len(order)
+    dist = np.zeros((m, k), np.int32)
+    labels = np.zeros((m, k), np.int32)
+    post = np.zeros((m, k), np.float32)
+    valid = np.zeros((m, k), np.float32)
+    for i, tid in enumerate(order):
+        top = sorted((-a, -b, -c) for a, b, c in groups[tid])
+        for j, (d, c, p) in enumerate(top):
+            dist[i, j], labels[i, j], post[i, j] = d, c, p
+            valid[i, j] = 1.0
+    use_post = config.class_cond_weighted and bool(np.any(post > 0))
+    votes, _ = _vote_kernel(
+        torch.from_numpy(dist).to(dev), torch.from_numpy(labels).to(dev),
+        torch.from_numpy(post).to(dev) if use_post else None,
+        config.kernel_function, config.kernel_param, len(class_values),
+        use_post, config.inverse_distance_weighted,
+        valid=torch.from_numpy(valid).to(dev))
+    votes_np = votes.cpu().numpy()
+    predicted, prob = _decide(votes_np, config, class_values)
+    pred = KnnPrediction(predicted=predicted, class_votes=votes_np,
+                         class_prob=prob, neighbor_idx=labels,
+                         neighbor_dist=dist)
+    classes = [test_cls.get(t) for t in order] if test_cls else None
+    return pred, order, classes
+
+
+def regress(train: EncodedTable, test: EncodedTable, config: KnnConfig,
+            train_targets: torch.Tensor,
+            regr_input: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+            ) -> KnnPrediction:
+    """KNN regression over the neighbors of :func:`neighbors` (K2, or K3
+    on the chunked feed, as in classification): ``average`` (the int32
+    of the f32 sum, floor-divided by k), ``median``, a per-neighborhood
+    ``linearRegression`` (Neighborhood.doRegression :223-250) and
+    ``multiLinearRegression``, a ridge-regularized least squares over all
+    neighbor features (``lam = 1e-5 · trace / (F + 1) + 1e-6``, solved
+    in float64), the fit the reference left as a TODO at
+    Neighborhood.java:246-249.
+
+    ``train_targets`` [N] f32 on the train table's device; ``regr_input``
+    = (train_x [N], test_x [M]) for the linear mode, or ([N, F], [M, F])
+    for the multi-linear one. Sums over the k neighbors run in slot
+    order."""
+    dist, idx = neighbors(train, test, config)
+    if config.ann and bool((idx < 0).any()):
+        # a regression folds every slot into its value, so a short
+        # neighbor list has no weight-0 escape as the vote has
+        raise ValueError(
+            "knn.ann returned fewer than top.match.count neighbors for "
+            "some queries (the probed lists held too few rows); raise "
+            "knn.ann.nprobe, lower knn.ann.nlist, or lower "
+            "top.match.count for regression")
+    idx_l = idx.long()
+    nbr_y = train_targets[idx_l].to(torch.float32)               # [M, k]
+    k = nbr_y.shape[1]
+    method = config.regression_method
+    if method == "average":
+        value = _sum(nbr_y, 1)
+        pred = torch.div(value.to(torch.int32), k, rounding_mode="floor")
+    elif method == "median":
+        sorted_y = torch.sort(nbr_y, dim=1).values
+        mid = k // 2
+        value = (sorted_y[:, mid] if k % 2 == 1
+                 else (sorted_y[:, mid - 1] + sorted_y[:, mid]) / 2)
+        pred = value.to(torch.int32)
+    elif method == "linearRegression":
+        if regr_input is None:
+            raise ValueError("linearRegression needs regr_input")
+        train_x, test_x = regr_input
+        nbr_x = train_x[idx_l].to(torch.float32)                 # [M, k]
+        # a divisor on the device: CUDA divides by a host scalar through
+        # its reciprocal, the CPU does not
+        k_t = torch.full((), float(k), dtype=torch.float32,
+                         device=nbr_x.device)
+        mx = (_sum(nbr_x, 1) / k_t).reshape(-1, 1)
+        my = (_sum(nbr_y, 1) / k_t).reshape(-1, 1)
+        dx = nbr_x - mx
+        sxx = _sum(dx * dx, 1)
+        sxy = _sum(dx * (nbr_y - my), 1)
+        slope = sxy / torch.where(sxx > 0, sxx, torch.ones_like(sxx))
+        intercept = my[:, 0] - slope * mx[:, 0]
+        value = intercept + slope * test_x.to(torch.float32)
+        pred = value.to(torch.int32)
+    elif method == "multiLinearRegression":
+        if regr_input is None:
+            raise ValueError("multiLinearRegression needs regr_input")
+        train_x, test_x = regr_input                             # [N, F]
+        if train_x.dim() != 2 or test_x.dim() != 2:
+            raise ValueError("multiLinearRegression needs [N, F]/[M, F] "
+                             "feature matrices as regr_input")
+        # the normal equations and their solve in float64: in f32 the
+        # ridge system of raw-scale features loses up to three digits
+        # (ROADMAP C8), and the card's and the CPU's solvers lose
+        # different ones
+        f64 = torch.float64
+        nbr_x = train_x[idx_l].to(torch.float32).to(f64)         # [M, k, F]
+        ones = torch.ones(nbr_x.shape[:2] + (1,), dtype=f64,
+                          device=nbr_x.device)
+        a = torch.cat([nbr_x, ones], dim=2)                      # [M, k, F+1]
+        ata = torch.einsum("mkf,mkg->mfg", a, a)
+        aty = torch.einsum("mkf,mk->mf", a, nbr_y.to(f64))
+        # the scale-aware ridge keeps k < F + 1 neighborhoods (and
+        # collinear neighbor features) solvable: the minimum-norm fit
+        f1 = a.shape[2]
+        lam = (1e-5 * torch.diagonal(ata, dim1=1, dim2=2).sum(1) / f1
+               + 1e-6).reshape(-1, 1, 1)
+        eye = torch.eye(f1, dtype=f64, device=a.device)
+        w = torch.linalg.solve(ata + lam * eye, aty.unsqueeze(-1))[..., 0]
+        test_aug = torch.cat(
+            [test_x.to(torch.float32).to(f64),
+             torch.ones((test_x.shape[0], 1), dtype=f64,
+                        device=test_x.device)], dim=1)
+        value = (test_aug * w).sum(1).to(torch.float32)
+        pred = value.to(torch.int32)
+    else:
+        raise ValueError(f"unknown regression method {method!r}")
+    return KnnPrediction(predicted=pred.cpu().numpy(), class_votes=None,
+                         class_prob=None, neighbor_idx=idx.cpu().numpy(),
+                         neighbor_dist=dist.cpu().numpy(),
+                         regressed=value.cpu().numpy())

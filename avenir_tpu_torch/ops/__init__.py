@@ -7,7 +7,8 @@
 - ``infotheory``     — entropy, mutual information and the decision
   tree's split statistics over count tensors
 - ``distance``       — blocked pairwise distance + top-k in plain PyTorch
-  (what the JAX package leaves to XLA)
+  (what the JAX package leaves to XLA), and the full scaled-int matrix of
+  SameTypeSimilarity (``pairwise_full``)
 - ``cuda_histogram`` — K1, the NB joint-count kernel, and K4, the pair
   contingency-count kernel (``csrc/hist.cu``)
 - ``cuda_distance``  — K2, the staged distance top-k (``csrc/topk.cu``),
@@ -46,7 +47,7 @@ from avenir_tpu_torch.ops.cuda_fold import (  # noqa: F401
 from avenir_tpu_torch.ops.cuda_fused import fused_topk_cuda  # noqa: F401
 from avenir_tpu_torch.ops.distance import (  # noqa: F401
     INT_BIG, TOPK_BIG, encode_mixed, finalize_topk, fused_topk_plain,
-    pairwise_topk, pairwise_topk_raw)
+    pairwise_full, pairwise_topk, pairwise_topk_raw)
 
 
 def fused_topk(x_num_raw: Optional[torch.Tensor],

@@ -9,7 +9,8 @@ row axis.
 
 Ids outside their range drop out (the one-hot behavior), and integer
 counts are exact. ``class_feature_bin_counts`` — the Naive Bayes joint
-counts — goes through K1, as does ``node_class_bin_counts``, a tree
+counts — goes through K1, as do ``class_bin_counts_exact``, the text
+path's int64 (class, token) counts, and ``node_class_bin_counts``, a tree
 level's histogram (one K1 launch for each chunk of its nodes, and for a
 forest's level one for each tree and chunk), and
 ``node_channel_bin_sums``, a boosting level's exact int64 channel sums
@@ -70,6 +71,33 @@ def class_feature_bin_counts(bins: torch.Tensor, labels: torch.Tensor,
         n_classes, n_bins,
         None if weights is None
         else weights.to(torch.float32).contiguous())
+
+
+#: most rows of one K1 launch in class_bin_counts_exact: no cell of its f32
+#: result can then pass 2^24, so every count is exact
+MAX_LAUNCH_ROWS = 1 << 24
+
+
+def class_bin_counts_exact(ids: torch.Tensor, labels: torch.Tensor,
+                           n_classes: int, n_bins: int) -> torch.Tensor:
+    """[N] ids × [N] labels -> [C, B] int64 counts: K1 with one feature
+    and the ids as its bins (the text path's (class, token) occurrences,
+    its documents a class, the word counts). One launch for every
+    ``MAX_LAUNCH_ROWS`` rows, each exact in f32, summed in int64, so a
+    count stays exact past 2^24 (where the JAX package's f32 scatter-add
+    of the text counts does not)."""
+    out = torch.zeros((max(n_classes, 0), max(n_bins, 0)),
+                      dtype=torch.int64, device=ids.device)
+    if n_classes < 1 or n_bins < 1:
+        return out
+    ids = ids.to(torch.int32).reshape(-1, 1)
+    labels = labels.to(torch.int32)
+    for r0 in range(0, ids.shape[0], MAX_LAUNCH_ROWS):
+        r1 = min(r0 + MAX_LAUNCH_ROWS, ids.shape[0])
+        out += cuda_histogram.class_feature_bin_counts(
+            ids[r0:r1].contiguous(), labels[r0:r1].contiguous(), n_classes,
+            n_bins)[:, 0, :].to(torch.int64)
+    return out
 
 
 #: most combined (node, bin) cells of one K1 launch in node_class_bin_counts

@@ -16,7 +16,8 @@ the same bits on the CPU and on the GPU:
   two f32 values is exact, and rounded once), not torch's, which differs
   from it in the last bit for about one input in eight;
 - sums over the short axes (classes, segments) run sequentially from
-  index 0, so their order does not depend on the device;
+  index 0, so their order does not depend on the device; ``xla_sum``
+  sums a long axis in the windows of XLA's compiled reduction;
 - ``sqrt`` goes through float64, and the division by ln 2 divides by a
   tensor on the device, so both round correctly on the GPU too.
 
@@ -143,6 +144,26 @@ def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     for i in range(x.shape[-1]):
         acc = acc + x[..., i]
     return acc
+
+
+#: XLA's CPU backend sums a reduced axis longer than this in windows of it
+_XLA_REDUCE_WINDOW = 32
+
+
+def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """f32 sum along ``dim`` in the order XLA's CPU backend compiles a
+    reduction (its tree-reduction rewrite): up to 32 elements in order
+    from 0; a longer axis padded with zeros to a multiple of 32 (half the
+    pad in front), each window of 32 summed in order, then the window sums
+    the same way."""
+    x = x.movedim(dim, -1)
+    n, w = x.shape[-1], _XLA_REDUCE_WINDOW
+    if n <= w:
+        return _sum(x, -1)
+    total = -(-n // w) * w
+    front = (total - n) // 2
+    x = torch.nn.functional.pad(x, (front, total - n - front))
+    return xla_sum(_sum(x.reshape(x.shape[:-1] + (total // w, w)), -1), -1)
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:

@@ -38,7 +38,8 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
-from avenir_tpu_torch.ops.distance import INT_BIG, TOPK_BIG, encode_mixed
+from avenir_tpu_torch.ops.distance import (
+    INT_BIG, TOPK_BIG, encode_mixed, order_key)
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 
 #: candidate-metric sentinel (``distance.TOPK_BIG``)
@@ -49,7 +50,6 @@ QDTYPES = ("int8", "bf16")
 #: features an exact f32 product of int8 values takes at once: 1,024 ×
 #: 127² < 2²⁴
 _EXACT_COLS = 1024
-_SHIFT = 1 << 32
 #: elements of the largest per-step slab of a scan ([rows, block] metrics
 #: or [rows, probe_pad, D] gathered rows): test rows go through in chunks
 #: of at most this many elements, which changes no row's result
@@ -66,15 +66,6 @@ def as_tensor(a: Optional[ArrayLike], dev: torch.device
     if isinstance(a, np.ndarray):
         a = torch.from_numpy(np.ascontiguousarray(a))
     return a.to(dev)
-
-
-def order_key(metric: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """int64 keys that order as (f32 ``metric``, ``ids``) lexicographically
-    (ids in [0, 2³¹)): the float's bits as an int32 that keeps its order
-    (negative floats' magnitude bits flipped), times 2³², plus the id."""
-    bits = metric.to(torch.float32).contiguous().view(torch.int32)
-    bits = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    return bits.long() * _SHIFT + ids.long()
 
 
 def key_ids(key: torch.Tensor) -> torch.Tensor:

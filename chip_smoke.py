@@ -271,7 +271,40 @@ Phases (one line each; any failure exits non-zero):
    GradientBoostPredictor (50,000 rows, validation, host walk and device
    route), each on the card and with ``--device cpu``: every file and
    stdout line equal, the streamed artifact equal to the in-core one,
-   accuracy at least 0.65.
+   accuracy at least 0.65;
+11. the main path's remaining modes (``text/``: K1 counts the (class,
+   token) occurrences, one feature, the vocabulary as its bins;
+   ``models/knn.regress`` and ``classify_from_neighbors``;
+   ``ops/distance.pairwise_full``): on two seeded corpora of 200,000
+   training and 50,000 test documents (5-40 tokens, two classes with
+   planted class-skewed Zipf frequencies) over 30,000 words (C·V = 60,000,
+   K1's global-atomics instantiation) and 4,096 (its shared-memory one),
+   BayesianDistribution and BayesianPredictor with ``tabular.input=false``
+   and WordCounter, each on the card and with ``--device cpu``: model
+   file, predictions, validation JSON and word counts byte-identical,
+   validation accuracy at least 0.9, every K1 launch held exactly against
+   its plain version; K1 at the token shape (16,777,216 token ids, C = 2,
+   both vocabularies: chained, from graph replays reading HBM, plain,
+   ``bincount`` over ``class · V + id``, bytes bound); NearestNeighbor
+   regression at the elearn CLI shape (100,000 / 20,000 rows, 9 features,
+   a schema whose class attribute is a planted numeric score) with all
+   four ``regression.method``s, staged (K2) and with
+   ``feed.chunk.rows=4096`` (K3), every K2 and K3 call held by
+   ``compare_topk``, staged and chunked byte-identical, each method's mean
+   absolute error below half the mean predictor's, the ``--device cpu``
+   output equal but for rows at a near tie of their neighbors (counted,
+   each held in float64); SameTypeSimilarity self-matching on 1,024 elearn
+   rows and ``inter.set.matching`` on 512 × 4,096, files byte-identical to
+   the CPU's; ``pairwise_full`` at 8,192 × 65,536 × 9 (its first 256 rows
+   equal to the CPU's), timed beside its bytes bound and ``torch.cdist``;
+   the replay pipeline on those rows: BayesianDistribution,
+   BayesianPredictor ``output.feature.prob.only=true`` (held within a
+   tolerance, its continuous probabilities coming from torch's exp and
+   log: ROADMAP C9), FeatureCondProbJoiner, NearestNeighbor
+   ``neighbor.data.path`` on the 6-field class-conditional records with
+   validation and on the 3-field distance file, files byte-identical card
+   to CPU from the join on, the 3-field replay agreeing with the fused
+   NearestNeighbor on at least 0.97 of rows.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -291,7 +324,11 @@ shape's times in ``levels``; a sixth, K1's integer mode at the boosting
 shape (``K1-int``), with the launches of phase 10's two fits at scale
 (its streamed growth's in ``stream_launches``, its CLI jobs' in
 ``cli_launches``), a round's time at each depth in ``round_ms`` and each
-level shape's times in ``levels``; K6-K12 add ``parent_ms``, the
+level shape's times in ``levels``; a seventh, K1 at the token shape
+(``K1-text``), with the launches of phase 11's text jobs and both
+vocabularies' times in ``vocabularies``; K1's, K2's and K3's launches
+count phase 11's CLI jobs too (K2's and K3's ``launches`` are phase 3's
+jobs and phase 11's regression and replay jobs); K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
 of the bytes over 3.35 TB/s and the operations at the card's rate for
@@ -3853,6 +3890,442 @@ def boost_phase(dev, work):
 
 
 # --------------------------------------------------------------------------
+# phase 11: the main path's remaining modes
+# --------------------------------------------------------------------------
+
+# text Naive Bayes and WordCounter: 200,000 training and 50,000 test
+# documents of 5-40 tokens, on two vocabularies: C·V = 60,000 cells pass
+# the 58,112 that K1 keeps in shared memory (its global-atomics
+# instantiation), 8,192 stay within them
+TEXT_DOCS, TEXT_TEST_DOCS = 200_000, 50_000
+TEXT_LEN = (5, 40)
+TEXT_VOCABS = (30_000, 4_096)
+TOKEN_IDS = 1 << 24          # K1 at the token shape: 16,777,216 token ids
+TEXT_ACCURACY_BAR = 0.9
+REGRESSION_METHODS = (("average", ()), ("median", ()),
+                      ("linearRegression",
+                       ("-D", "regr.input.field.ordinal=6")),
+                      ("multiLinearRegression", ()))
+SIM_SELF_ROWS = 1024
+SIM_TEST, SIM_TRAIN = 512, 4096
+FULL_SHAPE = (8192, 65536, 9)
+# tests/test_tutorials.py:117-145: the replayed predictions against the
+# fused path's
+REPLAY_AGREEMENT_BAR = 0.97
+
+
+def text_corpus(n, vocab, seed):
+    """``text,class`` rows from a seed: two classes, each drawing 60% of
+    its tokens from one Zipf law over the whole vocabulary and 40% from
+    the same law over its own half of it (the planted signal)."""
+    rng = np.random.default_rng(seed)
+    words = np.array([f"w{i}" for i in range(vocab)], dtype=object)
+    lengths = rng.integers(TEXT_LEN[0], TEXT_LEN[1] + 1, n)
+    labels = rng.integers(0, 2, n)
+    zipf = 1.0 / (1.0 + np.arange(vocab))
+    half = vocab // 2
+    ids = np.empty(int(lengths.sum()), np.int64)
+    of_class = np.repeat(labels, lengths)
+    for c in (0, 1):
+        own = np.zeros(vocab)
+        own[c * half:(c + 1) * half] = zipf[:half]
+        p = 0.6 * zipf / zipf.sum() + 0.4 * own / own.sum()
+        mask = of_class == c
+        ids[mask] = rng.choice(vocab, int(mask.sum()), p=p / p.sum())
+    text = words[ids]
+    starts = np.concatenate([[0], np.cumsum(lengths)[:-1]])
+    return [[" ".join(text[s:s + n_tok]), ("neg", "pos")[c]]
+            for s, n_tok, c in zip(starts, lengths, labels)]
+
+
+def time_k1_tokens(dev, vocab):
+    """K1 at the token shape: TOKEN_IDS seeded token ids over ``vocab``
+    bins and two classes in one launch, exact against its plain version;
+    chained, from graph replays reading HBM, plain, ``bincount`` over the
+    combined ``class · V + id`` (built beforehand) and the bytes bound (8
+    bytes a token read once, the counts written once)."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    gen = torch.Generator(device=dev).manual_seed(SEED + vocab)
+    ids = torch.randint(0, vocab, (TOKEN_IDS, 1), generator=gen, device=dev,
+                        dtype=torch.int32)
+    labels = torch.randint(0, 2, (TOKEN_IDS,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    got = H.class_feature_bin_counts(ids, labels, 2, vocab)
+    want = H.class_feature_bin_counts_plain(ids, labels, 2, vocab)
+    if not torch.equal(got, want) or int(want.sum()) != TOKEN_IDS:
+        raise AssertionError(f"phase 11 K1 at {TOKEN_IDS} tokens, V={vocab}:"
+                             " counts differ from plain")
+    ms = chain_ms(lambda: H.class_feature_bin_counts(ids, labels, 2, vocab),
+                  dev)
+    graph = hbm_graph_ms(lambda u, v: H.class_feature_bin_counts(u, v, 2,
+                                                                 vocab),
+                         (ids, labels), TOKEN_IDS * 8, dev)
+    plain = cuda_ms(lambda: H.class_feature_bin_counts_plain(ids, labels, 2,
+                                                             vocab), 3)
+    flat = labels.long() * vocab + ids.reshape(-1).long()
+    library = cuda_ms(lambda: torch.bincount(flat, minlength=2 * vocab), 5)
+    bound, by = bound_ms(TOKEN_IDS * 8 + 2 * vocab * 4, TOKEN_IDS)
+    shared = 2 * vocab * 4 <= 232448
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={TOKEN_IDS} F=1 C=2 B={vocab} "
+                     + ("shared-memory" if shared else "global-atomics")}
+
+
+def exact_near_tie(x, y, rows, k, rtol=1e-5):
+    """[len(rows)] bool: the float64 squared distances of test ``rows`` to
+    every train row hold two within ``rtol`` among their k + 1 smallest
+    (where the f32 summation order may pick either neighbor)."""
+    xs = x[rows].double()
+    out = []
+    for r in range(xs.shape[0]):
+        d = ((y.double() - xs[r]) ** 2).sum(1)
+        part = torch.topk(d, k + 1, largest=False).values
+        gaps = part[1:] - part[:-1]
+        out.append(bool((gaps <= rtol * part[1:].abs().clamp(min=1e-12))
+                        .any()))
+    return out
+
+
+def hold_prob_files(a, b):
+    """Two BayesianPredictor ``output.feature.prob.only`` files: the same
+    ids, classes and fields, each probability's log within 5e-6 relative
+    and 1e-5 absolute of the other's; returns the largest log difference."""
+    worst = 0.0
+    with open(a) as fa, open(b) as fb:
+        for line_a, line_b in zip(fa, fb, strict=True):
+            fields_a = line_a.rstrip("\n").split(",")
+            fields_b = line_b.rstrip("\n").split(",")
+            probs = [1] + list(range(3, len(fields_a) - 1, 2))
+            same = [i for i in range(len(fields_a)) if i not in probs]
+            if (len(fields_a) != len(fields_b)
+                    or [fields_a[i] for i in same]
+                    != [fields_b[i] for i in same]):
+                raise AssertionError(f"{a}: {line_a!r} against {line_b!r}")
+            with np.errstate(divide="ignore"):
+                la = np.log(np.asarray([float(fields_a[i]) for i in probs]))
+                lb = np.log(np.asarray([float(fields_b[i]) for i in probs]))
+            np.testing.assert_allclose(la, lb, rtol=5e-6, atol=1e-5)
+            finite = np.isfinite(la)
+            if finite.any():
+                worst = max(worst, float(np.abs(la - lb)[finite].max()))
+    return worst
+
+
+def modes_phase(dev, work):
+    """Phase 11; returns the K1-text kernels-line entry and the launches of
+    phase 11's CLI jobs by kernel (K1 tabular, K2, K3)."""
+    from avenir_tpu_torch.cli.main import main
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.models import knn
+    from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
+    from avenir_tpu_torch.ops.distance import pairwise_full
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    from avenir_tpu_torch.utils.schema import FeatureSchema
+    counters = {"K1": cuda_histogram.class_feature_bin_counts,
+                "K2": cuda_distance.topk_raw, "K3": cuda_fused.fused_topk_raw}
+    totals = {"K1-text": 0, "K1": 0, "K2": 0, "K3": 0}
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+
+    def run(label, args, on):
+        """One CLI job with ``--device on``; on the card every kernel call
+        is recorded, the counts set to 0 just before and read just after,
+        and each call held against its plain version. Returns (stdout, wall
+        s, launches)."""
+        calls = []
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with recording(calls), contextlib.redirect_stdout(buf):
+            if main(list(args) + ["--device", on]) != 0:
+                raise AssertionError(f"phase 11 {label}: {on} run failed")
+        if on == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        if on == "cuda":
+            hold_main_path(label, calls, 9, phase=11)
+        return buf.getvalue(), wall, counts
+
+    def both(label, args_of, outs_of, must, kind="K1"):
+        """The job on the card and on the CPU, each writing its own files:
+        stdout and every file equal; ``must`` kernels launched on the
+        card. Returns the card's stdout."""
+        got = {on: run(label, args_of(on), on) for on in ("cuda", "cpu")}
+        counts = got["cuda"][2]
+        missing = [name for name in must if counts[name] < 1]
+        if missing:
+            raise AssertionError(f"phase 11 {label}: {missing} not launched")
+        totals[kind] += counts["K1"]
+        totals["K2"] += counts["K2"]
+        totals["K3"] += counts["K3"]
+        if got["cuda"][0] != got["cpu"][0]:
+            raise AssertionError(f"phase 11 {label}: stdout differs: "
+                                 f"{got['cuda'][0][:300]!r} against "
+                                 f"{got['cpu'][0][:300]!r}")
+        for a, b in zip(outs_of("cuda"), outs_of("cpu")):
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"phase 11 {label}: {a} differs "
+                                         "from the CPU's")
+        log(f"phase 11 {label}: card {got['cuda'][1]:.2f} s, CPU "
+            f"{got['cpu'][1]:.2f} s (host clock), launches {counts}; stdout "
+            f"and {len(outs_of('cuda'))} file(s) byte-identical to the "
+            "CPU's")
+        return got["cuda"][0]
+
+    # -- text Naive Bayes and WordCounter, both vocabularies ----------------
+    vocab_timings = []
+    for vocab in TEXT_VOCABS:
+        t0 = time.perf_counter()
+        rows = text_corpus(TEXT_DOCS + TEXT_TEST_DOCS, vocab, SEED + vocab)
+        write_csv(p(f"text{vocab}_train.csv"), rows[:TEXT_DOCS])
+        write_csv(p(f"text{vocab}_test.csv"), rows[TEXT_DOCS:])
+        with open(p(f"text{vocab}.properties"), "w") as fh:
+            fh.write("tabular.input=false\nfield.delim.regex=,\n"
+                     "validation.mode=true\n")
+        log(f"phase 11 text corpus V={vocab}: {TEXT_DOCS} + {TEXT_TEST_DOCS}"
+            f" documents of {TEXT_LEN[0]}-{TEXT_LEN[1]} tokens written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        conf = ["--conf", p(f"text{vocab}.properties")]
+        model = lambda on: p(f"text{vocab}_model_{on}.txt")  # noqa: E731
+        report = both(
+            f"BayesianDistribution tabular.input=false V={vocab}",
+            lambda on: ["BayesianDistribution", p(f"text{vocab}_train.csv"),
+                        model(on), *conf],
+            lambda on: [model(on)], ["K1"], kind="K1-text")
+        vocab_found = json.loads(report.splitlines()[-1])[
+            "Distribution Data.Vocabulary"]
+        report = both(
+            f"BayesianPredictor tabular.input=false V={vocab}",
+            lambda on: ["BayesianPredictor", p(f"text{vocab}_test.csv"),
+                        p(f"text{vocab}_pred_{on}.txt"), *conf, "-D",
+                        f"bayesian.model.file.path={model(on)}"],
+            lambda on: [p(f"text{vocab}_pred_{on}.txt")], [])
+        acc = json.loads(report.splitlines()[-1])["Validation.Accuracy"]
+        if not acc >= TEXT_ACCURACY_BAR:
+            raise AssertionError(f"phase 11 text V={vocab}: accuracy {acc} "
+                                 f"below {TEXT_ACCURACY_BAR}")
+        both(f"WordCounter V={vocab}",
+             lambda on: ["WordCounter", p(f"text{vocab}_train.csv"),
+                         p(f"text{vocab}_wc_{on}.txt"), *conf, "-D",
+                         "text.field.ordinal=0"],
+             lambda on: [p(f"text{vocab}_wc_{on}.txt")], ["K1"],
+             kind="K1-text")
+        k1 = time_k1_tokens(dev, vocab)
+        vocab_timings.append(k1)
+        log(f"phase 11 text V={vocab}: {vocab_found} words found (C·V = "
+            f"{2 * vocab_found}), accuracy {acc:.4f} (bar "
+            f"{TEXT_ACCURACY_BAR}); K1 at {k1['shape']}: exact against "
+            f"plain, {k1['ms']:.4f} ms chained, {k1['graph_ms']:.4f} ms from "
+            f"graph replays reading HBM ({k1['bound_ms'] / k1['graph_ms']:.1%}"
+            f" of bound), plain {k1['plain_ms']:.3f} ms, bincount "
+            f"{k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+            f"({k1['bound_by']})")
+
+    # -- KNN regression at the elearn CLI shape -----------------------------
+    elearn = G.elearn_rows(ELEARN_TRAIN + ELEARN_TEST, seed=SEED + 11)
+    feats = np.asarray([[float(v) for v in r[1:10]] for r in elearn])
+    rng = np.random.default_rng(SEED + 11)
+    score = (0.5 * feats[:, 4] + 0.3 * feats[:, 5] + feats[:, 0] / 20.0
+             + rng.normal(0, 3, len(elearn)))
+    reg_rows = [r[:10] + [f"{v:.1f}"] for r, v in zip(elearn, score)]
+    write_csv(p("reg_train.csv"), reg_rows[:ELEARN_TRAIN])
+    write_csv(p("reg_test.csv"), reg_rows[ELEARN_TRAIN:])
+    schema = G.elearn_schema_json()
+    fields = [f for f in schema["entity"]["fields"] if f["ordinal"] < 10]
+    fields.append({"name": "score", "ordinal": 10, "dataType": "double",
+                   "classAttribute": True})
+    reg_schema = dict(schema, entity=dict(schema["entity"], fields=fields))
+    with open(p("reg.json"), "w") as fh:
+        json.dump(reg_schema, fh)
+    with open(p("reg.properties"), "w") as fh:
+        fh.write(f"field.delim.regex=,\nfeature.schema.file.path="
+                 f"{p('reg.json')}\ntrain.data.path={p('reg_train.csv')}\n"
+                 "prediction.mode=regression\ntop.match.count=5\n"
+                 "validation.mode=true\n")
+    truth = score[ELEARN_TRAIN:].round(1)
+    baseline = float(np.abs(truth - truth.mean()).mean())
+    # the normalized features, for holding a row that differs card to CPU
+    # to a near tie of its neighbors
+    fz = Featurizer(FeatureSchema.from_json(reg_schema), device="cpu")
+    fz.fit(reg_rows[:ELEARN_TRAIN])
+    y_num, _, _ = knn._split_features(
+        fz.transform(reg_rows[:ELEARN_TRAIN], with_labels=False))
+    x_num, _, _ = knn._split_features(
+        fz.transform(reg_rows[ELEARN_TRAIN:], with_labels=False))
+    conf = ["--conf", p("reg.properties")]
+    for method, extra in REGRESSION_METHODS:
+        outs = {}
+        for tag, on, feed, must in (
+                ("staged", "cuda", (), ["K2"]),
+                (f"feed.chunk.rows={FEED_CHUNK_ROWS}", "cuda",
+                 ("-D", f"feed.chunk.rows={FEED_CHUNK_ROWS}"), ["K3"]),
+                ("cpu", "cpu", (), [])):
+            label = f"NearestNeighbor regression {method} {tag}"
+            out = p(f"reg_{method}_{on}_{len(feed)}.txt")
+            stdout, wall, counts = run(
+                label, ["NearestNeighbor", p("reg_test.csv"), out, *conf,
+                        "-D", f"regression.method={method}", *extra, *feed],
+                on)
+            missing = [name for name in must if counts[name] < 1]
+            if missing:
+                raise AssertionError(f"phase 11 {label}: {missing} not "
+                                     "launched")
+            totals["K2"] += counts["K2"]
+            totals["K3"] += counts["K3"]
+            mae = json.loads(stdout.splitlines()[-1])[
+                "Validation.MeanAbsoluteError"]
+            if not (math.isfinite(mae) and mae < 0.5 * baseline):
+                raise AssertionError(f"phase 11 {label}: MAE {mae} not below"
+                                     f" half the mean predictor's {baseline}")
+            outs[tag] = (stdout, open(out).read().splitlines())
+            log(f"phase 11 {label}: {wall:.2f} s (host clock), launches "
+                f"{counts}, MAE {mae:.4f} (mean predictor {baseline:.4f})")
+        staged, chunked, cpu = (outs[t] for t in (
+            "staged", f"feed.chunk.rows={FEED_CHUNK_ROWS}", "cpu"))
+        if staged != chunked:
+            raise AssertionError(f"phase 11 regression {method}: staged and "
+                                 "chunked outputs differ")
+        differ = [i for i, (a, b) in enumerate(zip(staged[1], cpu[1]))
+                  if a != b]
+        if len(staged[1]) != len(cpu[1]) or not all(
+                exact_near_tie(x_num, y_num, differ, 5)):
+            raise AssertionError(f"phase 11 regression {method}: rows "
+                                 f"{differ[:10]} differ card to CPU off a "
+                                 "near tie")
+        log(f"phase 11 regression {method}: staged (K2) and chunked (K3) "
+            "outputs and stdout byte-identical; against the CPU "
+            f"{len(differ)} of {len(cpu[1])} rows differ, each at a near tie "
+            "of its neighbors")
+
+    # -- SameTypeSimilarity, pairwise_full and the replay pipeline ----------
+    rows = G.elearn_rows(SIM_TRAIN + SIM_TEST, seed=SEED + 12)
+    write_csv(p("sim_train.csv"), rows[:SIM_TRAIN])
+    write_csv(p("sim_test.csv"), rows[SIM_TRAIN:])
+    write_csv(p("sim_self.csv"), rows[:SIM_SELF_ROWS])
+    with open(p("sim.properties"), "w") as fh:
+        fh.write(f"field.delim.regex=,\nfeature.schema.file.path="
+                 f"{p('elearn.json')}\ntrain.data.path={p('sim_train.csv')}\n"
+                 "top.match.count=5\nkernel.function=none\n"
+                 "distance.scale=1000\nvalidation.mode=true\n"
+                 "positive.class.value=fail\nlaplace.smoothing=1.0\n")
+    with open(p("elearn.json"), "w") as fh:
+        json.dump(G.elearn_schema_json(), fh)
+    conf = ["--conf", p("sim.properties")]
+    both(f"SameTypeSimilarity {SIM_SELF_ROWS} rows",
+         lambda on: ["SameTypeSimilarity", p("sim_self.csv"),
+                     p(f"self_{on}.txt"), *conf],
+         lambda on: [p(f"self_{on}.txt")], [])
+    both(f"SameTypeSimilarity inter.set.matching {SIM_TEST}x{SIM_TRAIN}",
+         lambda on: ["SameTypeSimilarity", p("sim_test.csv"),
+                     p(f"dist_{on}.txt"), *conf, "-D",
+                     "inter.set.matching=true"],
+         lambda on: [p(f"dist_{on}.txt")], [])
+    m, n, d = FULL_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+    x = torch.rand((m, d), generator=gen, device=dev)
+    y = torch.rand((n, d), generator=gen, device=dev)
+    full = pairwise_full(x, y)
+    part = pairwise_full(x[:256].cpu(), y.cpu())
+    if not torch.equal(full[:256].cpu(), part):
+        raise AssertionError("phase 11 pairwise_full: the card's first 256 "
+                             "rows differ from the CPU's")
+    full_ms = cuda_ms(lambda: pairwise_full(x, y), 3)
+    cdist_ms = cuda_ms(lambda: torch.cdist(x, y), 3)
+    full_bound, full_by = bound_ms(m * n * 4 + (m + n) * d * 4,
+                                   3.0 * m * n * d)
+    del full
+    log(f"phase 11 pairwise_full {m}x{n}x{d}: first 256 rows equal to the "
+        f"CPU's; {full_ms:.2f} ms (CUDA events), bound {full_bound:.4f} ms "
+        f"({full_by}: int32 writes), torch.cdist {cdist_ms:.2f} ms")
+    # elearn's features are all continuous: its model is the class
+    # moments, and K1 has no binned column to count
+    both(f"BayesianDistribution elearn {SIM_TRAIN} rows",
+         lambda on: ["BayesianDistribution", p("sim_train.csv"),
+                     p(f"nb_{on}.txt"), *conf],
+         lambda on: [p(f"nb_{on}.txt")], [])
+    # the continuous predictor's probabilities come from torch's exp and
+    # log, which differ in the last bits between the card and the CPU
+    # (ROADMAP C9): the file is held within a tolerance, and the card's
+    # feeds the join on both
+    for on in ("cuda", "cpu"):
+        run("BayesianPredictor output.feature.prob.only=true",
+            ["BayesianPredictor", p("sim_train.csv"), p(f"prob_{on}.txt"),
+             *conf, "-D", f"bayesian.model.file.path={p(f'nb_{on}.txt')}",
+             "-D", "output.feature.prob.only=true"], on)
+    prob_err = hold_prob_files(p("prob_cuda.txt"), p("prob_cpu.txt"))
+    log("phase 11 BayesianPredictor output.feature.prob.only=true: ids and "
+        "classes equal card to CPU, probabilities within "
+        f"{prob_err:.3g} in log space (bound 1e-5 + 5e-6 relative)")
+    both("FeatureCondProbJoiner",
+         lambda on: ["FeatureCondProbJoiner", p(f"dist_{on}.txt"),
+                     p(f"joined_{on}.txt"), *conf, "-D",
+                     f"feature.prob.path={p('prob_cuda.txt')}", "-D",
+                     f"test.class.path={p('sim_test.csv')}"],
+         lambda on: [p(f"joined_{on}.txt")], [])
+    report = both(
+        "NearestNeighbor neighbor.data.path 6-field class-conditional",
+        lambda on: ["NearestNeighbor", p("ignored.csv"),
+                    p(f"replay6_{on}.txt"), *conf, "-D",
+                    f"neighbor.data.path={p(f'joined_{on}.txt')}", "-D",
+                    "class.condition.weighted=true"],
+        lambda on: [p(f"replay6_{on}.txt")], [])
+    acc6 = json.loads(report.splitlines()[-1])["Validation.Accuracy"]
+    report = both(
+        "NearestNeighbor neighbor.data.path 3-field",
+        lambda on: ["NearestNeighbor", p("ignored.csv"),
+                    p(f"replay3_{on}.txt"), *conf, "-D",
+                    f"neighbor.data.path={p(f'dist_{on}.txt')}"],
+        lambda on: [p(f"replay3_{on}.txt")], [])
+    if "validation.mode=true skipped" not in report:
+        raise AssertionError("phase 11: the 3-field replay did not skip "
+                             f"validation: {report!r}")
+    stdout, _, counts = run("NearestNeighbor fused (the replay's yardstick)",
+                            ["NearestNeighbor", p("sim_test.csv"),
+                             p("fused.txt"), *conf], "cuda")
+    if counts["K2"] < 1:
+        raise AssertionError("phase 11 fused NearestNeighbor: K2 not "
+                             "launched")
+    totals["K2"] += counts["K2"]
+    replay = dict(line.split(",") for line in
+                  open(p("replay3_cuda.txt")).read().splitlines())
+    fused = dict(line.split(",")[:2] for line in
+                 open(p("fused.txt")).read().splitlines())
+    agree = float(np.mean([replay.get(key) == v for key, v in fused.items()]))
+    if set(replay) != set(fused) or agree < REPLAY_AGREEMENT_BAR:
+        raise AssertionError(f"phase 11 replay: agreement {agree} with the "
+                             f"fused path (bar {REPLAY_AGREEMENT_BAR})")
+    log(f"phase 11 replay pipeline: files equal card to CPU at every step "
+        "from the join on; "
+        f"class-conditional replay accuracy {acc6:.4f}; the 3-field replay "
+        f"agrees with the fused path on {agree:.4f} of {len(fused)} rows "
+        f"(bar {REPLAY_AGREEMENT_BAR})")
+
+    widest = vocab_timings[0]
+    entry = {"name": "cfb_counts (K1-text) at the token shape (text Naive "
+                     "Bayes' (class, token) counts, WordCounter's token "
+                     "counts: one feature, the vocabulary as its bins)",
+             "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+             # the JAX package counts these with an f32 scatter-add and
+             # a bincount, not with a Pallas kernel
+             "replaces": "avenir_tpu/text/text_bayes.py:59-65 and "
+                         "avenir_tpu/text/word_count.py:44-45 (not Pallas "
+                         "kernels)",
+             "launches": totals["K1-text"], "max_abs_err": 0.0,
+             **{key: widest[key] for key in (
+                 "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "shape")},
+             "vocabularies": [{key: k[key] for key in (
+                 "shape", "ms", "graph_ms", "plain_ms", "library_ms",
+                 "bound_ms")} for k in vocab_timings]}
+    log(f"phase 11 kernels {json.dumps(totals)}")
+    return entry, totals
+
+
+# --------------------------------------------------------------------------
 # phase 3: the CLI path
 # --------------------------------------------------------------------------
 
@@ -3965,11 +4438,11 @@ def profile_job(label, args, kernel):
             for e in top))
 
 
-def hold_main_path(label, calls, n_attrs):
+def hold_main_path(label, calls, n_attrs, phase=3):
     """Hold each kernel call a job made against the plain version on the
     same operands (K1 and K4 exact, K2/K3 by ``compare_topk``, K3 also
     bit-identical to K2 on the normalized chunk), and time the kernels at
-    the job's own shapes."""
+    the job's own shapes; the lines name ``phase``."""
     from avenir_tpu_torch.ops import cuda_distance as D
     from avenir_tpu_torch.ops import cuda_fused as F
     from avenir_tpu_torch.ops import cuda_histogram as H
@@ -4063,7 +4536,8 @@ def hold_main_path(label, calls, n_attrs):
             if name == "K3":
                 verdict += "; bit-identical to K2 on each normalized chunk"
         bound, by = bound_ms(n_bytes, n_ops)
-        log(f"phase 3 {label}: {name} on the path's operands, {len(mine)} "
+        log(f"phase {phase} {label}: {name} on the path's operands, "
+            f"{len(mine)} "
             f"call(s) [{', '.join(shapes)}]: {verdict}; kernel {ms:.3f} ms, "
             f"plain {plain_ms:.1f} ms (host clock), bound {bound:.4g} ms "
             f"({by})")
@@ -4578,6 +5052,13 @@ def main() -> int:
         k1_boost = boost_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    work = tempfile.mkdtemp(prefix="smoke-modes-", dir=str(_build.BUILD_DIR))
+    try:
+        k1_text, modes = modes_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for name in ("K1", "K2", "K3"):
+        launches[name] += modes[name]
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]
@@ -4595,6 +5076,7 @@ def main() -> int:
     kernels.append(k4_markov)
     kernels.append(k1_forest)
     kernels.append(k1_boost)
+    kernels.append(k1_text)
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

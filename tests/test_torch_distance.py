@@ -177,6 +177,64 @@ def test_exact_ties_go_to_the_lowest_id():
     assert np.array_equal(dc, np.asarray(jdc))
 
 
+def _stable_sort_topk(d, i, k):
+    """The k smallest of each row by a stable sort of the whole row."""
+    order = torch.sort(d, dim=1, stable=True).indices[:, :k]
+    return torch.gather(d, 1, order), torch.gather(i, 1, order)
+
+
+@pytest.mark.parametrize("block_size", [1, 2, 3, 7, 64, 600])
+@pytest.mark.parametrize("k", [1, 5, 8])
+@pytest.mark.parametrize("n_num,n_cat", [(0, 5), (9, 0), (4, 3)])
+def test_block_merge_equals_stable_sort_of_the_row(block_size, k, n_num,
+                                                   n_cat):
+    """The running merge over blocks keeps what one stable sort of the
+    whole row keeps, with ties at the k-th place falling across blocks
+    (bounded ints and 3-bin codes tie everywhere) and blocks narrower than
+    k leaving the (TOPK_BIG, −1) sentinels in the running list."""
+    x_num, y_num, x_cat, y_cat = _inputs(21, 48, 600, n_num, n_cat,
+                                         n_bins=3, ints=True)
+    args = (_t(x_num), _t(y_num), _t(x_cat), _t(y_cat))
+    d, i = td.pairwise_topk_raw(*args, k=k, block_size=block_size,
+                                n_cat_bins=3, mode="exact")
+    # the blocks' metrics as the sweep computes them (a product's rounding
+    # may depend on its width)
+    metric = torch.cat([td._block_metric(
+        args[0], None if y_num is None else args[1][j0:j0 + block_size],
+        args[2], None if y_cat is None else args[3][j0:j0 + block_size],
+        3, "euclidean") for j0 in range(0, 600, block_size)], dim=1)
+    ids = torch.arange(600, dtype=torch.int32).expand(48, 600)
+    want_d, want_i = _stable_sort_topk(metric, ids, k)
+    assert torch.equal(i, want_i) and torch.equal(d, want_d)
+    # the rows do tie at the cut, across blocks
+    assert (metric <= want_d[:, -1:]).sum(dim=1).gt(k).any()
+
+
+def test_merge_equals_stable_sort_with_sentinels_and_signed_zeros():
+    """``stable_merge_topk`` on a running list that still holds sentinels,
+    candidates that tie with it, −0 beside +0, and a candidate block
+    narrower than k."""
+    rng = np.random.default_rng(5)
+    for width, k in ((12, 4), (3, 6), (40, 8)):
+        best_d = np.sort(rng.integers(0, 4, (32, k)), axis=1).astype(
+            np.float32)
+        best_d[:, k // 2:] = td.TOPK_BIG
+        best_i = np.where(best_d < td.TOPK_BIG,
+                          rng.integers(0, 50, (32, k)), -1).astype(np.int32)
+        best_i = np.sort(best_i, axis=1)   # equal metrics in id order
+        cand_d = rng.integers(0, 4, (32, width)).astype(np.float32)
+        cand_d[rng.random((32, width)) < 0.2] = -0.0
+        cand_i = np.broadcast_to(np.arange(50, 50 + width, dtype=np.int32),
+                                 (32, width)).copy()
+        got = td.stable_merge_topk(*map(torch.from_numpy, (
+            best_d, best_i, cand_d, cand_i)), k)
+        want = _stable_sort_topk(
+            torch.from_numpy(np.concatenate([best_d, cand_d], axis=1)),
+            torch.from_numpy(np.concatenate([best_i, cand_i], axis=1)), k)
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0])
+
+
 @pytest.mark.parametrize("m,n,width,k", [(64, 1000, 9, 128),
                                           (48, 600, 512, 5)])
 def test_supported_range_edges(m, n, width, k):
