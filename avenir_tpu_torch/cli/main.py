@@ -26,6 +26,11 @@
     python -m avenir_tpu_torch SameTypeSimilarity   IN OUT --conf P
     python -m avenir_tpu_torch FeatureCondProbJoiner IN OUT --conf P
     python -m avenir_tpu_torch WordCounter          IN OUT --conf P
+    python -m avenir_tpu_torch UnderSamplingBalancer IN OUT --conf P
+    python -m avenir_tpu_torch BaggingSampler       IN OUT --conf P
+    python -m avenir_tpu_torch LogisticRegressionJob IN OUT --conf P
+    python -m avenir_tpu_torch FisherDiscriminant   IN OUT --conf P
+    python -m avenir_tpu_torch Projection           IN OUT --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
@@ -38,10 +43,13 @@ five tree verbs with ``_write_predictions``, ``_find_used_attributes``,
 ``_select_split_attributes``, ``_split_algorithm``, ``_read_raw_lines``,
 ``_run_data_partitioner_batched``, the four sequence verbs, the two
 forest verbs, ``_run_batch_bandit``'s four bandit verbs, the two boosting
-verbs, SameTypeSimilarity, FeatureCondProbJoiner and WordCounter), with
-the same ``.properties`` keys, schemas and output files. ``--device
-{cuda,cpu}`` (default cuda) picks where the job runs; with no GPU and no
-``--device cpu`` the job raises.
+verbs, SameTypeSimilarity, FeatureCondProbJoiner, WordCounter, the
+streamed and per-shard Naive Bayes and MI paths (``_sharded_featurizer``,
+``_run_nb_sharded``, ``_run_mi_sharded``), UnderSamplingBalancer,
+BaggingSampler, LogisticRegressionJob, FisherDiscriminant and
+Projection), with the same ``.properties`` keys, schemas and output
+files. ``--device {cuda,cpu}`` (default cuda) picks where the job runs;
+with no GPU and no ``--device cpu`` the job raises.
 
 NearestNeighbor over a directory of more than one MR part file scores it
 shard by shard, as the JAX CLI does unless ``shard.prefetch=false``: the
@@ -49,7 +57,9 @@ prefetching loader featurizes each part with the native encoder and
 stages it to the device while the shard before is scored, under the
 ``on.bad.row``, ``max.bad.fraction``, ``quarantine.dir``, ``shard.*`` keys,
 and each shard commits to a journal that ``--resume`` (``job.resume``)
-picks up after a kill.
+picks up after a kill. BayesianDistribution and MutualInformation do the
+same with ``shard.parts`` or ``--resume``, each shard's counts the
+journal's payload.
 
 Keys that select something this port does not carry yet, and the JAX
 CLI's other verbs, raise a ValueError naming the key or verb and the
@@ -81,31 +91,18 @@ _LAYERS = roadmap_item("Plan, ingest, obs and checkpoint layers")
 _PLAN = f"the plan layer ({_LAYERS})"
 _OBS = f"the observability layer ({_LAYERS})"
 _MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
-_STREAM_NB = ("streaming/sharded Naive Bayes "
-              f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
 _LIVE_ANN = f"the live ANN index ({roadmap_item('Live ANN')})"
-_LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI,
-             "streaming.train": _STREAM_NB, "shard.parts": _STREAM_NB,
-             "job.resume": _STREAM_NB}
+_LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI}
 _LATER_KNN = {"plan.enable": _PLAN, "knn.ann.live": _LIVE_ANN,
               "knn.sharded": _MULTI}
-_SHARD_MI = ("per-shard journaled MI "
-             f"({roadmap_item('Streaming/sharded NB and per-shard MI')})")
-_LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI,
-             "shard.parts": _SHARD_MI, "job.resume": _SHARD_MI}
+_LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI}
 _LATER_FOREST = {"plan.enable": _PLAN}
 _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them
-_EXPLORE = roadmap_item("Explore, regress, discriminant and text")
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
-    "Projection": _EXPLORE,
-    "UnderSamplingBalancer": _EXPLORE,
-    "BaggingSampler": _EXPLORE,
-    "LogisticRegressionJob": _EXPLORE,
-    "FisherDiscriminant": _EXPLORE,
     "ReinforcementLearnerTopology": _BANDITS,
     "Lifecycle": _BANDITS,
 }
@@ -165,9 +162,13 @@ def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
     """Train Naive Bayes distributions (reference BayesianDistribution).
     ``tabular.input=false`` switches to text mode
     (BayesianDistribution.java:115-131): rows are ``text<delim>classVal``
-    and every token becomes a bin of the text feature at ordinal 1."""
+    and every token becomes a bin of the text feature at ordinal 1. Over a
+    dir of more than one MR part file with ``shard.parts`` or ``job.resume``
+    (``--resume``) the counts fold shard by shard into a journal
+    (``_run_nb_sharded``); ``streaming.train`` folds the file window by
+    window (``stream.window.bytes``) without holding the table."""
     from avenir_tpu_torch.models import naive_bayes as nb
-    _check_keys(conf, _LATER_NB)
+    _check_keys(conf, {"plan.enable": _PLAN})
     if not conf.get_bool("tabular.input", True):
         from avenir_tpu_torch.text import text_bayes
         rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
@@ -176,11 +177,61 @@ def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
                               delim=conf.get("field.delim", ","))
         print(metrics.to_json())
         return
+    shard_paths = part_file_paths(in_path)
+    if len(shard_paths) > 1 and (conf.get_bool("shard.parts", False)
+                                 or conf.get_bool("job.resume", False)):
+        _run_nb_sharded(conf, in_path, out_path, shard_paths, device)
+        return
+    if conf.get_bool("streaming.train", False):
+        fz = _sharded_featurizer(
+            conf, device,
+            "streaming.train needs a fully-specified schema (cardinalities "
+            "+ min/max) or featurizer.fit.data.path pointing at a bounded "
+            "sample — fitting vocabularies from the stream would "
+            "materialize it")
+        model, meta, metrics = nb.train_streamed(
+            fz, in_path, conf.get("field.delim.regex", ","),
+            window_bytes=conf.get_int("stream.window.bytes", 32 << 20),
+            device=device)
+        nb.save_model(model, meta, out_path,
+                      delim=conf.get("field.delim", ","))
+        print(metrics.to_json())
+        return
+    _check_keys(conf, _LATER_NB)
     fz, rows = _load_table(conf, in_path, device)
     table = fz.transform(rows)
     model, meta, metrics = nb.train(table)
     nb.save_model(model, meta, out_path, delim=conf.get("field.delim", ","))
     print(metrics.to_json())
+
+
+_SHARDED_FIT = ("sharded-parts training (shard.parts / --resume on a part "
+                "dir) needs a fully-specified schema (cardinalities + "
+                "min/max) or featurizer.fit.data.path pointing at a "
+                "bounded clean sample — fitting vocabularies from the raw "
+                "part dir would materialize it and die on poison rows")
+
+
+def _sharded_featurizer(conf: JobConfig, device: torch.device,
+                        message: str = _SHARDED_FIT) -> Featurizer:
+    """A featurizer fit without reading the job's input: from the schema
+    alone when it fixes every vocabulary and range, else from
+    ``featurizer.fit.data.path`` (a bounded sample); neither raises
+    ``message``. The streamed and per-shard paths fit so: a fit over
+    their input would hold it whole, and die on the poison rows that
+    ``on.bad.row`` exists to survive."""
+    schema = FeatureSchema.from_file(
+        conf.get_required("feature.schema.file.path"))
+    fz = Featurizer(schema, unseen=conf.get("unseen.value.handling", "error"),
+                    device=device)
+    if fz.schema_data_dependent:
+        fit_path = conf.get("featurizer.fit.data.path")
+        if fit_path is None:
+            raise ValueError(message)
+        fz.fit(read_csv_lines(fit_path, conf.get("field.delim.regex", ",")))
+    else:
+        fz.fit([])
+    return fz
 
 
 def run_bayesian_predictor(conf: JobConfig, in_path: str, out_path: str,
@@ -521,6 +572,122 @@ def _print_shard_report(conf: JobConfig, *, shards_total: int,
     }, sort_keys=True))
 
 
+def _run_count_shards(conf: JobConfig, verb: str, fz, shard_paths,
+                      out_path: str, count, finish,
+                      device: torch.device) -> None:
+    """The per-shard count pass of NB and MI over an MR part-file dir:
+    the PrefetchLoader featurizes each pending shard and stages it on
+    ``device`` while the one before counts (``count(table)`` -> a dict of
+    arrays); each shard's counts commit to the journal as a payload, and
+    a ``--resume`` reads the committed ones instead of recounting. Then
+    ``finish(the payloads' float64 sum or None, rows)`` writes the job's
+    output, the shard report follows, and the journal goes unless
+    ``shard.journal.keep``."""
+    from avenir_tpu_torch.models.naive_bayes import model_sum
+    from avenir_tpu_torch.native.loader import ParseStats
+    from avenir_tpu_torch.native.prefetch import PrefetchLoader
+    parse_stats = ParseStats()
+    journal, completed, nonce = _shard_journal(conf, verb, shard_paths,
+                                               out_path)
+    if journal is None:
+        raise ValueError("shard.parts needs shard.journal=true (the "
+                         "partial-count payloads live in the journal)")
+    parts = [journal.read_payload(i) for i in sorted(completed)]
+    n_rows = sum(int(rec.get("rows", 0)) for rec in completed.values())
+    quarantined = sum(int(rec.get("rows_quarantined", 0))
+                      for rec in completed.values())
+    pending = [(i, p) for i, p in enumerate(shard_paths)
+               if i not in completed]
+    loader = PrefetchLoader(
+        fz, [p for _, p in pending], conf.get("field.delim.regex", ","),
+        with_labels=True, depth=conf.get_int("shard.prefetch.depth", 2),
+        to_device=True, device=device,
+        **_shard_resilience_kwargs(conf, parse_stats))
+    tables = iter(loader)
+    for i, path in pending:
+        table = next(tables)
+        part = {k: np.asarray(v, np.float64)
+                for k, v in count(table).items()}
+        journal.write_payload(i, part)
+        journal.mark_done(i, {
+            "file": os.path.basename(path),
+            "rows": int(table.n_rows),
+            "rows_quarantined": int(parse_stats.per_file.get(path, 0)),
+            "payload": True,
+            "run": nonce})
+        parts.append(part)
+        n_rows += table.n_rows
+    finish(model_sum(parts), n_rows)
+    _print_shard_report(
+        conf, shards_total=len(shard_paths), shards_resumed=len(completed),
+        shards_computed=len(pending),
+        rows_quarantined=quarantined + sum(parse_stats.per_file.values()),
+        loader=loader)
+    if not conf.get_bool("shard.journal.keep", False):
+        journal.cleanup()
+
+
+def _run_nb_sharded(conf: JobConfig, in_path: str, out_path: str,
+                    shard_paths, device: torch.device) -> None:
+    """Resumable Naive Bayes train over an MR part-file dir: each shard's
+    counts (K1 once a shard) commit to the journal, ``--resume`` reuses
+    every committed shard's, and the float64 sum makes the model file the
+    merged-table train's, byte for byte."""
+    from avenir_tpu_torch.models import naive_bayes as nb
+    fz = _sharded_featurizer(conf, device)
+    meta = nb.BayesModelMeta.from_table(
+        fz.transform([], with_labels=True, device="cpu"))
+
+    def finish(acc, n_rows):
+        if acc is None or n_rows == 0:
+            raise ValueError(f"no rows in {in_path}")
+        nb.save_model(nb.model_from_numpy(acc, device), meta, out_path,
+                      delim=conf.get("field.delim", ","))
+        print(nb.train_metrics(n_rows, meta).to_json())
+
+    _run_count_shards(conf, "BayesianDistribution", fz, shard_paths,
+                      out_path, lambda t: nb.train(t)[0].as_numpy(), finish,
+                      device)
+
+
+_MI_FAMILIES = ("class_counts", "feature", "feature_class", "feature_pair",
+                "feature_pair_class")
+
+
+def _run_mi_sharded(conf: JobConfig, in_path: str, out_path: str,
+                    shard_paths, device: torch.device) -> None:
+    """Resumable MutualInformation over an MR part-file dir: the count
+    families add over rows, so each shard's (K4 once a shard for the
+    pairs) commit to the journal and sum; the float64 sum casts back to
+    the merged pass's f32 exactly below 2^24, so the output is the merged
+    job's, byte for byte."""
+    from avenir_tpu_torch.explore import mutual_information as mi
+    fz = _sharded_featurizer(conf, device)
+    meta_table = fz.transform([], with_labels=True, device="cpu")
+    # fail before any shard parses, as the merged pass would
+    if any(meta_table.is_continuous):
+        raise ValueError("mutual information needs all features binned "
+                         "(categorical or bucketWidth numeric)")
+
+    def count(table):
+        d = mi.compute_distributions(table)
+        return {k: getattr(d, k) for k in _MI_FAMILIES}
+
+    def finish(acc, _n_rows):
+        if acc is None:
+            raise ValueError(f"no rows in {in_path}")
+        dists = mi.MiDistributions(
+            **{k: np.asarray(acc[k], np.float32) for k in _MI_FAMILIES},
+            feature_ordinals=tuple(f.ordinal
+                                   for f in meta_table.feature_fields),
+            class_values=tuple(meta_table.class_values))
+        _emit_mi_scores(conf, out_path,
+                        mi.compute_scores(dists, device=device))
+
+    _run_count_shards(conf, "MutualInformation", fz, shard_paths, out_path,
+                      count, finish, device)
+
+
 def _run_knn_sharded(conf: JobConfig, cfg, fz, train, shard_paths, out_path,
                      validation: bool, delim: str,
                      device: torch.device) -> None:
@@ -829,8 +996,16 @@ def run_mutual_information(conf: JobConfig, in_path: str, out_path: str,
     """All MI distribution families + feature-selection scores (reference
     MutualInformation job). Output: per-feature class MI lines, pair MI
     lines, then each selection algorithm's ranking (``mi.score.algorithms``
-    names match the reference registry)."""
+    names match the reference registry). Over a dir of more than one MR
+    part file with ``shard.parts`` or ``job.resume`` (``--resume``) the
+    counts fold shard by shard into a journal (``_run_mi_sharded``)."""
     from avenir_tpu_torch.explore import mutual_information as mi
+    _check_keys(conf, {"plan.enable": _PLAN})
+    shard_paths = part_file_paths(in_path)
+    if len(shard_paths) > 1 and (conf.get_bool("shard.parts", False)
+                                 or conf.get_bool("job.resume", False)):
+        _run_mi_sharded(conf, in_path, out_path, shard_paths, device)
+        return
     _check_keys(conf, _LATER_MI)
     if "mesh.shape" in conf:
         _refuse("mesh.shape", _MULTI)
@@ -1624,6 +1799,122 @@ def run_word_counter(conf: JobConfig, in_path: str, out_path: str,
         fh.write("\n".join(lines) + ("\n" if lines else ""))
 
 
+def run_under_sampling(conf: JobConfig, in_path: str, out_path: str,
+                       device: torch.device) -> None:
+    """Majority-class undersampling (reference UnderSamplingBalancer):
+    exact class counts, or with ``streaming.bootstrap=true`` the
+    reference's running counts (``distr.batch.size``); the keep draw is
+    JAX's threefry stream from ``random.seed``, so the JAX CLI keeps the
+    same lines."""
+    import re
+    from avenir_tpu_torch.explore.sampling import (under_sample,
+                                                   under_sample_streaming)
+    from avenir_tpu_torch.utils.jrandom import prng_key
+    class_ord = conf.get_int("class.attr.ord")
+    if class_ord is None:
+        raise ValueError("class.attr.ord is required")
+    # one read: the raw lines and the labels stay index-aligned
+    splitter = re.compile(conf.get("field.delim.regex", ","))
+    with open(in_path) as fh:
+        raw = [l.rstrip("\n") for l in fh if l.rstrip("\n")]
+    tokens = [splitter.split(l)[class_ord].strip() for l in raw]
+    values = sorted(set(tokens))
+    index = {v: i for i, v in enumerate(values)}
+    labels = torch.tensor([index[t] for t in tokens], dtype=torch.int32,
+                          device=device)
+    key = prng_key(conf.get_int("random.seed", 0), device)
+    if conf.get_bool("streaming.bootstrap", False):
+        keep = under_sample_streaming(
+            labels, key, len(values), conf.get_int("distr.batch.size", 10000))
+    else:
+        keep = under_sample(labels, key, len(values))
+    keep = keep.cpu().numpy()
+    with open(out_path, "w") as fh:
+        for line, k in zip(raw, keep):
+            if k:
+                fh.write(line + "\n")
+
+
+def run_bagging(conf: JobConfig, in_path: str, out_path: str,
+                device: torch.device) -> None:
+    """Per-window bootstrap sampling (reference BaggingSampler): the
+    indices are JAX's threefry draws from ``random.seed``."""
+    from avenir_tpu_torch.explore.sampling import bagging_sample
+    from avenir_tpu_torch.utils.jrandom import prng_key
+    with open(in_path) as fh:
+        raw = [l.rstrip("\n") for l in fh if l.strip()]
+    idx = bagging_sample(len(raw), prng_key(conf.get_int("random.seed", 0),
+                                            device),
+                         batch_size=conf.get_int("batch.size", 10000))
+    with open(out_path, "w") as fh:
+        for i in idx.cpu().numpy():
+            fh.write(raw[i] + "\n")
+
+
+def run_logistic_regression(conf: JobConfig, in_path: str, out_path: str,
+                            device: torch.device) -> None:
+    """Iterative logistic regression with the append-only coefficient
+    history file ``coeff.file.path`` (reference LogisticRegressionJob;
+    the gradient step corrected per SURVEY.md §2.7)."""
+    from avenir_tpu_torch.models import logistic
+    rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
+    feat_ords = conf.get_int_list("feature.field.ordinals")
+    class_ord = conf.get_int("class.attr.ord")
+    pos_class = conf.get_required("positive.class.value")
+    if feat_ords is None or class_ord is None:
+        raise ValueError("feature.field.ordinals and class.attr.ord required")
+    x = np.asarray([[float(r[o]) for o in feat_ords] for r in rows],
+                   np.float32)
+    y = np.asarray([1.0 if r[class_ord] == pos_class else 0.0 for r in rows],
+                   np.float32)
+    cfg = logistic.LogisticConfig(
+        learning_rate=conf.get_float("learning.rate", 0.5),
+        max_iterations=conf.get_int("iteration.limit", 100),
+        convergence_threshold=conf.get_float("convergence.threshold", 1.0),
+        convergence_criteria=conf.get("convergence.criteria", "average"))
+    w, iters, conv = logistic.train(
+        torch.from_numpy(x).to(device), torch.from_numpy(y).to(device), cfg,
+        coeff_file_path=conf.get("coeff.file.path"))
+    with open(out_path, "w") as fh:
+        fh.write(",".join(repr(float(v)) for v in w) + "\n")
+    print(f'{{"iterations": {iters}, "converged": {str(conv).lower()}}}')
+
+
+def run_fisher_discriminant(conf: JobConfig, in_path: str, out_path: str,
+                            device: torch.device) -> None:
+    """Univariate Fisher LDA per attribute (reference FisherDiscriminant)."""
+    from avenir_tpu_torch.models import fisher
+    fz, rows = _load_table(conf, in_path, device)
+    model = fisher.train(fz.transform(rows))
+    with open(out_path, "w") as fh:
+        fh.write("\n".join(fisher.serialize(
+            model, conf.get("field.delim.out", ","))) + "\n")
+
+
+def run_projection(conf: JobConfig, in_path: str, out_path: str,
+                   device: torch.device) -> None:
+    """Grouping/ordering projection (chombo ``org.chombo.mr.Projection``,
+    the email-marketing tutorial's stage that orders each customer's
+    transactions by time): ``projection.operation`` (groupingOrdering),
+    ``key.field``, ``orderBy.field``, ``projection.field``,
+    ``format.compact``, ``orderBy.numeric``. A host pass (native C++ for
+    one file); ``device`` is not used."""
+    from avenir_tpu_torch.utils.projection import project_file
+    op = conf.get("projection.operation", "groupingOrdering")
+    if op != "groupingOrdering":
+        raise ValueError(f"unsupported projection.operation: {op}")
+    project_file(
+        in_path, out_path,
+        key_field=conf.get_int("key.field", 0),
+        order_by_field=conf.get_int("orderBy.field", 1),
+        projection_fields=conf.get_int_list("projection.field", [1]),
+        compact=conf.get_bool("format.compact", True),
+        numeric_order=(conf.get_bool("orderBy.numeric")
+                       if conf.get("orderBy.numeric") is not None else None),
+        delim_regex=conf.get("field.delim.regex", ","),
+        delim_out=conf.get("field.delim.out", ","))
+
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
@@ -1631,6 +1922,11 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "SameTypeSimilarity": run_same_type_similarity,
     "FeatureCondProbJoiner": run_feature_cond_prob_joiner,
     "WordCounter": run_word_counter,
+    "UnderSamplingBalancer": run_under_sampling,
+    "BaggingSampler": run_bagging,
+    "LogisticRegressionJob": run_logistic_regression,
+    "FisherDiscriminant": run_fisher_discriminant,
+    "Projection": run_projection,
     "MutualInformation": run_mutual_information,
     "CramerCorrelation": lambda c, i, o, d: run_correlation(
         c, i, o, d, "cramerIndex"),
@@ -1674,9 +1970,10 @@ def main(argv: List[str] = None) -> int:
     parser.add_argument("--obs-port", type=int, default=None, metavar="PORT",
                         help="not supported yet (refused)")
     parser.add_argument("--resume", action="store_true",
-                        help="resume a killed NearestNeighbor job over a "
-                             "part-file dir from its per-shard journal "
-                             "(<out>.shards/): completed shards are "
+                        help="resume a killed NearestNeighbor, "
+                             "BayesianDistribution or MutualInformation job "
+                             "over a part-file dir from its per-shard "
+                             "journal (<out>.shards/): completed shards are "
                              "skipped and the output is the bytes of an "
                              "uninterrupted run (sets job.resume=true)")
     args = parser.parse_args(argv)

@@ -2,10 +2,12 @@
 Cramér correlation), elearn (KNN), hospital-readmission (mutual
 information) and abandoned-cart retarget (decision tree and forest)
 tutorials, the Markov-chain and HMM sequences (the email-marketing and
-customer-loyalty tutorials) and the price-optimization bandit's arms.
+customer-loyalty tutorials), the price-optimization bandit's arms and the
+email-marketing tutorial's purchase stream (the Projection stage's input).
 
 A copy of the churn, elearn, hospital-readmission, retarget, price
-optimization, Markov sequence and tagged HMM sections of
+optimization, Markov sequence, tagged HMM and purchase-stream
+(``buy_xaction_rows``) sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -366,4 +368,48 @@ def hmm_tagged_rows(n: int, states: List[str], observations: List[str],
             row.append(f"{observations[o]}{sub_field_delim}{states[s]}")
             s = int(rng.choice(n_states, p=trans[s]))
         rows.append(row)
+    return rows
+
+
+def buy_xaction_rows(cust_count: int, days_count: int,
+                     visitor_fraction: float = 0.05, seed: int = 23
+                     ) -> List[List[str]]:
+    """(custID, xactionID, dayNumber, amount) purchase rows with
+    buy_xaction.rb's planted recency/amount structure (:32-48): amount
+    depends on the gap since the customer's previous purchase (<30 / <60 /
+    60+ days) and on whether the previous amount was small — so the derived
+    two-letter states (``markov.transaction_states``) have a strongly
+    non-uniform transition matrix the model can recover. Days are emitted as
+    absolute day numbers rather than date strings (the tutorial's dates only
+    ever feed day-difference arithmetic, xaction_state.rb:22-25)."""
+    rng = np.random.default_rng(seed)
+    cust_ids = [f"C{rng.integers(0, 10**10):010d}" for _ in range(cust_count)]
+    last: Dict[str, Tuple[int, int]] = {}
+    rows: List[List[str]] = []
+    xid = 10 ** 9
+    for day in range(days_count):
+        n_today = int(visitor_fraction * cust_count
+                      * (85 + rng.integers(0, 30)) / 100)
+        for _ in range(n_today):
+            cid = cust_ids[int(rng.integers(0, cust_count))]
+            if cid in last:
+                pr_day, pr_amt = last[cid]
+                gap = day - pr_day
+                if gap < 30:
+                    amount = (50 + int(rng.integers(0, 20)) - 10
+                              if pr_amt < 40
+                              else 30 + int(rng.integers(0, 10)) - 5)
+                elif gap < 60:
+                    amount = (100 + int(rng.integers(0, 40)) - 20
+                              if pr_amt < 80
+                              else 60 + int(rng.integers(0, 20)) - 10)
+                else:
+                    amount = (180 + int(rng.integers(0, 60)) - 30
+                              if pr_amt < 150
+                              else 120 + int(rng.integers(0, 40)) - 20)
+            else:
+                amount = 40 + int(rng.integers(0, 180))
+            last[cid] = (day, amount)
+            xid += 1
+            rows.append([cid, str(xid), str(day), str(amount)])
     return rows

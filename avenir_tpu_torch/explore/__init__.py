@@ -1,1 +1,2 @@
-"""Feature exploration: mutual information and categorical correlation."""
+"""Feature exploration: mutual information, categorical correlation,
+class-balancing and bagging samplers, PAC sample complexity."""

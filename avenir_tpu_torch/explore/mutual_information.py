@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from avenir_tpu_torch.ops import histogram
-from avenir_tpu_torch.ops.infotheory import entropy, mutual_information
+from avenir_tpu_torch.ops.infotheory import (entropy, fma,
+                                             mutual_information)
 from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.roadmap import roadmap_item
@@ -139,9 +140,13 @@ def compute_scores(d: MiDistributions,
     fpc = host(mutual_information(on(pc.reshape(f1, f2, b1 * b2, c))))
     fpc_ent = host(entropy(on(pc.reshape(f1, f2, b1 * b2 * c))))
     # class-conditional pair MI: sum_c p(c) I(Xi;Xj|c)
+    # (XLA's contraction: a fused multiply-add a class, from 0)
     per_class = mutual_information(on(np.moveaxis(pc, -1, 2)))      # [F,F,C]
     weights = on(d.class_counts / max(d.class_counts.sum(), 1))
-    ccp = host(torch.einsum("ijc,c->ij", per_class, weights))
+    ccp = torch.zeros_like(per_class[..., 0])
+    for ci in range(per_class.shape[-1]):
+        ccp = fma(per_class[..., ci], weights[ci], ccp)
+    ccp = host(ccp)
 
     fc_mi = {ords[i]: float(fc[i]) for i in range(n_f)}
     fp_mi, fpc_mi, fpc_h, ccp_mi = {}, {}, {}, {}

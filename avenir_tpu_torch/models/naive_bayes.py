@@ -1,8 +1,9 @@
 """Naive Bayes on torch tensors.
 
 Counterpart of ``avenir_tpu/models/naive_bayes.py`` (``BayesModel``,
-``BayesModelMeta``, ``train``, ``predict``, ``validate``, ``save_model``,
-``load_model``). It replaces the reference's two MR jobs:
+``BayesModelMeta``, ``train``, ``train_streamed``, ``predict``,
+``validate``, ``save_model``, ``load_model``). It replaces the
+reference's two MR jobs:
 
 - **train** (BayesianDistribution): per-row emits of (classVal, ord, bin)→1
   plus a shuffle and reducer sums become the [C, F, B] joint count tensor
@@ -34,6 +35,8 @@ import torch
 from avenir_tpu_torch.ops.histogram import (
     class_counts, class_feature_bin_counts, feature_bin_counts,
     per_class_moments)
+from avenir_tpu_torch.ops.infotheory import (
+    _sqrt, fma, xla_exp, xla_log, xla_sum)
 from avenir_tpu_torch.utils.dataset import EncodedTable
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 from avenir_tpu_torch.utils.metrics import ConfusionMatrix, MetricsRegistry
@@ -103,28 +106,126 @@ def _split_columns(table: EncodedTable, meta: BayesModelMeta
 # train
 # --------------------------------------------------------------------------
 
+def _counts(binned: torch.Tensor, cont: torch.Tensor, labels: torch.Tensor,
+            n_classes: int, n_bins: int,
+            weights: Optional[torch.Tensor] = None,
+            moments: torch.dtype = torch.float32) -> BayesModel:
+    """The count tensors of one pass over rows, on their device: the class
+    counts, K1's (class, feature, bin) counts, the bin marginals and the
+    class moments (f32, or float64 sums for a caller that adds parts)."""
+    c_cnt, c_sum, c_sq = per_class_moments(cont, labels, n_classes, weights,
+                                           dtype=moments)
+    return BayesModel(
+        class_counts=class_counts(labels, n_classes, weights),
+        post_counts=class_feature_bin_counts(binned, labels, n_classes,
+                                             n_bins, weights),
+        prior_counts=feature_bin_counts(binned, n_bins, weights),
+        cont_count=c_cnt, cont_sum=c_sum, cont_sumsq=c_sq)
+
+
+def train_metrics(n_rows: int, meta: BayesModelMeta) -> MetricsRegistry:
+    """The "Distribution Data" counters a train over ``n_rows`` prints."""
+    n_classes = len(meta.class_values)
+    metrics = MetricsRegistry()
+    metrics.set("Distribution Data", "Records", n_rows)
+    metrics.set("Distribution Data", "Class prior", n_classes)
+    metrics.set("Distribution Data", "Feature posterior binned",
+                len(meta.binned_idx) * n_classes)
+    metrics.set("Distribution Data", "Feature posterior cont",
+                len(meta.cont_idx) * n_classes)
+    return metrics
+
+
 def train(table: EncodedTable, weights: Optional[torch.Tensor] = None
           ) -> Tuple[BayesModel, BayesModelMeta, MetricsRegistry]:
     """One pass over the table's rows, on the table's device."""
     meta = BayesModelMeta.from_table(table)
     binned, cont = _split_columns(table, meta)
-    n_classes, n_bins = table.n_classes, max(meta.n_bins, 1)
-    c_cnt, c_sum, c_sq = per_class_moments(cont, table.labels, n_classes,
-                                           weights)
-    model = BayesModel(
-        class_counts=class_counts(table.labels, n_classes, weights),
-        post_counts=class_feature_bin_counts(binned, table.labels, n_classes,
-                                             n_bins, weights),
-        prior_counts=feature_bin_counts(binned, n_bins, weights),
-        cont_count=c_cnt, cont_sum=c_sum, cont_sumsq=c_sq)
-    metrics = MetricsRegistry()
-    metrics.set("Distribution Data", "Records", table.n_rows)
-    metrics.set("Distribution Data", "Class prior", table.n_classes)
-    metrics.set("Distribution Data", "Feature posterior binned",
-                len(meta.binned_idx) * table.n_classes)
-    metrics.set("Distribution Data", "Feature posterior cont",
-                len(meta.cont_idx) * table.n_classes)
-    return model, meta, metrics
+    model = _counts(binned, cont, table.labels, table.n_classes,
+                    max(meta.n_bins, 1), weights)
+    return model, meta, train_metrics(table.n_rows, meta)
+
+
+def model_sum(parts: List[dict]) -> dict:
+    """Field by field float64 sum of count payloads (``as_numpy`` dicts):
+    the cross-window and cross-shard accumulation, exact to 2^53."""
+    acc = None
+    for part in parts:
+        part = {k: np.asarray(v, np.float64) for k, v in part.items()}
+        acc = part if acc is None else {k: acc[k] + part[k] for k in acc}
+    return acc
+
+
+def train_streamed(fz, path: str, delim_regex: str = ",",
+                   window_bytes: int = 32 << 20, n_threads: int = 0,
+                   device: DeviceLike = "cuda"
+                   ) -> Tuple[BayesModel, BayesModelMeta, MetricsRegistry]:
+    """Out-of-core training: each line-aligned byte window of the file is
+    encoded on the host (``native/loader.iter_encoded_windows``), folded
+    into the count tensors on ``device`` (K1 once a window, the moments in
+    float64) and dropped, so host memory holds the model and one window.
+    The windows' counts add up on the host in float64 (exact to 2^53; a
+    device f32 accumulator would lose cells past 2^24), so the model
+    equals the in-memory train's. A delimiter the native encoder cannot
+    take (more than one byte) takes Python windows of ``window_bytes``
+    characters of fields, as the JAX package's function does."""
+    from avenir_tpu_torch.native import loader
+
+    dev = resolve_device(device)
+    meta = None
+    parts = []           # each window's counts, summed in float64 at the end
+    n_rows = 0
+
+    def fold(binned_np, numeric_np, labels_np):
+        nonlocal meta, n_rows
+        if meta is None:
+            # meta from a zero-row wrap: a real window would build a
+            # per-row id list for nothing
+            meta = BayesModelMeta.from_table(loader._wrap_table(
+                fz, binned_np[:0], numeric_np[:0], labels_np[:0], None,
+                "cpu"))
+        rows = binned_np.shape[0]
+        if rows == 0:
+            return
+        binned = torch.as_tensor(binned_np[:, list(meta.binned_idx)],
+                                 dtype=torch.int32, device=dev)
+        cont = torch.as_tensor(numeric_np[:, list(meta.cont_idx)],
+                               dtype=torch.float32, device=dev)
+        labels = torch.as_tensor(labels_np, dtype=torch.int32, device=dev)
+        parts.append(_counts(binned, cont, labels, len(meta.class_values),
+                             max(meta.n_bins, 1),
+                             moments=torch.float64).as_numpy())
+        n_rows += rows
+
+    try:
+        windows = loader.iter_encoded_windows(
+            fz, path, delim_regex, with_labels=True, n_threads=n_threads,
+            window_bytes=window_bytes, want_ids=False)
+        for binned_np, numeric_np, labels_np, _ids in windows:
+            fold(binned_np, numeric_np, labels_np)
+    except loader.NativeUnavailable:
+        from avenir_tpu_torch.utils.dataset import iter_csv_rows
+        pending: list = []
+        pending_bytes = 0
+
+        def flush():
+            binned_np, numeric_np, labels_np, _ = fz.transform_arrays(
+                pending, with_labels=True)
+            fold(binned_np, numeric_np, labels_np)
+
+        for row in iter_csv_rows(path, delim_regex):
+            pending.append(row)
+            pending_bytes += sum(len(c) for c in row)
+            if pending_bytes >= window_bytes:
+                flush()
+                pending, pending_bytes = [], 0
+        if pending:
+            flush()
+
+    if not parts:
+        raise ValueError(f"no rows in {path}")
+    return (model_from_numpy(model_sum(parts), dev), meta,
+            train_metrics(n_rows, meta))
 
 
 # --------------------------------------------------------------------------
@@ -132,21 +233,50 @@ def train(table: EncodedTable, weights: Optional[torch.Tensor] = None
 # --------------------------------------------------------------------------
 
 _EPS = 1e-30
+# jnp.sqrt(2π) as XLA folds it: the f32 square root of f32 2π
+_SQRT_2PI = float(np.sqrt(np.float32(2.0 * math.pi)))
+_INT32 = (-2.0 ** 31, 2.0 ** 31 - 1)
 
 
 def _gaussian_logpdf(x, mean, std):
+    """``-0.5·z·z − log(std·√(2π))``, ``z = (x − mean) / std``, rounded as
+    the JAX package's compiled predictor rounds it: the log XLA's
+    (``xla_log``) of the f32 product, the square and the subtraction one
+    fused multiply-add."""
     std = torch.clamp(std, min=1e-6)
     z = (x - mean) / std
-    sqrt_2pi = torch.sqrt(torch.tensor(2.0 * math.pi, dtype=torch.float32,
-                                       device=x.device))
-    return -0.5 * z * z - torch.log(std * sqrt_2pi)
+    log_norm = xla_log(std * torch.full((), _SQRT_2PI, dtype=torch.float32,
+                                        device=std.device))
+    return fma(z * -0.5, z, -log_norm)
+
+
+def _moments(count, vsum, vsq):
+    """(mean, std) of f32 count/sum/sum-of-squares: the divisions by
+    device tensors, ``sumsq/n − mean²`` one fused multiply-add, the square
+    root through float64 (each correctly rounded on every device)."""
+    cnt = torch.clamp(count, min=1.0)
+    mean = vsum / cnt
+    var = torch.clamp(fma(-mean, mean, vsq / cnt), min=1e-12)
+    return mean, _sqrt(var)
+
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> int32 as XLA converts: saturating, NaN to 0 (a plain cast of
+    inf differs between the CPU and the GPU)."""
+    x = torch.where(torch.isnan(x), torch.zeros_like(x), x)
+    return x.double().clamp(*_INT32).to(torch.int32)
 
 
 def _predict_kernel(model: BayesModel, binned: torch.Tensor,
                     cont: torch.Tensor, laplace: float = 0.0):
     """Per-row per-class int-percent posterior plus the feature
-    prior/posterior probabilities (for output.feature.prob.only mode)."""
-    total = torch.clamp(model.total, min=1.0)
+    prior/posterior probabilities (for output.feature.prob.only mode).
+
+    Every operation rounds as the JAX package's jitted kernel does on the
+    CPU (its optimized HLO): XLA's ``log`` and ``exp``, sums over features
+    and classes in XLA's order (``xla_sum``), divisions by device tensors,
+    so the card's bits equal the CPU's."""
+    total = torch.clamp(xla_sum(model.class_counts, 0), min=1.0)
     n_feat_b = model.post_counts.shape[1]
     n_bins = model.post_counts.shape[2]
     dev = binned.device
@@ -160,41 +290,36 @@ def _predict_kernel(model: BayesModel, binned: torch.Tensor,
                        model.post_counts[:, f_idx, safe_bins], 0.0)
     cls = torch.clamp(model.class_counts, min=_EPS).reshape(-1, 1, 1)
     p_post = (post + laplace) / (cls + laplace * n_bins)
-    log_post = torch.log(torch.clamp(p_post, min=_EPS)).sum(dim=2)  # [C, N]
+    log_post = xla_sum(xla_log(torch.clamp(p_post, min=_EPS)), 2)  # [C, N]
 
     # P(x_f): [N, Fb]
     prior = torch.where(valid, model.prior_counts[f_idx, safe_bins], 0.0)
     p_prior = (prior + laplace) / (total + laplace * n_bins)
-    log_prior = torch.log(torch.clamp(p_prior, min=_EPS)).sum(dim=1)  # [N]
+    log_prior = xla_sum(xla_log(torch.clamp(p_prior, min=_EPS)), 1)  # [N]
 
     # continuous features: class-conditional and marginal Gaussians
     if model.cont_count.shape[1]:
-        c_cnt = torch.clamp(model.cont_count, min=1.0)
-        mean = model.cont_sum / c_cnt                              # [C, Fc]
-        var = torch.clamp(model.cont_sumsq / c_cnt - mean * mean, min=1e-12)
-        std = torch.sqrt(var)
-        log_post = log_post + _gaussian_logpdf(
-            cont.unsqueeze(0), mean.unsqueeze(1), std.unsqueeze(1)).sum(dim=2)
-        m_cnt = torch.clamp(model.cont_count.sum(dim=0), min=1.0)  # [Fc]
-        m_mean = model.cont_sum.sum(dim=0) / m_cnt
-        m_var = torch.clamp(model.cont_sumsq.sum(dim=0) / m_cnt
-                            - m_mean * m_mean, min=1e-12)
-        log_prior = log_prior + _gaussian_logpdf(
-            cont, m_mean.reshape(1, -1), torch.sqrt(m_var).reshape(1, -1)
-        ).sum(dim=1)
+        mean, std = _moments(model.cont_count, model.cont_sum,
+                             model.cont_sumsq)                     # [C, Fc]
+        log_post = log_post + xla_sum(_gaussian_logpdf(
+            cont.unsqueeze(0), mean.unsqueeze(1), std.unsqueeze(1)), 2)
+        m_mean, m_std = _moments(*(xla_sum(t, 0) for t in (
+            model.cont_count, model.cont_sum, model.cont_sumsq)))  # [Fc]
+        log_prior = log_prior + xla_sum(_gaussian_logpdf(
+            cont, m_mean.reshape(1, -1), m_std.reshape(1, -1)), 1)
 
-    log_class_prior = torch.log(torch.clamp(model.class_counts / total,
-                                            min=_EPS))
+    log_class_prior = xla_log(torch.clamp(model.class_counts / total,
+                                          min=_EPS))
     # P(c|x) = postProb * classPrior / featurePrior (BayesianPredictor.java:416)
     log_p = log_post + log_class_prior.reshape(-1, 1) - log_prior.reshape(1, -1)
-    pct = torch.floor(torch.exp(log_p) * 100.0).to(torch.int32).T  # [N, C]
+    pct = _to_int32(torch.floor(xla_exp(log_p) * 100.0)).T        # [N, C]
     if laplace == 0.0 and n_feat_b:
         # a bin with zero marginal count makes the reference compute 0/0
         # -> NaN -> (int)NaN == 0
         row_unseen = (prior == 0).any(dim=1)                        # [N]
         pct = torch.where(row_unseen.reshape(-1, 1), 0, pct)
-    feature_post = torch.exp(log_post).T                            # [N, C]
-    feature_prior = torch.exp(log_prior)                            # [N]
+    feature_post = xla_exp(log_post).T                              # [N, C]
+    feature_prior = xla_exp(log_prior)                              # [N]
     return pct, feature_post, feature_prior
 
 

@@ -234,7 +234,8 @@ def pair_counts_multi(ids: torch.Tensor, pairs: Sequence[Tuple[int, int]],
 
 def per_class_moments(values: torch.Tensor, labels: torch.Tensor,
                       n_classes: int,
-                      weights: Optional[torch.Tensor] = None
+                      weights: Optional[torch.Tensor] = None,
+                      dtype: torch.dtype = torch.float32
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-(class, feature) count / sum / sum-of-squares for continuous
     features — the Gaussian sufficient statistics the reference accumulates
@@ -243,7 +244,8 @@ def per_class_moments(values: torch.Tensor, labels: torch.Tensor,
     The reference sums integers exactly; an f32 product in whatever order
     the BLAS picks does not (integer features ≤ 600 give sums of squares
     above 2^24). So the f32 values, squares and weights are summed in
-    float64 and each result is rounded to f32 once."""
+    float64 and each result is rounded to f32 once (``dtype=float64``
+    keeps the float64 sums, for a caller that adds up parts)."""
     oh = _one_hot(labels, n_classes).to(torch.float64)          # [N, C]
     if weights is not None:
         oh = oh * weights.to(torch.float32).to(torch.float64).reshape(-1, 1)
@@ -251,4 +253,4 @@ def per_class_moments(values: torch.Tensor, labels: torch.Tensor,
     count = oh.T @ torch.ones_like(values)
     vsum = oh.T @ values
     vsq = oh.T @ (values * values)
-    return tuple(t.to(torch.float32) for t in (count, vsum, vsq))
+    return tuple(t.to(dtype) for t in (count, vsum, vsq))

@@ -138,9 +138,10 @@ def xla_softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Sequential f32 sum along ``dim`` from index 0."""
+    """Sequential f32 sum along ``dim`` from index 0 (0 over an empty
+    axis)."""
     x = x.movedim(dim, -1)
-    acc = torch.zeros_like(x[..., 0])
+    acc = x.new_zeros(x.shape[:-1])
     for i in range(x.shape[-1]):
         acc = acc + x[..., i]
     return acc
@@ -193,7 +194,7 @@ def entropy(counts: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Shannon entropy (bits) of count vectors along ``dim``
     (AttributeSplitStat.java:387-394)."""
     total = counts.sum(dim=dim, keepdim=True)
-    return -_sum(xlogx(counts / _nonzero(total)), dim)
+    return -xla_sum(xlogx(counts / _nonzero(total)), dim)
 
 
 def gini(counts: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -292,13 +293,16 @@ def split_stat(counts: torch.Tensor, algorithm: str) -> torch.Tensor:
 def mutual_information(joint: torch.Tensor) -> torch.Tensor:
     """I(X;Y) in bits from a [..., X, Y] joint count tensor — the pairwise
     MI of MutualInformation's reducer cleanup
-    (MutualInformation.java:598-678)."""
+    (MutualInformation.java:598-678). The marginals and the terms sum in
+    ``xla_sum``'s order (the terms over the flattened [X·Y] block), so
+    the card's bits equal the CPU's."""
     total = joint.sum(dim=(-2, -1), keepdim=True)
     p = joint / _nonzero(total)
-    px = p.sum(dim=-1, keepdim=True)
-    py = p.sum(dim=-2, keepdim=True)
+    px = xla_sum(p, -1).unsqueeze(-1)
+    py = xla_sum(p, -2).unsqueeze(-2)
     denom = px * py
     ok = (p > 0) & (denom > 0)
     safe_ratio = torch.where(ok, p / _nonzero(denom), torch.ones_like(p))
-    return torch.where(p > 0, _over_log2(p * xla_log(safe_ratio)),
-                       torch.zeros_like(p)).sum(dim=(-2, -1))
+    terms = torch.where(p > 0, _over_log2(p * xla_log(safe_ratio)),
+                        torch.zeros_like(p))
+    return xla_sum(terms.flatten(-2), -1)

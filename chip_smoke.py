@@ -291,20 +291,45 @@ Phases (one line each; any failure exits non-zero):
    four ``regression.method``s, staged (K2) and with
    ``feed.chunk.rows=4096`` (K3), every K2 and K3 call held by
    ``compare_topk``, staged and chunked byte-identical, each method's mean
-   absolute error below half the mean predictor's, the ``--device cpu``
-   output equal but for rows at a near tie of their neighbors (counted,
-   each held in float64); SameTypeSimilarity self-matching on 1,024 elearn
-   rows and ``inter.set.matching`` on 512 × 4,096, files byte-identical to
+   absolute error below half the mean predictor's, for
+   ``multiLinearRegression`` the ``--device cpu`` output equal but for
+   rows at a near tie of their neighbors (counted, each held in float64);
+   SameTypeSimilarity self-matching on 1,024 elearn rows and
+   ``inter.set.matching`` on 128 × 4,096, files byte-identical to
    the CPU's; ``pairwise_full`` at 8,192 × 65,536 × 9 (its first 256 rows
    equal to the CPU's), timed beside its bytes bound and ``torch.cdist``;
    the replay pipeline on those rows: BayesianDistribution,
-   BayesianPredictor ``output.feature.prob.only=true`` (held within a
-   tolerance, its continuous probabilities coming from torch's exp and
-   log: ROADMAP C9), FeatureCondProbJoiner, NearestNeighbor
+   BayesianPredictor ``output.feature.prob.only=true`` (its continuous
+   probabilities from XLA's exp and log, equal card to CPU: ROADMAP C9,
+   repaired), FeatureCondProbJoiner, NearestNeighbor
    ``neighbor.data.path`` on the 6-field class-conditional records with
    validation and on the 3-field distance file, files byte-identical card
-   to CPU from the join on, the 3-field replay agreeing with the fused
-   NearestNeighbor on at least 0.97 of rows.
+   to CPU at every step, the 3-field replay agreeing with the fused
+   NearestNeighbor on at least 0.97 of rows;
+12. the last batch verbs and the streamed and per-shard Naive Bayes and
+   MI paths (``explore/sampling.py`` with ``utils/jrandom.py``'s threefry
+   draws, ``models/logistic.py``, ``models/fisher.py``,
+   ``utils/projection.py``, ``naive_bayes.train_streamed``, the CLI's
+   ``_run_nb_sharded`` and ``_run_mi_sharded``), each job on the card and
+   with ``--device cpu``, stdout and files byte-identical:
+   BayesianDistribution ``streaming.train`` over 2,097,152 churn rows
+   (phase 3's tiled) in
+   8 MiB windows, one K1 launch a window, and over 1,048,576 elearn rows
+   (continuous: no K1), each model equal to the card's in-memory train;
+   ``shard.parts`` over 8 part files of 262,144 of those churn rows (K1
+   once a shard) and MutualInformation over 8 of 131,072 hospital rows
+   (K4 once a shard), equal to the merged jobs, then ``--resume`` after
+   dropping one shard's commit (7 resumed, 1 computed, one launch, the
+   same bytes); LogisticRegressionJob on 1,048,576 elearn rows, 100
+   iterations of the f32 device loop and of the float64 loop
+   (``convergence.threshold=1e-5``), and a run split at iteration 40 and
+   resumed from its history equal to the uninterrupted one;
+   FisherDiscriminant on those rows; UnderSamplingBalancer (exact and
+   ``streaming.bootstrap``) and BaggingSampler over 1,048,576 churn
+   lines; Projection of ~1,000,000 purchase rows, the native pass equal
+   to the Python pass. Every K1 and K4 call held against its plain
+   version; K1 timed at the window and shard shapes, K4 at the shard
+   shape.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -326,7 +351,10 @@ shape (``K1-int``), with the launches of phase 10's two fits at scale
 ``cli_launches``), a round's time at each depth in ``round_ms`` and each
 level shape's times in ``levels``; a seventh, K1 at the token shape
 (``K1-text``), with the launches of phase 11's text jobs and both
-vocabularies' times in ``vocabularies``; K1's, K2's and K3's launches
+vocabularies' times in ``vocabularies``; an eighth and a ninth, K1 at
+phase 12's stream-window and NB-shard shapes (``K1-stream``) and K4 at
+its MI-shard shape (``K4-shard``), with phase 12's launches and each
+shape's times in ``shapes``; K1's, K2's and K3's launches
 count phase 11's CLI jobs too (K2's and K3's ``launches`` are phase 3's
 jobs and phase 11's regression and replay jobs); K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
@@ -3906,8 +3934,15 @@ REGRESSION_METHODS = (("average", ()), ("median", ()),
                       ("linearRegression",
                        ("-D", "regr.input.field.ordinal=6")),
                       ("multiLinearRegression", ()))
+# the method whose regression also runs with --device cpu: the neighbor
+# search all four share and the float64 solve (one of four since phase 12
+# came, to keep the script's wall under ~1,000 s on a slow host)
+REGRESSION_CPU_METHODS = ("multiLinearRegression",)
 SIM_SELF_ROWS = 1024
-SIM_TEST, SIM_TRAIN = 512, 4096
+# 128 x 4,096 = 524,288 distance records through the join and the replay
+# (512 until phase 12 came: the replay is host parsing, ~12 µs a record,
+# and ran ~180 s of the script on card and CPU)
+SIM_TEST, SIM_TRAIN = 128, 4096
 FULL_SHAPE = (8192, 65536, 9)
 # tests/test_tutorials.py:117-145: the replayed predictions against the
 # fused path's
@@ -3988,35 +4023,63 @@ def exact_near_tie(x, y, rows, k, rtol=1e-5):
     return out
 
 
-def hold_prob_files(a, b):
-    """Two BayesianPredictor ``output.feature.prob.only`` files: the same
-    ids, classes and fields, each probability's log within 5e-6 relative
-    and 1e-5 absolute of the other's; returns the largest log difference."""
-    worst = 0.0
-    with open(a) as fa, open(b) as fb:
-        for line_a, line_b in zip(fa, fb, strict=True):
-            fields_a = line_a.rstrip("\n").split(",")
-            fields_b = line_b.rstrip("\n").split(",")
-            probs = [1] + list(range(3, len(fields_a) - 1, 2))
-            same = [i for i in range(len(fields_a)) if i not in probs]
-            if (len(fields_a) != len(fields_b)
-                    or [fields_a[i] for i in same]
-                    != [fields_b[i] for i in same]):
-                raise AssertionError(f"{a}: {line_a!r} against {line_b!r}")
-            with np.errstate(divide="ignore"):
-                la = np.log(np.asarray([float(fields_a[i]) for i in probs]))
-                lb = np.log(np.asarray([float(fields_b[i]) for i in probs]))
-            np.testing.assert_allclose(la, lb, rtol=5e-6, atol=1e-5)
-            finite = np.isfinite(la)
-            if finite.any():
-                worst = max(worst, float(np.abs(la - lb)[finite].max()))
-    return worst
+def same_bytes(label, a, b):
+    """Fail unless files ``a`` and ``b`` hold the same bytes."""
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError(f"{label}: {a} differs from {b}")
+
+
+def cli_job(phase, label, args, on, counters):
+    """One CLI job in-process with ``--device on``; on the card every
+    kernel call is recorded, the launch counts of ``counters`` set to 0
+    just before and read just after, and each call held against its plain
+    version. Returns (stdout, wall s, launches, the recorded calls)."""
+    from avenir_tpu_torch.cli.main import main
+    calls = []
+    for fn in counters.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with recording(calls), contextlib.redirect_stdout(buf):
+        if main(list(args) + ["--device", on]) != 0:
+            raise AssertionError(f"phase {phase} {label}: {on} run failed")
+    if on == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in counters.items()}
+    if on == "cuda":
+        hold_main_path(label, calls, 9, phase=phase)
+    return buf.getvalue(), wall, counts, calls
+
+
+def cli_pair(phase, label, args_of, outs_of, must, counters):
+    """The job on the card and on the CPU, each writing its own files
+    (``args_of(on)``, ``outs_of(on)``): stdout and every file equal;
+    ``must`` kernels launched on the card. Returns the card's stdout,
+    launches and recorded calls."""
+    got = {on: cli_job(phase, label, args_of(on), on, counters)
+           for on in ("cuda", "cpu")}
+    counts = got["cuda"][2]
+    missing = [name for name in must if counts[name] < 1]
+    if missing:
+        raise AssertionError(f"phase {phase} {label}: {missing} not "
+                             "launched")
+    if got["cuda"][0] != got["cpu"][0]:
+        raise AssertionError(f"phase {phase} {label}: stdout differs: "
+                             f"{got['cuda'][0][:300]!r} against "
+                             f"{got['cpu'][0][:300]!r}")
+    for a, b in zip(outs_of("cuda"), outs_of("cpu")):
+        same_bytes(f"phase {phase} {label}", a, b)
+    log(f"phase {phase} {label}: card {got['cuda'][1]:.2f} s, CPU "
+        f"{got['cpu'][1]:.2f} s (host clock), launches {counts}; stdout "
+        f"and {len(outs_of('cuda'))} file(s) byte-identical to the CPU's")
+    return got["cuda"][0], counts, got["cuda"][3]
 
 
 def modes_phase(dev, work):
     """Phase 11; returns the K1-text kernels-line entry and the launches of
     phase 11's CLI jobs by kernel (K1 tabular, K2, K3)."""
-    from avenir_tpu_torch.cli.main import main
     from avenir_tpu_torch.datagen import generators as G
     from avenir_tpu_torch.models import knn
     from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
@@ -4029,52 +4092,17 @@ def modes_phase(dev, work):
     p = lambda name: os.path.join(work, name)  # noqa: E731
 
     def run(label, args, on):
-        """One CLI job with ``--device on``; on the card every kernel call
-        is recorded, the counts set to 0 just before and read just after,
-        and each call held against its plain version. Returns (stdout, wall
-        s, launches)."""
-        calls = []
-        for fn in counters.values():
-            fn.launches = 0
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with recording(calls), contextlib.redirect_stdout(buf):
-            if main(list(args) + ["--device", on]) != 0:
-                raise AssertionError(f"phase 11 {label}: {on} run failed")
-        if on == "cuda":
-            torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {name: fn.launches for name, fn in counters.items()}
-        if on == "cuda":
-            hold_main_path(label, calls, 9, phase=11)
-        return buf.getvalue(), wall, counts
+        return cli_job(11, label, args, on, counters)[:3]
 
     def both(label, args_of, outs_of, must, kind="K1"):
-        """The job on the card and on the CPU, each writing its own files:
-        stdout and every file equal; ``must`` kernels launched on the
-        card. Returns the card's stdout."""
-        got = {on: run(label, args_of(on), on) for on in ("cuda", "cpu")}
-        counts = got["cuda"][2]
-        missing = [name for name in must if counts[name] < 1]
-        if missing:
-            raise AssertionError(f"phase 11 {label}: {missing} not launched")
+        """``cli_pair``, its launches added to phase 11's; returns the
+        card's stdout."""
+        stdout, counts, _ = cli_pair(11, label, args_of, outs_of, must,
+                                     counters)
         totals[kind] += counts["K1"]
         totals["K2"] += counts["K2"]
         totals["K3"] += counts["K3"]
-        if got["cuda"][0] != got["cpu"][0]:
-            raise AssertionError(f"phase 11 {label}: stdout differs: "
-                                 f"{got['cuda'][0][:300]!r} against "
-                                 f"{got['cpu'][0][:300]!r}")
-        for a, b in zip(outs_of("cuda"), outs_of("cpu")):
-            with open(a, "rb") as fa, open(b, "rb") as fb:
-                if fa.read() != fb.read():
-                    raise AssertionError(f"phase 11 {label}: {a} differs "
-                                         "from the CPU's")
-        log(f"phase 11 {label}: card {got['cuda'][1]:.2f} s, CPU "
-            f"{got['cpu'][1]:.2f} s (host clock), launches {counts}; stdout "
-            f"and {len(outs_of('cuda'))} file(s) byte-identical to the "
-            "CPU's")
-        return got["cuda"][0]
+        return stdout
 
     # -- text Naive Bayes and WordCounter, both vocabularies ----------------
     vocab_timings = []
@@ -4159,11 +4187,12 @@ def modes_phase(dev, work):
     conf = ["--conf", p("reg.properties")]
     for method, extra in REGRESSION_METHODS:
         outs = {}
-        for tag, on, feed, must in (
-                ("staged", "cuda", (), ["K2"]),
+        legs = [("staged", "cuda", (), ["K2"]),
                 (f"feed.chunk.rows={FEED_CHUNK_ROWS}", "cuda",
-                 ("-D", f"feed.chunk.rows={FEED_CHUNK_ROWS}"), ["K3"]),
-                ("cpu", "cpu", (), [])):
+                 ("-D", f"feed.chunk.rows={FEED_CHUNK_ROWS}"), ["K3"])]
+        if method in REGRESSION_CPU_METHODS:
+            legs.append(("cpu", "cpu", (), []))
+        for tag, on, feed, must in legs:
             label = f"NearestNeighbor regression {method} {tag}"
             out = p(f"reg_{method}_{on}_{len(feed)}.txt")
             stdout, wall, counts = run(
@@ -4184,11 +4213,16 @@ def modes_phase(dev, work):
             outs[tag] = (stdout, open(out).read().splitlines())
             log(f"phase 11 {label}: {wall:.2f} s (host clock), launches "
                 f"{counts}, MAE {mae:.4f} (mean predictor {baseline:.4f})")
-        staged, chunked, cpu = (outs[t] for t in (
-            "staged", f"feed.chunk.rows={FEED_CHUNK_ROWS}", "cpu"))
+        staged, chunked = (outs[t] for t in (
+            "staged", f"feed.chunk.rows={FEED_CHUNK_ROWS}"))
         if staged != chunked:
             raise AssertionError(f"phase 11 regression {method}: staged and "
                                  "chunked outputs differ")
+        if "cpu" not in outs:
+            log(f"phase 11 regression {method}: staged (K2) and chunked (K3) "
+                "outputs and stdout byte-identical")
+            continue
+        cpu = outs["cpu"]
         differ = [i for i, (a, b) in enumerate(zip(staged[1], cpu[1]))
                   if a != b]
         if len(staged[1]) != len(cpu[1]) or not all(
@@ -4247,19 +4281,15 @@ def modes_phase(dev, work):
          lambda on: ["BayesianDistribution", p("sim_train.csv"),
                      p(f"nb_{on}.txt"), *conf],
          lambda on: [p(f"nb_{on}.txt")], [])
-    # the continuous predictor's probabilities come from torch's exp and
-    # log, which differ in the last bits between the card and the CPU
-    # (ROADMAP C9): the file is held within a tolerance, and the card's
-    # feeds the join on both
-    for on in ("cuda", "cpu"):
-        run("BayesianPredictor output.feature.prob.only=true",
-            ["BayesianPredictor", p("sim_train.csv"), p(f"prob_{on}.txt"),
-             *conf, "-D", f"bayesian.model.file.path={p(f'nb_{on}.txt')}",
-             "-D", "output.feature.prob.only=true"], on)
-    prob_err = hold_prob_files(p("prob_cuda.txt"), p("prob_cpu.txt"))
-    log("phase 11 BayesianPredictor output.feature.prob.only=true: ids and "
-        "classes equal card to CPU, probabilities within "
-        f"{prob_err:.3g} in log space (bound 1e-5 + 5e-6 relative)")
+    # the continuous predictor's probabilities: XLA's log and exp, float64
+    # square roots, fixed sums (ROADMAP C9, repaired), so the file is equal
+    # card to CPU; the card's feeds the join on both
+    both("BayesianPredictor output.feature.prob.only=true",
+         lambda on: ["BayesianPredictor", p("sim_train.csv"),
+                     p(f"prob_{on}.txt"), *conf, "-D",
+                     f"bayesian.model.file.path={p(f'nb_{on}.txt')}", "-D",
+                     "output.feature.prob.only=true"],
+         lambda on: [p(f"prob_{on}.txt")], [])
     both("FeatureCondProbJoiner",
          lambda on: ["FeatureCondProbJoiner", p(f"dist_{on}.txt"),
                      p(f"joined_{on}.txt"), *conf, "-D",
@@ -4298,8 +4328,7 @@ def modes_phase(dev, work):
     if set(replay) != set(fused) or agree < REPLAY_AGREEMENT_BAR:
         raise AssertionError(f"phase 11 replay: agreement {agree} with the "
                              f"fused path (bar {REPLAY_AGREEMENT_BAR})")
-    log(f"phase 11 replay pipeline: files equal card to CPU at every step "
-        "from the join on; "
+    log(f"phase 11 replay pipeline: files equal card to CPU at every step; "
         f"class-conditional replay accuracy {acc6:.4f}; the 3-field replay "
         f"agrees with the fused path on {agree:.4f} of {len(fused)} rows "
         f"(bar {REPLAY_AGREEMENT_BAR})")
@@ -4323,6 +4352,346 @@ def modes_phase(dev, work):
                  "bound_ms")} for k in vocab_timings]}
     log(f"phase 11 kernels {json.dumps(totals)}")
     return entry, totals
+
+
+# --------------------------------------------------------------------------
+# phase 12: the last batch verbs, streamed and per-shard NB and MI
+# --------------------------------------------------------------------------
+
+# streamed NB: phase 3's churn rows tiled to 2,097,152 (the same rows the
+# per-shard train reads as 8 part files of 262,144), 8 MiB windows; elearn
+# rows tiled to 1,048,576 (continuous NB, logistic, Fisher); hospital
+# rows tiled to 8 part files of 131,072 (per-shard MI); the
+# samplers over 1,048,576 churn lines; ~1,000,000 purchase rows for the
+# projection (the email-marketing tutorial's buyhist stage)
+STREAM_CHURN_ROWS = 2_097_152
+STREAM_WINDOW_BYTES = 8_388_608
+BATCH_ROWS = 1_048_576
+NB_SHARDS, NB_SHARD_ROWS = 8, 262_144
+MI_SHARDS, MI_SHARD_ROWS = 8, 131_072
+# the elearn and hospital rows tiled from 32,768 of each (the hospital
+# generator takes ~0.2 ms a row on the host)
+BATCH_BASE_ROWS = 32_768
+LR_ITERATIONS, LR_SPLIT = 100, 40
+BUY_CUSTOMERS, BUY_DAYS, BUY_FRACTION = 100_000, 200, 0.05
+BAG_BATCH = 10_000
+DROPPED_SHARD = 3
+
+
+def write_tiled(path, rows, n):
+    """``rows`` as CSV lines, repeated until ``n`` lines are written."""
+    text = "".join(",".join(r) + "\n" for r in rows)
+    with open(path, "w") as fh:
+        for _ in range(n // len(rows)):
+            fh.write(text)
+        fh.write("".join(",".join(r) + "\n" for r in rows[:n % len(rows)]))
+
+
+def split_parts(path, part_dir, n_parts):
+    """The lines of ``path`` cut into ``n_parts`` MR part files of equal
+    size."""
+    os.makedirs(part_dir)
+    with open(path) as fh:
+        lines = fh.readlines()
+    size = len(lines) // n_parts
+    for i in range(n_parts):
+        with open(os.path.join(part_dir, f"part-{i:05d}"), "w") as fh:
+            fh.writelines(lines[i * size:(i + 1) * size])
+
+
+def time_k4_at(dev, a):
+    """K4 on recorded operands: chained, from graph replays reading HBM,
+    plain, ``bincount`` over the offset combined ids and the bytes
+    bound."""
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.scripts._timing import chain_ms
+    ids, pairs, cards = a["ids"], a["pairs"], a["cards"]
+    n = ids.shape[1]
+    ms = chain_ms(lambda: H.pair_counts_multi(ids, pairs, cards), dev)
+    graph = hbm_graph_ms(lambda x: H.pair_counts_multi(x, pairs, cards),
+                         (ids,), ids.numel() * 4, dev)
+    plain = cuda_ms(lambda: H.pair_counts_multi_plain(ids, pairs, cards), 5)
+    flat = multi_flat(ids, pairs, cards)
+    total = H.pair_offsets(pairs, cards)[-1]
+    library = cuda_ms(lambda: torch.bincount(flat, minlength=total), 20)
+    bound, by = bound_ms(multi_bytes(ids, pairs, cards, False),
+                         n * len(pairs))
+    return {"ms": ms, "graph_ms": graph, "plain_ms": plain,
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "shape": f"N={n} K={ids.shape[0]} {len(pairs)} pairs"}
+
+
+def batch_phase(dev, work):
+    """Phase 12; returns the kernels-line entries of K1 at the stream
+    window and NB shard shapes and of K4 at the MI shard shape."""
+    from avenir_tpu_torch.cli.main import _emit_mi_scores
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.explore import mutual_information as mi
+    from avenir_tpu_torch.models import logistic
+    from avenir_tpu_torch.models import naive_bayes as nb
+    from avenir_tpu_torch.native.loader import transform_file
+    from avenir_tpu_torch.ops import cuda_histogram
+    from avenir_tpu_torch.utils.config import JobConfig
+    from avenir_tpu_torch.utils.dataset import Featurizer
+    from avenir_tpu_torch.utils.projection import project_file
+    from avenir_tpu_torch.utils.schema import FeatureSchema
+    counters = {"K1": cuda_histogram.class_feature_bin_counts,
+                "K4": cuda_histogram.pair_counts_multi}
+    recorded = {"K1": [], "K4": []}
+    launched = {"K1": 0, "K4": 0}
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    t_phase = time.perf_counter()
+
+    def keep(label, counts, calls):
+        """The card's launches and the K1/K4 calls that launched."""
+        for name in recorded:
+            launched[name] += counts[name]
+            # a table without binned features calls K1 with no column,
+            # which launches nothing
+            recorded[name] += [(label, a) for n, a, _ in calls
+                               if n == name and (name == "K4"
+                                                 or a["bins"].shape[1])]
+
+    def run(label, args):
+        """One CLI job on the card; returns (stdout, wall s, launches)."""
+        stdout, wall, counts, calls = cli_job(12, label, args, "cuda",
+                                              counters)
+        keep(label, counts, calls)
+        return stdout, wall, counts
+
+    def both(label, args_of, outs_of, must=()):
+        """``cli_pair``; returns the card's stdout and launches."""
+        stdout, counts, calls = cli_pair(12, label, args_of, outs_of, must,
+                                         counters)
+        keep(label, counts, calls)
+        return stdout, counts
+
+    def same(label, a, b):
+        same_bytes(f"phase 12 {label}", a, b)
+
+    # -- data -------------------------------------------------------------
+    t0 = time.perf_counter()
+    churn = G.churn_rows(CHURN_TRAIN, seed=SEED)
+    write_tiled(p("churn.csv"), churn, STREAM_CHURN_ROWS)
+    split_parts(p("churn.csv"), p("churn_parts"), NB_SHARDS)
+    write_tiled(p("churn_1m.csv"), churn, BATCH_ROWS)
+    write_tiled(p("elearn.csv"), G.elearn_rows(BATCH_BASE_ROWS, seed=SEED),
+                BATCH_ROWS)
+    write_tiled(p("hosp.csv"),
+                G.hosp_readmit_rows(BATCH_BASE_ROWS, seed=SEED),
+                MI_SHARDS * MI_SHARD_ROWS)
+    split_parts(p("hosp.csv"), p("hosp_parts"), MI_SHARDS)
+    buy = G.buy_xaction_rows(BUY_CUSTOMERS, BUY_DAYS, BUY_FRACTION,
+                             seed=SEED)
+    write_csv(p("buy.csv"), buy)
+    schemas = {"churn": G._CHURN_SCHEMA_JSON,
+               "elearn": G.elearn_schema_json(),
+               "hosp": G._HOSP_SCHEMA_JSON}
+    for name, schema in schemas.items():
+        with open(p(f"{name}.json"), "w") as fh:
+            json.dump(schema, fh)
+        with open(p(f"{name}.properties"), "w") as fh:
+            fh.write(f"field.delim.regex=,\nfield.delim=,\n"
+                     f"feature.schema.file.path={p(name + '.json')}\n"
+                     f"mi.score.algorithms={MI_ALGORITHMS}\n")
+    log(f"phase 12 data: {STREAM_CHURN_ROWS} churn rows ({NB_SHARDS} parts "
+        f"of {NB_SHARD_ROWS}), {BATCH_ROWS} elearn and churn rows, "
+        f"{MI_SHARDS} x {MI_SHARD_ROWS} hospital rows, {len(buy)} purchase "
+        f"rows written in {time.perf_counter() - t0:.1f} s")
+
+    def table_of(name, path):
+        """The whole file as one table on the card (the native encoder,
+        the schema's own vocabularies)."""
+        fz = Featurizer(FeatureSchema.from_json(schemas[name]), device=dev)
+        return transform_file(fz.fit([]), path, device=dev)
+
+    def in_memory(name, path):
+        """The card's in-memory NB train of the whole file, saved as the
+        CLI saves it."""
+        t0 = time.perf_counter()
+        model, meta, _ = nb.train(table_of(name, path))
+        nb.save_model(model, meta, p(f"{name}_memory.txt"))
+        return time.perf_counter() - t0
+
+    # -- streamed NB ------------------------------------------------------
+    for name, path, n in (("churn", p("churn.csv"), STREAM_CHURN_ROWS),
+                          ("elearn", p("elearn.csv"), BATCH_ROWS)):
+        label = f"BayesianDistribution streaming.train {name} {n} rows"
+        _, counts = both(
+            label,
+            lambda on: ["BayesianDistribution", path,
+                        p(f"{name}_stream_{on}.txt"), "--conf",
+                        p(f"{name}.properties"), "-D",
+                        "streaming.train=true", "-D",
+                        f"stream.window.bytes={STREAM_WINDOW_BYTES}"],
+            lambda on: [p(f"{name}_stream_{on}.txt")],
+            ["K1"] if name == "churn" else [])
+        secs = in_memory(name, path)
+        same(label, p(f"{name}_stream_cuda.txt"), p(f"{name}_memory.txt"))
+        windows = math.ceil(os.path.getsize(path) / STREAM_WINDOW_BYTES)
+        log(f"phase 12 {label}: model equal to the card's in-memory train "
+            f"({secs:.2f} s); {counts['K1']} K1 launches over {windows} "
+            f"windows of {STREAM_WINDOW_BYTES} bytes")
+
+    # -- per-shard NB and MI, and a resume after a dropped shard --------
+    for verb, name, parts, n_parts, n_rows in (
+            ("BayesianDistribution", "churn", p("churn_parts"), NB_SHARDS,
+             NB_SHARD_ROWS),
+            ("MutualInformation", "hosp", p("hosp_parts"), MI_SHARDS,
+             MI_SHARD_ROWS)):
+        kernel = "K1" if name == "churn" else "K4"
+        out = lambda on: p(f"{name}_shards_{on}.txt")  # noqa: E731
+        args = lambda on: [verb, parts, out(on), "--conf",  # noqa: E731
+                           p(f"{name}.properties"), "-D", "shard.parts=true",
+                           "-D", "shard.journal=true", "-D",
+                           "shard.journal.keep=true"]
+        label = f"{verb} shard.parts {n_parts} x {n_rows} {name} rows"
+        _, counts = both(label, args, lambda on: [out(on)], [kernel])
+        if counts[kernel] != n_parts:
+            raise AssertionError(f"phase 12 {label}: {counts[kernel]} "
+                                 f"{kernel} launches, not one a shard")
+        if name == "churn":
+            same(label, out("cuda"), p("churn_memory.txt"))
+        else:
+            dists = mi.compute_distributions(table_of(name, p("hosp.csv")))
+            _emit_mi_scores(JobConfig.from_file(p("hosp.properties")),
+                            p("hosp_merged.txt"),
+                            mi.compute_scores(dists, device=dev))
+            same(label, out("cuda"), p("hosp_merged.txt"))
+        with open(out("cuda"), "rb") as fh:
+            whole = fh.read()
+        os.remove(os.path.join(out("cuda") + ".shards",
+                               f"shard-{DROPPED_SHARD:05d}.json"))
+        stdout, wall, counts = run(f"{label} --resume",
+                                   args("cuda") + ["--resume"])
+        report = json.loads(stdout.splitlines()[-1])
+        with open(out("cuda"), "rb") as fh:
+            resumed = fh.read()
+        if ((report["shards_resumed"], report["shards_computed"])
+                != (n_parts - 1, 1) or counts[kernel] != 1
+                or resumed != whole):
+            raise AssertionError(f"phase 12 {label} --resume: {report}, "
+                                 f"{counts[kernel]} {kernel} launches")
+        log(f"phase 12 {label}: equal to the merged job; --resume after "
+            f"dropping shard {DROPPED_SHARD}'s commit: {wall:.2f} s, "
+            f"{report['shards_resumed']} resumed and "
+            f"{report['shards_computed']} computed, 1 {kernel} launch, the "
+            "same bytes")
+
+    # -- LogisticRegressionJob ------------------------------------------
+    with open(p("lr.properties"), "w") as fh:
+        fh.write("field.delim.regex=,\nfeature.field.ordinals="
+                 "1,2,3,4,5,6,7,8,9\nclass.attr.ord=10\n"
+                 f"positive.class.value=fail\niteration.limit={LR_ITERATIONS}"
+                 "\n")
+
+    def lr_args(tag, *extra):
+        return ["LogisticRegressionJob", p("elearn.csv"), p(f"lr_{tag}.txt"),
+                "--conf", p("lr.properties"), "-D",
+                f"coeff.file.path={p(f'lr_{tag}_hist.txt')}", *extra]
+
+    for loop, extra in (("f32", ()),
+                        ("f64", ("-D", "convergence.threshold=1e-5"))):
+        report, _ = both(
+            f"LogisticRegressionJob {loop} loop {BATCH_ROWS} rows",
+            lambda on: lr_args(f"{loop}_{on}", *extra),
+            lambda on: [p(f"lr_{loop}_{on}.txt"),
+                        p(f"lr_{loop}_{on}_hist.txt")])
+        log(f"phase 12 LogisticRegressionJob {loop} loop: {report.strip()}")
+    # the split run through the library on the card, the rows encoded
+    # once (the CLI parses 1,048,576 rows a run)
+    table = table_of("elearn", p("elearn.csv"))
+    y = (table.labels == table.class_values.index("fail")).float()
+    t0 = time.perf_counter()
+    for limit in (LR_SPLIT, LR_ITERATIONS):
+        w, iters, _ = logistic.train(
+            table.numeric, y, logistic.LogisticConfig(max_iterations=limit),
+            p("lr_split_hist.txt"))
+    torch.cuda.synchronize()
+    same("LogisticRegressionJob resumed", p("lr_split_hist.txt"),
+         p("lr_f32_cuda_hist.txt"))
+    with open(p("lr_f32_cuda.txt")) as fh:
+        uninterrupted = fh.read()
+    if (",".join(repr(float(v)) for v in w) + "\n" != uninterrupted
+            or iters != LR_ITERATIONS):
+        raise AssertionError("phase 12 LogisticRegressionJob resumed: the "
+                             "coefficients differ from the uninterrupted "
+                             "run's")
+    log(f"phase 12 LogisticRegressionJob split at iteration {LR_SPLIT} and "
+        f"resumed from its history ({time.perf_counter() - t0:.2f} s, "
+        "logistic.train on the card): history and coefficients equal the "
+        "uninterrupted run's")
+
+    # -- FisherDiscriminant, the samplers, Projection -------------------
+    both(f"FisherDiscriminant {BATCH_ROWS} elearn rows",
+         lambda on: ["FisherDiscriminant", p("elearn.csv"),
+                     p(f"fisher_{on}.txt"), "--conf",
+                     p("elearn.properties")],
+         lambda on: [p(f"fisher_{on}.txt")])
+    with open(p("sample.properties"), "w") as fh:
+        fh.write(f"field.delim.regex=,\nclass.attr.ord=6\nrandom.seed={SEED}"
+                 f"\nbatch.size={BAG_BATCH}\n")
+    bootstrap = ("-D", "streaming.bootstrap=true")
+    for label, extra in (("exact", ()), ("streaming.bootstrap", bootstrap)):
+        both(f"UnderSamplingBalancer {label} {BATCH_ROWS} churn lines",
+             lambda on: ["UnderSamplingBalancer", p("churn_1m.csv"),
+                         p(f"under_{label}_{on}.txt"), "--conf",
+                         p("sample.properties"), *extra],
+             lambda on: [p(f"under_{label}_{on}.txt")])
+    both(f"BaggingSampler batch.size={BAG_BATCH} {BATCH_ROWS} churn lines",
+         lambda on: ["BaggingSampler", p("churn_1m.csv"), p(f"bag_{on}.txt"),
+                     "--conf", p("sample.properties")],
+         lambda on: [p(f"bag_{on}.txt")])
+    with open(p("buyhist.properties"), "w") as fh:
+        fh.write("field.delim.regex=,\nfield.delim.out=,\n"
+                 "projection.operation=groupingOrdering\nkey.field=0\n"
+                 "orderBy.field=2\nprojection.field=2,3\n"
+                 "format.compact=true\n")
+    both(f"Projection {len(buy)} purchase rows",
+         lambda on: ["Projection", p("buy.csv"), p(f"proj_{on}.txt"),
+                     "--conf", p("buyhist.properties")],
+         lambda on: [p(f"proj_{on}.txt")])
+    t0 = time.perf_counter()
+    project_file(p("buy.csv"), p("proj_python.txt"), 0, 2, [2, 3],
+                 force_python=True)
+    same("Projection", p("proj_cuda.txt"), p("proj_python.txt"))
+    log(f"phase 12 Projection: the native pass equal to the Python pass "
+        f"({time.perf_counter() - t0:.2f} s)")
+
+    # -- K1 and K4 at this phase's shapes --------------------------------
+    entries = []
+    for name, kernel, timer, replaces, what in (
+            ("K1", "cfb_counts (K1-stream) at the stream-window and "
+             "NB-shard shapes", time_k1_at,
+             "avenir_tpu/ops/pallas_histogram.py:114",
+             ("streaming.train", "shard.parts")),
+            ("K4", "pair_counts_multi (K4-shard) at the MI-shard shape",
+             time_k4_at, "avenir_tpu/ops/pallas_histogram.py:178",
+             ("shard.parts",))):
+        shapes = []
+        for key in what:
+            job, a = next((label, a) for label, a in recorded[name]
+                          if key in label)
+            t = timer(dev, a)
+            t["job"] = job
+            calls = sum(key in label for label, _ in recorded[name])
+            log(f"phase 12 {name} at {t['shape']} ({job}): {calls} "
+                f"calls, {t['ms']:.4f} ms chained, {t['graph_ms']:.4f} ms "
+                f"from HBM ({t['bound_ms'] / t['graph_ms']:.1%} of bound "
+                f"{t['bound_ms']:.4f}, {t['bound_by']}), plain "
+                f"{t['plain_ms']:.4f}, bincount {t['library_ms']:.4f}")
+            shapes.append(t)
+        widest = max(shapes, key=lambda t: t["bound_ms"])
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": "avenir_tpu_torch/csrc/hist.cu", "replaces": replaces,
+            "launches": launched[name], "max_abs_err": 0.0,
+            **{key: widest[key] for key in (
+                "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "shape")},
+            "shapes": shapes})
+    log(f"phase 12 wall {time.perf_counter() - t_phase:.1f} s")
+    return entries
 
 
 # --------------------------------------------------------------------------
@@ -4984,6 +5353,14 @@ def main() -> int:
     from avenir_tpu_torch.ops import _build
     from avenir_tpu_torch.utils.device import resolve_device
     dev = resolve_device("cuda")
+    walls, t_mark = {}, [time.perf_counter()]
+
+    def mark(phases):
+        """The host-clock seconds since the last mark, under ``phases``."""
+        now = time.perf_counter()
+        walls[phases] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     smi = nvidia_smi_line()
     log(f"phase 1 card: {smi}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -5021,42 +5398,58 @@ def main() -> int:
                                       check_raw_edges(dev))
     check_int8_edges(dev)
     check_int8_packing(dev)
+    mark("1-2")
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
         launches = cli_phase(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("3")
     launches.update(fold_harnesses(dev))
+    mark("4")
     for name, count in sweep_harnesses().items():
         launches[name] = launches.get(name, 0) + count
+    mark("5")
 
     k1_ivf = quantized_ivf_phase(dev)
+    mark("6")
     work = tempfile.mkdtemp(prefix="smoke-tree-", dir=str(_build.BUILD_DIR))
     try:
         k1_tree = tree_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("7")
     work = tempfile.mkdtemp(prefix="smoke-seq-", dir=str(_build.BUILD_DIR))
     try:
         k4_markov = sequence_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("8")
     work = tempfile.mkdtemp(prefix="smoke-forest-",
                             dir=str(_build.BUILD_DIR))
     try:
         k1_forest = forest_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("9")
     work = tempfile.mkdtemp(prefix="smoke-boost-", dir=str(_build.BUILD_DIR))
     try:
         k1_boost = boost_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("10")
     work = tempfile.mkdtemp(prefix="smoke-modes-", dir=str(_build.BUILD_DIR))
     try:
         k1_text, modes = modes_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    mark("11")
+    work = tempfile.mkdtemp(prefix="smoke-batch-", dir=str(_build.BUILD_DIR))
+    try:
+        batch = batch_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mark("12")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name]
 
@@ -5077,6 +5470,9 @@ def main() -> int:
     kernels.append(k1_forest)
     kernels.append(k1_boost)
     kernels.append(k1_text)
+    kernels += batch
+    log(f"phase walls (s, host clock): {walls}; total "
+        f"{sum(walls.values()):.1f}")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -225,9 +225,7 @@ def test_live_ann_refused_by_its_roadmap_title(tmp_path):
 @pytest.mark.parametrize("verb", ["BayesianDistribution",
                                   "BayesianPredictor"])
 @pytest.mark.parametrize("key,value", [
-    ("train.sharded", "true"), ("streaming.train", "true"),
-    ("shard.parts", "true"), ("plan.enable", "true"),
-    ("job.resume", "true")])
+    ("train.sharded", "true"), ("plan.enable", "true")])
 def test_nb_refuses_later_keys(tmp_path, verb, key, value):
     write_fixture(tmp_path, "churn", 50, 10)
     props = _props(tmp_path / "p.properties", **{
@@ -238,26 +236,59 @@ def test_nb_refuses_later_keys(tmp_path, verb, key, value):
                "--conf", props, "-D", f"{key}={value}", "--device", "cpu"])
 
 
-_EXPLORE = "'Explore, regress, discriminant and text'"
+@pytest.mark.parametrize("verb", ["BayesianDistribution",
+                                  "BayesianPredictor"])
+@pytest.mark.parametrize("key", ["streaming.train", "shard.parts",
+                                 "job.resume"])
+def test_nb_streamed_and_sharded_keys_match_the_jax_cli(tmp_path, capsys,
+                                                        verb, key):
+    """With the key set, the port's file and stdout equal the JAX CLI's:
+    the predictor ignores the key, and the trainer takes the streamed path
+    (one file) or the per-shard path (a dir of two part files)."""
+    write_fixture(tmp_path, "churn", 900, 300, seed=23)
+    src = tmp_path / "train.csv"
+    if verb == "BayesianDistribution" and key != "streaming.train":
+        lines = src.read_text().splitlines(keepends=True)
+        src = tmp_path / "parts"
+        src.mkdir()
+        (src / "part-00000").write_text("".join(lines[:450]))
+        (src / "part-00001").write_text("".join(lines[450:]))
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "bayesian.model.file.path": tmp_path / "model.txt",
+        "validation.mode": "true", "laplace.smoothing": "1.0"})
+    tmain(["BayesianDistribution", str(tmp_path / "train.csv"),
+           str(tmp_path / "model.txt"), "--conf", props, "--device", "cpu"])
+    capsys.readouterr()
+    if verb == "BayesianPredictor":
+        src = tmp_path / "test.csv"
+    j_out, t_out = _run_both(
+        capsys,
+        [verb, str(src), str(tmp_path / "j.txt"), "--conf", props, "-D",
+         f"{key}=true"],
+        [verb, str(src), str(tmp_path / "t.txt"), "--conf", props, "-D",
+         f"{key}=true"])
+    assert t_out == j_out and t_out
+    assert (tmp_path / "t.txt").read_bytes() == (tmp_path / "j.txt") \
+        .read_bytes()
+    if verb == "BayesianDistribution":
+        # the same model as the merged train's
+        assert ((tmp_path / "t.txt").read_bytes()
+                == (tmp_path / "model.txt").read_bytes())
+
+
 _BANDITS = "'Bandits and streaming serving'"
 _LAYERS = "'Plan, ingest, obs and checkpoint layers'"
 
 
 @pytest.mark.parametrize("args,title", [
-    (["Projection"], _EXPLORE),
     (["GradientBoostBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
     (["GradientBoostPredictor", "--obs-port", "0"], _LAYERS),
-    (["LogisticRegressionJob"], _EXPLORE),
-    (["UnderSamplingBalancer"], _EXPLORE),
-    (["BaggingSampler"], _EXPLORE),
-    (["FisherDiscriminant"], _EXPLORE),
     (["RandomForestBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
     (["ReinforcementLearnerTopology"], _BANDITS),
     (["Lifecycle"], _BANDITS),
     (["NearestNeighbor", "--metrics-out", "m.jsonl"], _LAYERS),
-    (["NearestNeighbor", "--obs-port", "0"], _LAYERS),
-    (["MutualInformation", "--resume"],
-     "'Streaming/sharded NB and per-shard MI'")])
+    (["NearestNeighbor", "--obs-port", "0"], _LAYERS)])
 def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
     """The refusal names the verb or flag and the ROADMAP item by title."""
     props = _props(tmp_path / "p.properties", x="1")
@@ -282,9 +313,9 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    assert len(named) >= 7
+    assert len(named) >= 5
     assert "Multi-device layer" in named
-    assert "Streaming/sharded NB and per-shard MI" in named
+    assert "Bandits and streaming serving" in named
     assert named <= titles, named - titles
     assert not by_number, by_number
 

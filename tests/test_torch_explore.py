@@ -406,8 +406,7 @@ def test_correlation_cli_byte_identical(tmp_path, capsys, verb, pairs,
 
 
 @pytest.mark.parametrize("key,value", [
-    ("plan.enable", "true"), ("train.sharded", "true"), ("mesh.shape", "2"),
-    ("shard.parts", "true"), ("job.resume", "true")])
+    ("plan.enable", "true"), ("train.sharded", "true"), ("mesh.shape", "2")])
 def test_mutual_information_refuses_later_keys(tmp_path, key, value):
     _mi_fixture(tmp_path, n=40)
     props = _props(tmp_path / "mi.properties",
@@ -427,9 +426,6 @@ def test_new_verbs_refuse_resume_and_need_cpu_asked(tmp_path, verb):
                    **{"feature.schema.file.path": tmp_path / "hosp.json"})
     args = [verb, str(tmp_path / "hosp.csv"), str(tmp_path / "o.txt"),
             "--conf", props]
-    if verb == "MutualInformation":
-        with pytest.raises(ValueError, match="--resume"):
-            tmain(args + ["--resume", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             tmain(args)
@@ -437,11 +433,11 @@ def test_new_verbs_refuse_resume_and_need_cpu_asked(tmp_path, verb):
     tmain(args + ["--device", "cpu"])
     first = (tmp_path / "o.txt").read_text()
     assert first
-    if verb != "MutualInformation":
-        # the JAX CLI reads job.resume only on its sharded paths, which no
-        # correlation job takes: --resume is accepted and changes nothing
-        tmain(args + ["--resume", "--device", "cpu"])
-        assert (tmp_path / "o.txt").read_text() == first
+    # the JAX CLI reads job.resume only on its sharded paths, which no
+    # single-file job takes: --resume is accepted and changes nothing
+    tmain(args + ["--resume", "--device", "cpu"])
+    assert (tmp_path / "o.txt").read_text() == first
+    assert not (tmp_path / "o.txt.shards").exists()
 
 
 def test_hospital_generator_copy():
