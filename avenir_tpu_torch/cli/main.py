@@ -61,6 +61,17 @@ picks up after a kill. BayesianDistribution and MutualInformation do the
 same with ``shard.parts`` or ``--resume``, each shard's counts the
 journal's payload.
 
+BayesianDistribution, NearestNeighbor, MutualInformation,
+RandomForestBuilder and GradientBoostBuilder run as plans by default
+(``cli/plans.py``, ``plan/``), as the JAX CLI does: the staged train table
+is cached by content across jobs of one process, and an input of several
+``ingest.split.bytes`` splits encodes in parallel
+(``parallel/ingest.py``). ``plan.enable=false`` runs the hand-wired bodies
+below, with the same bytes. ``--explain`` prints the plan without running
+it; ``--metrics-out PATH`` writes the job's telemetry report (``obs/``);
+``--profile-dir PATH`` (or ``profile.trace.dir``) writes a
+``torch.profiler`` trace of the job.
+
 Keys that select something this port does not carry yet, and the JAX
 CLI's other verbs, raise a ValueError naming the key or verb and the
 ROADMAP item that ports it; nothing is silently ignored.
@@ -69,6 +80,7 @@ ROADMAP item that ports it; nothing is silently ignored.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -87,16 +99,13 @@ from avenir_tpu_torch.utils.schema import FeatureSchema
 
 # keys that select work outside this port, per verb family: key -> the
 # later work that ports it
-_LAYERS = roadmap_item("Plan, ingest, obs and checkpoint layers")
-_PLAN = f"the plan layer ({_LAYERS})"
-_OBS = f"the observability layer ({_LAYERS})"
+_OBS = ("the live observability layer "
+        f"({roadmap_item('Live observability layer')})")
 _MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
 _LIVE_ANN = f"the live ANN index ({roadmap_item('Live ANN')})"
-_LATER_NB = {"plan.enable": _PLAN, "train.sharded": _MULTI}
-_LATER_KNN = {"plan.enable": _PLAN, "knn.ann.live": _LIVE_ANN,
-              "knn.sharded": _MULTI}
-_LATER_MI = {"plan.enable": _PLAN, "train.sharded": _MULTI}
-_LATER_FOREST = {"plan.enable": _PLAN}
+_LATER_NB = {"train.sharded": _MULTI}
+_LATER_KNN = {"knn.ann.live": _LIVE_ANN, "knn.sharded": _MULTI}
+_LATER_MI = {"train.sharded": _MULTI}
 _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
@@ -121,13 +130,12 @@ def _check_keys(conf: JobConfig, later: Dict[str, str]) -> None:
 
 
 def _armed_obs_keys(conf: JobConfig) -> List[str]:
-    """The observability keys of ``conf`` at values with which the JAX CLI
-    arms its layer (``avenir_tpu/cli/main.py``'s ``main``): a non-empty
-    trace dir or flight path, ``obs.http.port >= 0``, ``obs.live=true``,
+    """The live observability keys of ``conf`` at values with which the
+    JAX CLI arms that layer (``avenir_tpu/cli/main.py``'s ``main``): a
+    non-empty flight path, ``obs.http.port >= 0``, ``obs.live=true``,
     ``alerts.enable=true``. At their off values the JAX CLI does nothing
     with them, and neither does this one."""
-    armed = [key for key in ("profile.trace.dir", "obs.flight.path")
-             if conf.get(key)]
+    armed = [key for key in ("obs.flight.path",) if conf.get(key)]
     if conf.get_int("obs.http.port", -1) >= 0:
         armed.append("obs.http.port")
     armed += [key for key in ("obs.live", "alerts.enable")
@@ -166,9 +174,14 @@ def run_bayesian_distribution(conf: JobConfig, in_path: str, out_path: str,
     dir of more than one MR part file with ``shard.parts`` or ``job.resume``
     (``--resume``) the counts fold shard by shard into a journal
     (``_run_nb_sharded``); ``streaming.train`` folds the file window by
-    window (``stream.window.bytes``) without holding the table."""
+    window (``stream.window.bytes``) without holding the table. The
+    tabular in-core mode runs as a plan (``cli/plans.py``) unless
+    ``plan.enable=false``."""
+    from avenir_tpu_torch.cli import plans as cli_plans
     from avenir_tpu_torch.models import naive_bayes as nb
-    _check_keys(conf, {"plan.enable": _PLAN})
+    if cli_plans.run_plan("BayesianDistribution", conf, in_path, out_path,
+                          device):
+        return
     if not conf.get_bool("tabular.input", True):
         from avenir_tpu_torch.text import text_bayes
         rows = read_csv_lines(in_path, conf.get("field.delim.regex", ","))
@@ -900,6 +913,31 @@ def _run_knn_regression(conf: JobConfig, cfg, fz, train_rows, in_path: str,
         print(f'{{"Validation.MeanAbsoluteError": {mae}}}')
 
 
+def _check_knn_keys(conf: JobConfig) -> None:
+    """NearestNeighbor's refusals (mesh.shape is read only with
+    knn.sharded, which is refused)."""
+    _check_keys(conf, _LATER_KNN)
+    for key in conf.keys():
+        for prefix, work in _LATER_PREFIXES.items():
+            if key.startswith(prefix):
+                _refuse(key, work)
+
+
+def _write_knn_predictions(conf: JobConfig, out_path: str, train, test,
+                           pred) -> None:
+    """The ``id,class`` lines (with ``output.class.distr`` each class's
+    score after)."""
+    delim = conf.get("field.delim.out", ",")
+    output_distr = conf.get_bool("output.class.distr", False)
+    with open(out_path, "w") as fh:
+        for i in range(test.n_rows):
+            parts = [test.ids[i], train.class_values[int(pred.predicted[i])]]
+            if output_distr and pred.class_prob is not None:
+                for ci, cls in enumerate(train.class_values):
+                    parts += [cls, str(int(pred.class_prob[i, ci]))]
+            fh.write(delim.join(parts) + "\n")
+
+
 def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
                          device: torch.device) -> None:
     """KNN classification or regression (reference NearestNeighbor job,
@@ -909,20 +947,15 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
     ``class.condtion.weighted`` typo of resource/knn.properties:34).
     ``prediction.mode=regression`` regresses (``regression.method``);
     ``neighbor.data.path`` classifies from precomputed neighbor records
-    instead, and ``in_path`` is then ignored."""
+    instead, and ``in_path`` is then ignored. Classification (one file or
+    a part-file dir) runs as a plan (``cli/plans.py``) unless
+    ``plan.enable=false``."""
+    from avenir_tpu_torch.cli import plans as cli_plans
     from avenir_tpu_torch.models import knn
-    _check_keys(conf, _LATER_KNN)
-    for key in conf.keys():
-        for prefix, work in _LATER_PREFIXES.items():
-            if key.startswith(prefix):
-                _refuse(key, work)
-    # feed.depth sizes the JAX CLI's threaded feed, which runs only with
-    # feed.chunk.rows > 0; mesh.shape is read only with knn.sharded, which
-    # _LATER_KNN refuses
-    if "feed.depth" in conf and conf.get_int("feed.chunk.rows", 0) > 0:
-        feed = roadmap_item("Threaded `DeviceFeed` (`feed.depth`)")
-        _refuse("feed.depth with feed.chunk.rows > 0",
-                f"the threaded DeviceFeed ({feed})")
+    _check_knn_keys(conf)
+    if cli_plans.run_plan("NearestNeighbor", conf, in_path, out_path,
+                          device):
+        return
     validation = conf.get_bool("validation.mode", False)
     neighbor_path = conf.get("neighbor.data.path")
     if neighbor_path:
@@ -932,31 +965,7 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
                                  device)
     regression = conf.get("prediction.mode",
                           "classification") == "regression"
-    cfg = knn.KnnConfig(
-        top_match_count=conf.get_int("top.match.count", 5),
-        kernel_function=conf.get("kernel.function", "none"),
-        kernel_param=conf.get_int("kernel.param", 100),
-        class_cond_weighted=(conf.get_bool("class.condition.weighted", False)
-                             or conf.get_bool("class.condtion.weighted",
-                                              False)),
-        inverse_distance_weighted=conf.get_bool("inverse.distance.weighted",
-                                                False),
-        decision_threshold=conf.get_float("decision.threshold", -1.0),
-        positive_class=conf.get("positive.class.value"),
-        distance_scale=conf.get_int("distance.scale", 1000),
-        algorithm=fz.schema.dist_algorithm or "euclidean",
-        regression_method=conf.get("regression.method", "average"),
-        feed_chunk_rows=conf.get_int("feed.chunk.rows", 0),
-        mode=conf.get("knn.mode", "fast"),
-        fused=conf.get_bool("knn.fused", True),
-        quantized=conf.get_bool("knn.quantized", False),
-        quantized_oversample=conf.get_int("knn.quantized.oversample", 4),
-        quantized_dtype=conf.get("knn.quantized.dtype", "int8"),
-        ann=conf.get_bool("knn.ann", False),
-        ann_nlist=conf.get_int("knn.ann.nlist", 0),
-        ann_nprobe=conf.get_int("knn.ann.nprobe", 0),
-        ann_iters=conf.get_int("knn.ann.iters", 15),
-        ann_seed=conf.get_int("knn.ann.seed", 0))
+    cfg = cli_plans._knn_config(conf, fz)
     if regression:
         _run_knn_regression(conf, cfg, fz, train_rows, in_path, out_path,
                             validation, device)
@@ -977,18 +986,18 @@ def run_nearest_neighbor(conf: JobConfig, in_path: str, out_path: str,
 
     feature_post = _knn_feature_post(train, cfg)
     pred = knn.classify(train, test, cfg, feature_post=feature_post)
-    output_distr = conf.get_bool("output.class.distr", False)
-    with open(out_path, "w") as fh:
-        for i in range(test.n_rows):
-            parts = [test.ids[i], train.class_values[int(pred.predicted[i])]]
-            if output_distr and pred.class_prob is not None:
-                for ci, cls in enumerate(train.class_values):
-                    parts += [cls, str(int(pred.class_prob[i, ci]))]
-            fh.write(delim.join(parts) + "\n")
+    _write_knn_predictions(conf, out_path, train, test, pred)
     if validation and test.labels is not None:
         cm = knn.validate(pred, test,
                           positive_class=conf.get("positive.class.value"))
         print(cm.report().to_json())
+
+
+def _check_mi_keys(conf: JobConfig) -> None:
+    """MutualInformation's refusals outside the per-shard path."""
+    _check_keys(conf, _LATER_MI)
+    if "mesh.shape" in conf:
+        _refuse("mesh.shape", _MULTI)
 
 
 def run_mutual_information(conf: JobConfig, in_path: str, out_path: str,
@@ -998,17 +1007,20 @@ def run_mutual_information(conf: JobConfig, in_path: str, out_path: str,
     lines, then each selection algorithm's ranking (``mi.score.algorithms``
     names match the reference registry). Over a dir of more than one MR
     part file with ``shard.parts`` or ``job.resume`` (``--resume``) the
-    counts fold shard by shard into a journal (``_run_mi_sharded``)."""
+    counts fold shard by shard into a journal (``_run_mi_sharded``); else
+    the job runs as a plan (``cli/plans.py``) unless
+    ``plan.enable=false``."""
+    from avenir_tpu_torch.cli import plans as cli_plans
     from avenir_tpu_torch.explore import mutual_information as mi
-    _check_keys(conf, {"plan.enable": _PLAN})
+    if cli_plans.run_plan("MutualInformation", conf, in_path, out_path,
+                          device):
+        return
     shard_paths = part_file_paths(in_path)
     if len(shard_paths) > 1 and (conf.get_bool("shard.parts", False)
                                  or conf.get_bool("job.resume", False)):
         _run_mi_sharded(conf, in_path, out_path, shard_paths, device)
         return
-    _check_keys(conf, _LATER_MI)
-    if "mesh.shape" in conf:
-        _refuse("mesh.shape", _MULTI)
+    _check_mi_keys(conf)
     fz, rows = _load_table(conf, in_path, device)
     dists = mi.compute_distributions(fz.transform(rows))
     _emit_mi_scores(conf, out_path, mi.compute_scores(dists, device=device))
@@ -1442,21 +1454,13 @@ def run_data_partitioner(conf: JobConfig, in_path: str, out_path: str,
 
 # -- the forest verbs ---------------------------------------------------------
 
-def run_forest_builder(conf: JobConfig, in_path: str, out_path: str,
-                       device: torch.device) -> None:
-    """Grow a random forest: ``num.trees`` trees, each on
-    ``random.split.set.size`` random attributes and (with ``bagging``) a
-    bootstrap of the rows, under ``random.seed``, ``forest.growth``
-    (auto|batched|serial) and the TreeBuilder keys. The artifact stacks
-    TreeBuilder's JSON tree format, written rename-atomically. The JAX
-    CLI runs this through its plan layer by default, with the same
-    artifact; an explicit ``plan.enable=true`` is refused."""
+def _forest_config(conf: JobConfig):
+    """The ForestConfig of ``num.trees``, ``random.split.set.size``,
+    ``bagging``, ``random.seed``, ``forest.growth`` and the TreeBuilder
+    keys."""
     from avenir_tpu_torch.models import forest as F
     from avenir_tpu_torch.models.tree import TreeConfig
-    _check_keys(conf, _LATER_FOREST)
-    fz, rows = _load_table(conf, in_path, device)
-    table = fz.transform(rows)
-    cfg = F.ForestConfig(
+    return F.ForestConfig(
         n_trees=conf.get_int("num.trees", 10),
         attrs_per_tree=conf.get_int("random.split.set.size", 3),
         bagging=conf.get_bool("bagging", True),
@@ -1473,10 +1477,33 @@ def run_forest_builder(conf: JobConfig, in_path: str, out_path: str,
             num_top_splits=conf.get_int("num.top.splits", 5),
             min_gain=conf.get_float("min.gain", 1e-6),
             device_node_budget=conf.get_int("device.node.budget", 2048)))
-    trees = F.grow_forest(table, cfg)
+
+
+def _write_forest(out_path: str, trees, table) -> None:
+    """The stacked tree JSON and the job's stdout line."""
+    from avenir_tpu_torch.models import forest as F
     F.save_forest(trees, out_path)
     print(json.dumps({"Forest.Trees": len(trees),
                       "Forest.Rows": table.n_rows}))
+
+
+def run_forest_builder(conf: JobConfig, in_path: str, out_path: str,
+                       device: torch.device) -> None:
+    """Grow a random forest: ``num.trees`` trees, each on
+    ``random.split.set.size`` random attributes and (with ``bagging``) a
+    bootstrap of the rows, under ``random.seed``, ``forest.growth``
+    (auto|batched|serial) and the TreeBuilder keys. The artifact stacks
+    TreeBuilder's JSON tree format, written rename-atomically. Runs as a
+    plan (``cli/plans.py``) unless ``plan.enable=false``."""
+    from avenir_tpu_torch.cli import plans as cli_plans
+    from avenir_tpu_torch.models import forest as F
+    if cli_plans.run_plan("RandomForestBuilder", conf, in_path, out_path,
+                          device):
+        return
+    fz, rows = _load_table(conf, in_path, device)
+    table = fz.transform(rows)
+    _write_forest(out_path, F.grow_forest(table, _forest_config(conf)),
+                  table)
 
 
 def run_forest_predictor(conf: JobConfig, in_path: str, out_path: str,
@@ -1530,11 +1557,13 @@ def run_boost_builder(conf: JobConfig, in_path: str, out_path: str,
     ``.early.stop.holdout`` and the TreeBuilder split keys), written as
     the ``kind: "boosted"`` artifact. ``streaming.train=true`` boosts out
     of core over a part-file dir (the same model; the schema fully
-    specified or ``featurizer.fit.data.path`` set). The JAX CLI runs the
-    in-core mode through its plan layer by default, with the same
-    artifact; an explicit ``plan.enable=true`` is refused."""
+    specified or ``featurizer.fit.data.path`` set). The in-core mode runs
+    as a plan (``cli/plans.py``) unless ``plan.enable=false``."""
+    from avenir_tpu_torch.cli import plans as cli_plans
     from avenir_tpu_torch.models import boost as B
-    _check_keys(conf, _LATER_FOREST)
+    if cli_plans.run_plan("GradientBoostBuilder", conf, in_path, out_path,
+                          device):
+        return
     cfg = _boost_config(conf)
     if conf.get_bool("streaming.train", False):
         schema = FeatureSchema.from_file(
@@ -1560,6 +1589,12 @@ def run_boost_builder(conf: JobConfig, in_path: str, out_path: str,
     else:
         fz, rows = _load_table(conf, in_path, device)
         model = B.grow_boosted(fz.transform(rows), cfg)
+    _write_boosted(out_path, model)
+
+
+def _write_boosted(out_path: str, model) -> None:
+    """The boosted artifact and the job's stdout line."""
+    from avenir_tpu_torch.models import boost as B
     B.save_boosted(model, out_path)
     print(json.dumps({"Boost.Rounds": len(model.trees),
                       "Boost.LearningRate": model.learning_rate}))
@@ -1966,9 +2001,22 @@ def main(argv: List[str] = None) -> int:
                         help="where the job runs (default cuda; no GPU and "
                              "no --device cpu is an error)")
     parser.add_argument("--metrics-out", metavar="PATH", default=None,
-                        help="not supported yet (refused)")
+                        help="enable telemetry for the job and write the "
+                             "merged report (spans, kernel builds, RSS, "
+                             "counters, gauges) after it: JSONL events at "
+                             "PATH, Prometheus text at PATH.prom")
     parser.add_argument("--obs-port", type=int, default=None, metavar="PORT",
                         help="not supported yet (refused)")
+    parser.add_argument("--profile-dir", metavar="PATH", default=None,
+                        help="write a torch.profiler trace of the job "
+                             "(host ops and the card's kernels) into PATH "
+                             "as Chrome JSON; the flag form of the "
+                             "profile.trace.dir key")
+    parser.add_argument("--explain", action="store_true",
+                        help="print the verb's plan (nodes, edges, "
+                             "fingerprints, cache hit or miss a node) "
+                             "without running it; with --metrics-out PATH "
+                             "the plan's JSON goes to PATH.plan.json")
     parser.add_argument("--resume", action="store_true",
                         help="resume a killed NearestNeighbor, "
                              "BayesianDistribution or MutualInformation job "
@@ -1980,8 +2028,8 @@ def main(argv: List[str] = None) -> int:
 
     if args.verb in _LATER_VERBS:
         _refuse(f"the verb {args.verb}", _LATER_VERBS[args.verb])
-    if args.metrics_out is not None or args.obs_port is not None:
-        _refuse("--metrics-out/--obs-port", _OBS)
+    if args.obs_port is not None:
+        _refuse("--obs-port", _OBS)
 
     conf = JobConfig.from_file(args.conf)
     for override in args.D:
@@ -1992,12 +2040,53 @@ def main(argv: List[str] = None) -> int:
     for key in _armed_obs_keys(conf):
         _refuse(f"{key}={conf.get(key)}", _OBS)
 
+    from avenir_tpu_torch.obs import runtime as obs_runtime
     from avenir_tpu_torch.utils import profiling
     from avenir_tpu_torch.utils.device import resolve_device
     device = resolve_device(args.device)
-    logger = profiling.get_logger("cli", conf.get_bool("debug.on", False))
+    obs_runtime.set_device(device)
+
+    if args.explain:
+        # build and print the plan, never run it; the probe touches no
+        # cache statistics
+        from avenir_tpu_torch.cli import plans as cli_plans
+        from avenir_tpu_torch.plan import explain as plan_explain
+        from avenir_tpu_torch.utils.atomicio import atomic_json_dump
+        if not cli_plans.plan_enabled(conf):
+            raise ValueError("--explain needs the plan path "
+                             "(plan.enable is false)")
+        plan = cli_plans.build_plan(args.verb, conf, args.input,
+                                    args.output, device)
+        if plan is None:
+            raise ValueError(
+                f"--explain: {args.verb} does not run on the plan path "
+                "with this config (plan-capable verbs: "
+                + ", ".join(sorted(cli_plans._BUILDERS)) + "; text/"
+                "streaming/neighbor-record/regression/journaled-shard "
+                "modes keep the hand-wired body)")
+        print(plan_explain.render(plan))
+        if args.metrics_out:
+            atomic_json_dump(plan_explain.plan_json(plan),
+                             args.metrics_out + ".plan.json",
+                             indent=2, sort_keys=True)
+        return 0
+
+    debug_on = conf.get_bool("debug.on", False)
+    logger = profiling.get_logger("cli", debug_on)
     logger.debug("verb=%s input=%s output=%s conf=%s device=%s",
                  args.verb, args.input, args.output, args.conf, device)
+    # the flag wins over the key
+    trace_dir = args.profile_dir or conf.get("profile.trace.dir")
+    timer = profiling.StepTimer(args.verb)
+    ctx = (profiling.trace(trace_dir) if trace_dir
+           else contextlib.nullcontext())
+    # --metrics-out arms the obs layer (tracer, build counters, RSS
+    # sampler, MetricsRegistry sink) for this job and writes its report
+    tel_hub = None
+    if args.metrics_out:
+        from avenir_tpu_torch.obs import exporters as obs_exporters
+        from avenir_tpu_torch.obs import telemetry as obs_telemetry
+        tel_hub = obs_exporters.hub().enable()
     # the reference's task-retry budget (mapreduce.map.maxattempts=2,
     # resource/knn.properties:5-6) at the job level: transient failures
     # re-run the verb (every job fully overwrites its outputs); config
@@ -2008,18 +2097,45 @@ def main(argv: List[str] = None) -> int:
                    conf.get_int("mapred.map.max.attempts", 1),
                    conf.get_int("mapred.reduce.max.attempts", 1),
                    conf.get_int("max.attempts", 1))
-    for attempt in range(1, attempts + 1):
-        try:
-            VERBS[args.verb](conf, args.input, args.output, device)
-            break
-        except (ValueError, KeyError, FileNotFoundError, TypeError,
-                IndexError):
-            raise
-        except Exception:
-            if attempt == attempts:
-                raise
-            logger.warning("attempt %d/%d of %s failed; retrying",
-                           attempt, attempts, args.verb, exc_info=True)
+    job_span = (obs_telemetry.span(f"job.{args.verb}") if tel_hub
+                else contextlib.nullcontext())
+    try:
+        with ctx, timer.step(), job_span:
+            for attempt in range(1, attempts + 1):
+                reg_mark = tel_hub.registry_mark() if tel_hub else 0
+                try:
+                    VERBS[args.verb](conf, args.input, args.output, device)
+                    break
+                except (ValueError, KeyError, FileNotFoundError, TypeError,
+                        IndexError):
+                    raise
+                except Exception:
+                    if attempt == attempts:
+                        raise
+                    if tel_hub is not None:
+                        # the report sums registries: a failed attempt's
+                        # counters must not add to the retry's
+                        tel_hub.drop_registries_since(reg_mark)
+                    logger.warning("attempt %d/%d of %s failed; retrying",
+                                   attempt, attempts, args.verb,
+                                   exc_info=True)
+    finally:
+        if tel_hub is not None:
+            # the wall-time summary rides along as gauges; the report is
+            # written on failure too
+            for key, value in timer.summary().items():
+                tel_hub.set_gauge(f"job.{key}", value)
+            try:
+                paths = tel_hub.write(args.metrics_out)
+            except OSError as exc:
+                logger.warning("telemetry report not written to %s: %s",
+                               args.metrics_out, exc)
+            else:
+                logger.info("telemetry report: %s + %s",
+                            paths["jsonl"], paths["prom"])
+            tel_hub.disable()
+    if debug_on:
+        logger.debug("timing %s", timer.summary())
     return 0
 
 

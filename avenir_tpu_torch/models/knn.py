@@ -33,10 +33,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.obs import telemetry
 from avenir_tpu_torch.ops import (
     cuda_distance, cuda_fused, distance, ivf, quantized)
 from avenir_tpu_torch.ops.infotheory import _sum
-from avenir_tpu_torch.parallel.pipeline import iter_chunks
+from avenir_tpu_torch.parallel.pipeline import DeviceFeed
 from avenir_tpu_torch.utils.dataset import (
     EncodedTable, norm_range, normalize_numeric)
 from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -63,9 +64,10 @@ class KnnConfig:
     mode: str = "fast"                       # knn.mode: "fast" | "exact"
     regression_method: str = "average"       # regression.method
     # feed.chunk.rows: >0 sends test rows to the device in chunks of this
-    # many rows (pinned host memory, non_blocking copies); 0 scores the
-    # whole test table at once
+    # many rows through the threaded DeviceFeed, feed.depth chunks staged
+    # ahead; 0 scores the whole test table at once
     feed_chunk_rows: int = 0                 # feed.chunk.rows
+    feed_depth: int = 2                      # feed.depth
     # knn.fused: on the chunked feed, hand RAW chunks to the fused
     # normalize→distance→top-k kernel (K3); off normalizes the test table
     # where it lies, before chunking
@@ -243,16 +245,19 @@ def neighbors(train: EncodedTable, test: EncodedTable, config: KnnConfig
 def _feed(run, test: EncodedTable, config: KnnConfig, dev: torch.device,
           raw: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """``run(x_num, x_cat)`` over the test rows on ``dev``: the whole table
-    at once, or chunk by chunk when ``feed_chunk_rows`` is below its row
-    count. The test table stays where the caller put it: on the host it
-    streams to the card chunk by chunk, on the card the chunks are slices
+    at once, or chunk by chunk through the threaded ``DeviceFeed``
+    (``feed.depth`` chunks staged ahead, inside a ``knn.feed`` span) when
+    ``feed_chunk_rows`` is below its row count. On the host the table
+    streams to the card chunk by chunk; on the card the chunks are slices
     of it. ``raw`` keeps the numeric features on the fit scale."""
     te_num, te_cat, _ = _split_features(test, raw=raw)
     if not 0 < config.feed_chunk_rows < test.n_rows:
         return run(*(None if t is None else t.to(dev)
                      for t in (te_num, te_cat)))
-    parts = [run(*chunk) for chunk in
-             iter_chunks((te_num, te_cat), config.feed_chunk_rows, dev)]
+    feed = DeviceFeed.from_arrays((te_num, te_cat), config.feed_chunk_rows,
+                                  depth=config.feed_depth, device=dev)
+    with telemetry.span("knn.feed"):
+        parts = [run(*chunk.arrays) for chunk in feed]
     return (torch.cat([d for d, _ in parts]), torch.cat([i for _, i in parts]))
 
 

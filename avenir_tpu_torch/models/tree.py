@@ -724,6 +724,17 @@ def _counts_from_hist(hist: torch.Tensor, cand: _DeviceCandidates
          for s in range(cand.s_max)], dim=-3)
 
 
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """f32 sum over a last axis of 4 or 8 as XLA's CPU code compiles the
+    segment sum of ``_level_select``: four lanes at a time from +0, then
+    the lanes as (0 + 2) + (1 + 3)."""
+    n = x.shape[-1]
+    lanes = torch.zeros_like(x[..., :4])
+    for j in range(0, n, 4):
+        lanes = lanes + x[..., j:j + 4]
+    return (lanes[..., 0] + lanes[..., 2]) + (lanes[..., 1] + lanes[..., 3])
+
+
 def _level_select(counts: torch.Tensor, *, algorithm: str,
                   min_node_size: int, min_gain: float,
                   cand_mask: Optional[torch.Tensor] = None,
@@ -746,8 +757,9 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
     as ``split_gains`` does: two candidates that split a node's rows into
     the same children in another segment order tie only up to that
     rounding, and the argmax then picks the candidate JAX picks. Bit for
-    bit with two classes; with more, XLA's order over the class axis is
-    not reproduced and the ratios agree within a few ulps."""
+    bit at any class count with up to 15 segments; from 16 segments on
+    XLA's order over the segments is not reproduced and the ratios agree
+    within a few ulps."""
     single = counts.dim() == 4
     if single:
         counts = counts[None]
@@ -776,9 +788,14 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
 
         seg_n = flat_sgc.sum(dim=-1)                     # [M, S]
         seg_info = node_info(flat_sgc)
-        acc = torch.zeros_like(seg_n[:, 0])
-        for s in range(s_max):
-            acc = it.fma(seg_info[:, s], seg_n[:, s], acc)
+        if s_max in (4, 8):
+            # XLA vectorizes a segment axis of 4 or 8 and sums its
+            # products in four-lane vectors
+            acc = _lane_sum(seg_info * seg_n)
+        else:
+            acc = torch.zeros_like(seg_n[:, 0])
+            for s in range(s_max):
+                acc = it.fma(seg_info[:, s], seg_n[:, s], acc)
         stat = (acc / it._nonzero(seg_n.sum(dim=-1))).reshape(
             kt, t_total, k_nodes)
         intr = -it._sum(xlog2x(seg_n / it._nonzero(

@@ -22,7 +22,10 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
+
+from avenir_tpu_torch.obs import runtime
 
 LIB_DIR = Path(__file__).resolve().parent
 SRC = LIB_DIR.parent.parent / "native" / "avt_io.cpp"
@@ -53,6 +56,7 @@ def build() -> Path:
         return lib
     tmp = lib.with_name(f".{lib.name}.{os.getpid()}.{threading.get_ident()}")
     cmd = ["g++", *CXX_FLAGS, "-o", str(tmp), str(SRC)]
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=300)
@@ -64,6 +68,7 @@ def build() -> Path:
         raise BuildError(f"g++ failed on {SRC} (exit {proc.returncode}):\n"
                          f"{proc.stderr}")
     os.replace(tmp, lib)
+    runtime.record_compile("native_build", time.perf_counter() - t0)
     return lib
 
 

@@ -222,11 +222,18 @@ class _BadRowPolicy:
                 if qpath not in self.stats.quarantine_paths:
                     self.stats.quarantine_paths.append(qpath)
         if self._bad_here:
-            # the process-wide hub gauge of this sum waits for the obs
-            # layer (ROADMAP queue A, 'Plan, ingest, obs and checkpoint
-            # layers')
-            with _QUARANTINE_LOCK:
-                _QUARANTINE_BY_FILE[self.path] = len(self._bad_here)
+            _publish_quarantine_gauge(self.path, len(self._bad_here))
+
+
+def _publish_quarantine_gauge(path: str, n_bad: int) -> None:
+    """The process-wide ``loader.rows_quarantined`` hub gauge: per-file
+    counts by assignment (a file parsed twice counts once), summed. It
+    never raises (``set_hub_gauges_if_live``)."""
+    from avenir_tpu_torch.obs.exporters import set_hub_gauges_if_live
+    with _QUARANTINE_LOCK:
+        _QUARANTINE_BY_FILE[path] = n_bad
+        total = sum(_QUARANTINE_BY_FILE.values())
+    set_hub_gauges_if_live({"loader.rows_quarantined": float(total)})
 
 
 def _policy(path: str, on_bad_row: str, max_bad_fraction: float,

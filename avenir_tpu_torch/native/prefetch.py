@@ -335,5 +335,15 @@ class PrefetchLoader:
                 self.stats.shards += 1
             top_up(i + 1)
             yield claim_table(result) if self._to_device else result
-        # the hub gauges of these counters wait for the obs layer (ROADMAP
-        # queue A, 'Plan, ingest, obs and checkpoint layers')
+        self._publish()
+
+    def _publish(self) -> None:
+        """Exhaustion hook: the exact counters to the hub when it is
+        live (``set_hub_gauges_if_live`` never raises)."""
+        from avenir_tpu_torch.obs.exporters import set_hub_gauges_if_live
+        set_hub_gauges_if_live({
+            "loader.shard_retries": float(self.stats.shard_retries),
+            "loader.speculative_wins": float(self.stats.speculative_wins),
+            "loader.duplicates_discarded":
+                float(self.stats.duplicates_discarded),
+        })

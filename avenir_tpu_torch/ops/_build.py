@@ -9,7 +9,8 @@ edited source rebuilds and an unchanged one loads the library already
 built. ``_build/`` is listed in ``.gitignore``.
 
 No kernel is replaced by anything else: a missing ``nvcc`` or a failed
-build raises :class:`BuildError` with the compiler's output.
+build raises :class:`BuildError` with the compiler's output. Each build and each load reports its seconds to
+``obs/runtime.py`` (the telemetry report's ``compile`` section).
 
 Pointers and the stream travel as ``c_void_p`` and sizes as ``c_int``;
 without the declared ``argtypes`` ctypes would pass 32-bit ints and cut
@@ -24,8 +25,11 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import List
+
+from avenir_tpu_torch.obs import runtime
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -80,6 +84,7 @@ def build() -> Path:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
+    t0 = time.perf_counter()
     procs = []
     for src in sources():
         obj = out_dir / (src.stem + ".o")
@@ -105,6 +110,7 @@ def build() -> Path:
     if link.returncode != 0:
         raise BuildError(f"linking {LIB_NAME} failed:\n{link.stdout}")
     os.replace(tmp, lib)
+    runtime.record_compile("nvcc_build", time.perf_counter() - t0)
     return lib
 
 
@@ -147,7 +153,10 @@ _SIGNATURES = {
 def load_library() -> ctypes.CDLL:
     """The kernels' library, built on first use and loaded once per
     process, with every function's ``argtypes``/``restype`` declared."""
-    lib = ctypes.CDLL(str(build()))
+    path = build()
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(str(path))
+    runtime.record_compile("library_load", time.perf_counter() - t0)
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

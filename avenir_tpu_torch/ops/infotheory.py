@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 LOG2 = math.log(2.0)
@@ -51,9 +52,40 @@ _LOG_Q1, _LOG_Q2 = -2.12194440e-4, 0.693359375
 
 
 def fma(a, b, c) -> torch.Tensor:
-    """f32 ``a * b + c`` rounded once."""
-    return (torch.as_tensor(a).double() * torch.as_tensor(b).double()
-            + torch.as_tensor(c).double()).float()
+    """f32 ``a * b + c`` rounded once, as a hardware FMA rounds it.
+
+    The product of two f32 values is exact in float64; the float64 sum is
+    not when ``c`` lies far from it, and rounding that sum to f32 is a
+    second rounding. It differs from the single one only where the sum
+    lands exactly on a midpoint between two f32 values (its low 29
+    mantissa bits 1 then zeros) while its TwoSum error is nonzero: there
+    the sum steps one float64 ulp toward the error first (its bits move by
+    the sign of error × sum), so the tie breaks the way the exact value
+    lies. A subnormal addend counts as a zero of its sign, as XLA's CPU
+    code reads it; a Python number stands for the f32 value it names."""
+    a, b, c = _f64(a), _f64(b), _f64(c)
+    if isinstance(c, torch.Tensor):
+        c = c * (c.abs() >= _MIN_NORM)
+    p = a * b
+    s = torch.as_tensor(p + c)
+    bp = s - c                                   # TwoSum: s + err == p + c
+    err = (p - bp) + (c - (s - bp))
+    bits = s.view(torch.int64)
+    tie = (bits & _F32_DROPPED) == _F32_HALF
+    step = (tie * torch.sign(err * s)).to(torch.int64)
+    return (bits + step).view(torch.float64).float()
+
+
+def _f64(x):
+    """A tensor as float64; a Python number as the f32 value it names, kept
+    a Python float (exact in float64), so it costs no tensor op."""
+    if isinstance(x, torch.Tensor):
+        return x.double()
+    return float(np.float32(x))
+
+
+# the float64 mantissa bits an f32 rounding drops, and their midpoint
+_F32_DROPPED, _F32_HALF = (1 << 29) - 1, 1 << 28
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:
@@ -151,20 +183,79 @@ def _sum(x: torch.Tensor, dim: int) -> torch.Tensor:
 _XLA_REDUCE_WINDOW = 32
 
 
-def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """f32 sum along ``dim`` in the order XLA's CPU backend compiles a
-    reduction (its tree-reduction rewrite): up to 32 elements in order
-    from 0; a longer axis padded with zeros to a multiple of 32 (half the
-    pad in front), each window of 32 summed in order, then the window sums
-    the same way."""
-    x = x.movedim(dim, -1)
-    n, w = x.shape[-1], _XLA_REDUCE_WINDOW
-    if n <= w:
-        return _sum(x, -1)
-    total = -(-n // w) * w
-    front = (total - n) // 2
-    x = torch.nn.functional.pad(x, (front, total - n - front))
-    return xla_sum(_sum(x.reshape(x.shape[:-1] + (total // w, w)), -1), -1)
+def _reduce_lanes(rows: int, inner: int) -> int:
+    """The vector width XLA's CPU code gives the outer axis of a reduction
+    over two or more axes (each at most 32 long): ``rows`` outer rows of
+    ``inner`` elements each. Read off ``jnp.sum`` for every ``rows`` up to
+    32 and ``inner`` from 2 to 12: none from 9 elements a row on; else 2,
+    4 or 8 at that many rows, none for the other rows below 16, 4 from 16
+    rows when a row holds 7 or 8 elements, and otherwise 8 except 4 at 20
+    to 23 rows (and at 28 to 31 for 3 or more elements a row)."""
+    if inner >= 9:
+        return 1
+    if rows in (2, 4, 8):
+        return rows
+    if rows < 16:
+        return 1
+    if inner >= 7 or 20 <= rows <= 23 or (28 <= rows <= 31
+                                           and inner >= 3):
+        return 4
+    return 8
+
+
+def xla_sum(x: torch.Tensor, dim) -> torch.Tensor:
+    """f32 sum over ``dim`` (an axis or a tuple of axes) in the order XLA's
+    CPU backend compiles a reduction. Where every reduced axis holds at most
+    32 elements, the elements are added one by one from 0 in row-major
+    order, or over two or more axes with the outer one in vector lanes
+    where XLA's code has them (``_reduce_lanes``). Otherwise its tree-reduction rewrite cuts each
+    reduced axis into windows: an axis longer than 32 is padded with zeros
+    to a multiple of 32 (half the pad in front) and cut in 32s, a shorter
+    one is one window; each window block is summed in row-major order,
+    then the block sums the same way."""
+    dims = (dim,) if isinstance(dim, int) else tuple(dim)
+    dims = sorted(d % x.dim() for d in dims)
+    k = len(dims)
+    x = x.movedim(dims, list(range(x.dim() - k, x.dim())))
+    sizes = x.shape[x.dim() - k:]
+    w = _XLA_REDUCE_WINDOW
+    if all(n <= w for n in sizes):
+        rows = x.reshape(x.shape[:x.dim() - k]
+                         + (sizes[0], math.prod(sizes[1:])))
+        inner = rows.shape[-1]
+        lanes = _reduce_lanes(sizes[0], inner) if inner > 1 else 1
+        if lanes == 1:
+            return _sum(rows.flatten(-2), -1)
+        # the outer axis vectorized: row r adds into lane r % lanes, each
+        # row's elements in order; the lanes are halved pairwise, and the
+        # rows left over after the last full vector follow one by one
+        main = sizes[0] - sizes[0] % lanes
+        acc = rows.new_zeros(rows.shape[:-2] + (lanes,))
+        for r in range(0, main, lanes):
+            for c in range(inner):
+                acc = acc + rows[..., r:r + lanes, c]
+        while acc.shape[-1] > 1:
+            half = acc.shape[-1] // 2
+            acc = acc[..., :half] + acc[..., half:]
+        acc = acc[..., 0]
+        for r in range(main, sizes[0]):
+            for c in range(inner):
+                acc = acc + rows[..., r, c]
+        return acc
+    lead = x.shape[:x.dim() - k]
+    pad, split = [], []
+    for n in sizes:
+        total = -(-n // w) * w if n > w else n
+        front = (total - n) // 2
+        pad = [front, total - n - front] + pad
+        split += [total // min(n, w), min(n, w)]
+    x = torch.nn.functional.pad(x, pad).reshape(lead + tuple(split))
+    nl = len(lead)
+    order = (list(range(nl)) + [nl + 2 * i for i in range(k)]
+             + [nl + 2 * i + 1 for i in range(k)])
+    blocks = x.permute(order)
+    blocks = _sum(blocks.reshape(blocks.shape[:nl + k] + (-1,)), -1)
+    return xla_sum(blocks, tuple(range(nl, nl + k)))
 
 
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -294,8 +385,8 @@ def mutual_information(joint: torch.Tensor) -> torch.Tensor:
     """I(X;Y) in bits from a [..., X, Y] joint count tensor — the pairwise
     MI of MutualInformation's reducer cleanup
     (MutualInformation.java:598-678). The marginals and the terms sum in
-    ``xla_sum``'s order (the terms over the flattened [X·Y] block), so
-    the card's bits equal the CPU's."""
+    ``xla_sum``'s order (the terms as one reduction over both axes), so
+    the bits equal the JAX package's and the card's equal the CPU's."""
     total = joint.sum(dim=(-2, -1), keepdim=True)
     p = joint / _nonzero(total)
     px = xla_sum(p, -1).unsqueeze(-1)
@@ -305,4 +396,4 @@ def mutual_information(joint: torch.Tensor) -> torch.Tensor:
     safe_ratio = torch.where(ok, p / _nonzero(denom), torch.ones_like(p))
     terms = torch.where(p > 0, _over_log2(p * xla_log(safe_ratio)),
                         torch.zeros_like(p))
-    return xla_sum(terms.flatten(-2), -1)
+    return xla_sum(terms, (-2, -1))

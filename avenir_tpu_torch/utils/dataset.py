@@ -94,6 +94,33 @@ def iter_csv_rows(path: str, delim_regex: str = ",",
                 yield [t.strip() for t in splitter.split(line)]
 
 
+def read_line_window(path: str, start: int, stop: int) -> bytes:
+    """The bytes of every line owned by the byte window ``[start, stop)``
+    of one file: :func:`iter_csv_rows`'s HDFS-split boundary rule on raw
+    bytes (the parallel ingest worker's read). The line straddling
+    ``start`` belongs to the window before (found by peeking one byte
+    back); the line straddling ``stop`` is read to its end by the window
+    that owns its first byte. Consecutive windows tile a file's bytes
+    exactly, so their physical line counts add up to file-global line
+    numbers."""
+    size = os.path.getsize(path)
+    stop = min(stop, size)
+    if start >= stop:
+        return b""
+    with open(path, "rb") as fh:
+        if start > 0:
+            fh.seek(start - 1)
+            if fh.read(1) != b"\n":
+                fh.readline()    # a partial line: the window before's
+        pos = fh.tell()
+        if pos >= stop:
+            return b""
+        buf = fh.read(stop - pos)
+        if buf and not buf.endswith(b"\n"):
+            buf += fh.readline()  # the line that owns ``stop``, whole
+    return buf
+
+
 @dataclass
 class FieldEncoder:
     """Per-column encoder derived from a :class:`FeatureField` (+ data)."""

@@ -19,6 +19,11 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+# set by obs.exporters.TelemetryHub.enable: called with every registry
+# built while telemetry is on, so each lands in the merged report. None
+# (the default) keeps construction free of any obs import.
+_OBS_SINK = None
+
 
 def to_numpy(a) -> np.ndarray:
     """Host copy of a numpy array, list or torch tensor (any device)."""
@@ -32,6 +37,8 @@ class MetricsRegistry:
 
     def __init__(self):
         self._counters: Dict[str, float] = {}
+        if _OBS_SINK is not None:
+            _OBS_SINK(self)
 
     def incr(self, group: str, name: str, amount: float = 1) -> None:
         key = f"{group}.{name}"

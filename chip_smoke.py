@@ -329,7 +329,25 @@ Phases (one line each; any failure exits non-zero):
    lines; Projection of ~1,000,000 purchase rows, the native pass equal
    to the Python pass. Every K1 and K4 call held against its plain
    version; K1 timed at the window and shard shapes, K4 at the shard
-   shape.
+   shape;
+13. the plan path the CLI runs by default (``plan_phase``, also
+   runnable alone): BayesianDistribution then NearestNeighbor in one
+   process on 1,048,576 churn train rows and 50,000 test rows,
+   ``ingest.split.bytes`` cutting each table into at least 8 splits and
+   ``ingest.workers`` = min(8, CPUs), with ``--metrics-out``: the files
+   and stdout equal the ``plan.enable=false`` run's byte for byte, K1's
+   and K2's launches equal on both paths, KNN's ``last_run()`` skips
+   ``encode:train`` and hits ``stage:train``, and the reports hold the
+   ``plan.*``, ``feed.h2d``, ``ingest.*`` and ``job.*`` names; the host
+   wall of NB's encode in parallel against ``ingest.parallel=false``;
+   KNN with ``feed.chunk.rows`` at ``feed.depth=2`` (K3 through the
+   threaded ``DeviceFeed``) equal to ``feed.depth=1``, with its
+   ``feed.overlap_fraction``; NB with ``--device cpu``, then NB and KNN
+   on the card with ``--profile-dir``, in this process and each in a
+   fresh one: the card's NB misses the CPU's staged table and launches
+   K1, KNN launches K2, every trace holds the job's host ops, and each
+   fresh trace names ``cfb_counts_kernel`` or ``topk_kernel``;
+   ``--explain`` printing the plan with no launch.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -355,7 +373,7 @@ vocabularies' times in ``vocabularies``; an eighth and a ninth, K1 at
 phase 12's stream-window and NB-shard shapes (``K1-stream``) and K4 at
 its MI-shard shape (``K4-shard``), with phase 12's launches and each
 shape's times in ``shapes``; K1's, K2's and K3's launches
-count phase 11's CLI jobs too (K2's and K3's ``launches`` are phase 3's
+count phase 11's and phase 13's CLI jobs too (K2's and K3's ``launches`` are phase 3's
 jobs and phase 11's regression and replay jobs); K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
 bound the larger
@@ -5345,6 +5363,277 @@ def cli_phase(work: str):
     return totals
 
 
+PLAN_TRAIN, PLAN_TEST = 1_048_576, 50_000
+PLAN_MIN_SPLITS = 8
+PLAN_CACHE_BYTES = 512 << 20   # plan.cache.budget.bytes' default
+
+
+def _report_names(path):
+    """The span, counter and gauge names of a ``--metrics-out`` report."""
+    from avenir_tpu_torch.obs.exporters import read_jsonl
+    return {e["name"]: e for e in read_jsonl(path)
+            if e["type"] in ("span", "counter", "gauge")}
+
+
+def _encode_ms(report, verb):
+    """The host wall of a plan's encode and stage of its train table, from
+    the report's spans."""
+    return sum(e["sum_ms"] for name, e in report.items()
+               if name.endswith((f"plan.{verb}.encode:train",
+                                 f"plan.{verb}.stage:train")))
+
+
+def plan_phase(dev, work):
+    """Phase 13: the plan path of NB then KNN (see the module docstring).
+    Returns the launches of K1, K2 and K3 in its plan-path jobs."""
+    from avenir_tpu_torch import plan as tplan
+    from avenir_tpu_torch.cli.main import main as cli_main
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.obs import exporters as tex
+    from avenir_tpu_torch.ops import cuda_distance, cuda_fused, cuda_histogram
+    counters = {"K1": cuda_histogram.class_feature_bin_counts,
+                "K2": cuda_distance.topk_raw, "K3": cuda_fused.fused_topk_raw}
+    totals = dict.fromkeys(counters, 0)
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    write_tiled(p("train.csv"), G.churn_rows(CHURN_TRAIN, seed=SEED + 13),
+                PLAN_TRAIN)
+    write_csv(p("test.csv"), G.churn_rows(PLAN_TEST, seed=SEED + 14))
+    with open(p("schema.json"), "w") as fh:
+        json.dump(G._CHURN_SCHEMA_JSON, fh)
+    split_bytes = min(os.path.getsize(p("train.csv")),
+                      os.path.getsize(p("test.csv"))) // PLAN_MIN_SPLITS
+    workers = min(8, os.cpu_count() or 1)
+    with open(p("job.properties"), "w") as fh:
+        fh.write("".join(f"{k}={v}\n" for k, v in {
+            "field.delim.regex": ",", "field.delim": ",",
+            "feature.schema.file.path": p("schema.json"),
+            "train.data.path": p("train.csv"), "validation.mode": "true",
+            "positive.class.value": "closed", "laplace.smoothing": "1.0",
+            "ingest.workers": workers, "ingest.split.bytes": split_bytes,
+            "plan.cache.budget.bytes": PLAN_CACHE_BYTES}.items()))
+
+    def run(label, verb, data, out, *extra, plan_on=True):
+        """One job on the card: stdout, host wall s, launches, last_run."""
+        for fn in counters.values():
+            fn.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            if cli_main([verb, p(data), p(out), "--conf", p("job.properties"),
+                         "--device", "cuda", *extra]) != 0:
+                raise AssertionError(f"phase 13 {label} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {name: fn.launches for name, fn in counters.items()}
+        if plan_on:
+            for name, c in counts.items():
+                totals[name] += c
+        return buf.getvalue(), wall, counts, tplan.last_run()
+
+    tplan.reset_cache()
+    tex.hub().reset()
+    nb = run("NB plan", "BayesianDistribution", "train.csv", "nb_plan.txt",
+             "--metrics-out", p("nb.jsonl"))
+    splits = nb[3]["ingest"]["train"]["splits"]
+    knn = run("KNN plan", "NearestNeighbor", "test.csv", "knn_plan.txt",
+              "--metrics-out", p("knn.jsonl"))
+    outcomes = knn[3]["outcomes"]
+    if (outcomes["encode:train"], outcomes["stage:train"]) != \
+            ("skipped", "hit"):
+        raise AssertionError(f"phase 13: KNN did not hit the staged train "
+                             f"table: {outcomes}")
+    test_splits = knn[3]["ingest"]["test"]["splits"]
+    if min(splits, test_splits) < PLAN_MIN_SPLITS:
+        raise AssertionError(f"phase 13: {splits} train and {test_splits} "
+                             f"test splits, fewer than {PLAN_MIN_SPLITS}")
+    names = set(_report_names(p("knn.jsonl"))) | \
+        set(_report_names(p("nb.jsonl")))
+    for want in ("plan.", "feed.h2d", "ingest.", "job."):
+        if not any(want in n for n in names):
+            raise AssertionError(f"phase 13: no {want} name in the reports")
+    for path in (p("nb.jsonl.prom"), p("knn.jsonl.prom")):
+        if not os.path.getsize(path):
+            raise AssertionError(f"phase 13: {path} is empty")
+    log(f"phase 13 plan path: NB {nb[1]:.2f} s ({splits} splits x "
+        f"{workers} workers, launches {nb[2]}), KNN {knn[1]:.2f} s with "
+        f"the warm staged train table ({test_splits} test splits, "
+        f"launches {knn[2]}, outcomes {outcomes}); report names hold "
+        "plan.*, feed.h2d, ingest.*, job.*")
+
+    # NB's encode with the split pool against one thread of the Python
+    # featurizer (ingest.parallel=false), a cold cache each
+    tplan.reset_cache()
+    tex.hub().reset()
+    serial = run("NB serial encode", "BayesianDistribution", "train.csv",
+                 "nb_serial.txt", "-D", "ingest.parallel=false",
+                 "--metrics-out", p("nb_serial.jsonl"), plan_on=False)
+    same_bytes("phase 13 NB serial encode", p("nb_serial.txt"),
+               p("nb_plan.txt"))
+    par_ms = _encode_ms(_report_names(p("nb.jsonl")), "BayesianDistribution")
+    ser_ms = _encode_ms(_report_names(p("nb_serial.jsonl")),
+                        "BayesianDistribution")
+    st = nb[3]["ingest"]["train"]
+    log(f"phase 13 NB encode of {PLAN_TRAIN:,} rows (host wall): parallel "
+        f"{par_ms:.1f} ms ({workers} workers), ingest.parallel=false "
+        f"{ser_ms:.1f} ms, {ser_ms / max(par_ms, 1e-9):.2f}x; the pool's "
+        f"sums over its splits: read {st['decode_ms']:.1f} ms, encode "
+        f"{st['encode_ms']:.1f} ms, the caller's wait {st['wait_ms']:.1f} "
+        f"ms (ingest.overlap_fraction {st['overlap_fraction']:.4f}); feed "
+        f"{st['feed']['chunks']} chunks, staging {st['feed']['h2d_ms']} ms")
+
+    # the hand-wired bodies: the same bytes, the same launches
+    off = {}
+    for verb, data, out in (("BayesianDistribution", "train.csv", "nb"),
+                            ("NearestNeighbor", "test.csv", "knn")):
+        off[out] = run(f"{out} plan.enable=false", verb, data,
+                       f"{out}_off.txt", "-D", "plan.enable=false",
+                       plan_on=False)
+        same_bytes(f"phase 13 {out} plan against plan.enable=false",
+                   p(f"{out}_plan.txt"), p(f"{out}_off.txt"))
+    if off["nb"][0] != nb[0] or off["knn"][0] != knn[0]:
+        raise AssertionError("phase 13: stdout differs from the "
+                             "plan.enable=false run")
+    if (off["nb"][2]["K1"], off["knn"][2]["K2"]) != (nb[2]["K1"],
+                                                     knn[2]["K2"]) \
+            or nb[2]["K1"] < 1 or knn[2]["K2"] < 1:
+        raise AssertionError(f"phase 13: launches differ: plan NB "
+                             f"{nb[2]}, KNN {knn[2]}; off NB {off['nb'][2]},"
+                             f" KNN {off['knn'][2]}")
+    log(f"phase 13 plan.enable=false: NB {off['nb'][1]:.2f} s, KNN "
+        f"{off['knn'][1]:.2f} s; files, stdout and K1/K2 launches equal "
+        "to the plan path's")
+
+    # K3 through the threaded DeviceFeed (the train table hits the cache
+    # the NB run above refilled)
+    fed = {}
+    for depth in (2, 1):
+        tex.hub().reset()
+        fed[depth] = run(f"KNN feed.depth={depth}", "NearestNeighbor",
+                         "test.csv", f"knn_fed{depth}.txt", "-D",
+                         f"feed.chunk.rows={FEED_CHUNK_ROWS}", "-D",
+                         f"feed.depth={depth}", "--metrics-out",
+                         p(f"fed{depth}.jsonl"))
+        if fed[depth][2]["K3"] < 1:
+            raise AssertionError(f"phase 13: K3 not launched at feed.depth="
+                                 f"{depth}")
+    same_bytes("phase 13 feed.depth=2 against 1", p("knn_fed2.txt"),
+               p("knn_fed1.txt"))
+    overlap = {d: _report_names(p(f"fed{d}.jsonl"))[
+        "feed.overlap_fraction"]["value"] for d in fed}
+    log(f"phase 13 KNN feed.chunk.rows={FEED_CHUNK_ROWS}: depth 2 "
+        f"{fed[2][1]:.2f} s, depth 1 {fed[1][1]:.2f} s (host wall), "
+        f"launches {fed[2][2]}, feed.overlap_fraction depth 2 "
+        f"{overlap[2]:.4f}, depth 1 {overlap[1]:.4f}; files equal")
+
+    # a table staged on the CPU serves no job on the card, and
+    # --profile-dir's traces name the kernels: NB with --device cpu, then
+    # NB and KNN on the card in this process, each with --profile-dir, on
+    # the test rows as both tables. The card's NB misses the CPU's table
+    # and launches K1; KNN hits the card's table and launches K2. The two
+    # card jobs run once more in a fresh process, as a user runs the CLI.
+    with open(p("job.properties")) as fh:
+        props = fh.read().replace(p("train.csv"), p("test.csv"))
+    with open(p("profile.properties"), "w") as fh:
+        fh.write(props)
+
+    def job(verb, tag, on):
+        return [verb, p("test.csv"), p(f"{tag}_{verb}.txt"), "--conf",
+                p("profile.properties"), "--device", on] + (
+            ["--profile-dir", p(f"trace-{tag}-{verb}")] if on == "cuda"
+            else [])
+
+    tplan.reset_cache()
+    with contextlib.redirect_stdout(io.StringIO()):
+        if cli_main(job("BayesianDistribution", "cpu", "cpu")) != 0:
+            raise AssertionError("phase 13: NB --device cpu failed")
+    mixed = {}
+    for verb, must, stage in (("BayesianDistribution", "K1", "miss"),
+                              ("NearestNeighbor", "K2", "hit")):
+        for fn in counters.values():
+            fn.launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            if cli_main(job(verb, "inproc", "cuda")) != 0:
+                raise AssertionError(f"phase 13 {verb} --profile-dir "
+                                     "failed")
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        outcome = tplan.last_run()["outcomes"]["stage:train"]
+        if counts[must] < 1 or outcome != stage:
+            raise AssertionError(
+                f"phase 13: {verb} on the card after NB on the CPU: "
+                f"launches {counts}, stage:train {outcome} (want {must} "
+                f"launched, stage:train {stage})")
+        mixed[verb] = (counts, outcome)
+    same_bytes("phase 13 NB on the card against the CPU",
+               p("inproc_BayesianDistribution.txt"),
+               p("cpu_BayesianDistribution.txt"))
+    log("phase 13 NB --device cpu then on the card: " + "; ".join(
+        f"{verb} launches {c}, stage:train {o}"
+        for verb, (c, o) in mixed.items())
+        + "; NB's model equal to the CPU's")
+    # each fresh process runs one card job: its trace is the process's
+    # first profiler session. In a process that profiled before,
+    # torch.profiler can place the card's records outside the session and
+    # drop them (PERF.md §7), so only the fresh traces must name the
+    # kernels; the in-process ones must exist and hold the job's host ops,
+    # and trace() warns where they name no kernel
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", "import sys; from avenir_tpu_torch.cli.main "
+         "import main; sys.exit(main(" + repr(job(verb, "fresh", "cuda"))
+         + "))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for verb in ("BayesianDistribution", "NearestNeighbor")]
+    errs = []
+    try:
+        for proc in procs:
+            errs.append(proc.communicate(timeout=600)[1])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if any(proc.returncode != 0 for proc in procs):
+        raise AssertionError(f"phase 13 --profile-dir failed: "
+                             f"{[e[-2000:] for e in errs]}")
+    wall = time.perf_counter() - t0
+    for tag in ("inproc", "fresh"):
+        for verb, kernel in (("BayesianDistribution", "cfb_counts_kernel"),
+                             ("NearestNeighbor", "topk_kernel")):
+            tdir = p(f"trace-{tag}-{verb}")
+            (trace,) = [os.path.join(tdir, f) for f in os.listdir(tdir)]
+            with open(trace) as fh:
+                events = json.load(fh)["traceEvents"]
+            hits = [e for e in events if kernel in str(e.get("name", ""))
+                    and e.get("cat") == "kernel"]
+            host_ops = sum(e.get("cat") == "cpu_op" for e in events)
+            if not host_ops or (tag == "fresh" and not hits):
+                seen = sorted({str(e.get("name", ""))[:60] for e in events
+                               if e.get("cat") == "kernel"})[:12]
+                raise AssertionError(
+                    f"phase 13: the {tag} --profile-dir trace of {verb} "
+                    f"holds {host_ops} host ops and no {kernel} kernel "
+                    f"event (kernel events {seen})")
+            log(f"phase 13 --profile-dir {verb} ({tag}): {len(events)} "
+                f"trace events, {host_ops} host ops, {len(hits)} {kernel} "
+                f"kernel events ({os.path.getsize(trace) / 2**20:.1f} MiB)")
+    log(f"phase 13 --profile-dir: the card's jobs in this process, and "
+        f"each in a fresh one ({wall:.1f} s host wall)")
+
+    # --explain: the plan printed, nothing launched
+    explained = run("KNN --explain", "NearestNeighbor", "test.csv",
+                    "explained.txt", "--explain", plan_on=False)
+    if any(explained[2].values()) or "plan NearestNeighbor" not in \
+            explained[0] or os.path.exists(p("explained.txt")):
+        raise AssertionError(f"phase 13: --explain ran work: "
+                             f"{explained[2]}")
+    log(f"phase 13 --explain: {len(explained[0].splitlines())} lines, "
+        f"launches {explained[2]}")
+    tplan.reset_cache()
+    return totals
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5399,6 +5688,12 @@ def main() -> int:
     check_int8_edges(dev)
     check_int8_packing(dev)
     mark("1-2")
+    # phases 3-12 run each CLI job cold, as separate processes would: a
+    # staged-table cache of 0 bytes keeps nothing (a warm table would also
+    # keep KNN's IVF index, whose K1 launches phase 3 counts); phase 13
+    # drives the cache with its own plan.cache.budget.bytes
+    from avenir_tpu_torch.plan import staged_cache
+    staged_cache().set_budget(0)
     work = tempfile.mkdtemp(prefix="smoke-", dir=str(_build.BUILD_DIR))
     try:
         launches = cli_phase(work)
@@ -5450,8 +5745,14 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     mark("12")
+    work = tempfile.mkdtemp(prefix="smoke-plan-", dir=str(_build.BUILD_DIR))
+    try:
+        planned = plan_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mark("13")
     for name in ("K1", "K2", "K3"):
-        launches[name] += modes[name]
+        launches[name] += modes[name] + planned[name]
 
     launches["K5"] = k23["K5_launches"]
     launches["K4-one"] = k4["one_launches"]

@@ -128,9 +128,15 @@ def test_boost_verbs_refusals(dirs, capsys):
     t = root / "t"
     args = ["GradientBoostBuilder", str(t / "train.csv"),
             str(t / "refused.json"), "--conf", props["t"], "--device", "cpu"]
-    with pytest.raises(ValueError, match=r"plan\.enable=true.*ROADMAP "
-                       r"queue A, 'Plan, ingest, obs and checkpoint layers'"):
-        tmain(args + ["-D", "plan.enable=true"])
+    # plan.enable=true is the default plan path now: it runs, with the
+    # hand-wired body's artifact
+    for flag in ("true", "false"):
+        tmain(["GradientBoostBuilder", str(t / "train.csv"),
+               str(t / f"plan_{flag}.json"), "--conf", props["t"],
+               "--device", "cpu", "-D", f"plan.enable={flag}"])
+    capsys.readouterr()
+    assert (t / "plan_true.json").read_bytes() == \
+        (t / "plan_false.json").read_bytes()
     with pytest.raises(ValueError, match="learning_rate must be"):
         tmain(args + ["-D", "forest.boost.learning.rate=1.5"])
     with pytest.raises(ValueError, match="early.stop.rounds is not "

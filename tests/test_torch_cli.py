@@ -117,25 +117,50 @@ def test_elearn_nearest_neighbor_matches(tmp_path, capsys, extra):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("plan.enable", "true"), ("knn.ann.live", "true"),
+    ("knn.ann.live", "true"),
     ("knn.ann.live.tail.budget", "64"), ("knn.sharded", "true"),
-    ("feed.depth", "3"),
-    ("profile.trace.dir", "trace"), ("obs.live", "true"),
-    ("alerts.enable", "true")])
+    ("obs.live", "true"), ("alerts.enable", "true")])
 def test_knn_refuses_later_keys(tmp_path, key, value):
-    """Keys at values that select work the port does not carry;
-    feed.depth sizes the threaded feed, which runs with feed.chunk.rows
-    > 0."""
+    """Keys at values that select work the port does not carry."""
     write_fixture(tmp_path, "elearn", 50, 10)
     props = _props(tmp_path / "p.properties", **{
         "feature.schema.file.path": tmp_path / "schema.json",
         "train.data.path": tmp_path / "train.csv"})
-    chunked = ["-D", "feed.chunk.rows=4"] if key == "feed.depth" else []
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
                str(tmp_path / "o.txt"), "--conf", props, "-D",
-               f"{key}={value}", *chunked, "--device", "cpu"])
+               f"{key}={value}", "--device", "cpu"])
     assert not (tmp_path / "o.txt").exists()
+
+
+@pytest.mark.parametrize("key,value", [
+    ("plan.enable", "true"), ("feed.depth", "3"),
+    ("profile.trace.dir", "trace")])
+def test_knn_keys_once_refused_now_run(tmp_path, capsys, key, value):
+    """plan.enable=true (the default plan path), feed.depth with the
+    chunked feed (the threaded DeviceFeed three chunks ahead) and
+    profile.trace.dir (a torch.profiler trace) run, with the file and
+    stdout of the hand-wired body at feed.depth=1."""
+    write_fixture(tmp_path, "elearn", 300, 60, seed=8)
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "validation.mode": "true", "positive.class.value": "fail",
+        "feed.chunk.rows": "16"})
+    base = ["NearestNeighbor", str(tmp_path / "test.csv")]
+    tmain(base + [str(tmp_path / "ref.txt"), "--conf", props, "-D",
+                  "plan.enable=false", "-D", "feed.depth=1", "--device",
+                  "cpu"])
+    want = capsys.readouterr().out
+    value = str(tmp_path / value) if key == "profile.trace.dir" else value
+    tmain(base + [str(tmp_path / "o.txt"), "--conf", props, "-D",
+                  f"{key}={value}", "--device", "cpu"])
+    assert capsys.readouterr().out == want
+    assert (tmp_path / "o.txt").read_bytes() == \
+        (tmp_path / "ref.txt").read_bytes()
+    if key == "profile.trace.dir":
+        (trace,) = (tmp_path / "trace").glob("trace-*.json")
+        assert json.loads(trace.read_text())["traceEvents"]
 
 
 _OFF_OBS = [("profile.trace.dir", ""), ("obs.flight.path", ""),
@@ -224,8 +249,33 @@ def test_live_ann_refused_by_its_roadmap_title(tmp_path):
 
 @pytest.mark.parametrize("verb", ["BayesianDistribution",
                                   "BayesianPredictor"])
-@pytest.mark.parametrize("key,value", [
-    ("train.sharded", "true"), ("plan.enable", "true")])
+def test_nb_plan_enable_runs(tmp_path, capsys, verb):
+    """plan.enable=true runs (the trainer's default plan path; the
+    predictor has no plan and ignores the key), as plan.enable=false
+    does, byte for byte."""
+    write_fixture(tmp_path, "churn", 300, 60, seed=4)
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "bayesian.model.file.path": tmp_path / "m.txt",
+        "validation.mode": "true"})
+    tmain(["BayesianDistribution", str(tmp_path / "train.csv"),
+           str(tmp_path / "m.txt"), "--conf", props, "--device", "cpu"])
+    data = "train.csv" if verb == "BayesianDistribution" else "test.csv"
+    outs = []
+    for flag in ("true", "false"):
+        capsys.readouterr()
+        tmain([verb, str(tmp_path / data), str(tmp_path / f"o_{flag}.txt"),
+               "--conf", props, "-D", f"plan.enable={flag}", "--device",
+               "cpu"])
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1] and outs[0]
+    assert (tmp_path / "o_true.txt").read_bytes() == \
+        (tmp_path / "o_false.txt").read_bytes()
+
+
+@pytest.mark.parametrize("verb", ["BayesianDistribution",
+                                  "BayesianPredictor"])
+@pytest.mark.parametrize("key,value", [("train.sharded", "true")])
 def test_nb_refuses_later_keys(tmp_path, verb, key, value):
     write_fixture(tmp_path, "churn", 50, 10)
     props = _props(tmp_path / "p.properties", **{
@@ -278,17 +328,14 @@ def test_nb_streamed_and_sharded_keys_match_the_jax_cli(tmp_path, capsys,
 
 
 _BANDITS = "'Bandits and streaming serving'"
-_LAYERS = "'Plan, ingest, obs and checkpoint layers'"
+_LIVE_OBS = "'Live observability layer'"
 
 
 @pytest.mark.parametrize("args,title", [
-    (["GradientBoostBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
-    (["GradientBoostPredictor", "--obs-port", "0"], _LAYERS),
-    (["RandomForestBuilder", "--metrics-out", "m.jsonl"], _LAYERS),
+    (["GradientBoostPredictor", "--obs-port", "0"], _LIVE_OBS),
     (["ReinforcementLearnerTopology"], _BANDITS),
     (["Lifecycle"], _BANDITS),
-    (["NearestNeighbor", "--metrics-out", "m.jsonl"], _LAYERS),
-    (["NearestNeighbor", "--obs-port", "0"], _LAYERS)])
+    (["NearestNeighbor", "--obs-port", "0"], _LIVE_OBS)])
 def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
     """The refusal names the verb or flag and the ROADMAP item by title."""
     props = _props(tmp_path / "p.properties", x="1")
@@ -297,6 +344,108 @@ def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
     with pytest.raises(ValueError, match=match):
         tmain([args[0], "in.csv", "out.txt", "--conf", props, *args[1:],
                "--device", "cpu"])
+
+
+@pytest.mark.parametrize("verb", ["GradientBoostBuilder",
+                                  "RandomForestBuilder", "NearestNeighbor"])
+def test_metrics_out_writes_the_report(tmp_path, capsys, verb):
+    """--metrics-out runs the job and writes its report: JSONL events at
+    PATH and Prometheus text at PATH.prom, with the job span, the plan's
+    node spans and the StepTimer gauges; the output file is the job's
+    without the flag."""
+    from avenir_tpu_torch import plan as tplan
+    from avenir_tpu_torch.obs import exporters as tex
+    tplan.reset_cache()
+    tex.hub().reset()
+    if verb == "NearestNeighbor":
+        write_fixture(tmp_path, "elearn", 300, 60, seed=9)
+        data = "test.csv"
+    else:
+        write_csv(tmp_path / "train.csv", JG.retarget_rows(400, seed=9))
+        with open(tmp_path / "schema.json", "w") as fh:
+            json.dump(JG._RETARGET_SCHEMA_JSON, fh)
+        data = "train.csv"
+    props = _props(tmp_path / "p.properties", **{
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv", "num.trees": 3,
+        "forest.boost.num.rounds": 2, "max.depth": 2})
+    args = [verb, str(tmp_path / data), "--conf", props, "--device", "cpu"]
+    tmain(args[:2] + [str(tmp_path / "plain.txt")] + args[2:])
+    report = str(tmp_path / "m.jsonl")
+    tmain(args[:2] + [str(tmp_path / "o.txt")] + args[2:]
+          + ["--metrics-out", report])
+    capsys.readouterr()
+    assert (tmp_path / "o.txt").read_bytes() == \
+        (tmp_path / "plain.txt").read_bytes()
+    events = tex.read_jsonl(report)
+    spans = {e["name"] for e in events if e["type"] == "span"}
+    gauges = {e["name"] for e in events if e["type"] == "gauge"}
+    assert f"job.{verb}" in spans
+    assert any(name.startswith(f"job.{verb}/plan.{verb}.") for name in spans)
+    assert {f"job.{verb}.steps", f"job.{verb}.p99_ms"} <= gauges
+    prom = tex.parse_prometheus_text((tmp_path / "m.jsonl.prom").read_text())
+    assert any(labels.get("span") == f"job.{verb}" for _, labels, _ in prom)
+    assert not tex.hub().enabled
+
+
+def _explain_fixture(tmp_path):
+    write_fixture(tmp_path, "churn", 600, 120, seed=12)
+    return _props(tmp_path / "p.properties", **{
+        "field.delim.regex": ",", "field.delim": ",",
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "train.data.path": tmp_path / "train.csv",
+        "validation.mode": "true", "ingest.workers": "3",
+        "ingest.split.bytes": "9000"})
+
+
+@pytest.mark.parametrize("verb,data", [
+    ("NearestNeighbor", "test.csv"), ("BayesianDistribution", "train.csv")])
+def test_explain_matches_the_jax_cli(tmp_path, capsys, verb, data):
+    """--explain prints the JAX CLI's plan letter for letter (cold caches
+    on both sides), writes PATH.plan.json with --metrics-out, and runs
+    nothing."""
+    from avenir_tpu import plan as jplan
+    from avenir_tpu_torch import plan as tplan
+    props = _explain_fixture(tmp_path)
+    outs = []
+    for tag, fn, extra, plan in (("j", jmain, [], jplan),
+                                 ("t", tmain, ["--device", "cpu"], tplan)):
+        plan.reset_cache()
+        fn([verb, str(tmp_path / data), str(tmp_path / "o.txt"), "--conf",
+            props, "--explain", "--metrics-out", str(tmp_path / tag)]
+           + extra)
+        outs.append(capsys.readouterr().out)
+        assert not (tmp_path / "o.txt").exists()
+    assert outs[0] == outs[1]
+    assert "ingest=parallel workers=3" in outs[1]
+    assert json.loads((tmp_path / "j.plan.json").read_text()) == \
+        json.loads((tmp_path / "t.plan.json").read_text())
+
+
+def test_profile_dir_runs_like_the_jax_flag(tmp_path, capsys):
+    """--profile-dir is parsed as the JAX CLI parses it: the job's files
+    and stdout are the JAX CLI's, and the directory holds the port's
+    torch.profiler Chrome trace (the JAX CLI writes its XLA trace)."""
+    write_fixture(tmp_path, "churn", 400, 80, seed=13)
+    props = _props(tmp_path / "p.properties", **{
+        "field.delim.regex": ",", "field.delim": ",",
+        "feature.schema.file.path": tmp_path / "schema.json",
+        "laplace.smoothing": "1.0"})
+    base = ["BayesianDistribution", str(tmp_path / "train.csv")]
+    jmain(base + [str(tmp_path / "j.txt"), "--conf", props,
+                  "--profile-dir", str(tmp_path / "jtrace")])
+    j_out = capsys.readouterr().out
+    tmain(base + [str(tmp_path / "t.txt"), "--conf", props,
+                  "--profile-dir", str(tmp_path / "ttrace"), "--device",
+                  "cpu"])
+    assert capsys.readouterr().out == j_out
+    assert (tmp_path / "t.txt").read_bytes() == \
+        (tmp_path / "j.txt").read_bytes()
+    assert any((tmp_path / "jtrace").rglob("*.trace.json.gz"))
+    (trace,) = (tmp_path / "ttrace").glob("trace-*.json")
+    names = {e.get("name") for e in json.loads(trace.read_text())
+             ["traceEvents"]}
+    assert any(str(n).startswith("aten::") for n in names)
 
 
 def test_refusals_name_roadmap_items_that_exist():
@@ -313,9 +462,9 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    assert len(named) >= 5
-    assert "Multi-device layer" in named
-    assert "Bandits and streaming serving" in named
+    for title in ("Live observability layer", "Multi-device layer",
+                  "Live ANN", "Bandits and streaming serving"):
+        assert title in named, title
     assert named <= titles, named - titles
     assert not by_number, by_number
 
@@ -387,9 +536,14 @@ def test_forest_builder_refusals_and_errors(tmp_path):
     t = tmp_path / "t"
     args = ["RandomForestBuilder", str(t / "train.csv"),
             str(t / "forest.json"), "--conf", props["t"], "--device", "cpu"]
-    with pytest.raises(ValueError,
-                       match=r"plan\.enable=true.*ROADMAP queue A, " + _LAYERS):
-        tmain(args + ["-D", "plan.enable=true"])
+    # plan.enable=true is the default plan path now: it runs, with the
+    # hand-wired body's artifact
+    for flag in ("true", "false"):
+        tmain(["RandomForestBuilder", str(t / "train.csv"),
+               str(t / f"plan_{flag}.json"), "--conf", props["t"],
+               "--device", "cpu", "-D", f"plan.enable={flag}"])
+    assert (t / "plan_true.json").read_bytes() == \
+        (t / "plan_false.json").read_bytes()
     with pytest.raises(ValueError, match="unknown forest growth mode"):
         tmain(args + ["-D", "forest.growth=eager"])
     with pytest.raises(ValueError, match="n_trees must be >= 1"):

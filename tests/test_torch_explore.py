@@ -181,10 +181,62 @@ def test_entropy_and_mi_vs_jax(shape):
         np.asarray(jinfo.xlogx(jnp.asarray(counts / 20))), rtol=1e-5,
         atol=1e-7)
     if len(shape) > 1:
-        np.testing.assert_allclose(
-            tinfo.mutual_information(torch.from_numpy(counts)).numpy(),
-            np.asarray(jinfo.mutual_information(jnp.asarray(counts))),
-            rtol=1e-5, atol=1e-7)
+        got = tinfo.mutual_information(torch.from_numpy(counts)).numpy()
+        want = np.asarray(jinfo.mutual_information(jnp.asarray(counts)))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(10, 10, 9, 9), (10, 10, 81, 2),
+                                   (4, 40, 3), (5, 5, 25, 2), (6, 4, 2),
+                                   (3, 21, 3), (3, 16, 7), (3, 29, 4),
+                                   (3, 24, 9)])
+def test_mutual_information_sums_in_xla_order(shape):
+    """A sum over two axes is one reduction in XLA: in row-major order, or
+    with the outer axis in vector lanes, and in windows past 32 (C11).
+    The hospital table's pair blocks are [9, 9] and [81, 2], the churn
+    table's [5, 5] and [25, 2]."""
+    rng = np.random.default_rng(sum(shape))
+    counts = rng.integers(0, 300, size=shape).astype(np.float32)
+    counts[rng.random(shape) < 0.3] = 0.0
+    got = tinfo.mutual_information(torch.from_numpy(counts)).numpy()
+    want = np.asarray(jinfo.mutual_information(jnp.asarray(counts)))
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    terms = rng.standard_normal(shape).astype(np.float32)
+    for axes in ((-2, -1), -2, -1):
+        assert np.array_equal(
+            tinfo.xla_sum(torch.from_numpy(terms), axes).numpy(),
+            np.asarray(jnp.sum(jnp.asarray(terms), axis=axes))), axes
+
+
+def test_fma_rounds_once_as_xla():
+    """``fma`` is a correctly rounded f32 FMA (C13): where the float64 sum
+    sits on an f32 midpoint, its TwoSum error breaks the tie, as XLA's
+    contracted ``a * b + c`` does."""
+    import jax
+
+    f32 = np.float32
+    a, c = f32(1 + 2 ** -12), f32(2.0 ** -80)
+    assert float(tinfo.fma(torch.tensor(a), torch.tensor(a),
+                           torch.tensor(c))) == float(f32(1.0004884))
+    jfma = jax.jit(lambda x, y, z: x * y + z)
+    assert f32(jfma(a, a, c)) == f32(1.0004884)
+    rng = np.random.default_rng(13)
+    n = 20_000
+    # midpoints by construction: (1 + m 2^-12)^2 carries the bit 2^-24
+    m = rng.integers(1, 2 ** 11, n) * 2 + 1
+    x = (1 + m * 2.0 ** -12).astype(f32) * f32(2.0) ** rng.integers(
+        -20, 20, n).astype(f32)
+    tiny = (rng.choice([-1.0, 1.0], n) * 2.0 ** rng.integers(
+        -120, -60, n)).astype(f32) * np.abs(x) * np.abs(x)
+    xs = [x, rng.standard_normal(n).astype(f32)]
+    ys = [x, rng.standard_normal(n).astype(f32) * f32(1e3)]
+    zs = [tiny.astype(f32), (rng.standard_normal(n)
+                             * 10.0 ** rng.integers(-30, 5, n)).astype(f32)]
+    for xa, ya, za in zip(xs, ys, zs):
+        got = tinfo.fma(torch.from_numpy(xa), torch.from_numpy(ya),
+                        torch.from_numpy(za)).numpy()
+        want = np.asarray(jfma(xa, ya, za))
+        assert np.array_equal(got.view(np.int32), want.view(np.int32))
 
 
 # --------------------------------------------------------------------------
@@ -281,10 +333,9 @@ def test_mi_scores_and_selection_vs_jax(monkeypatch):
                  "class_cond_pair_mi"):
         g, w = getattr(got, name), getattr(want, name)
         assert list(g) == list(w), name
-        # f32 logs of XLA and torch differ in the last ulps; atol for the
-        # values near 0, where cancellation leaves no relative precision
-        np.testing.assert_allclose(list(g.values()), list(w.values()),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        # the logs are XLA's and every sum runs in XLA's order: bit for bit
+        assert np.array_equal(np.float32(list(g.values())),
+                              np.float32(list(w.values()))), name
     for algo in ALGORITHMS:
         g = tmi.SCORE_ALGORITHMS[algo](got, redundancy_factor=0.5)
         w = jmi.SCORE_ALGORITHMS[algo](want, redundancy_factor=0.5)
@@ -333,15 +384,10 @@ def _mi_fixture(tmp_path, n=2500, seed=61):
 
 
 def _mi_lines_close(j_text, t_text):
-    j_lines, t_lines = j_text.splitlines(), t_text.splitlines()
-    assert len(j_lines) == len(t_lines)
-    for j_line, t_line in zip(j_lines, t_lines):
-        jf, tf = j_line.split(","), t_line.split(",")
-        assert jf[:-1] == tf[:-1], (j_line, t_line)
-        # f32 MI of XLA and torch: last-ulp differences, atol near 0
-        np.testing.assert_allclose(float(tf[-1]), float(jf[-1]), rtol=1e-5,
-                                   atol=1e-6)
-    return t_lines
+    """The port's MI file equals the JAX CLI's byte for byte: every score
+    sums in XLA's compiled order (``infotheory.xla_sum``)."""
+    assert t_text == j_text
+    return t_text.splitlines()
 
 
 @pytest.mark.parametrize("extra", [
@@ -405,8 +451,25 @@ def test_correlation_cli_byte_identical(tmp_path, capsys, verb, pairs,
         assert out[("3", "6")] > out[("2", "6")] > 0.05
 
 
+def test_mutual_information_plan_enable_runs(tmp_path, capsys):
+    """plan.enable=true (the default plan path) runs, with the file of the
+    hand-wired body (plan.enable=false) and of the JAX CLI's default."""
+    _mi_fixture(tmp_path, n=300)
+    props = _props(tmp_path / "mi.properties",
+                   **{"feature.schema.file.path": tmp_path / "hosp.json"})
+    base = ["MutualInformation", str(tmp_path / "hosp.csv")]
+    for flag in ("true", "false"):
+        tmain(base + [str(tmp_path / f"t_{flag}.txt"), "--conf", props,
+                      "-D", f"plan.enable={flag}", "--device", "cpu"])
+    jmain(base + [str(tmp_path / "j.txt"), "--conf", props])
+    assert capsys.readouterr().out == ""
+    want = (tmp_path / "j.txt").read_bytes()
+    assert (tmp_path / "t_true.txt").read_bytes() == want
+    assert (tmp_path / "t_false.txt").read_bytes() == want
+
+
 @pytest.mark.parametrize("key,value", [
-    ("plan.enable", "true"), ("train.sharded", "true"), ("mesh.shape", "2")])
+    ("train.sharded", "true"), ("mesh.shape", "2")])
 def test_mutual_information_refuses_later_keys(tmp_path, key, value):
     _mi_fixture(tmp_path, n=40)
     props = _props(tmp_path / "mi.properties",

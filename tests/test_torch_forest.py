@@ -111,26 +111,31 @@ def test_forest_equals_jax(tables, name, growth):
 
 
 @pytest.mark.parametrize("algorithm", ["entropy", "giniIndex"])
-@pytest.mark.parametrize("shape", [(33, 2, 4), (40, 3, 8), (16, 5, 2)])
+@pytest.mark.parametrize("shape", [(33, 2, 4), (40, 3, 8), (16, 5, 2),
+                                   (33, 2, 4, 3), (40, 3, 8, 4),
+                                   (15, 4, 1, 3), (24, 4, 3, 4),
+                                   (24, 8, 5, 3), (20, 6, 2, 4)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
     """The gain ratios of every (candidate, node) equal the JAX package's
     compiled ``_level_select`` bit for bit, on integer counts and on
-    hessian-weighted ones (multiples of 2^-10), two classes: (33, 2, 4) is
-    the hospital catalog's shape."""
+    hessian-weighted ones (multiples of 2^-10), with (T, S, K[, C])
+    candidates, segments, nodes and classes (two unless given): (33, 2, 4)
+    is the hospital catalog's shape, K = 1 a root level, and 4 or 8
+    segments XLA's vectorized segment sum."""
     import jax
     import jax.numpy as jnp
     from functools import partial
-    t, s, k = shape
-    rng = np.random.default_rng(t * 100 + s * 10 + k)
+    t, s, k, c = (shape + (2,))[:4]
+    rng = np.random.default_rng(t * 100 + s * 10 + k + (c - 2) * 1000)
     if weighted:
-        counts = (rng.integers(0, 12_800, size=(t, s, k, 2))
+        counts = (rng.integers(0, 12_800, size=(t, s, k, c))
                   / 1024.0).astype(np.float32)
     else:
-        counts = rng.integers(0, 50, size=(t, s, k, 2)).astype(np.float32)
+        counts = rng.integers(0, 50, size=(t, s, k, c)).astype(np.float32)
     counts[rng.random(counts.shape) < 0.3] = 0
     want = np.asarray(jax.jit(partial(
-        JT._level_select, k_nodes=k, s_max=s, n_classes=2,
+        JT._level_select, k_nodes=k, s_max=s, n_classes=c,
         algorithm=algorithm, min_node_size=1, min_gain=-1.0,
         with_ratio=True))(jnp.asarray(counts))["ratio"])
     got = TT._level_select(torch.from_numpy(counts), algorithm=algorithm,

@@ -18,7 +18,7 @@ from avenir_tpu.utils.schema import FeatureSchema as JSchema
 
 from avenir_tpu_torch import interop
 from avenir_tpu_torch.datagen import generators as TG
-from avenir_tpu_torch.parallel.pipeline import iter_chunks
+from avenir_tpu_torch.parallel.pipeline import DeviceFeed
 from avenir_tpu_torch.utils import config as tconfig
 from avenir_tpu_torch.utils import profiling
 from avenir_tpu_torch.utils.dataset import Featurizer as TFeaturizer
@@ -179,10 +179,13 @@ def test_logger_level_override(monkeypatch):
 
 @pytest.mark.parametrize("chunk", [1, 7, 64, 100])
 def test_iter_chunks_cover_rows_in_order(chunk):
+    """The chunked feed (``DeviceFeed.from_arrays``, which replaced
+    ``iter_chunks``) covers the rows in order."""
     a = np.arange(150, dtype=np.float32).reshape(50, 3)
     b = np.arange(50, dtype=np.int32).reshape(50, 1)
-    parts = list(iter_chunks((torch.from_numpy(a), None, torch.from_numpy(b)),
-                             chunk, torch.device("cpu")))
+    parts = [fc.arrays for fc in DeviceFeed.from_arrays(
+        (torch.from_numpy(a), None, torch.from_numpy(b)), chunk, depth=1,
+        device=torch.device("cpu"))]
     assert all(p[1] is None for p in parts)
     assert np.array_equal(torch.cat([p[0] for p in parts]).numpy(), a)
     assert np.array_equal(torch.cat([p[2] for p in parts]).numpy(), b)
