@@ -31,6 +31,7 @@
     python -m avenir_tpu_torch LogisticRegressionJob IN OUT --conf P
     python -m avenir_tpu_torch FisherDiscriminant   IN OUT --conf P
     python -m avenir_tpu_torch Projection           IN OUT --conf P
+    python -m avenir_tpu_torch ReinforcementLearnerTopology IN OUT --conf P
 
 Counterpart of ``avenir_tpu/cli/main.py`` (``main``, ``_load_table``,
 ``_knn_feature_post``, ``_emit_mi_scores``, the hand-wired bodies of the
@@ -46,8 +47,9 @@ forest verbs, ``_run_batch_bandit``'s four bandit verbs, the two boosting
 verbs, SameTypeSimilarity, FeatureCondProbJoiner, WordCounter, the
 streamed and per-shard Naive Bayes and MI paths (``_sharded_featurizer``,
 ``_run_nb_sharded``, ``_run_mi_sharded``), UnderSamplingBalancer,
-BaggingSampler, LogisticRegressionJob, FisherDiscriminant and
-Projection), with the same ``.properties`` keys, schemas and output
+BaggingSampler, LogisticRegressionJob, FisherDiscriminant,
+Projection, and the online loop of ReinforcementLearnerTopology), with
+the same ``.properties`` keys, schemas and output
 files. ``--device {cuda,cpu}`` (default cuda) picks where the job runs;
 with no GPU and no ``--device cpu`` the job raises.
 
@@ -112,7 +114,6 @@ _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 # item that ports them
 _BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS = {
-    "ReinforcementLearnerTopology": _BANDITS,
     "Lifecycle": _BANDITS,
 }
 
@@ -1950,6 +1951,91 @@ def run_projection(conf: JobConfig, in_path: str, out_path: str,
         delim_out=conf.get("field.delim.out", ","))
 
 
+def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
+                              device: torch.device) -> None:
+    """Online RL loop (reference ReinforcementLearnerTopology): events in
+    from ``in_path`` (one event id per line, ``id|enqueue_ts`` with
+    ``event.timestamps``), actions out to ``out_path`` as
+    ``eventID,action[,action...]``; rewards drained from
+    ``reward.data.path`` lines ``action,reward`` before each batch, like
+    the bolt (ReinforcementLearnerBolt.java:93-125). The learner's state
+    lives on ``device``. ``checkpoint.dir`` / ``checkpoint.interval``
+    checkpoint it, and a rerun over the same directory resumes: the event
+    lines already served are skipped, and the rewards already folded.
+
+    The JAX CLI's serving engine (``serving.engine=true``, with
+    ``lifecycle.dir`` and ``broker.shards``) is refused by name; the
+    config errors the JAX CLI raises come first, with its messages."""
+    from avenir_tpu_torch.stream.loop import InProcQueues, OnlineLearnerLoop
+    learner_type = conf.get_required("learner.type")
+    actions = conf.get_list("action.list")
+    if not actions:
+        raise ValueError("action.list must name the candidate actions")
+    use_engine = conf.get_bool("serving.engine", False)
+    if use_engine and conf.get("checkpoint.dir"):
+        raise ValueError(
+            "serving.engine=true does not use checkpoint.dir (in-run "
+            "durability is the broker ledger's job); point the engine at "
+            "the snapshot registry instead — set lifecycle.dir to restore "
+            "the registry head on start and publish the post-run learner "
+            "state as a new version (lifecycle/registry.py)")
+    if conf.get("lifecycle.dir") and not use_engine:
+        raise ValueError(
+            "lifecycle.dir is the engine's durability anchor; the loop "
+            "path keeps checkpoint.dir (set serving.engine=true)")
+    if conf.get("broker.shards") and not use_engine:
+        raise ValueError(
+            "broker.shards needs serving.engine=true — the fleet "
+            "transport is the engine's bulk protocol")
+    if use_engine:
+        engine_keys = ["serving.engine=true"] + [
+            f"{key}={conf.get(key)}" for key in ("lifecycle.dir",
+                                                 "broker.shards")
+            if conf.get(key)]
+        _refuse(", ".join(engine_keys),
+                f"the serving engine ({_BANDITS})")
+    queues = InProcQueues()
+    delim_regex = conf.get("field.delim.regex", ",")
+
+    def fill(resumed_events: int) -> None:
+        event_rows = read_csv_lines(in_path, delim_regex)
+        reward_path = conf.get("reward.data.path")
+        reward_rows = (read_csv_lines(reward_path, delim_regex)
+                       if reward_path else [])
+        for row in event_rows[resumed_events:]:
+            queues.push_event(row[0])
+        for row in reward_rows:
+            queues.push_reward(row[0], float(row[1]))
+
+    with OnlineLearnerLoop(
+            learner_type, actions, conf.as_dict(), queues,
+            seed=conf.get_int("random.seed", 0),
+            checkpoint_dir=conf.get("checkpoint.dir"),
+            checkpoint_interval=conf.get_int("checkpoint.interval", 100),
+            event_timestamps=conf.get_bool("event.timestamps", False),
+            device=device) as loop:
+        # the event file is read again in full on a resume: skip the lines
+        # the restored checkpoint served (the loop skips the rewards)
+        fill(loop.resumed_events)
+        stats = loop.run()
+    delim_out = conf.get("field.delim", ",")
+    with open(out_path, "w") as fh:
+        while True:
+            entry = queues.pop_action()
+            if entry is None:
+                break
+            event_id, selections = entry
+            fh.write(delim_out.join([event_id] + selections) + "\n")
+    print(f'{{"events": {stats.events}, "rewards": {stats.rewards}, '
+          f'"actions": {stats.actions_written}}}')
+
+
+# a retried attempt would resume from checkpoint.dir and write only the
+# tail of the action file, not the whole: the loop owns its durability
+# (checkpoint and event replay), so the job-level retry budget skips it
+run_reinforcement_learner.retry_safe = False
+
+
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "BayesianDistribution": run_bayesian_distribution,
     "BayesianPredictor": run_bayesian_predictor,
@@ -1962,6 +2048,7 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "LogisticRegressionJob": run_logistic_regression,
     "FisherDiscriminant": run_fisher_discriminant,
     "Projection": run_projection,
+    "ReinforcementLearnerTopology": run_reinforcement_learner,
     "MutualInformation": run_mutual_information,
     "CramerCorrelation": lambda c, i, o, d: run_correlation(
         c, i, o, d, "cramerIndex"),
@@ -2097,6 +2184,10 @@ def main(argv: List[str] = None) -> int:
                    conf.get_int("mapred.map.max.attempts", 1),
                    conf.get_int("mapred.reduce.max.attempts", 1),
                    conf.get_int("max.attempts", 1))
+    if not getattr(VERBS[args.verb], "retry_safe", True):
+        # a verb that keeps its own durability (checkpoint and replay)
+        # would write partial output on a rerun, not a full overwrite
+        attempts = 1
     job_span = (obs_telemetry.span(f"job.{args.verb}") if tel_hub
                 else contextlib.nullcontext())
     try:

@@ -2,12 +2,14 @@
 Cramér correlation), elearn (KNN), hospital-readmission (mutual
 information) and abandoned-cart retarget (decision tree and forest)
 tutorials, the Markov-chain and HMM sequences (the email-marketing and
-customer-loyalty tutorials), the price-optimization bandit's arms and the
-email-marketing tutorial's purchase stream (the Projection stage's input).
+customer-loyalty tutorials), the price-optimization bandit's arms, the
+email-marketing tutorial's purchase stream (the Projection stage's input),
+the bursty event sequences and the online tutorial's lead-generation
+environment (``LeadGenSimulator``).
 
 A copy of the churn, elearn, hospital-readmission, retarget, price
-optimization, Markov sequence, tagged HMM and purchase-stream
-(``buy_xaction_rows``) sections of
+optimization, Markov sequence, tagged HMM, purchase-stream
+(``buy_xaction_rows``), event-sequence and lead-generation sections of
 ``avenir_tpu/datagen/generators.py``: the same numpy calls in the same
 order, so the same seed gives the same rows. The port imports nothing of
 the JAX package, and ``chip_smoke.py`` writes its CSVs from here.
@@ -413,3 +415,98 @@ def buy_xaction_rows(cust_count: int, days_count: int,
             xid += 1
             rows.append([cid, str(xid), str(day), str(amount)])
     return rows
+
+
+# --------------------------------------------------------------------------
+# event sequences (HMM tutorial: resource/event_seq.rb)
+# --------------------------------------------------------------------------
+
+EVENT_SEQ_EVENTS = ["SL", "SS", "SM", "ML", "MS", "MM", "LL", "LS", "LM"]
+
+
+def event_seq_rows(n: int, seed: int = 17, min_events: int = 5,
+                   max_events: int = 24) -> List[List[str]]:
+    """(custID, events...) rows with event_seq.rb's bursty structure: events
+    come in three hidden groups of three (S*/M*/L* prefixes) and ~30% of
+    picks trigger a 1-3 event burst inside the same group — the latent-group
+    persistence an HMM can recover."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        events: List[str] = []
+        for _ in range(int(rng.integers(min_events, max_events + 1))):
+            idx = int(rng.integers(0, len(EVENT_SEQ_EVENTS)))
+            events.append(EVENT_SEQ_EVENTS[idx])
+            if rng.integers(0, 10) < 3:
+                for _ in range(int(rng.integers(1, 4))):
+                    # burst picks only the group's first two members —
+                    # event_seq.rb:21 does `rand(2)`, kept for parity
+                    idx = (idx // 3) * 3 + int(rng.integers(0, 2))
+                    events.append(EVENT_SEQ_EVENTS[idx])
+        rows.append([f"E{i:010d}"] + events)
+    return rows
+
+
+# --------------------------------------------------------------------------
+# lead generation (online RL tutorial: resource/lead_gen.py)
+# --------------------------------------------------------------------------
+
+class LeadGenSimulator:
+    """The lead_gen.py environment: three actions with a known CTR
+    distribution per action (mean, stddev — actionCtrDistr
+    lead_gen.py:13), rewards reported once an action has been selected
+    ``sel_count_threshold`` times (lead_gen.py:14, 50-61). Drives
+    ``stream.loop.OnlineLearnerLoop`` through any queue adapter; tests check
+    the learner converges to ``best_action``."""
+
+    DEFAULT_CTR = {"page1": (30, 12), "page2": (60, 30), "page3": (80, 10)}
+
+    def __init__(self, ctr_distr: Dict[str, Tuple[int, int]] = None,
+                 sel_count_threshold: int = 50, seed: int = 23):
+        self.ctr_distr = dict(ctr_distr or self.DEFAULT_CTR)
+        self.threshold = sel_count_threshold
+        self._rng = np.random.default_rng(seed)
+        self._sel_counts = {a: 0 for a in self.ctr_distr}
+        self._event_num = 0
+
+    @property
+    def actions(self) -> List[str]:
+        return list(self.ctr_distr)
+
+    @property
+    def best_action(self) -> str:
+        return max(self.ctr_distr, key=lambda a: self.ctr_distr[a][0])
+
+    def next_event_id(self) -> str:
+        self._event_num += 1
+        return f"session{self._event_num:08d}"
+
+    def observe_action(self, action: str):
+        """Returns (action, reward) once the selection-count threshold trips
+        (an approximately normal CTR sample like lead_gen.py's 12-uniform
+        sum), else None."""
+        self._sel_counts[action] += 1
+        if self._sel_counts[action] < self.threshold:
+            return None
+        self._sel_counts[action] = 0
+        mean, std = self.ctr_distr[action]
+        reward = int(max(self._rng.normal(0.0, 1.0) * std + mean, 0.0))
+        return action, reward
+
+    def drive(self, loop, n_events: int) -> int:
+        """Pump n_events through an OnlineLearnerLoop: push event, step the
+        loop, consume the action, feed back rewards. Returns rewards sent."""
+        rewards_sent = 0
+        for _ in range(n_events):
+            loop.queues.push_event(self.next_event_id())
+            loop.step()
+            popped = loop.queues.pop_action()
+            if popped is None:
+                continue
+            _, actions = popped
+            for action in actions:
+                result = self.observe_action(action)
+                if result is not None:
+                    loop.queues.push_reward(*result)
+                    rewards_sent += 1
+        return rewards_sent

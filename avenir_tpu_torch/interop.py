@@ -13,7 +13,10 @@ the other's), and a batch bandit round as its ``group,item,count,reward``
 file, which each package's four bandit verbs read into the same
 selections. Neither needs a converter here. A boosted ensemble crosses
 over as its artifact too, or as the artifact's JSON object through
-:func:`boosted_model_from_dict`.
+:func:`boosted_model_from_dict`. A streaming learner's state crosses over
+as its fields (a JAX ``LearnerState``'s leaves as numpy) through
+:func:`learner_state_from_numpy`, so both packages can start from the
+same mid-run state.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from avenir_tpu_torch.models.bandits.learners import LearnerState
 from avenir_tpu_torch.models.boost import BoostedModel, model_from_payload
 from avenir_tpu_torch.models.hmm import HmmModel
 from avenir_tpu_torch.models.markov import MarkovModel
@@ -179,3 +183,11 @@ def boosted_model_from_dict(payload: dict, device: DeviceLike = "cuda"
     model's margins run on the device of the table they are given."""
     resolve_device(device)
     return model_from_payload(payload)
+
+
+def learner_state_from_numpy(fields: dict, device: DeviceLike = "cuda"
+                             ) -> LearnerState:
+    """A JAX ``LearnerState`` (its fields as numpy arrays, by name; the
+    uint32 key words widen to the port's int64 key) as the port's
+    ``models.bandits.learners.LearnerState`` on ``device``."""
+    return LearnerState.from_numpy(fields, device=device)

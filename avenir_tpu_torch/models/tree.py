@@ -735,6 +735,44 @@ def _lane_sum(x: torch.Tensor) -> torch.Tensor:
     return (lanes[..., 0] + lanes[..., 2]) + (lanes[..., 1] + lanes[..., 3])
 
 
+# XLA's CPU code for ``_level_select`` at 16 to 32 segments, read off the
+# LLVM IR of the compiled function (``XLA_FLAGS=--xla_dump_to``) and held
+# bit for bit at every S from 16 to 32, K from 1 to 5 and C from 2 to 4:
+# the loop over segments is vectorized in this many lanes; it leaves a
+# whole last vector to the scalar epilogue when S divides by the lanes
+# and the counts' interleaved loads (C of every K·C floats) have gaps,
+# K ≥ 2 and K·C ≤ 8 (_needs_epilogue). The segment-size entropy of the
+# denominator is a scalar chain below 30 segments and 8 lanes from 30.
+_SEG_LANES = {**{s: 8 for s in (16, 17, 18, 19, 24, 25, 26, 27, 32)},
+              **{s: 4 for s in (20, 21, 22, 23, 28, 29, 30, 31)}}
+_INTR_LANES_FROM = 30
+
+
+def _needs_epilogue(k_nodes: int, n_classes: int) -> bool:
+    return k_nodes >= 2 and k_nodes * n_classes <= 8
+
+
+def _vector_sum(x: torch.Tensor, y: Optional[torch.Tensor], lanes: int,
+                main: int) -> torch.Tensor:
+    """f32 sum over the last axis of ``x`` (of ``x·y`` with each product
+    fused into its add when ``y`` is given) as a vectorized loop compiles
+    it: the first ``main`` elements into ``lanes`` accumulators from +0,
+    the lanes halved pairwise, then the rest one by one."""
+    prod = ((lambda a, b, acc: it.fma(a, b, acc)) if y is not None
+            else (lambda a, b, acc: acc + a))
+    acc = torch.zeros_like(x[..., :lanes])
+    for j in range(0, main, lanes):
+        acc = prod(x[..., j:j + lanes],
+                   None if y is None else y[..., j:j + lanes], acc)
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    acc = acc[..., 0]
+    for s in range(main, x.shape[-1]):
+        acc = prod(x[..., s], None if y is None else y[..., s], acc)
+    return acc
+
+
 def _level_select(counts: torch.Tensor, *, algorithm: str,
                   min_node_size: int, min_gain: float,
                   cand_mask: Optional[torch.Tensor] = None,
@@ -757,9 +795,9 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
     as ``split_gains`` does: two candidates that split a node's rows into
     the same children in another segment order tie only up to that
     rounding, and the argmax then picks the candidate JAX picks. Bit for
-    bit at any class count with up to 15 segments; from 16 segments on
-    XLA's order over the segments is not reproduced and the ratios agree
-    within a few ulps."""
+    bit at any class count with up to 32 segments (``_SEG_LANES``); from
+    33 segments on XLA's order over the segments is not reproduced and
+    the ratios agree within a few ulps."""
     single = counts.dim() == 4
     if single:
         counts = counts[None]
@@ -792,15 +830,24 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
             # XLA vectorizes a segment axis of 4 or 8 and sums its
             # products in four-lane vectors
             acc = _lane_sum(seg_info * seg_n)
+        elif s_max in _SEG_LANES:
+            lanes = _SEG_LANES[s_max]
+            main = s_max - s_max % lanes
+            if main == s_max and _needs_epilogue(k_nodes, n_classes):
+                main -= lanes
+            acc = _vector_sum(seg_info, seg_n, lanes, main)
         else:
             acc = torch.zeros_like(seg_n[:, 0])
             for s in range(s_max):
                 acc = it.fma(seg_info[:, s], seg_n[:, s], acc)
         stat = (acc / it._nonzero(seg_n.sum(dim=-1))).reshape(
             kt, t_total, k_nodes)
-        intr = -it._sum(xlog2x(seg_n / it._nonzero(
-            seg_n.sum(dim=-1, keepdim=True))), -1).reshape(kt, t_total,
-                                                             k_nodes)
+        seg_x = xlog2x(seg_n / it._nonzero(seg_n.sum(dim=-1, keepdim=True)))
+        if _INTR_LANES_FROM <= s_max <= 32:
+            intr = -_vector_sum(seg_x, None, 8, s_max - s_max % 8)
+        else:
+            intr = -it._sum(seg_x, -1)
+        intr = intr.reshape(kt, t_total, k_nodes)
         gain = node_info(node_counts)[:, None, :] - stat
         ratio = torch.where(intr > 0, gain / it._nonzero(intr),
                             torch.zeros_like(gain))

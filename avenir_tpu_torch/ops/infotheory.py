@@ -258,6 +258,78 @@ def xla_sum(x: torch.Tensor, dim) -> torch.Tensor:
     return xla_sum(blocks, tuple(range(nl, nl + k)))
 
 
+def ftz(x: torch.Tensor) -> torch.Tensor:
+    """``x`` with subnormal values flushed to a zero of their sign, as
+    XLA's CPU code runs (its floating-point mode flushes every subnormal
+    result)."""
+    return torch.where(x.abs() < _MIN_NORM, x * 0.0, x)
+
+
+def _ftz_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return ftz(a * b)
+
+
+def xla_prod(x: torch.Tensor) -> torch.Tensor:
+    """f32 product over the last axis in the order of XLA's compiled CPU
+    reduction, as ``xla_sum`` adds: an axis of at most 32 elements one by
+    one from 1, a longer one padded with ones to a multiple of 32 (half
+    the pad in front), each window of 32 in order, then the windows'
+    products the same way; subnormal products flush to 0 (``ftz``)."""
+    n = x.shape[-1]
+    w = _XLA_REDUCE_WINDOW
+    if n <= w:
+        acc = torch.ones_like(x[..., 0])
+        for i in range(n):
+            acc = _ftz_mul(acc, x[..., i])
+        return acc
+    total = -(-n // w) * w
+    front = (total - n) // 2
+    x = torch.nn.functional.pad(x, [front, total - n - front], value=1.0)
+    return xla_prod(xla_prod(x.reshape(x.shape[:-1] + (total // w, w))))
+
+
+#: XLA's CPU backend rewrites a cumulative reduction longer than this into
+#: blocks of it (its reduce-window rewriter's base length)
+_XLA_SCAN_BASE = 16
+
+
+def _xla_scan(x: torch.Tensor, op, identity: float) -> torch.Tensor:
+    """Inclusive scan over the last axis as XLA's CPU code compiles
+    ``jnp.cumsum``/``jnp.cumprod`` (a reduce-window): up to 16 elements in
+    order from the identity; a longer axis padded at its end with the
+    identity to a multiple of 16, scanned in rows of 16, the rows' last
+    elements scanned the same way (recursively) and shifted one row, and
+    each row's elements combined with the scan of the rows before it."""
+    n = x.shape[-1]
+    b = _XLA_SCAN_BASE
+    if n <= b:
+        out, acc = [], torch.full_like(x[..., 0], identity)
+        for i in range(n):
+            acc = op(acc, x[..., i])
+            out.append(acc)
+        return torch.stack(out, dim=-1)
+    rows = -(-n // b)
+    x = torch.nn.functional.pad(x, [0, rows * b - n], value=identity)
+    within = _xla_scan(x.reshape(x.shape[:-1] + (rows, b)), op, identity)
+    before = _xla_scan(within[..., -1], op, identity)
+    before = torch.cat([torch.full_like(before[..., :1], identity),
+                        before[..., :-1]], dim=-1)
+    out = op(within, before[..., None])
+    return out.reshape(x.shape)[..., :n]
+
+
+def xla_cumsum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.cumsum`` along ``dim`` as XLA's CPU code compiles it
+    (``_xla_scan``)."""
+    return _xla_scan(x.movedim(dim, -1), torch.add, 0.0).movedim(-1, dim)
+
+
+def xla_cumprod(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """``jnp.cumprod`` along ``dim`` as XLA's CPU code compiles it
+    (``_xla_scan``), subnormal products flushed to 0 (``ftz``)."""
+    return _xla_scan(x.movedim(dim, -1), _ftz_mul, 1.0).movedim(-1, dim)
+
+
 def _sqrt(x: torch.Tensor) -> torch.Tensor:
     """f32 square root, correctly rounded on every device (through float64:
     CUDA's f32 ``sqrt`` differs from the CPU's in the last bit)."""

@@ -20,11 +20,22 @@ side on one card:
    session of one small kernel first) and ``calib`` (a first session of
    0.3 s, and 20 ms of sleep at each end of the job's). A summary line
    each: the sessions out of 5 whose trace names a kernel.
+3. ``clock``: sessions at 0, 5, 20, 45 and 90 s after the first (card
+   work between them), in three processes side by side: ``default`` (a
+   profiler a session, started and stopped), ``warmup`` (a profiler a
+   session under a one-step warm-up ``schedule``) and ``keepalive`` (one
+   profiler for the process, each session an active step of its
+   ``schedule``). A line a session: the seconds since the first, the
+   kernel events kept, the first launch's trace time less the host's
+   wall clock read just before it (ms; the host side's offset), the
+   kernels' start less their launch's (ms; the card side's) and where
+   the kept kernels lie in the session's trace window.
 
 Run from the root of a checkout, on the card::
 
     python -m avenir_tpu_torch.scripts.profiler_sessions gap --seconds 150
     python -m avenir_tpu_torch.scripts.profiler_sessions rounds
+    python -m avenir_tpu_torch.scripts.profiler_sessions clock
 """
 
 from __future__ import annotations
@@ -43,6 +54,8 @@ GAP_VARIANTS = (("default", "work", 0.0, {}), ("pad", "work", 1.0, {}),
 ROUND_VARIANTS = ("none", "tiny", "calib")
 ROUND_WORK_S = 22
 ROUNDS = 5
+CLOCK_AT_S = (0, 5, 20, 45, 90)
+CLOCK_VARIANTS = ("default", "warmup", "keepalive")
 
 
 class _Card:
@@ -178,17 +191,92 @@ def _round_worker(variant, tag, out):
           flush=True)
 
 
+def _clock_worker(variant, out):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    card = _Card()
+    torch = card.torch
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    card.work()
+    torch.cuda.synchronize()
+    paths = []
+    keepalive = None
+    if variant == "keepalive":
+        keepalive = profile(
+            activities=activities,
+            schedule=schedule(wait=1, warmup=1, active=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(paths[-1]))
+        keepalive.start()
+    t_first = None
+    for i, at in enumerate(CLOCK_AT_S):
+        while t_first is not None and time.time() < t_first + at:
+            for _ in range(20):
+                card.work()
+            torch.cuda.synchronize()
+        paths.append(os.path.join(out, f"clock-{variant}-{i}.json"))
+        if variant == "keepalive":
+            keepalive.step()                  # warm-up
+            keepalive.step()                  # active
+            prof = None
+        elif variant == "warmup":
+            prof = profile(activities=activities,
+                           schedule=schedule(wait=0, warmup=1, active=1),
+                           on_trace_ready=lambda p: p.export_chrome_trace(
+                               paths[-1]))
+            prof.start()
+            prof.step()                       # active
+        else:
+            prof = card.profile()
+            prof.start()
+        host_us = time.time_ns() / 1e3
+        if t_first is None:
+            t_first = time.time()
+        card.work()
+        torch.cuda.synchronize()
+        if variant == "keepalive":
+            keepalive.step()                  # the trace is written
+        elif variant == "warmup":
+            prof.step()
+            prof.stop()
+        else:
+            prof.stop()
+            prof.export_chrome_trace(paths[-1])
+        with open(paths[-1]) as fh:
+            events = json.load(fh)["traceEvents"]
+        os.remove(paths[-1])
+        stamps = [e["ts"] for e in events if "ts" in e]
+        launches = sorted(e["ts"] for e in events
+                          if e.get("cat") == "cuda_runtime"
+                          and "Launch" in str(e.get("name", "")))
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        by_corr = {e["args"].get("correlation"): e["ts"] for e in events
+                   if e.get("cat") == "cuda_runtime" and "args" in e}
+        offsets = [round((e["ts"] - by_corr[e["args"]["correlation"]])
+                         / 1e3, 3) for e in kernels
+                   if e.get("args", {}).get("correlation") in by_corr]
+        host_ms = (round((launches[0] - host_us) / 1e3, 3) if launches
+                   else None)
+        span = ((min(stamps), max(stamps)) if stamps else (0, 0))
+        where = [round((e["ts"] - span[0]) / 1e3, 3) for e in kernels][:4]
+        print(f"[clock {variant}] session {i} at "
+              f"{time.time() - t_first:.1f} s: kernels {len(kernels)}, "
+              f"first launch less host wall {host_ms} ms, kernel less "
+              f"launch ms {offsets[:4]}, kernels at ms {where} of a "
+              f"{(span[1] - span[0]) / 1e3:.3f} ms window", flush=True)
+    if keepalive is not None:
+        keepalive.stop()
+
+
 def _spawn(worker_args, env_extra, out):
     env = dict(os.environ, **env_extra)
     return subprocess.Popen(
         [sys.executable, "-m", "avenir_tpu_torch.scripts.profiler_sessions",
-         "worker", "--out", out] + worker_args, env=env,
+         "--out", out, "worker"] + worker_args, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("gap", "rounds", "worker"))
+    ap.add_argument("mode", choices=("gap", "rounds", "clock", "worker"))
     ap.add_argument("--seconds", type=float, default=150.0)
     ap.add_argument("--out", default=None)
     ap.add_argument("worker_args", nargs="*")
@@ -199,6 +287,8 @@ def main(argv=None) -> int:
             variant, gap_kind, gap_s, pad = rest
             _gap_worker(variant, gap_kind, float(gap_s), float(pad),
                         args.out)
+        elif kind == "clock":
+            _clock_worker(rest[0], args.out)
         else:
             _round_worker(rest[0], rest[1], args.out)
         return 0
@@ -213,6 +303,9 @@ def main(argv=None) -> int:
             procs = [_spawn(["gap", v, kind, str(args.seconds), str(pad)],
                             env, out)
                      for v, kind, pad, env in GAP_VARIANTS]
+        elif args.mode == "clock":
+            procs = [_spawn(["clock", v], {}, out)
+                     for v in CLOCK_VARIANTS]
         else:
             procs = [_spawn(["round", v, str(t)], {}, out)
                      for v in ROUND_VARIANTS for t in (1, 2)]

@@ -10,7 +10,13 @@ compute the same bits to write the same file. This module computes them:
 - ``split(key, num)``: ``jax.random.split``;
 - ``random_bits(key, shape)``: 32 random bits a position;
 - ``uniform(key, shape)``: f32 in [0, 1);
-- ``randint(key, shape, lo, hi)``: int32 in [lo, hi).
+- ``randint(key, shape, lo, hi)``: int32 in [lo, hi) (``hi`` may be a
+  tensor, broadcast against ``shape``);
+- ``gumbel(key, shape)``: f32 standard Gumbel draws (JAX's default
+  ``mode="low"``);
+- ``categorical(key, logits)``: the Gumbel-max draw along the last axis;
+- ``choice(key, n, p)``: ``jax.random.choice`` of one index of
+  ``arange(n)`` with probabilities ``p``, with replacement.
 
 A key is a ``[2]`` int64 tensor holding two unsigned 32-bit words. Each
 word is held in an int64 and masked to 32 bits after every add and shift,
@@ -103,19 +109,64 @@ def uniform(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     return bits.to(torch.int32).view(torch.float32) - 1.0
 
 
-def randint(key: torch.Tensor, shape: Shape, minval: int, maxval: int
-            ) -> torch.Tensor:
+def randint(key: torch.Tensor, shape: Shape, minval: int,
+            maxval: Union[int, torch.Tensor]) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` as int32: 64
     random bits a position (two subkeys' draws) reduced modulo the span
     with the 32-bit unsigned arithmetic JAX uses, whose products and sums
-    wrap at 2^32."""
-    lo, hi = int(np.int32(minval)), int(np.int32(maxval))
-    span = (hi - lo) & _MASK if hi > lo else 1
+    wrap at 2^32. ``maxval`` may be an int32 tensor broadcast against
+    ``shape`` (a bound a position, as a per-arm ring buffer's length)."""
+    lo = int(np.int32(minval))
     k1, k2 = split(key)
     higher = random_bits(k1, shape)
     lower = random_bits(k2, shape)
-    multiplier = (2 ** 16) % span
-    multiplier = ((multiplier * multiplier) & _MASK) % span
+    if isinstance(maxval, torch.Tensor):
+        hi = maxval.to(torch.int64).to(higher.device)
+        span = torch.where(hi > lo, (hi - lo) & _MASK,
+                           torch.ones_like(hi))
+        multiplier = (2 ** 16) % span
+        multiplier = ((multiplier * multiplier) & _MASK) % span
+    else:
+        hi = int(np.int32(maxval))
+        span = (hi - lo) & _MASK if hi > lo else 1
+        multiplier = (2 ** 16) % span
+        multiplier = ((multiplier * multiplier) & _MASK) % span
     offset = (((higher % span) * multiplier) & _MASK) + lower % span
     offset = (offset & _MASK) % span
     return (offset + lo).to(torch.int32)
+
+
+#: the smallest normal f32, the low end of the uniform a Gumbel draw takes
+_TINY = float(np.finfo(np.float32).tiny)
+
+
+def gumbel(key: torch.Tensor, shape: Shape) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in JAX's default ``mode="low"``:
+    ``-log(-log(u))`` of a uniform ``u`` in [tiny, 1), the logs XLA's CPU
+    logarithm (``ops.infotheory.xla_log``), as the compiled draw rounds
+    them."""
+    from avenir_tpu_torch.ops.infotheory import xla_log
+    u = uniform(key, shape) + _TINY
+    u = torch.clamp(u, min=_TINY)
+    return -xla_log(-xla_log(u))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    first index of the largest ``gumbel + logits`` (int64)."""
+    g = gumbel(key, tuple(logits.shape)).to(logits.device)
+    return torch.argmax(g + logits, dim=-1)
+
+
+def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(key, n, p=p)``, one draw with replacement (a
+    0-d int64): the compiled f32 cumulative sum of ``p`` (XLA's order,
+    ``ops.infotheory.xla_cumsum``), its last element times ``1 - u``, and
+    the count of cumulative sums below that (``searchsorted``, left)."""
+    from avenir_tpu_torch.ops.infotheory import xla_cumsum
+    if p.shape != (n,):
+        raise ValueError(f"p must be a vector of {n} probabilities, "
+                         f"got shape {tuple(p.shape)}")
+    cum = xla_cumsum(p.float())
+    r = cum[-1] * (1.0 - uniform(key, ()).to(cum.device))
+    return (cum < r).sum()

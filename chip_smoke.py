@@ -275,8 +275,8 @@ Phases (one line each; any failure exits non-zero):
 11. the main path's remaining modes (``text/``: K1 counts the (class,
    token) occurrences, one feature, the vocabulary as its bins;
    ``models/knn.regress`` and ``classify_from_neighbors``;
-   ``ops/distance.pairwise_full``): on two seeded corpora of 200,000
-   training and 50,000 test documents (5-40 tokens, two classes with
+   ``ops/distance.pairwise_full``): on two seeded corpora of 100,000
+   training and 25,000 test documents (5-40 tokens, two classes with
    planted class-skewed Zipf frequencies) over 30,000 words (C·V = 60,000,
    K1's global-atomics instantiation) and 4,096 (its shared-memory one),
    BayesianDistribution and BayesianPredictor with ``tabular.input=false``
@@ -314,18 +314,18 @@ Phases (one line each; any failure exits non-zero):
    with ``--device cpu``, stdout and files byte-identical:
    BayesianDistribution ``streaming.train`` over 2,097,152 churn rows
    (phase 3's tiled) in
-   8 MiB windows, one K1 launch a window, and over 1,048,576 elearn rows
+   8 MiB windows, one K1 launch a window, and over 524,288 elearn rows
    (continuous: no K1), each model equal to the card's in-memory train;
    ``shard.parts`` over 8 part files of 262,144 of those churn rows (K1
    once a shard) and MutualInformation over 8 of 131,072 hospital rows
    (K4 once a shard), equal to the merged jobs, then ``--resume`` after
    dropping one shard's commit (7 resumed, 1 computed, one launch, the
-   same bytes); LogisticRegressionJob on 1,048,576 elearn rows, 100
+   same bytes); LogisticRegressionJob on 524,288 elearn rows, 100
    iterations of the f32 device loop and of the float64 loop
    (``convergence.threshold=1e-5``), and a run split at iteration 40 and
    resumed from its history equal to the uninterrupted one;
    FisherDiscriminant on those rows; UnderSamplingBalancer (exact and
-   ``streaming.bootstrap``) and BaggingSampler over 1,048,576 churn
+   ``streaming.bootstrap``) and BaggingSampler over 524,288 churn
    lines; Projection of ~1,000,000 purchase rows, the native pass equal
    to the Python pass. Every K1 and K4 call held against its plain
    version; K1 timed at the window and shard shapes, K4 at the shard
@@ -347,7 +347,23 @@ Phases (one line each; any failure exits non-zero):
    fresh one: the card's NB misses the CPU's staged table and launches
    K1, KNN launches K2, every trace holds the job's host ops, and each
    fresh trace names ``cfb_counts_kernel`` or ``topk_kernel``;
-   ``--explain`` printing the plan with no launch.
+   ``--explain`` printing the plan with no launch;
+14. the online bandit loop (``online_phase``, also runnable alone), which
+   launches none of the port's kernels (the learners are torch ops):
+   ReinforcementLearnerTopology over 4,096 tutorial session ids and a
+   reward file of ``LeadGenSimulator`` rewards for a quarter of them, for
+   each of the ten learners on the card and with ``--device cpu`` (in
+   processes side by side), actions files and JSON lines byte-identical,
+   with each leg's host wall; ``run()`` alone on the card for each
+   learner over 1,024 of the events (its decisions/s); ``step()`` driven
+   by ``LeadGenSimulator`` for 256 events on the card and on the CPU, the
+   same picks and state, the most picked action the simulator's best;
+   one loop over ``RedisQueues`` on an in-process MiniRedis (pending
+   ledger armed) whose actions equal the in-process queues'; a
+   ``checkpoint.dir`` resume on the card whose state equals the saved
+   one, no reward folded twice; and, in a fresh process, one 64-event
+   ``run()`` batch of three learners under ``torch.profiler``: its torch
+   ops, the card's kernels and copies, and the busy share.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -5634,6 +5650,402 @@ def plan_phase(dev, work):
     return totals
 
 
+# phase 14: the online bandit loop (ReinforcementLearnerTopology)
+# E events through the verb (the card's legs and the --device cpu legs in
+# processes side by side), the events of run() timed alone on the card,
+# and the step() events the simulator drives
+ONLINE_EVENTS = 4096
+ONLINE_RATE_EVENTS = 1024
+ONLINE_STEPS = 256
+ONLINE_TYPES = ("randomGreedy", "upperConfidenceBoundOne",
+                "upperConfidenceBoundTwo", "softMax", "actionPursuit",
+                "rewardComparison", "exponentialWeight", "sampsonSampler",
+                "optimisticSampsonSampler", "intervalEstimator")
+ONLINE_PROFILED = ("randomGreedy", "softMax", "upperConfidenceBoundTwo")
+# the card legs that each take a process of their own: their 64-step
+# scans take most of the legs' time; the rest run in the script's process
+ONLINE_OWN_PROCESS = ("upperConfidenceBoundOne", "upperConfidenceBoundTwo")
+ONLINE_CONF = {"random.selection.prob": 0.5,
+               "prob.reduction.algorithm": "linear",
+               "prob.reduction.constant": 150, "reward.scale": 100}
+
+
+def online_inputs(work, n_events):
+    """The tutorial-shaped event file (one session id a line) and a reward
+    file of ``LeadGenSimulator`` rewards (``action,reward``) over its three
+    actions, a reward for every fourth event."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    sim = LeadGenSimulator(sel_count_threshold=1, seed=SEED % 1000)
+    rng = np.random.default_rng(SEED)
+    events = os.path.join(work, "events.txt")
+    rewards = os.path.join(work, "rewards.txt")
+    with open(events, "w") as fh:
+        fh.write("".join(sim.next_event_id() + "\n"
+                         for _ in range(n_events)))
+    with open(rewards, "w") as fh:
+        for _ in range(n_events // 4):
+            action, reward = sim.observe_action(
+                sim.actions[int(rng.integers(0, len(sim.actions)))])
+            fh.write(f"{action},{reward}\n")
+    return sim.actions, events, rewards
+
+
+def online_loop(learner_type, actions, events, rewards, on, n_events=None,
+                **kw):
+    """An ``OnlineLearnerLoop`` on ``on`` over in-process queues filled
+    from the event and reward files, as the verb fills them; with
+    ``n_events``, the first ``n_events`` events and a quarter as many
+    rewards (the files' ratio)."""
+    from avenir_tpu_torch.stream.loop import InProcQueues, OnlineLearnerLoop
+    queues = kw.pop("queues", None) or InProcQueues()
+    loop = OnlineLearnerLoop(learner_type, actions,
+                             dict(ONLINE_CONF, **{"random.seed": 7}),
+                             queues, seed=7, device=on, **kw)
+    with open(events) as fh:
+        event_ids = fh.read().split()[loop.resumed_events:]
+    with open(rewards) as fh:
+        reward_lines = fh.read().split()
+    if n_events is not None:
+        event_ids = event_ids[:n_events]
+        reward_lines = reward_lines[:n_events // 4]
+    if isinstance(queues, InProcQueues):
+        for line in event_ids:
+            queues.push_event(line)
+        for line in reward_lines:
+            action, reward = line.split(",")
+            queues.push_reward(action, float(reward))
+    else:
+        # a broker: one multi-value LPUSH a chunk (left to right, as
+        # pushes one by one)
+        for i in range(0, len(event_ids), 512):
+            queues._r.lpush(queues.event_queue, *event_ids[i:i + 512])
+        for i in range(0, len(reward_lines), 512):
+            queues._r.lpush(queues.reward_queue,
+                            *[f"{a},{float(r)}" for a, r in (
+                                line.split(",") for line in
+                                reward_lines[i:i + 512])])
+    return loop
+
+
+def drain_actions(queues):
+    out = []
+    while True:
+        entry = queues.pop_action()
+        if entry is None:
+            return out
+        out.append(entry)
+
+
+def online_profile_child(events, rewards) -> None:
+    """Run in a fresh process (its first profiler session keeps the card's
+    records, PERF.md §7): one 64-event ``run()`` batch of each of
+    ``ONLINE_PROFILED`` on the card under ``torch.profiler``, after a
+    batch of warm-up; prints one JSON line: the torch ops, the card's
+    kernels and the busy share (kernel time over the batch's wall) of
+    each. It sets up (imports, the card's context, the loops and their
+    queues) while the parent works, and touches the card only once a line
+    arrives on its stdin."""
+    from torch.profiler import ProfilerActivity, profile
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    actions = LeadGenSimulator().actions
+    torch.cuda.init()
+    loops = {t: online_loop(t, actions, events, rewards, "cuda")
+             for t in ONLINE_PROFILED}
+    sys.stdin.readline()
+    out = {}
+    for learner_type, loop in loops.items():
+        loop.run(max_events=64)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            loop.run(max_events=64)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        path = os.path.join(tempfile.mkdtemp(), "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            trace = json.load(fh)["traceEvents"]
+        ops = sum(1 for e in trace if e.get("cat") == "cpu_op"
+                  and str(e.get("name", "")).startswith("aten::"))
+        device = [e for e in trace if e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")]
+        out[learner_type] = {
+            "ops": ops, "kernels": len(device),
+            "busy": sum(e.get("dur", 0) for e in device) / 1e6 / wall,
+            "wall_ms": wall * 1e3}
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    print(json.dumps(out), flush=True)
+
+
+def online_verb_legs(work, events, on, types=ONLINE_TYPES, child=False):
+    """ReinforcementLearnerTopology for each of ``types`` on ``on`` into
+    ``actions-<type>-<on>.txt``: {type: (JSON line, host wall s)}; on the
+    CPU also ``step()``'s drive (``"step"``). A child process prints it
+    as JSON."""
+    from avenir_tpu_torch.cli.main import main as cli_main
+    out = {}
+    for learner_type in types:
+        path = os.path.join(work, f"actions-{learner_type}-{on}.txt")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(["ReinforcementLearnerTopology", events, path,
+                          "--conf", os.path.join(work, "rl.properties"),
+                          "-D", f"learner.type={learner_type}",
+                          "--device", on])
+        if on == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"phase 14 {learner_type} on {on}: exit "
+                                 f"{rc}")
+        out[learner_type] = (buf.getvalue(), wall)
+    if on == "cpu":
+        out["step"] = online_step_drive("cpu")
+    if child:
+        print(json.dumps(out), flush=True)
+    return out
+
+
+def online_step_drive(on) -> dict:
+    """``LeadGenSimulator.drive`` of ``ONLINE_STEPS`` events through
+    ``step()`` on ``on`` (the tutorial's randomGreedy), then 25 more
+    picks: the actions written, the picks, the rewards sent, the state
+    (as lists) and the drive's host wall."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    from avenir_tpu_torch.stream.loop import InProcQueues, OnlineLearnerLoop
+    sim = LeadGenSimulator(sel_count_threshold=5, seed=1)
+    loop = OnlineLearnerLoop("randomGreedy", sim.actions, ONLINE_CONF,
+                             InProcQueues(), seed=0, device=on)
+    recorded = []
+    pop = loop.queues.pop_action
+
+    def pop_recorded():
+        entry = pop()
+        if entry is not None:
+            recorded.append([entry[0], list(entry[1])])
+        return entry
+    loop.queues.pop_action = pop_recorded
+    t0 = time.perf_counter()
+    sent = sim.drive(loop, ONLINE_STEPS)
+    if torch.device(on).type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = [loop.learner.next_actions()[0] for _ in range(25)]
+    state = {k: v.tolist() for k, v in loop.learner.state.to_numpy().items()}
+    return {"picks": recorded, "after": after, "sent": sent,
+            "state": state, "wall": wall}
+
+
+def online_phase(dev, work):
+    """Phase 14: ReinforcementLearnerTopology and the loop under it on the
+    card, each against the CPU: the verb for each of the ten learners
+    (actions files and JSON lines byte-equal), ``step()`` driven by the
+    lead-generation simulator (the same picks, converging to the best
+    action), the Redis wire over an in-process MiniRedis (the in-process
+    queues' actions), a checkpoint resume (the saved state), and the
+    loop's dispatch: decisions/s of ``run()`` and ``step()``, the torch ops
+    and busy share of one 64-event ``run()`` batch. It launches none of
+    the port's kernels: the learners are torch ops."""
+    t_phase = time.perf_counter()
+    actions, events, rewards = online_inputs(work, ONLINE_EVENTS)
+    with open(os.path.join(work, "rl.properties"), "w") as fh:
+        fh.write(f"action.list={','.join(actions)}\n"
+                 f"reward.data.path={rewards}\nrandom.seed=7\n"
+                 + "".join(f"{k}={v}\n" for k, v in ONLINE_CONF.items()))
+    # the profiled batches' process sets up now and runs last, alone on
+    # the card
+    profiler = subprocess.Popen(
+        [sys.executable, "-c", "import sys; import chip_smoke; "
+         f"chip_smoke.online_profile_child({events!r}, {rewards!r})"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        return online_legs(dev, work, actions, events, rewards, profiler,
+                           t_phase)
+    finally:
+        if profiler.poll() is None:
+            profiler.kill()
+            profiler.wait()
+
+
+def online_wire_and_resume(dev, work, actions, events, rewards) -> str:
+    """Phase 14's checks that time nothing: one loop over ``RedisQueues``
+    on an in-process MiniRedis (a pending ledger armed) against the same
+    loop over in-process queues, and a ``checkpoint.dir`` resume on the
+    card; the line to log."""
+    from avenir_tpu_torch.models.bandits.learners import FIELDS
+    from avenir_tpu_torch.stream.loop import RedisQueues
+    from avenir_tpu_torch.stream.miniredis import (
+        MiniRedisClient, MiniRedisServer)
+    server = MiniRedisServer("localhost", 0).start()
+    try:
+        client = MiniRedisClient("localhost", server.port)
+        redis_q = RedisQueues(client=client, pending_queue="pendingQueue")
+        loop = online_loop("softMax", actions, events, rewards, dev,
+                           queues=redis_q)
+        loop.run()
+        wire = [raw.decode() for raw in reversed(
+            client.lrange("actionQueue", 0, -1))]
+        pending = client.llen("pendingQueue")
+        client.close()
+    finally:
+        server.close()
+    inproc = online_loop("softMax", actions, events, rewards, dev)
+    inproc.run()
+    local = [",".join([e] + sel) for e, sel in drain_actions(inproc.queues)]
+    if wire != local or pending != 0:
+        raise AssertionError(f"phase 14 Redis wire: {len(wire)} actions, "
+                             f"{pending} pending, differ from in-process")
+
+    # the restored state is the saved one, no reward folded twice
+    ckdir = os.path.join(work, "ck")
+    first = online_loop("exponentialWeight", actions, events, rewards, dev,
+                        checkpoint_dir=ckdir, checkpoint_interval=256)
+    first.run()
+    first.close()
+    resumed = online_loop("exponentialWeight", actions, events, rewards,
+                          dev, checkpoint_dir=ckdir, checkpoint_interval=256)
+    for name, _ in FIELDS:
+        a, b = getattr(first.learner.state, name), \
+            getattr(resumed.learner.state, name)
+        if b.device != a.device or not torch.equal(a, b):
+            raise AssertionError(f"phase 14 resume: state {name} differs")
+    if resumed.resumed_events != ONLINE_EVENTS or \
+            resumed.stats.rewards != first.stats.rewards:
+        raise AssertionError(f"phase 14 resume: counters {resumed.stats}")
+    resumed.run()
+    if resumed.stats.rewards != first.stats.rewards:
+        raise AssertionError("phase 14 resume folded a reward twice")
+    resumed.close()
+    return (f"phase 14 RedisQueues over MiniRedis: {len(wire)} actions "
+            "equal to InProcQueues', pending ledger empty; checkpoint.dir "
+            "resume on the card: state equal to the saved one at event "
+            f"{resumed.resumed_events}, no reward folded twice")
+
+
+def online_legs(dev, work, actions, events, rewards, profiler, t_phase):
+    """Phase 14's legs (``online_phase``), the profiling process waiting
+    for its go."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+
+    def at():
+        return f" [{time.perf_counter() - t_phase:.1f} s into the phase]"
+
+    # the verb for each learner: with --device cpu in one process, on the
+    # card for each of ONLINE_OWN_PROCESS in a process of its own and for
+    # the rest in this one, side by side (the legs are host-bound: one
+    # Python thread each, the card mostly idle); then, while those
+    # processes finish, the checks that time nothing
+    here = [t for t in ONLINE_TYPES if t not in ONLINE_OWN_PROCESS]
+    children = {}
+    for tag, on, types in [("cpu", "cpu", ONLINE_TYPES)] + [
+            (t, "cuda", (t,)) for t in ONLINE_OWN_PROCESS]:
+        children[tag] = subprocess.Popen(
+            [sys.executable, "-c", "import torch; torch.set_num_threads(2); "
+             "import chip_smoke; chip_smoke.online_verb_legs("
+             f"{work!r}, {events!r}, {on!r}, {types!r}, child=True)"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        card = online_verb_legs(work, events, "cuda", here)
+        checks = online_wire_and_resume(dev, work, actions, events, rewards)
+        done = {}
+        for tag, proc in children.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 14 {tag} legs: {err[-2000:]}")
+            done[tag] = json.loads(out.strip().splitlines()[-1])
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cpu = done.pop("cpu")
+    for got in done.values():
+        card.update(got)
+    for learner_type in ONLINE_TYPES:
+        same_bytes(f"phase 14 {learner_type} actions",
+                   os.path.join(work, f"actions-{learner_type}-cuda.txt"),
+                   os.path.join(work, f"actions-{learner_type}-cpu.txt"))
+        if card[learner_type][0] != cpu[learner_type][0]:
+            raise AssertionError(
+                f"phase 14 {learner_type}: JSON lines differ: "
+                f"{card[learner_type][0]!r} {cpu[learner_type][0]!r}")
+    summary = json.loads(card["randomGreedy"][0])
+    verb_walls = {t: card[t][1] for t in ONLINE_TYPES}
+    log(f"phase 14 ReinforcementLearnerTopology, {ONLINE_EVENTS} events, "
+        f"{summary['rewards']} rewards, 3 actions, 10 learners: actions "
+        "files and JSON lines byte-identical to --device cpu; the verb's "
+        "host wall (card / CPU, s; files, parsing and set-up included; "
+        f"{', '.join(ONLINE_OWN_PROCESS)} in processes of their own, the "
+        "CPU's legs in another, side by side): " + ", ".join(
+            f"{t} {card[t][1]:.2f}/{cpu[t][1]:.2f}" for t in ONLINE_TYPES)
+        + at())
+    log(checks + at())
+
+    # run() alone on the card, every other process done: the loop over
+    # in-process queues filled before the clock starts; a learner whose
+    # verb ran in another process first runs a 64-event warm-up loop here
+    rates = {}
+    for learner_type in ONLINE_TYPES:
+        if learner_type in ONLINE_OWN_PROCESS:
+            online_loop(learner_type, actions, events, rewards, dev,
+                        n_events=64).run()
+        loop = online_loop(learner_type, actions, events, rewards, dev,
+                           n_events=ONLINE_RATE_EVENTS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = loop.run()
+        torch.cuda.synchronize()
+        rates[learner_type] = ONLINE_RATE_EVENTS / (time.perf_counter() - t0)
+        if stats.events != ONLINE_RATE_EVENTS or \
+                stats.rewards != ONLINE_RATE_EVENTS // 4:
+            raise AssertionError(f"phase 14 run() {learner_type}: {stats}")
+    log(f"phase 14 run() decisions/s on the card (OnlineLearnerLoop.run "
+        f"alone, host clock; {ONLINE_RATE_EVENTS} events in 64-event "
+        f"batches, {ONLINE_RATE_EVENTS // 4} rewards folded first, "
+        "in-process queues): " + ", ".join(
+            f"{t} {r:.0f}" for t, r in rates.items()) + at())
+
+    # step(): the simulator drives the loop one event at a time (the
+    # CPU's drive ran in the --device cpu process)
+    card_step = online_step_drive(dev)
+    step_rate = ONLINE_STEPS / card_step["wall"]
+    for key in ("picks", "after", "sent", "state"):
+        if card_step[key] != cpu["step"][key]:
+            raise AssertionError(f"phase 14 step(): the card's {key} differ "
+                                 "from the CPU's")
+    after = card_step["after"]
+    best = max(set(after), key=after.count)
+    if best != LeadGenSimulator().best_action:
+        raise AssertionError(f"phase 14 step(): most picked {best}, not "
+                             f"{LeadGenSimulator().best_action}")
+    log(f"phase 14 step(): {ONLINE_STEPS} events driven by "
+        f"LeadGenSimulator, {card_step['sent']} rewards: picks and state "
+        f"equal to the CPU's, most picked {best}; {step_rate:.0f} "
+        "decisions/s on the card (host clock)" + at())
+
+    # one 64-event run() batch under torch.profiler, in the fresh process
+    prof_out, prof_err = profiler.communicate("go\n", timeout=600)
+    if profiler.returncode != 0:
+        raise AssertionError(f"phase 14 profile: {prof_err[-2000:]}")
+    prof = json.loads(prof_out.strip().splitlines()[-1])
+    log("phase 14 one 64-event run() batch on the card (torch.profiler, a "
+        "fresh process): " + "; ".join(
+            f"{t} {v['ops']} torch ops, {v['kernels']} kernels and copies, "
+            f"busy {v['busy']:.3f} of {v['wall_ms']:.1f} ms"
+            for t, v in prof.items()) + at())
+    if any(v["kernels"] < 1 for v in prof.values()):
+        raise AssertionError(f"phase 14: a profiled batch ran nothing on "
+                             f"the card: {prof}")
+    log(f"phase 14 wall: {time.perf_counter() - t_phase:.1f} s")
+    return {"run": rates, "verb_wall": verb_walls, "step": step_rate,
+            "profile": prof}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
@@ -5751,6 +6163,13 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     mark("13")
+    work = tempfile.mkdtemp(prefix="smoke-online-",
+                            dir=str(_build.BUILD_DIR))
+    try:
+        online_phase(dev, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mark("14")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name] + planned[name]
 

@@ -333,13 +333,17 @@ _LIVE_OBS = "'Live observability layer'"
 
 @pytest.mark.parametrize("args,title", [
     (["GradientBoostPredictor", "--obs-port", "0"], _LIVE_OBS),
-    (["ReinforcementLearnerTopology"], _BANDITS),
+    (["ReinforcementLearnerTopology", "-D", "serving.engine=true"],
+     _BANDITS),
     (["Lifecycle"], _BANDITS),
     (["NearestNeighbor", "--obs-port", "0"], _LIVE_OBS)])
 def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
-    """The refusal names the verb or flag and the ROADMAP item by title."""
-    props = _props(tmp_path / "p.properties", x="1")
-    name = args[1] if len(args) > 1 else args[0]
+    """The refusal names the verb, key or flag and the ROADMAP item by
+    title (the online verb runs; its serving engine is refused)."""
+    props = _props(tmp_path / "p.properties", x="1",
+                   **{"learner.type": "softMax", "action.list": "a,b"})
+    name = args[-1] if args[1:2] == ["-D"] else (
+        args[1] if len(args) > 1 else args[0])
     match = f"{re.escape(name)}.*ROADMAP queue A, {re.escape(title)}"
     with pytest.raises(ValueError, match=match):
         tmain([args[0], "in.csv", "out.txt", "--conf", props, *args[1:],

@@ -114,7 +114,11 @@ def test_forest_equals_jax(tables, name, growth):
 @pytest.mark.parametrize("shape", [(33, 2, 4), (40, 3, 8), (16, 5, 2),
                                    (33, 2, 4, 3), (40, 3, 8, 4),
                                    (15, 4, 1, 3), (24, 4, 3, 4),
-                                   (24, 8, 5, 3), (20, 6, 2, 4)])
+                                   (24, 8, 5, 3), (20, 6, 2, 4),
+                                   (20, 16, 3), (20, 16, 3, 3),
+                                   (20, 17, 2, 3), (20, 21, 4),
+                                   (20, 24, 1, 4), (20, 24, 2, 4),
+                                   (12, 32, 3), (12, 32, 5, 3)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
     """The gain ratios of every (candidate, node) equal the JAX package's
@@ -122,7 +126,11 @@ def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
     hessian-weighted ones (multiples of 2^-10), with (T, S, K[, C])
     candidates, segments, nodes and classes (two unless given): (33, 2, 4)
     is the hospital catalog's shape, K = 1 a root level, and 4 or 8
-    segments XLA's vectorized segment sum."""
+    segments XLA's vectorized segment sum; from 16 segments on the sum
+    runs in 8 or 4 lanes, with a scalar epilogue where the counts' loads
+    interleave with gaps (K = 3 at C = 2, K = 2 at C = 4) and without
+    (C = 3 at K = 3, K = 1, K = 5), and the 32-segment denominator in 8
+    lanes."""
     import jax
     import jax.numpy as jnp
     from functools import partial

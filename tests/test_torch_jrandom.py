@@ -150,3 +150,73 @@ def test_buy_xaction_rows_equal_jax(args):
     *shape, seed = args
     assert TG.buy_xaction_rows(*shape, seed=seed) == JG.buy_xaction_rows(
         *shape, seed=seed)
+
+
+_JITTED = {}
+
+
+def _jitted(name, fn):
+    """One compiled function a name, shared by the parametrized cases."""
+    if name not in _JITTED:
+        _JITTED[name] = jax.jit(fn)
+    return _JITTED[name]
+
+
+@pytest.mark.parametrize("seed", (0, 1, 42, -1, 2 ** 32 + 5))
+@pytest.mark.parametrize("shape", [(3,), (1000,), (4, 5)])
+def test_gumbel_bits(seed, shape):
+    """``jax.random.gumbel`` compiled (XLA's CPU logs), default mode."""
+    jk, tk = _keys(seed)
+    want = np.asarray(_jitted(("gumbel", shape), lambda k: jax.random.gumbel(
+        k, shape))(jk))
+    got = jrandom.gumbel(tk, shape).numpy()
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("seed", (0, 7, 42, -1))
+@pytest.mark.parametrize("n", [2, 3, 12, 40])
+def test_categorical_and_choice(seed, n):
+    jk, tk = _keys(seed)
+    rng = np.random.default_rng(abs(seed) + n)
+    logits = rng.normal(size=n).astype(np.float32) * 3
+    p = rng.random(n).astype(np.float32)
+    p /= p.sum()
+    categorical = _jitted("categorical", jax.random.categorical)
+    choice = _jitted(("choice", n),
+                     lambda k, q: jax.random.choice(k, n, p=q))
+    for k_j, k_t in zip(jax.random.split(jk, 8), jrandom.split(tk, 8)):
+        assert int(jrandom.categorical(k_t, torch.from_numpy(logits))) == \
+            int(categorical(k_j, logits))
+        assert int(jrandom.choice(k_t, n, torch.from_numpy(p))) == int(
+            choice(k_j, p))
+
+
+def test_known_answers_of_the_learners_draws():
+    """At PRNGKey(0): gumbel, categorical over [0, 1, 2] and choice over
+    [0.2, 0.3, 0.5], as ``jax.random`` draws them."""
+    key = jrandom.prng_key(0, "cpu")
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(0), (3,)))
+    assert np.array_equal(jrandom.gumbel(key, (3,)).numpy(), want)
+    logits = np.asarray([0.0, 1.0, 2.0], np.float32)
+    assert int(jrandom.categorical(key, torch.from_numpy(logits))) == int(
+        jax.random.categorical(jax.random.PRNGKey(0), logits))
+    p = np.asarray([0.2, 0.3, 0.5], np.float32)
+    assert int(jrandom.choice(key, 3, torch.from_numpy(p))) == int(
+        jax.random.choice(jax.random.PRNGKey(0), 3, p=p))
+    with pytest.raises(ValueError, match="3 probabilities"):
+        jrandom.choice(key, 3, torch.ones(4))
+
+
+@pytest.mark.parametrize("seed", (0, 5, -1))
+def test_randint_with_a_bound_a_position(seed):
+    """``maxval`` as a tensor broadcast against the shape, as the Thompson
+    samplers' per-arm ring-buffer bounds (0 and 1 give 0)."""
+    jk, tk = _keys(seed)
+    hi = np.asarray([1, 5, 256, 3, 0], np.int32)
+    assert np.array_equal(
+        jrandom.randint(tk, (5,), 0, torch.from_numpy(hi)).numpy(),
+        np.asarray(jax.random.randint(jk, (5,), 0, hi)))
+    assert np.array_equal(
+        jrandom.randint(tk, (5, 7), 0, torch.from_numpy(hi)[:, None]).numpy(),
+        np.asarray(jax.random.randint(jk, (5, 7), 0, hi[:, None])))
