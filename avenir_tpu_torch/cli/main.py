@@ -111,11 +111,9 @@ _LATER_MI = {"train.sharded": _MULTI}
 _LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
-# item that ports them
+# item that ports them (none: every verb runs)
 _BANDITS = roadmap_item("Bandits and streaming serving")
-_LATER_VERBS = {
-    "Lifecycle": _BANDITS,
-}
+_LATER_VERBS: Dict[str, str] = {}
 
 
 def _refuse(key: str, later: str) -> None:
@@ -1963,9 +1961,23 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
     checkpoint it, and a rerun over the same directory resumes: the event
     lines already served are skipped, and the rewards already folded.
 
-    The JAX CLI's serving engine (``serving.engine=true``, with
-    ``lifecycle.dir`` and ``broker.shards``) is refused by name; the
-    config errors the JAX CLI raises come first, with its messages."""
+    ``serving.engine=true`` runs the pipelined ``ServingEngine``
+    (``stream/engine.py``): the loop's actions file, byte for byte, on
+    these queues filled before the run, at the default
+    ``engine.max.batch`` (a smaller cap chunks the draws otherwise:
+    another stream of the same distribution). Its keys:
+    ``engine.min.batch`` / ``engine.max.batch`` (the adaptive batch's
+    bounds), ``engine.reward.drain.max`` (the reward sweep's bound), and
+    the admission gate, ``engine.admission.high`` / ``.low``,
+    ``engine.shed.policy`` (``reject-new`` | ``drop-oldest``),
+    ``engine.shed.chunk``: past the high mark events are retired
+    unserved, counted in the JSON line's ``shed_total`` (admitted + shed
+    = produced), until the depth falls to the low mark. The engine keeps
+    no checkpoints; ``lifecycle.dir`` names a snapshot registry
+    (``lifecycle/registry.py``) whose head it restores before serving and
+    to which it publishes the state after (``lifecycle.max.keep``
+    prunes). ``broker.shards`` (the broker fleet) is refused by name;
+    the config errors the JAX CLI raises come first, with its messages."""
     from avenir_tpu_torch.stream.loop import InProcQueues, OnlineLearnerLoop
     learner_type = conf.get_required("learner.type")
     actions = conf.get_list("action.list")
@@ -1979,25 +1991,24 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
             "the snapshot registry instead — set lifecycle.dir to restore "
             "the registry head on start and publish the post-run learner "
             "state as a new version (lifecycle/registry.py)")
-    if conf.get("lifecycle.dir") and not use_engine:
+    lifecycle_dir = conf.get("lifecycle.dir")
+    if lifecycle_dir and not use_engine:
         raise ValueError(
             "lifecycle.dir is the engine's durability anchor; the loop "
             "path keeps checkpoint.dir (set serving.engine=true)")
-    if conf.get("broker.shards") and not use_engine:
-        raise ValueError(
-            "broker.shards needs serving.engine=true — the fleet "
-            "transport is the engine's bulk protocol")
-    if use_engine:
-        engine_keys = ["serving.engine=true"] + [
-            f"{key}={conf.get(key)}" for key in ("lifecycle.dir",
-                                                 "broker.shards")
-            if conf.get(key)]
-        _refuse(", ".join(engine_keys),
-                f"the serving engine ({_BANDITS})")
+    if conf.get("broker.shards"):
+        if not use_engine:
+            raise ValueError(
+                "broker.shards needs serving.engine=true — the fleet "
+                "transport is the engine's bulk protocol")
+        _refuse(f"serving.engine=true, broker.shards="
+                f"{conf.get('broker.shards')}",
+                f"the broker fleet ({_BANDITS})")
+    event_ts = conf.get_bool("event.timestamps", False)
     queues = InProcQueues()
     delim_regex = conf.get("field.delim.regex", ",")
 
-    def fill(resumed_events: int) -> None:
+    def fill(resumed_events: int = 0) -> None:
         event_rows = read_csv_lines(in_path, delim_regex)
         reward_path = conf.get("reward.data.path")
         reward_rows = (read_csv_lines(reward_path, delim_regex)
@@ -2007,17 +2018,22 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
         for row in reward_rows:
             queues.push_reward(row[0], float(row[1]))
 
-    with OnlineLearnerLoop(
-            learner_type, actions, conf.as_dict(), queues,
-            seed=conf.get_int("random.seed", 0),
-            checkpoint_dir=conf.get("checkpoint.dir"),
-            checkpoint_interval=conf.get_int("checkpoint.interval", 100),
-            event_timestamps=conf.get_bool("event.timestamps", False),
-            device=device) as loop:
-        # the event file is read again in full on a resume: skip the lines
-        # the restored checkpoint served (the loop skips the rewards)
-        fill(loop.resumed_events)
-        stats = loop.run()
+    extra = ""
+    if use_engine:
+        stats, extra = _run_engine(conf, learner_type, actions, queues,
+                                   fill, event_ts, lifecycle_dir, device)
+    else:
+        with OnlineLearnerLoop(
+                learner_type, actions, conf.as_dict(), queues,
+                seed=conf.get_int("random.seed", 0),
+                checkpoint_dir=conf.get("checkpoint.dir"),
+                checkpoint_interval=conf.get_int("checkpoint.interval", 100),
+                event_timestamps=event_ts, device=device) as loop:
+            # the event file is read again in full on a resume: skip the
+            # lines the restored checkpoint served (the loop skips the
+            # rewards)
+            fill(loop.resumed_events)
+            stats = loop.run()
     delim_out = conf.get("field.delim", ",")
     with open(out_path, "w") as fh:
         while True:
@@ -2027,13 +2043,162 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
             event_id, selections = entry
             fh.write(delim_out.join([event_id] + selections) + "\n")
     print(f'{{"events": {stats.events}, "rewards": {stats.rewards}, '
-          f'"actions": {stats.actions_written}}}')
+          f'"actions": {stats.actions_written}{extra}}}')
+
+
+def _run_engine(conf: JobConfig, learner_type: str, actions: List[str],
+                queues, fill: Callable[[], None], event_ts: bool,
+                lifecycle_dir, device: torch.device):
+    """``serving.engine=true``: the engine over the filled queues, the
+    registry's head restored first and the state published after where
+    ``lifecycle.dir`` is set. Returns (the engine's stats, the JSON
+    line's extra keys)."""
+    from avenir_tpu_torch.stream.engine import AdmissionControl, ServingEngine
+    fill()
+    admission = None
+    high_water = conf.get_int("engine.admission.high", 0)
+    if high_water:
+        admission = AdmissionControl(
+            high_water=high_water,
+            low_water=conf.get_int("engine.admission.low", 0) or None,
+            policy=conf.get("engine.shed.policy", "reject-new"),
+            shed_chunk=conf.get_int("engine.shed.chunk", 256))
+    engine = ServingEngine(
+        learner_type, actions, conf.as_dict(), queues,
+        seed=conf.get_int("random.seed", 0),
+        min_batch=conf.get_int("engine.min.batch", 8),
+        max_batch=conf.get_int("engine.max.batch", 0) or None,
+        drain_max=conf.get_int("engine.reward.drain.max", 0) or None,
+        event_timestamps=event_ts, admission=admission, device=device)
+    registry = None
+    if lifecycle_dir:
+        from avenir_tpu_torch.lifecycle.registry import (
+            SnapshotRegistry, state_schema_hash)
+        registry = SnapshotRegistry(
+            lifecycle_dir,
+            max_to_keep=conf.get_int("lifecycle.max.keep", 0) or None)
+        head = registry.latest()
+        if head is not None:
+            if not head.has_payload:
+                raise ValueError(
+                    f"registry head v{head.version} at {lifecycle_dir} "
+                    f"is a file artifact "
+                    f"(kind={head.manifest.get('kind')!r}), not a "
+                    f"learner-state pytree; the engine restores only "
+                    f"learner-state snapshots — point lifecycle.dir "
+                    f"at a learner-state registry or publish batch "
+                    f"model files to a separate one")
+            if (head.schema_hash is not None and head.schema_hash
+                    != state_schema_hash(engine.learner.state)):
+                raise ValueError(
+                    f"registry head v{head.version} at {lifecycle_dir} "
+                    f"was published for a different learner shape "
+                    f"(schema {head.schema_hash}); clear the registry "
+                    f"or match learner.type/action.list/config")
+            engine.swap_state(head.restore(like=engine.learner.state),
+                              version=head.version)
+    stats = engine.run()
+    extra = ""
+    if registry is not None:
+        snap = registry.publish(
+            engine.learner.state, kind="learner-state",
+            train_rows=stats.rewards,
+            extra={"learner_type": learner_type, "events": stats.events})
+        extra += f', "lifecycle_version": {snap.version}'
+    extra += (f', "overlap_fraction": {round(stats.overlap_fraction, 3)}'
+              f', "batches": {stats.batches}')
+    if admission is not None:
+        extra += f', "shed_total": {stats.shed_total}'
+    return stats, extra
 
 
 # a retried attempt would resume from checkpoint.dir and write only the
 # tail of the action file, not the whole: the loop owns its durability
 # (checkpoint and event replay), so the job-level retry budget skips it
 run_reinforcement_learner.retry_safe = False
+
+
+def run_lifecycle(conf: JobConfig, in_path: str, out_path: str,
+                  device: torch.device) -> None:
+    """Snapshot-registry operations, the ``Lifecycle`` verb.
+    ``lifecycle.dir`` names the registry; ``lifecycle.command``:
+
+    - ``list``: every committed version's manifest, a JSON line each, to
+      ``out_path`` (``in_path`` unread);
+    - ``show``: the head's manifest to ``out_path``;
+    - ``publish``: ``in_path`` committed verbatim as a file artifact (a
+      batch verb's model file, versioned);
+    - ``retrain``: one bandit refit wave: a fresh learner
+      (``learner.type``, ``action.list``, the learner's keys) on
+      ``device``, refit from the reward ledger at ``in_path`` (lines
+      ``action,reward``), its state published; the manifest to
+      ``out_path``;
+    - ``prune``: all but the ``lifecycle.max.keep`` newest versions
+      removed.
+
+    Each prints a one-line JSON summary, as the JAX CLI's does."""
+    import json as _json
+    from avenir_tpu_torch.lifecycle.registry import SnapshotRegistry
+    lifecycle_dir = conf.get_required("lifecycle.dir")
+    registry = SnapshotRegistry(
+        lifecycle_dir,
+        max_to_keep=conf.get_int("lifecycle.max.keep", 0) or None)
+    command = conf.get("lifecycle.command", "list")
+    if command == "list":
+        versions = registry.versions()
+        with open(out_path, "w") as fh:
+            for v in versions:
+                fh.write(_json.dumps(registry.get(v).manifest,
+                                     sort_keys=True) + "\n")
+        print(_json.dumps({"lifecycle.versions": len(versions),
+                           "lifecycle.head": registry.latest_version()}))
+    elif command == "show":
+        head = registry.latest()
+        if head is None:
+            raise ValueError(f"registry at {lifecycle_dir} is empty")
+        with open(out_path, "w") as fh:
+            _json.dump(head.manifest, fh, sort_keys=True)
+        print(_json.dumps({"lifecycle.head": head.version}))
+    elif command == "publish":
+        snap = registry.publish(
+            file_path=in_path, kind=conf.get("lifecycle.kind", "model"),
+            extra={"published_by": "cli"})
+        print(_json.dumps({"lifecycle.published": snap.version}))
+    elif command == "retrain":
+        from avenir_tpu_torch.lifecycle.retrain import (
+            RetrainDaemon, bandit_refit_train_fn)
+        learner_type = conf.get_required("learner.type")
+        actions = conf.get_list("action.list")
+        if not actions:
+            raise ValueError("action.list must name the candidate actions")
+        delim = conf.get("field.delim.regex", ",")
+
+        def rewards():
+            return [(r[0], float(r[1]))
+                    for r in read_csv_lines(in_path, delim)]
+        daemon = RetrainDaemon(registry, bandit_refit_train_fn(
+            learner_type, actions, conf.as_dict(), rewards,
+            seed=conf.get_int("random.seed", 0), device=device))
+        snap = daemon.run_once()
+        if snap is None:
+            raise RuntimeError(
+                f"retrain wave failed: {daemon.last_error!r}")
+        with open(out_path, "w") as fh:
+            _json.dump(snap.manifest, fh, sort_keys=True)
+        print(_json.dumps({"lifecycle.published": snap.version,
+                           "lifecycle.train_rows":
+                               snap.manifest["train_rows"]}))
+    elif command == "prune":
+        keep = conf.get_int("lifecycle.max.keep")
+        if keep is None:
+            raise ValueError("prune needs lifecycle.max.keep")
+        removed = registry.prune(keep)
+        print(_json.dumps({"lifecycle.pruned": removed,
+                           "lifecycle.head": registry.latest_version()}))
+    else:
+        raise ValueError(
+            f"invalid lifecycle.command {command!r} (list, show, publish, "
+            "retrain, prune)")
 
 
 VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
@@ -2049,6 +2214,7 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
     "FisherDiscriminant": run_fisher_discriminant,
     "Projection": run_projection,
     "ReinforcementLearnerTopology": run_reinforcement_learner,
+    "Lifecycle": run_lifecycle,
     "MutualInformation": run_mutual_information,
     "CramerCorrelation": lambda c, i, o, d: run_correlation(
         c, i, o, d, "cramerIndex"),

@@ -1166,11 +1166,21 @@ class Learner:
         realization stream, as in the JAX package)."""
         return [self.next_action() for _ in range(self.cfg.batch_size)]
 
-    def next_action_batch(self, n: int) -> List[str]:
-        """n decisions, one host read for the whole batch: fused chunks
-        (``next_actions_fused``) where the algorithm has a fast path and
-        min-trial forcing is off, the rest as scalar steps."""
-        chunks = []
+    def next_action_batch_async(self, n: int) -> List[Tuple[torch.Tensor,
+                                                            int]]:
+        """Queue n decisions and return their actions as tensors where the
+        state lives, with no host read anywhere on this path: on the card
+        it never waits for the card. The serving engine
+        (``stream/engine.py``) queues batch n+1's decisions through this,
+        then writes batch n's actions while the card computes;
+        :meth:`resolve_action_batch` reads them. The state evolves as in
+        :meth:`next_action_batch`, which is this and an immediate
+        resolve: fused chunks (``next_actions_fused``) where the
+        algorithm has a fast path and min-trial forcing is off, the rest
+        as scalar steps. Returns ``[(actions, take), ...]``, one entry a
+        fused chunk and one for the scalar steps; the first ``take``
+        actions of each are the decisions."""
+        handles = []
         if (getattr(self.algo, "select_many", None) is not None
                 and self.cfg.min_trial <= 0):
             full, fused_rem, n = self._fused_split(n, self._FUSED_CHUNK_MAX)
@@ -1178,13 +1188,26 @@ class Learner:
                     [fused_rem] if fused_rem else []):
                 self.state, actions = next_actions_fused(
                     self.algo, self.state, self.cfg, r)
-                chunks.append(actions.long())
+                handles.append((actions.long(), r))
+        steps = []
         for _ in range(n):
             self.state, action = self.algo.next_action(self.state, self.cfg)
-            chunks.append(action.reshape(1).long())
-        if not chunks:
+            steps.append(action.reshape(1).long())
+        if steps:
+            handles.append((torch.cat(steps), n))
+        return handles
+
+    def resolve_action_batch(self, handles) -> List[str]:
+        """The blocking half of the pair: one host read of every chunk's
+        actions, mapped to action ids."""
+        if not handles:
             return []
-        return [self.actions[a] for a in torch.cat(chunks).tolist()]
+        ids = torch.cat([actions[:take] for actions, take in handles])
+        return [self.actions[a] for a in ids.tolist()]
+
+    def next_action_batch(self, n: int) -> List[str]:
+        """n decisions, one host read for the whole batch."""
+        return self.resolve_action_batch(self.next_action_batch_async(n))
 
     def set_reward_batch(self, pairs) -> None:
         """Fold (action_id, reward) pairs: in fused chunks where the

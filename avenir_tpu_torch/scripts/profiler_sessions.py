@@ -30,12 +30,22 @@ side on one card:
    wall clock read just before it (ms; the host side's offset), the
    kernels' start less their launch's (ms; the card side's) and where
    the kept kernels lie in the session's trace window.
+4. ``flush``: the ``clock`` schedule with a profiler a session, in four
+   processes side by side, each acting on the CUPTI activity buffers that
+   kineto fills: ``default``; ``forced`` (``cuptiActivityFlushAll`` with
+   ``CUPTI_ACTIVITY_FLAG_FLUSH_FORCED`` after the drain, before
+   ``stop``, through the libcupti the process has loaded); ``completed``
+   (the same call with flag 0, which returns only full buffers); and
+   ``config`` (``KINETO_CONFIG`` naming a file that raises
+   ``ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB`` to 512). A line a session: the
+   seconds since the first and the kernel events kept, then a summary.
 
 Run from the root of a checkout, on the card::
 
     python -m avenir_tpu_torch.scripts.profiler_sessions gap --seconds 150
     python -m avenir_tpu_torch.scripts.profiler_sessions rounds
     python -m avenir_tpu_torch.scripts.profiler_sessions clock
+    python -m avenir_tpu_torch.scripts.profiler_sessions flush
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 GAP_VARIANTS = (("default", "work", 0.0, {}), ("pad", "work", 1.0, {}),
                 ("noteardown", "work", 0.0, {"TEARDOWN_CUPTI": "0"}),
@@ -56,6 +67,34 @@ ROUND_WORK_S = 22
 ROUNDS = 5
 CLOCK_AT_S = (0, 5, 20, 45, 90)
 CLOCK_VARIANTS = ("default", "warmup", "keepalive")
+FLUSH_VARIANTS = ("default", "forced", "completed", "config")
+
+
+def loaded_cupti() -> Optional[str]:
+    """The path of the libcupti this process has loaded (kineto's), from
+    its own memory map; None before a profiler loaded one."""
+    with open("/proc/self/maps") as fh:
+        for line in fh:
+            path = line.split()[-1]
+            if "libcupti" in os.path.basename(path):
+                return path
+    return None
+
+
+def cupti_flush(forced: bool) -> Optional[str]:
+    """``cuptiActivityFlushAll`` on the loaded libcupti (the handle dlopen
+    gives for a loaded path is that library's): flag 1 forces partly
+    filled buffers out, 0 returns only full ones. Returns the library's
+    path, or None where none is loaded."""
+    import ctypes
+    path = loaded_cupti()
+    if path is None:
+        return None
+    lib = ctypes.CDLL(path)
+    status = lib.cuptiActivityFlushAll(ctypes.c_uint32(1 if forced else 0))
+    if status != 0:
+        raise RuntimeError(f"cuptiActivityFlushAll: CUPTI status {status}")
+    return path
 
 
 class _Card:
@@ -266,6 +305,41 @@ def _clock_worker(variant, out):
         keepalive.stop()
 
 
+def _flush_worker(variant, out):
+    card = _Card()
+    torch = card.torch
+    card.work()
+    torch.cuda.synchronize()
+    t_first = None
+    kept = []
+    lib = None
+    for i, at in enumerate(CLOCK_AT_S):
+        while t_first is not None and time.time() < t_first + at:
+            for _ in range(20):
+                card.work()
+            torch.cuda.synchronize()
+        path = os.path.join(out, f"flush-{variant}-{i}.json")
+        prof = card.profile()
+        prof.start()
+        if t_first is None:
+            t_first = time.time()
+        card.work()
+        card.work()
+        torch.cuda.synchronize()
+        if variant in ("forced", "completed"):
+            lib = cupti_flush(variant == "forced")
+        prof.stop()
+        prof.export_chrome_trace(path)
+        n, _, _, offsets = card.read(path)
+        kept.append(n)
+        print(f"[flush {variant}] session {i} at "
+              f"{time.time() - t_first:.1f} s: kernels {n}, kernel less "
+              f"launch ms {offsets[:3]}", flush=True)
+    print(f"[flush {variant}] SUMMARY kernels kept a session {kept} "
+          f"(of {kept[0] if kept else 0} in the first); libcupti {lib}; "
+          f"KINETO_CONFIG={os.environ.get('KINETO_CONFIG')}", flush=True)
+
+
 def _spawn(worker_args, env_extra, out):
     env = dict(os.environ, **env_extra)
     return subprocess.Popen(
@@ -276,7 +350,8 @@ def _spawn(worker_args, env_extra, out):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("gap", "rounds", "clock", "worker"))
+    ap.add_argument("mode", choices=("gap", "rounds", "clock", "flush",
+                                     "worker"))
     ap.add_argument("--seconds", type=float, default=150.0)
     ap.add_argument("--out", default=None)
     ap.add_argument("worker_args", nargs="*")
@@ -289,6 +364,8 @@ def main(argv=None) -> int:
                         args.out)
         elif kind == "clock":
             _clock_worker(rest[0], args.out)
+        elif kind == "flush":
+            _flush_worker(rest[0], args.out)
         else:
             _round_worker(rest[0], rest[1], args.out)
         return 0
@@ -306,6 +383,14 @@ def main(argv=None) -> int:
         elif args.mode == "clock":
             procs = [_spawn(["clock", v], {}, out)
                      for v in CLOCK_VARIANTS]
+        elif args.mode == "flush":
+            conf = os.path.join(out, "kineto.conf")
+            with open(conf, "w") as fh:
+                fh.write("ACTIVITIES_MAX_GPU_BUFFER_SIZE_MB=512\n")
+            procs = [_spawn(["flush", v],
+                            {"KINETO_CONFIG": conf} if v == "config"
+                            else {}, out)
+                     for v in FLUSH_VARIANTS]
         else:
             procs = [_spawn(["round", v, str(t)], {}, out)
                      for v in ROUND_VARIANTS for t in (1, 2)]

@@ -1,7 +1,7 @@
 """Online RL serving loop: the Storm topology around one learner.
 
 Counterpart of ``avenir_tpu/stream/loop.py`` (without ``GroupedLearner``,
-which goes with the serving engine). The reference's always-on path is a
+which goes with the grouped serving engine). The reference's always-on path is a
 Storm topology (ReinforcementLearnerTopology.java:42-85): RedisSpout
 polls an event queue, shuffle-groups tuples to ReinforcementLearnerBolt
 instances which drain rewards, call ``learner.nextActions()`` and push
@@ -18,7 +18,10 @@ Queue adapters: in-process deques, and a Redis adapter wire-compatible
 with the reference's lists (event rpop, action lpush
 ``eventID,action[,action...]``, reward lindex cursor — RedisSpout.java /
 RedisActionWriter.java / RedisRewardReader.java); ``redis`` is imported
-only when no client is given (``stream/miniredis.py`` is one).
+only when no client is given (``stream/miniredis.py`` is one). Their bulk
+methods (``pop_events``, ``write_and_ack``, ``shed_events``, ...) are the
+serving engine's transport (``stream/engine.py``): a batch in about three
+broker round trips.
 """
 
 from __future__ import annotations
@@ -28,11 +31,7 @@ from collections import Counter, deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
-import torch
-
-from avenir_tpu_torch.models.bandits.learners import (
-    FIELDS, Learner, LearnerState)
+from avenir_tpu_torch.models.bandits.learners import Learner
 from avenir_tpu_torch.obs import telemetry
 from avenir_tpu_torch.obs import tracing as _tracing
 from avenir_tpu_torch.utils.device import DeviceLike
@@ -113,7 +112,10 @@ def record_reward_fold(tel, t_start: float, n: int) -> None:
 # --------------------------------------------------------------------------
 
 class InProcQueues:
-    """Event/action/reward queues in one process (deque-backed)."""
+    """Event/action/reward queues in one process (deque-backed). The bulk
+    methods (``pop_events``, ``write_actions_bulk``, ``write_and_ack``,
+    ``ack_events``) let the serving engine drive every adapter the same
+    way; here they are loops."""
 
     def __init__(self):
         self.events: deque = deque()
@@ -127,8 +129,27 @@ class InProcQueues:
     def pop_event(self) -> Optional[str]:
         return self.events.pop() if self.events else None
 
+    def pop_events(self, max_n: int) -> List[str]:
+        out = []
+        while self.events and len(out) < max_n:
+            out.append(self.events.pop())
+        return out
+
     def ack_event(self, event_id: str) -> None:
         """In one process a popped event cannot be orphaned: no ledger."""
+
+    def ack_events(self, event_ids: Sequence[str]) -> None:
+        pass
+
+    def shed_events(self, max_n: int, newest: bool = False) -> List[str]:
+        """Admission control's shed: up to ``max_n`` events removed
+        unserved, the newest arrivals with ``newest`` (reject-new), else
+        the oldest (drop-oldest)."""
+        out = []
+        while self.events and len(out) < max_n:
+            out.append(self.events.popleft() if newest
+                       else self.events.pop())
+        return out
 
     def push_reward(self, action_id: str, reward: float) -> None:
         self.rewards.appendleft((action_id, reward))
@@ -143,6 +164,17 @@ class InProcQueues:
 
     def write_actions(self, event_id: str, actions: Sequence[str]) -> None:
         self.actions.appendleft((event_id, list(actions)))
+
+    def write_actions_bulk(
+            self, entries: Sequence[Tuple[str, Sequence[str]]]) -> None:
+        for event_id, actions in entries:
+            self.write_actions(event_id, actions)
+
+    def write_and_ack(
+            self, entries: Sequence[Tuple[str, Sequence[str]]]) -> None:
+        """The write, then the acks (no ledger in one process)."""
+        self.write_actions_bulk(entries)
+        self.ack_events([event_id for event_id, _ in entries])
 
     def pop_action(self):
         return self.actions.pop() if self.actions else None
@@ -205,6 +237,24 @@ class RedisQueues:
     # never moves a chunk boundary
     _DRAIN_MAX = 4096
 
+    def note_popped(self, raw: bytes) -> str:
+        """The bookkeeping of one raw payload popped outside this adapter
+        (a sweep over several adapters' queues on one pipeline): decoded,
+        and noted in the ledger's bookkeeping when it is armed, as
+        ``pop_event`` and ``pop_events`` do a reply."""
+        decoded = raw.decode()
+        if self.pending_queue is not None:
+            self._note_pending(decoded, raw)
+        return decoded
+
+    def ack_command(self, event_id: str) -> Optional[Tuple[str, int, bytes]]:
+        """The (pending_queue, count, raw) LREM that retires one ledger
+        entry, its bookkeeping dropped, for a caller that batches several
+        adapters' acks on one pipeline. None when no ledger is armed."""
+        if self.pending_queue is None:
+            return None
+        return (self.pending_queue, 1, self._ack_raw(event_id))
+
     def _note_pending(self, decoded: str, raw: bytes) -> None:
         """Key one popped payload by the full payload and by its id
         prefix, each a FIFO of raw payloads (an ack retires the oldest
@@ -258,6 +308,49 @@ class RedisQueues:
             self.recover_in_flight()
         return decoded
 
+    def pop_events(self, max_n: int) -> List[str]:
+        """Up to ``max_n`` events in one broker round trip: pipelined
+        RPOPLPUSHes with the ledger armed (each move atomic, so a crash
+        mid-batch loses nothing), RPOP with a count otherwise."""
+        if max_n <= 0:
+            return []
+        marker = self._reconnects()
+        if self.pending_queue is not None:
+            p = self._r.pipeline()
+            for _ in range(max_n):
+                p.rpoplpush(self.event_queue, self.pending_queue)
+            raws = p.execute()
+        else:
+            raws = self._r.rpop(self.event_queue, max_n) or []
+        out = []
+        for raw in raws:
+            if raw is None:
+                # an empty reply is not the end: a producer can push
+                # between two pipelined pops ([nil, X, nil]), and every
+                # value was moved into the ledger, so skip, do not stop
+                continue
+            decoded = raw.decode()
+            if self.pending_queue is not None:
+                self._note_pending(decoded, raw)
+            out.append(decoded)
+        if marker is not None and self._reconnects() != marker:
+            # a failover resent the sweep: after noting this sweep's pops,
+            # put the lost sweep's ledger entries back on the event queue
+            self.recover_in_flight()
+        return out
+
+    def shed_events(self, max_n: int, newest: bool = False) -> List[str]:
+        """Admission control's shed: up to ``max_n`` events in one broker
+        command, RPOP with a count (the oldest; drop-oldest) or LPOP (the
+        newest; reject-new). It bypasses the pending ledger: shed work is
+        discarded by design and needs no replay. The payloads returned
+        are the caller's count of what was shed."""
+        if max_n <= 0:
+            return []
+        cmd = self._r.lpop if newest else self._r.rpop
+        raws = cmd(self.event_queue, max_n)
+        return [raw.decode() for raw in (raws or [])]
+
     def _ack_raw(self, event_id: str):
         """Resolve an ack to the verbatim raw ledger bytes and drop the
         host-side bookkeeping."""
@@ -283,6 +376,16 @@ class RedisQueues:
         if self.pending_queue is not None:
             self._r.lrem(self.pending_queue, 1, self._ack_raw(event_id))
 
+    def ack_events(self, event_ids: Sequence[str]) -> None:
+        """Every LREM in one pipelined round trip, after the whole batch's
+        answers are written (a death before it replays the batch)."""
+        if self.pending_queue is None or not event_ids:
+            return
+        p = self._r.pipeline()
+        for event_id in event_ids:
+            p.lrem(self.pending_queue, 1, self._ack_raw(event_id))
+        p.execute()
+
     def drain_rewards(self, max_items: Optional[int] = None
                       ) -> List[Tuple[str, float]]:
         """Cursor scan like RedisRewardReader, tail-first (oldest under
@@ -292,25 +395,17 @@ class RedisQueues:
         cap = self._DRAIN_MAX if max_items is None else max(int(max_items), 0)
         out: List[Tuple[str, float]] = []
         if hasattr(self._r, "lrange"):
-            start = self._reward_cursor - cap + 1
             pipe = getattr(self._r, "pipeline", None)
             if pipe is not None:
                 p = pipe()
-                p.lrange(self.reward_queue, start, self._reward_cursor)
-                p.llen(self.reward_queue)
+                self.queue_reward_sweep(p, cap)
                 raws, total = p.execute()
             else:
+                start = self._reward_cursor - cap + 1
                 raws = self._r.lrange(self.reward_queue, start,
                                       self._reward_cursor)
                 total = self._r.llen(self.reward_queue)
-            # oldest first
-            for raw in reversed(raws):
-                action_id, _, reward = raw.decode().partition(self.delim)
-                out.append((action_id, self._reward_value(reward)))
-            self._reward_cursor -= len(raws)
-            self.reward_backlog = max(int(total) + self._reward_cursor + 1,
-                                      0)
-            return out
+            return self.apply_reward_sweep(raws, total)
         # clients without lrange: the lindex walk, the same bounded sweep
         while len(out) < cap:
             raw = self._r.lindex(self.reward_queue, self._reward_cursor)
@@ -331,6 +426,26 @@ class RedisQueues:
                 self.reward_backlog = 1 if probe is not None else 0
         return out
 
+    def queue_reward_sweep(self, pipe, cap: int) -> None:
+        """Queue this adapter's bounded reward sweep (the LRANGE window
+        off the cursor and an LLEN for the backlog) on a caller's
+        pipeline; :meth:`apply_reward_sweep` takes the two replies."""
+        start = self._reward_cursor - cap + 1
+        pipe.lrange(self.reward_queue, start, self._reward_cursor)
+        pipe.llen(self.reward_queue)
+
+    def apply_reward_sweep(self, raws, total) -> List[Tuple[str, float]]:
+        """One sweep's (LRANGE, LLEN) replies: the rewards oldest first
+        (LRANGE gives newest first under LPUSH producers), the cursor
+        moved past them, the backlog gauge refreshed."""
+        out: List[Tuple[str, float]] = []
+        for raw in reversed(raws):
+            action_id, _, reward = raw.decode().partition(self.delim)
+            out.append((action_id, self._reward_value(reward)))
+        self._reward_cursor -= len(raws)
+        self.reward_backlog = max(int(total) + self._reward_cursor + 1, 0)
+        return out
+
     @staticmethod
     def _reward_value(reward: str) -> float:
         """Reward value field -> float, peeling an opt-in trace suffix
@@ -345,6 +460,37 @@ class RedisQueues:
     def write_actions(self, event_id: str, actions: Sequence[str]) -> None:
         self._r.lpush(self.action_queue,
                       self.delim.join([event_id] + list(actions)))
+
+    def _payloads(self, entries) -> List[str]:
+        return [self.delim.join([event_id] + list(actions))
+                for event_id, actions in entries]
+
+    def write_actions_bulk(
+            self, entries: Sequence[Tuple[str, Sequence[str]]]) -> None:
+        """One LPUSH of every payload (a multi-value LPUSH pushes left to
+        right, so the queue ends as after one ``write_actions`` an
+        entry)."""
+        if not entries:
+            return
+        self._r.lpush(self.action_queue, *self._payloads(entries))
+
+    def write_and_ack(
+            self, entries: Sequence[Tuple[str, Sequence[str]]]) -> None:
+        """Answer and retire a whole batch in one round trip: the LPUSH
+        and every ledger LREM on one pipeline, the writes before the acks.
+        The broker runs them in order, so delivery stays at-least-once: a
+        death before the send replays the batch, after it the batch is
+        answered and acked."""
+        if not entries:
+            return
+        if self.pending_queue is None:
+            self.write_actions_bulk(entries)
+            return
+        p = self._r.pipeline()
+        p.lpush(self.action_queue, *self._payloads(entries))
+        for event_id, _ in entries:
+            p.lrem(self.pending_queue, 1, self._ack_raw(event_id))
+        p.execute()
 
     def depth(self) -> Optional[int]:
         """Pending-event count: one broker round trip, polled only while
@@ -385,36 +531,6 @@ class LoopStats:
     event_p99_ms: float = 0.0
     swaps: int = 0              # state swaps installed
     model_version: Optional[int] = None
-
-
-def _install_state(learner: Learner, snapshot: Any) -> None:
-    """Replace ``learner.state`` with a copy of ``snapshot`` (a
-    ``LearnerState`` or a dict of its fields as arrays) on the learner's
-    device, in the live dtypes; a field whose shape differs raises."""
-    live = learner.state
-    fields = {}
-    for name, _ in FIELDS:
-        ref = getattr(live, name)
-        new = (getattr(snapshot, name) if isinstance(snapshot, LearnerState)
-               else snapshot[name])
-        new = _as_like(new, ref)
-        if tuple(new.shape) != tuple(ref.shape):
-            raise ValueError(f"snapshot field {name} shape "
-                             f"{tuple(new.shape)} != live state shape "
-                             f"{tuple(ref.shape)}")
-        fields[name] = new
-    learner.state = LearnerState(**fields)
-
-
-def _as_like(value: Any, like: torch.Tensor) -> torch.Tensor:
-    """``value`` as a new tensor on ``like``'s device in its dtype (a
-    JAX key's uint32 words widened to the port's int64)."""
-    if isinstance(value, torch.Tensor):
-        return value.detach().to(like.device, like.dtype, copy=True)
-    arr = np.asarray(value)
-    if like.dtype == torch.int64:
-        arr = arr.astype(np.int64)
-    return torch.as_tensor(arr).to(like.device, like.dtype)
 
 
 class OnlineLearnerLoop:
@@ -470,22 +586,17 @@ class OnlineLearnerLoop:
 
     def swap_state(self, snapshot, version=None) -> float:
         """Install a learner-state snapshot at a step/batch boundary: as
-        stopping the loop, restoring the snapshot and resuming. Returns
-        the swap latency in ms (the ``lifecycle.swap`` span)."""
-        from avenir_tpu_torch.obs.exporters import set_hub_gauges_if_live
+        stopping the loop, restoring the snapshot and resuming
+        (``lifecycle.swap.install_state``). Returns the swap latency in
+        ms (the ``lifecycle.swap`` span)."""
+        from avenir_tpu_torch.lifecycle.swap import (
+            install_state, record_swap)
         t0 = time.perf_counter()
-        _install_state(self.learner, snapshot)
+        install_state(self.learner, snapshot)
         self.stats.swaps += 1
         if version is not None:
             self.stats.model_version = version
-        ms = (time.perf_counter() - t0) * 1e3
-        if self._tel.enabled:
-            self._tel.record("lifecycle.swap", ms)
-        gauges: Dict[str, float] = {"lifecycle.swap_total": self.stats.swaps}
-        if version is not None:
-            gauges["lifecycle.model_version"] = version
-        set_hub_gauges_if_live(gauges)
-        return ms
+        return record_swap(self._tel, t0, version, self.stats.swaps)
 
     def _maybe_swap(self) -> None:
         """Poll the swap source at the top of a step/batch, before the

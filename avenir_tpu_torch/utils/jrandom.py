@@ -64,8 +64,11 @@ def threefry2x32(key: torch.Tensor, x0: torch.Tensor, x1: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Threefry-2x32 block of 20 rounds on the word pairs (x0, x1)
     under ``key``: five groups of four rounds, each group followed by the
-    injection of the next key-schedule words and the group's number."""
-    k0, k1 = int(key[0]), int(key[1])
+    injection of the next key-schedule words and the group's number. The
+    key schedule is built from the key's elements as tensor ops where the
+    key lives, so a draw never reads its key to the host (on the card it
+    never waits for the card)."""
+    k0, k1 = key[0], key[1]
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK

@@ -275,8 +275,8 @@ Phases (one line each; any failure exits non-zero):
 11. the main path's remaining modes (``text/``: K1 counts the (class,
    token) occurrences, one feature, the vocabulary as its bins;
    ``models/knn.regress`` and ``classify_from_neighbors``;
-   ``ops/distance.pairwise_full``): on two seeded corpora of 100,000
-   training and 25,000 test documents (5-40 tokens, two classes with
+   ``ops/distance.pairwise_full``): on two seeded corpora of 50,000
+   training and 12,500 test documents (5-40 tokens, two classes with
    planted class-skewed Zipf frequencies) over 30,000 words (C·V = 60,000,
    K1's global-atomics instantiation) and 4,096 (its shared-memory one),
    BayesianDistribution and BayesianPredictor with ``tabular.input=false``
@@ -312,20 +312,20 @@ Phases (one line each; any failure exits non-zero):
    ``utils/projection.py``, ``naive_bayes.train_streamed``, the CLI's
    ``_run_nb_sharded`` and ``_run_mi_sharded``), each job on the card and
    with ``--device cpu``, stdout and files byte-identical:
-   BayesianDistribution ``streaming.train`` over 2,097,152 churn rows
+   BayesianDistribution ``streaming.train`` over 1,048,576 churn rows
    (phase 3's tiled) in
-   8 MiB windows, one K1 launch a window, and over 524,288 elearn rows
+   8 MiB windows, one K1 launch a window, and over 262,144 elearn rows
    (continuous: no K1), each model equal to the card's in-memory train;
-   ``shard.parts`` over 8 part files of 262,144 of those churn rows (K1
+   ``shard.parts`` over 8 part files of 131,072 of those churn rows (K1
    once a shard) and MutualInformation over 8 of 131,072 hospital rows
    (K4 once a shard), equal to the merged jobs, then ``--resume`` after
    dropping one shard's commit (7 resumed, 1 computed, one launch, the
-   same bytes); LogisticRegressionJob on 524,288 elearn rows, 100
+   same bytes); LogisticRegressionJob on 262,144 elearn rows, 100
    iterations of the f32 device loop and of the float64 loop
    (``convergence.threshold=1e-5``), and a run split at iteration 40 and
    resumed from its history equal to the uninterrupted one;
    FisherDiscriminant on those rows; UnderSamplingBalancer (exact and
-   ``streaming.bootstrap``) and BaggingSampler over 524,288 churn
+   ``streaming.bootstrap``) and BaggingSampler over 262,144 churn
    lines; Projection of ~1,000,000 purchase rows, the native pass equal
    to the Python pass. Every K1 and K4 call held against its plain
    version; K1 timed at the window and shard shapes, K4 at the shard
@@ -364,6 +364,26 @@ Phases (one line each; any failure exits non-zero):
    one, no reward folded twice; and, in a fresh process, one 64-event
    ``run()`` batch of three learners under ``torch.profiler``: its torch
    ops, the card's kernels and copies, and the busy share.
+15. the serving engine and the snapshot lifecycle (``engine_phase``, also
+   runnable alone, ``python3 chip_smoke.py engine_phase``), which launch
+   none of the port's kernels: ReinforcementLearnerTopology with
+   ``serving.engine=true`` on the first 1,024 of phase 14's ids for each
+   of the ten learners on the card (UCB1's and UCB2's in processes of
+   their own), each actions file byte-equal to the first 1,024 lines of
+   phase 14's loop file, the JSON lines' counts the loop's; the engine over ``RedisQueues`` on an in-process MiniRedis
+   equal to its in-process file; each learner's
+   ``next_action_batch_async`` at 1, 64, 256 and 64 + 9 decisions under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a synchronizing call
+   fails the phase), its actions equal to the CPU's; a ``lifecycle.dir``
+   round trip (a card run publishes v1, a second restores it and
+   publishes v2, equal to a ``--device cpu`` run over a copy of the
+   card's registry), ``Lifecycle retrain`` (its payload equal card to
+   CPU), ``list``, ``show`` and ``prune``; the admission gate
+   (``engine.admission.high``), shed + served = produced, card equal to
+   CPU; and the engine's decisions/s against ``OnlineLearnerLoop.run()``
+   on the same prefilled 1,024 events (UCB1, UCB2 256), its
+   ``overlap_fraction`` and its host ms a batch waiting for the card and
+   queueing its work.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -3955,11 +3975,12 @@ def boost_phase(dev, work):
 # phase 11: the main path's remaining modes
 # --------------------------------------------------------------------------
 
-# text Naive Bayes and WordCounter: 200,000 training and 50,000 test
-# documents of 5-40 tokens, on two vocabularies: C·V = 60,000 cells pass
+# text Naive Bayes and WordCounter: 50,000 training and 12,500 test
+# documents of 5-40 tokens (at 200,000 + 50,000 the whole script ran past
+# its 1,200 s limit), on two vocabularies: C·V = 60,000 cells pass
 # the 58,112 that K1 keeps in shared memory (its global-atomics
 # instantiation), 8,192 stay within them
-TEXT_DOCS, TEXT_TEST_DOCS = 200_000, 50_000
+TEXT_DOCS, TEXT_TEST_DOCS = 50_000, 12_500
 TEXT_LEN = (5, 40)
 TEXT_VOCABS = (30_000, 4_096)
 TOKEN_IDS = 1 << 24          # K1 at the token shape: 16,777,216 token ids
@@ -4392,16 +4413,17 @@ def modes_phase(dev, work):
 # phase 12: the last batch verbs, streamed and per-shard NB and MI
 # --------------------------------------------------------------------------
 
-# streamed NB: phase 3's churn rows tiled to 2,097,152 (the same rows the
-# per-shard train reads as 8 part files of 262,144), 8 MiB windows; elearn
-# rows tiled to 1,048,576 (continuous NB, logistic, Fisher); hospital
+# streamed NB: phase 3's churn rows tiled to 1,048,576 (the same rows the
+# per-shard train reads as 8 part files of 131,072), 8 MiB windows; elearn
+# rows tiled to 262,144 (continuous NB, logistic, Fisher); hospital
 # rows tiled to 8 part files of 131,072 (per-shard MI); the
-# samplers over 1,048,576 churn lines; ~1,000,000 purchase rows for the
+# samplers over 262,144 churn lines (at 2,097,152 and 1,048,576 the whole
+# script ran past its 1,200 s limit); ~1,000,000 purchase rows for the
 # projection (the email-marketing tutorial's buyhist stage)
-STREAM_CHURN_ROWS = 2_097_152
+STREAM_CHURN_ROWS = 1_048_576
 STREAM_WINDOW_BYTES = 8_388_608
-BATCH_ROWS = 1_048_576
-NB_SHARDS, NB_SHARD_ROWS = 8, 262_144
+BATCH_ROWS = 262_144
+NB_SHARDS, NB_SHARD_ROWS = 8, 131_072
 MI_SHARDS, MI_SHARD_ROWS = 8, 131_072
 # the elearn and hospital rows tiled from 32,768 of each (the hospital
 # generator takes ~0.2 ms a row on the host)
@@ -4633,7 +4655,7 @@ def batch_phase(dev, work):
                         p(f"lr_{loop}_{on}_hist.txt")])
         log(f"phase 12 LogisticRegressionJob {loop} loop: {report.strip()}")
     # the split run through the library on the card, the rows encoded
-    # once (the CLI parses 1,048,576 rows a run)
+    # once (the CLI parses BATCH_ROWS rows a run)
     table = table_of("elearn", p("elearn.csv"))
     y = (table.labels == table.class_values.index("fail")).float()
     t0 = time.perf_counter()
@@ -5690,6 +5712,15 @@ def online_inputs(work, n_events):
     return sim.actions, events, rewards
 
 
+def online_properties(work, actions, rewards) -> None:
+    """The verb's ``rl.properties``: the actions, the reward file, seed 7
+    and ``ONLINE_CONF``."""
+    with open(os.path.join(work, "rl.properties"), "w") as fh:
+        fh.write(f"action.list={','.join(actions)}\n"
+                 f"reward.data.path={rewards}\nrandom.seed=7\n"
+                 + "".join(f"{k}={v}\n" for k, v in ONLINE_CONF.items()))
+
+
 def online_loop(learner_type, actions, events, rewards, on, n_events=None,
                 **kw):
     """An ``OnlineLearnerLoop`` on ``on`` over in-process queues filled
@@ -5701,8 +5732,32 @@ def online_loop(learner_type, actions, events, rewards, on, n_events=None,
     loop = OnlineLearnerLoop(learner_type, actions,
                              dict(ONLINE_CONF, **{"random.seed": 7}),
                              queues, seed=7, device=on, **kw)
+    fill_online_queues(queues, events, rewards, loop.resumed_events,
+                       n_events)
+    return loop
+
+
+def online_engine(learner_type, actions, events, rewards, on, n_events=None,
+                  **kw):
+    """A ``ServingEngine`` on ``on`` over queues filled as
+    :func:`online_loop`'s."""
+    from avenir_tpu_torch.stream.engine import ServingEngine
+    from avenir_tpu_torch.stream.loop import InProcQueues
+    queues = kw.pop("queues", None) or InProcQueues()
+    engine = ServingEngine(learner_type, actions,
+                           dict(ONLINE_CONF, **{"random.seed": 7}), queues,
+                           seed=7, device=on, **kw)
+    fill_online_queues(queues, events, rewards, 0, n_events)
+    return engine
+
+
+def fill_online_queues(queues, events, rewards, skip, n_events):
+    """The event file's ids past the first ``skip`` and the reward file's
+    pairs into ``queues`` (the first ``n_events`` ids and a quarter as many
+    rewards where it is given)."""
+    from avenir_tpu_torch.stream.loop import InProcQueues
     with open(events) as fh:
-        event_ids = fh.read().split()[loop.resumed_events:]
+        event_ids = fh.read().split()[skip:]
     with open(rewards) as fh:
         reward_lines = fh.read().split()
     if n_events is not None:
@@ -5714,17 +5769,16 @@ def online_loop(learner_type, actions, events, rewards, on, n_events=None,
         for line in reward_lines:
             action, reward = line.split(",")
             queues.push_reward(action, float(reward))
-    else:
-        # a broker: one multi-value LPUSH a chunk (left to right, as
-        # pushes one by one)
-        for i in range(0, len(event_ids), 512):
-            queues._r.lpush(queues.event_queue, *event_ids[i:i + 512])
-        for i in range(0, len(reward_lines), 512):
-            queues._r.lpush(queues.reward_queue,
-                            *[f"{a},{float(r)}" for a, r in (
-                                line.split(",") for line in
-                                reward_lines[i:i + 512])])
-    return loop
+        return
+    # a broker: one multi-value LPUSH a chunk (left to right, as pushes
+    # one by one)
+    for i in range(0, len(event_ids), 512):
+        queues._r.lpush(queues.event_queue, *event_ids[i:i + 512])
+    for i in range(0, len(reward_lines), 512):
+        queues._r.lpush(queues.reward_queue,
+                        *[f"{a},{float(r)}" for a, r in (
+                            line.split(",") for line in
+                            reward_lines[i:i + 512])])
 
 
 def drain_actions(queues):
@@ -5778,30 +5832,34 @@ def online_profile_child(events, rewards) -> None:
     print(json.dumps(out), flush=True)
 
 
-def online_verb_legs(work, events, on, types=ONLINE_TYPES, child=False):
+def online_verb_legs(work, events, on, types=ONLINE_TYPES, child=False,
+                     engine=False):
     """ReinforcementLearnerTopology for each of ``types`` on ``on`` into
-    ``actions-<type>-<on>.txt``: {type: (JSON line, host wall s)}; on the
-    CPU also ``step()``'s drive (``"step"``). A child process prints it
-    as JSON."""
+    ``actions-<type>-<on>.txt`` (with ``engine``, ``serving.engine=true``
+    into ``engine-<type>-<on>.txt``): {type: (JSON line, host wall s)};
+    on the CPU, without ``engine``, also ``step()``'s drive (``"step"``).
+    A child process prints it as JSON."""
     from avenir_tpu_torch.cli.main import main as cli_main
     out = {}
     for learner_type in types:
-        path = os.path.join(work, f"actions-{learner_type}-{on}.txt")
+        path = os.path.join(work, f"{'engine' if engine else 'actions'}-"
+                                  f"{learner_type}-{on}.txt")
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli_main(["ReinforcementLearnerTopology", events, path,
                           "--conf", os.path.join(work, "rl.properties"),
                           "-D", f"learner.type={learner_type}",
+                          "-D", f"serving.engine={str(engine).lower()}",
                           "--device", on])
         if on == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if rc != 0:
-            raise AssertionError(f"phase 14 {learner_type} on {on}: exit "
-                                 f"{rc}")
+            raise AssertionError(f"phase {15 if engine else 14} "
+                                 f"{learner_type} on {on}: exit {rc}")
         out[learner_type] = (buf.getvalue(), wall)
-    if on == "cpu":
+    if on == "cpu" and not engine:
         out["step"] = online_step_drive("cpu")
     if child:
         print(json.dumps(out), flush=True)
@@ -5850,10 +5908,7 @@ def online_phase(dev, work):
     the port's kernels: the learners are torch ops."""
     t_phase = time.perf_counter()
     actions, events, rewards = online_inputs(work, ONLINE_EVENTS)
-    with open(os.path.join(work, "rl.properties"), "w") as fh:
-        fh.write(f"action.list={','.join(actions)}\n"
-                 f"reward.data.path={rewards}\nrandom.seed=7\n"
-                 + "".join(f"{k}={v}\n" for k, v in ONLINE_CONF.items()))
+    online_properties(work, actions, rewards)
     # the profiled batches' process sets up now and runs last, alone on
     # the card
     profiler = subprocess.Popen(
@@ -6046,11 +6101,378 @@ def online_legs(dev, work, actions, events, rewards, profiler, t_phase):
             "profile": prof}
 
 
-def main() -> int:
+# phase 15: the serving engine and the snapshot lifecycle. The engine's
+# verb legs on the first ENGINE_SHORT_EVENTS of phase 14's ids (UCB1's and
+# UCB2's in processes of their own, the other eight in a third; phase 14
+# and engine_rates hold the engine against the loop), the dispatch under
+# the sync check at ENGINE_SYNC_SIZES decisions, and the engine against
+# run() on ENGINE_RATE_EVENTS prefilled ids (UCB1/UCB2 on
+# ENGINE_RATE_UCB_EVENTS)
+ENGINE_SHORT_EVENTS = 1024
+ENGINE_SYNC_SIZES = (1, 64, 256, 64 + 9)
+ENGINE_RATE_EVENTS = 1024
+ENGINE_RATE_UCB_EVENTS = 256
+ENGINE_ADMISSION_HIGH = 512
+
+
+def engine_phase(dev, work):
+    """Phase 15: the serving engine (``stream/engine.py``) and the snapshot
+    lifecycle (``lifecycle/``) on the card: ``serving.engine=true``
+    through the verb for each of the ten learners on the first
+    ``ENGINE_SHORT_EVENTS`` ids, each actions file byte-equal to the
+    first lines of phase 14's loop file on the card (the engine equals the
+    loop on filled queues); the engine over ``RedisQueues`` on an
+    in-process MiniRedis equal to its in-process file; each learner's
+    ``next_action_batch_async`` under ``torch.cuda.set_sync_debug_mode
+    ("error")``; a ``lifecycle.dir`` round trip and the ``Lifecycle``
+    verb, card against CPU; the admission gate, card against CPU; and the
+    engine's decisions/s against ``OnlineLearnerLoop.run()`` on the same
+    prefilled events. Run alone (``python3 chip_smoke.py engine_phase``)
+    it first writes phase 14's inputs and runs its loop legs on the card.
+    It launches none of the port's kernels."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    t_phase = time.perf_counter()
+    events = os.path.join(work, "events.txt")
+    rewards = os.path.join(work, "rewards.txt")
+    if not os.path.exists(os.path.join(work, "rl.properties")):
+        actions, events, rewards = online_inputs(work, ONLINE_EVENTS)
+        online_properties(work, actions, rewards)
+        online_verb_legs(work, events, "cuda")
+        log(f"phase 15 alone: phase 14's loop legs on the card "
+            f"({time.perf_counter() - t_phase:.1f} s)")
+    actions = LeadGenSimulator().actions
+    short = os.path.join(work, "events-short.txt")
+    with open(events) as fh:
+        ids = fh.read().split()
+    with open(short, "w") as fh:
+        fh.write("".join(i + "\n" for i in ids[:ENGINE_SHORT_EVENTS]))
+    # the verb legs on the short file in processes beside this one's
+    # checks: UCB1 and UCB2 each in its own, the other eight in a third
+    rest = tuple(t for t in ONLINE_TYPES if t not in ONLINE_OWN_PROCESS)
+    legs = [(t,) for t in ONLINE_OWN_PROCESS] + [rest]
+    children = {types: subprocess.Popen(
+        [sys.executable, "-c", "import torch; torch.set_num_threads(2); "
+         "import chip_smoke; chip_smoke.online_verb_legs("
+         f"{work!r}, {short!r}, 'cuda', {types!r}, child=True, engine=True)"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for types in legs}
+    card = {}
+    try:
+        checks = [engine_wire(dev, work, actions, events, rewards),
+                  engine_dispatch_sync_free(dev, actions),
+                  engine_lifecycle(work, short, rewards),
+                  engine_admission(work, events)]
+        for types, proc in children.items():
+            out, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 15 {', '.join(types)} legs: "
+                                     f"{err[-2000:]}")
+            card.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in children.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    n = ENGINE_SHORT_EVENTS
+    for t in ONLINE_TYPES:
+        with open(os.path.join(work, f"engine-{t}-cuda.txt")) as fh:
+            got = fh.read().splitlines()
+        with open(os.path.join(work, f"actions-{t}-cuda.txt")) as fh:
+            want = fh.read().splitlines()[:n]
+        line = json.loads(card[t][0])
+        if got != want or len(got) != n:
+            raise AssertionError(f"phase 15 {t}: the engine's actions "
+                                 "differ from the loop's")
+        overlap = line.pop("overlap_fraction")
+        expect = {"events": n, "rewards": ONLINE_EVENTS // 4, "actions": n,
+                  "batches": -(-n // 64)}
+        if line != expect or not 0.0 <= overlap <= 1.0:
+            raise AssertionError(f"phase 15 {t}: JSON line {card[t][0]!r}")
+    log(f"phase 15 ReinforcementLearnerTopology serving.engine=true, ten "
+        f"learners, the first {n} of phase 14's {ONLINE_EVENTS} events "
+        f"({', '.join(ONLINE_OWN_PROCESS)} each in a process of its own, "
+        "the other eight in a third, beside the checks below): "
+        "actions files byte-identical to phase 14's loop files on the "
+        "card; the verb's host wall (s; files and set-up included): "
+        + ", ".join(f"{t} {card[t][1]:.2f}" for t in ONLINE_TYPES)
+        + f" [{time.perf_counter() - t_phase:.1f} s into the phase]")
+    for line in checks:
+        log(line)
+    rates = engine_rates(dev, actions, events, rewards)
+    log(f"phase 15 wall: {time.perf_counter() - t_phase:.1f} s")
+    return {"verb_wall": {t: card[t][1] for t in ONLINE_TYPES},
+            "rates": rates}
+
+
+def engine_wire(dev, work, actions, events, rewards) -> str:
+    """softMax's engine over ``RedisQueues`` on an in-process MiniRedis (a
+    pending ledger armed) against phase 14's in-process loop file."""
+    from avenir_tpu_torch.stream.loop import RedisQueues
+    from avenir_tpu_torch.stream.miniredis import (
+        MiniRedisClient, MiniRedisServer)
+    server = MiniRedisServer("localhost", 0).start()
+    try:
+        client = MiniRedisClient("localhost", server.port)
+        queues = RedisQueues(client=client, pending_queue="pendingQueue")
+        calls0 = client.calls
+        stats = online_engine("softMax", actions, events, rewards, dev,
+                              queues=queues).run()
+        trips = client.calls - calls0
+        wire = [raw.decode() for raw in reversed(
+            client.lrange("actionQueue", 0, -1))]
+        pending = client.llen("pendingQueue")
+        client.close()
+    finally:
+        server.close()
+    with open(os.path.join(work, "actions-softMax-cuda.txt")) as fh:
+        local = fh.read().splitlines()
+    if wire != local or pending != 0:
+        raise AssertionError(f"phase 15 Redis wire: {len(wire)} actions, "
+                             f"{pending} pending, differ from in-process")
+    return (f"phase 15 engine over RedisQueues on MiniRedis: {len(wire)} "
+            f"actions equal to the in-process loop's file (which the "
+            f"in-process engine's equals), pending ledger empty, {trips} "
+            f"broker round trips for {stats.batches} batches")
+
+
+def engine_dispatch_sync_free(dev, actions) -> str:
+    """Each learner's ``next_action_batch_async`` at ``ENGINE_SYNC_SIZES``
+    under ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing
+    call raises there and fails the phase. The resolved actions equal a
+    CPU learner's ``next_action_batch`` of the same sizes."""
+    from avenir_tpu_torch.models.bandits.learners import Learner
+    pairs = [(actions[i % len(actions)], float(10 * (i % 7)))
+             for i in range(40)]
+    synced, host_ms = {}, {}
+    for t in ONLINE_TYPES:
+        card = Learner(t, actions, ONLINE_CONF, 7, device=dev)
+        cpu = Learner(t, actions, ONLINE_CONF, 7, device="cpu")
+        for learner in (card, cpu):
+            learner.set_reward_batch(pairs)
+        torch.cuda.synchronize()
+        handles = []
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            for n in ENGINE_SYNC_SIZES:
+                handles.append(card.next_action_batch_async(n))
+        except RuntimeError:
+            import traceback
+            synced[t] = traceback.format_exc()[-1500:]
+        finally:
+            host_ms[t] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+        if t in synced:
+            continue
+        got = [card.resolve_action_batch(h) for h in handles]
+        if got != [cpu.next_action_batch(n) for n in ENGINE_SYNC_SIZES]:
+            raise AssertionError(f"phase 15 dispatch {t}: the card's "
+                                 "actions differ from the CPU's")
+    if synced:
+        raise AssertionError("phase 15: a synchronizing call in "
+                             "next_action_batch_async: " + "\n".join(
+                                 f"{t}: {tb}" for t, tb in synced.items()))
+    return ("phase 15 next_action_batch_async under set_sync_debug_mode("
+            f"'error') at {ENGINE_SYNC_SIZES} decisions: no synchronizing "
+            "call in any of the ten learners, actions equal to the CPU's; "
+            "host ms to queue the four: " + ", ".join(
+                f"{t} {ms:.1f}" for t, ms in host_ms.items()))
+
+
+def engine_verb(work, events, out, on, *extra, verb=None):
+    """The verb (``ReinforcementLearnerTopology`` with the engine, or
+    ``verb``) on ``on`` into ``out`` under ``work``: its JSON line."""
+    from avenir_tpu_torch.cli.main import main as cli_main
+    args = ([verb] if verb else ["ReinforcementLearnerTopology"]) + [
+        events, os.path.join(work, out), "--conf",
+        os.path.join(work, "rl.properties"), "--device", on]
+    if not verb:
+        args += ["-D", "serving.engine=true"]
+    for kv in extra:
+        args += ["-D", kv]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(args)
+    if rc != 0:
+        raise AssertionError(f"phase 15 {' '.join(args)}: exit {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def payload_diff(reg_a, reg_b, version):
+    """The leaves of a version's payload that differ between two
+    registries: each leaf's dtype, shape and bits equal, but a NaN equal
+    to any NaN (EXP3's weights overflow to inf over 1,024 rewards, as the
+    JAX package's do, and the card's NaN bits are not the CPU's)."""
+    def leaves(reg):
+        path = os.path.join(reg, f"v{version:07d}", "payload.npz")
+        with np.load(path) as zf:
+            return {k: zf[k] for k in zf.files}
+    a, b = leaves(reg_a), leaves(reg_b)
+    if sorted(a) != sorted(b):
+        return sorted(set(a) ^ set(b))
+    out = []
+    for k in sorted(a):
+        x, y = a[k], b[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            out.append(k)
+            continue
+        nan = np.isnan(x) if x.dtype.kind == "f" else np.zeros(x.shape, bool)
+        if x.dtype.kind == "f" and not np.array_equal(nan, np.isnan(y)):
+            out.append(k)
+        elif x[~nan].tobytes() != y[~nan].tobytes():
+            out.append(k)
+    return out
+
+
+def engine_lifecycle(work, events, rewards) -> str:
+    """A ``lifecycle.dir`` round trip (exponentialWeight): a card run
+    publishes v1; a second card run restores it and publishes v2, as a
+    ``--device cpu`` run does over a copy of the card's registry (the
+    files and the v2 payloads equal); ``Lifecycle retrain`` on the card
+    and the CPU (payloads equal), ``list``, ``show`` and ``prune``."""
+    reg, reg_cpu = os.path.join(work, "reg"), os.path.join(work, "reg-cpu")
+    learner = "learner.type=exponentialWeight"
+    first = engine_verb(work, events, "life-1.txt", "cuda", learner,
+                        f"lifecycle.dir={reg}")
+    shutil.copytree(reg, reg_cpu)
+    second = {}
+    for on, d in (("cuda", reg), ("cpu", reg_cpu)):
+        second[on] = engine_verb(work, events, f"life-2-{on}.txt", on,
+                                 learner, f"lifecycle.dir={d}")
+        second[on].pop("overlap_fraction")
+    same_bytes("phase 15 lifecycle.dir restore",
+               os.path.join(work, "life-2-cuda.txt"),
+               os.path.join(work, "life-2-cpu.txt"))
+    diff = payload_diff(reg, reg_cpu, 2)
+    if first["lifecycle_version"] != 1 or second["cuda"] != second["cpu"] \
+            or second["cuda"]["lifecycle_version"] != 2 or diff:
+        raise AssertionError(f"phase 15 lifecycle.dir: {first} {second}, "
+                             f"v2 leaves differing {diff}")
+    for on, d in (("cuda", reg), ("cpu", reg_cpu)):
+        line = engine_verb(work, rewards, f"retrain-{on}.json", on, learner,
+                           f"lifecycle.dir={d}", "lifecycle.command=retrain",
+                           verb="Lifecycle")
+        if line != {"lifecycle.published": 3,
+                    "lifecycle.train_rows": ONLINE_EVENTS // 4}:
+            raise AssertionError(f"phase 15 Lifecycle retrain: {line}")
+    diff = payload_diff(reg, reg_cpu, 3)
+    if diff:
+        raise AssertionError("phase 15 Lifecycle retrain: the card's "
+                             f"payload differs from the CPU's in {diff}")
+    listed = engine_verb(work, rewards, "list.jsonl", "cuda",
+                         f"lifecycle.dir={reg}", "lifecycle.command=list",
+                         verb="Lifecycle")
+    shown = engine_verb(work, rewards, "show.json", "cuda",
+                        f"lifecycle.dir={reg}", "lifecycle.command=show",
+                        verb="Lifecycle")
+    pruned = engine_verb(work, rewards, "prune.txt", "cuda",
+                         f"lifecycle.dir={reg}", "lifecycle.command=prune",
+                         "lifecycle.max.keep=2", verb="Lifecycle")
+    if (listed != {"lifecycle.versions": 3, "lifecycle.head": 3}
+            or shown != {"lifecycle.head": 3}
+            or pruned != {"lifecycle.pruned": [1], "lifecycle.head": 3}):
+        raise AssertionError(f"phase 15 Lifecycle: {listed} {shown} "
+                             f"{pruned}")
+    return ("phase 15 lifecycle.dir on the card: v1 published, v2 restored "
+            "from it and published, equal to a --device cpu run over a copy "
+            "of the card's registry (actions file, JSON line, v2 payload "
+            "bit for bit, NaN as NaN); Lifecycle retrain v3 payload equal "
+            "card to CPU; list 3 "
+            "versions, show head 3, prune removed [1]")
+
+
+def engine_admission(work, events) -> str:
+    """``engine.admission.high`` on softMax, card and CPU: shed_total +
+    events = the events produced, the files and JSON lines equal."""
+    keys = ("learner.type=softMax",
+            f"engine.admission.high={ENGINE_ADMISSION_HIGH}",
+            "engine.shed.chunk=256")
+    lines = {}
+    for on in ("cuda", "cpu"):
+        lines[on] = engine_verb(work, events, f"admit-{on}.txt", on, *keys)
+        lines[on].pop("overlap_fraction")
+    same_bytes("phase 15 admission", os.path.join(work, "admit-cuda.txt"),
+               os.path.join(work, "admit-cpu.txt"))
+    got = lines["cuda"]
+    if got != lines["cpu"] or got["shed_total"] <= 0 or \
+            got["shed_total"] + got["events"] != ONLINE_EVENTS:
+        raise AssertionError(f"phase 15 admission: {lines}")
+    return (f"phase 15 admission (high {ENGINE_ADMISSION_HIGH}, chunk 256, "
+            "reject-new): "
+            f"{got['events']} served + {got['shed_total']} shed = "
+            f"{ONLINE_EVENTS} produced, file and JSON line equal card to CPU")
+
+
+def engine_rates(dev, actions, events, rewards) -> dict:
+    """The engine's decisions/s against ``OnlineLearnerLoop.run()`` on the
+    card, each on its own prefilled queues of the same events (host
+    clock, a 64-event warm-up of each first), with the engine's overlap
+    fraction and its host ms a batch waiting for the card and queueing
+    the card's work; the two runs' actions equal."""
+    rates = {}
+    for t in ONLINE_TYPES:
+        n = (ENGINE_RATE_UCB_EVENTS if t in ONLINE_OWN_PROCESS
+             else ENGINE_RATE_EVENTS)
+        online_loop(t, actions, events, rewards, dev, n_events=64).run()
+        online_engine(t, actions, events, rewards, dev, n_events=64).run()
+        loop = online_loop(t, actions, events, rewards, dev, n_events=n)
+        engine = online_engine(t, actions, events, rewards, dev, n_events=n)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loop.run()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        stats = engine.run()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if drain_actions(loop.queues) != drain_actions(engine.queues):
+            raise AssertionError(f"phase 15 rates {t}: the engine's actions "
+                                 "differ from run()'s")
+        rates[t] = {"events": n, "run": n / (t1 - t0),
+                    "engine": n / (t2 - t1),
+                    "overlap": stats.overlap_fraction,
+                    "select_wait_ms": stats.select_wait_ms / stats.batches,
+                    "dispatch_ms": stats.dispatch_ms / stats.batches}
+    log(f"phase 15 decisions/s on the card ({nvidia_smi_line()}; host "
+        f"clock; {ENGINE_RATE_EVENTS} prefilled events, "
+        f"{', '.join(ONLINE_OWN_PROCESS)} {ENGINE_RATE_UCB_EVENTS}; a "
+        "quarter as many rewards folded first), engine / run(), the "
+        "engine's overlap_fraction, select_wait_ms and dispatch_ms a "
+        "batch: " + "; ".join(
+            f"{t} {r['engine']:.0f} / {r['run']:.0f}, {r['overlap']:.3f}, "
+            f"{r['select_wait_ms']:.2f}, {r['dispatch_ms']:.2f}"
+            for t, r in rates.items()))
+    return rates
+
+
+#: the phases that run alone, ``python3 chip_smoke.py <name>``
+ALONE = {"online_phase": online_phase, "engine_phase": engine_phase}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
+    if argv:
+        # one phase alone (it builds no kernel): its lines, no result
+        from avenir_tpu_torch.ops import _build
+        from avenir_tpu_torch.utils.device import resolve_device
+        if argv[0] not in ALONE:
+            print(f"chip_smoke: run alone one of {sorted(ALONE)}",
+                  file=sys.stderr)
+            return 2
+        log(f"{argv[0]} alone: {nvidia_smi_line()}")
+        os.makedirs(_build.BUILD_DIR, exist_ok=True)
+        work = tempfile.mkdtemp(prefix="smoke-alone-",
+                                dir=str(_build.BUILD_DIR))
+        try:
+            ALONE[argv[0]](resolve_device("cuda"), work)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        return 0
     from avenir_tpu_torch.ops import _build
     from avenir_tpu_torch.utils.device import resolve_device
     dev = resolve_device("cuda")
@@ -6167,9 +6589,11 @@ def main() -> int:
                             dir=str(_build.BUILD_DIR))
     try:
         online_phase(dev, work)
+        mark("14")
+        engine_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    mark("14")
+    mark("15")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name] + planned[name]
 

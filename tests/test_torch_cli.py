@@ -327,19 +327,15 @@ def test_nb_streamed_and_sharded_keys_match_the_jax_cli(tmp_path, capsys,
                 == (tmp_path / "model.txt").read_bytes())
 
 
-_BANDITS = "'Bandits and streaming serving'"
 _LIVE_OBS = "'Live observability layer'"
 
 
 @pytest.mark.parametrize("args,title", [
     (["GradientBoostPredictor", "--obs-port", "0"], _LIVE_OBS),
-    (["ReinforcementLearnerTopology", "-D", "serving.engine=true"],
-     _BANDITS),
-    (["Lifecycle"], _BANDITS),
     (["NearestNeighbor", "--obs-port", "0"], _LIVE_OBS)])
 def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
     """The refusal names the verb, key or flag and the ROADMAP item by
-    title (the online verb runs; its serving engine is refused)."""
+    title."""
     props = _props(tmp_path / "p.properties", x="1",
                    **{"learner.type": "softMax", "action.list": "a,b"})
     name = args[-1] if args[1:2] == ["-D"] else (
