@@ -101,14 +101,10 @@ from avenir_tpu_torch.utils.schema import FeatureSchema
 
 # keys that select work outside this port, per verb family: key -> the
 # later work that ports it
-_OBS = ("the live observability layer "
-        f"({roadmap_item('Live observability layer')})")
 _MULTI = f"the multi-device layer ({roadmap_item('Multi-device layer')})"
-_LIVE_ANN = f"the live ANN index ({roadmap_item('Live ANN')})"
 _LATER_NB = {"train.sharded": _MULTI}
-_LATER_KNN = {"knn.ann.live": _LIVE_ANN, "knn.sharded": _MULTI}
+_LATER_KNN = {"knn.sharded": _MULTI}
 _LATER_MI = {"train.sharded": _MULTI}
-_LATER_PREFIXES = {"knn.ann.live.": _LIVE_ANN}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them (none: every verb runs)
@@ -126,20 +122,6 @@ def _check_keys(conf: JobConfig, later: Dict[str, str]) -> None:
         if conf.get_bool(key, False):
             flag = " (--resume)" if key == "job.resume" else ""
             _refuse(f"{key}={conf.get(key)}{flag}", work)
-
-
-def _armed_obs_keys(conf: JobConfig) -> List[str]:
-    """The live observability keys of ``conf`` at values with which the
-    JAX CLI arms that layer (``avenir_tpu/cli/main.py``'s ``main``): a
-    non-empty flight path, ``obs.http.port >= 0``, ``obs.live=true``,
-    ``alerts.enable=true``. At their off values the JAX CLI does nothing
-    with them, and neither does this one."""
-    armed = [key for key in ("obs.flight.path",) if conf.get(key)]
-    if conf.get_int("obs.http.port", -1) >= 0:
-        armed.append("obs.http.port")
-    armed += [key for key in ("obs.live", "alerts.enable")
-              if conf.get_bool(key, False)]
-    return armed
 
 
 def _load_table(conf: JobConfig, in_path: str, device: torch.device,
@@ -916,10 +898,6 @@ def _check_knn_keys(conf: JobConfig) -> None:
     """NearestNeighbor's refusals (mesh.shape is read only with
     knn.sharded, which is refused)."""
     _check_keys(conf, _LATER_KNN)
-    for key in conf.keys():
-        for prefix, work in _LATER_PREFIXES.items():
-            if key.startswith(prefix):
-                _refuse(key, work)
 
 
 def _write_knn_predictions(conf: JobConfig, out_path: str, train, test,
@@ -2240,6 +2218,58 @@ VERBS: Dict[str, Callable[[JobConfig, str, str, torch.device], None]] = {
 }
 
 
+def _start_live_obs(conf: JobConfig, obs_port, metrics_out):
+    """Arm the live observability layer for the job, or return None.
+
+    ``--obs-port`` or ``obs.http.port >= 0`` binds the scrape endpoint (0
+    takes a free port, printed first as a JSON line); those, ``obs.live``,
+    an explicit ``obs.flight.path`` or ``alerts.enable`` arm the metrics
+    pump and the flight recorder (at ``obs.flight.path``, else
+    ``<metrics-out>.flight.jsonl``). ``alerts.enable`` arms the SLO
+    burn-rate evaluator and the alert manager: ``alerts.out`` (default
+    ``<metrics-out>.alerts.jsonl``), ``alerts.high.water`` with
+    ``alerts.horizon.s`` (the saturation forecast), ``obs.slo.p99.ms``
+    (the admitted-p99 SLO's bound and the recorder's breach bar)."""
+    if obs_port is None:
+        conf_port = conf.get_int("obs.http.port", -1)
+        obs_port = conf_port if conf_port >= 0 else None
+    conf_flight = conf.get("obs.flight.path")
+    flight_path = conf_flight or (
+        metrics_out + ".flight.jsonl" if metrics_out else None)
+    if not (obs_port is not None or conf.get_bool("obs.live", False)
+            or conf_flight or conf.get_bool("alerts.enable", False)):
+        return None
+    import json
+    import os
+    from dataclasses import replace
+    from avenir_tpu_torch.obs.live import start_live_obs
+    slo = conf.get("obs.slo.p99.ms")
+    alerts_on = conf.get_bool("alerts.enable", False)
+    alerts_out = conf.get("alerts.out") or (
+        metrics_out + ".alerts.jsonl" if metrics_out else None)
+    alerts_hw = conf.get_int("alerts.high.water", -1)
+    slos = None
+    if alerts_on and slo:
+        from avenir_tpu_torch.obs.signals import DEFAULT_SLOS
+        slos = [(replace(s, bound_ms=float(slo))
+                 if s.name == "admitted_p99" else s) for s in DEFAULT_SLOS]
+    live_obs = start_live_obs(
+        port=obs_port,
+        interval_s=float(conf.get("obs.pump.interval.s") or 0.25),
+        flight_path=flight_path,
+        slo_p99_ms=float(slo) if slo else None,
+        alerts=alerts_on or None,
+        slos=slos,
+        alerts_path=alerts_out if alerts_on else None,
+        high_water=alerts_hw if alerts_on and alerts_hw >= 0 else None,
+        forecast_horizon_s=float(conf.get("alerts.horizon.s") or 30.0),
+        alert_source="cli")
+    if live_obs.port is not None:
+        print(json.dumps({"obs_port": live_obs.port, "pid": os.getpid()}),
+              flush=True)
+    return live_obs
+
+
 def main(argv: List[str] = None) -> int:
     parser = argparse.ArgumentParser(
         prog="avenir_tpu_torch",
@@ -2259,7 +2289,12 @@ def main(argv: List[str] = None) -> int:
                              "counters, gauges) after it: JSONL events at "
                              "PATH, Prometheus text at PATH.prom")
     parser.add_argument("--obs-port", type=int, default=None, metavar="PORT",
-                        help="not supported yet (refused)")
+                        help="serve live telemetry (/metrics, "
+                             "/metrics/rates, /healthz, /alerts) on "
+                             "localhost:PORT for the job's duration (0 "
+                             "takes a free port; the bound one is printed "
+                             "first as a JSON line); the flag form of "
+                             "obs.http.port")
     parser.add_argument("--profile-dir", metavar="PATH", default=None,
                         help="write a torch.profiler trace of the job "
                              "(host ops and the card's kernels) into PATH "
@@ -2281,8 +2316,6 @@ def main(argv: List[str] = None) -> int:
 
     if args.verb in _LATER_VERBS:
         _refuse(f"the verb {args.verb}", _LATER_VERBS[args.verb])
-    if args.obs_port is not None:
-        _refuse("--obs-port", _OBS)
 
     conf = JobConfig.from_file(args.conf)
     for override in args.D:
@@ -2290,8 +2323,6 @@ def main(argv: List[str] = None) -> int:
         conf.set(key, value)
     if args.resume:
         conf.set("job.resume", "true")
-    for key in _armed_obs_keys(conf):
-        _refuse(f"{key}={conf.get(key)}", _OBS)
 
     from avenir_tpu_torch.obs import runtime as obs_runtime
     from avenir_tpu_torch.utils import profiling
@@ -2340,6 +2371,7 @@ def main(argv: List[str] = None) -> int:
         from avenir_tpu_torch.obs import exporters as obs_exporters
         from avenir_tpu_torch.obs import telemetry as obs_telemetry
         tel_hub = obs_exporters.hub().enable()
+    live_obs = _start_live_obs(conf, args.obs_port, args.metrics_out)
     # the reference's task-retry budget (mapreduce.map.maxattempts=2,
     # resource/knn.properties:5-6) at the job level: transient failures
     # re-run the verb (every job fully overwrites its outputs); config
@@ -2376,6 +2408,14 @@ def main(argv: List[str] = None) -> int:
                     logger.warning("attempt %d/%d of %s failed; retrying",
                                    attempt, attempts, args.verb,
                                    exc_info=True)
+    except BaseException:
+        # a failing job leaves its flight record (the last windows of live
+        # rates) beside the metrics file; an except clause, so that a
+        # caller running main() inside its own handler does not read as a
+        # crashed job
+        if live_obs is not None:
+            live_obs.crash_dump("crash:cli")
+        raise
     finally:
         if tel_hub is not None:
             # the wall-time summary rides along as gauges; the report is
@@ -2383,6 +2423,8 @@ def main(argv: List[str] = None) -> int:
             for key, value in timer.summary().items():
                 tel_hub.set_gauge(f"job.{key}", value)
             try:
+                # before live_obs.stop(), which clears the hub's alerts
+                # provider: the .prom file names any alert firing at exit
                 paths = tel_hub.write(args.metrics_out)
             except OSError as exc:
                 logger.warning("telemetry report not written to %s: %s",
@@ -2390,6 +2432,9 @@ def main(argv: List[str] = None) -> int:
             else:
                 logger.info("telemetry report: %s + %s",
                             paths["jsonl"], paths["prom"])
+        if live_obs is not None:
+            live_obs.stop()
+        if tel_hub is not None:
             tel_hub.disable()
     if debug_on:
         logger.debug("timing %s", timer.summary())

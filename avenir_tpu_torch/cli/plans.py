@@ -179,29 +179,50 @@ def _knn_config(conf: JobConfig, fz):
         ann_nlist=conf.get_int("knn.ann.nlist", 0),
         ann_nprobe=conf.get_int("knn.ann.nprobe", 0),
         ann_iters=conf.get_int("knn.ann.iters", 15),
-        ann_seed=conf.get_int("knn.ann.seed", 0))
+        ann_seed=conf.get_int("knn.ann.seed", 0),
+        ann_live=conf.get_bool("knn.ann.live", False),
+        ann_live_tail_budget=conf.get_int("knn.ann.live.tail.budget",
+                                          1024))
 
 
 def _ann_provenance(conf: JobConfig) -> Optional[dict]:
-    """The knn kernel node's ANN note: the index the scoring goes through
-    and whether a staged copy lives in this process already. A probe: it
-    never builds. (``knn.ann.live`` is refused before a plan is built.)"""
+    """The knn kernel node's ANN note: the index the scoring goes through,
+    whether a staged copy lives in this process already (the one-slot
+    caches) and, with the live slot warm, its version, tail fill and
+    swaps. A probe: it never builds."""
     if not conf.get_bool("knn.ann", False):
         return None
+    live_on = conf.get_bool("knn.ann.live", False)
     prov = {
         "nlist": conf.get_int("knn.ann.nlist", 0) or "auto",
         "nprobe": conf.get_int("knn.ann.nprobe", 0) or "auto",
-        "live": False,
+        "live": live_on,
         "source": "build",
         "reason": "no staged index in-process: k-means build runs "
                   "before the first query batch",
     }
-    from avenir_tpu_torch.models import knn as knn_mod
-    if knn_mod._ANN_INDEX_CACHE:
-        prov.update(
-            source="cached",
-            reason="staged IVF slot is warm (reused when the train "
-                   "table and build params match)")
+    if live_on:
+        prov["tail_budget"] = conf.get_int("knn.ann.live.tail.budget",
+                                           1024)
+        from avenir_tpu_torch.models.live_ann import peek_live_index
+        slot = peek_live_index()
+        if slot is not None:
+            d = slot.describe()
+            prov.update(
+                source="cached", nlist=d["nlist"],
+                version=d["version"],
+                tail_fill=round(float(d["tail_fill"]), 4),
+                tail_rows=d["tail_rows"], swaps=d["swaps"],
+                reason="live slot is warm (reused when the train table "
+                       "and build params match; appended rows probe "
+                       "through the overflow tails)")
+    else:
+        from avenir_tpu_torch.models import knn as knn_mod
+        if knn_mod._ANN_INDEX_CACHE:
+            prov.update(
+                source="cached",
+                reason="staged IVF slot is warm (reused when the train "
+                       "table and build params match)")
     return prov
 
 

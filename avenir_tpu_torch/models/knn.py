@@ -2,8 +2,9 @@
 
 Counterpart of ``avenir_tpu/models/knn.py`` (``KnnConfig``,
 ``validate_config``, the single-device branches of ``neighbors`` — brute
-force, ``knn.quantized`` and the frozen ``knn.ann`` index with its
-one-slot cache — ``_vote_kernel``, ``_decide``, ``classify``,
+force, ``knn.quantized`` and the ``knn.ann`` index with its one-slot
+cache, frozen or live (``knn.ann.live``, ``models/live_ann.py``) —
+``_vote_kernel``, ``_decide``, ``classify``,
 ``classify_from_neighbors`` (the replay of precomputed neighbor records),
 ``regress``, ``validate``). It collapses the reference's pipeline
 (distance MR, top-k by secondary sort, kernel weighting, class vote)
@@ -88,6 +89,11 @@ class KnnConfig:
     ann_nprobe: int = 0                      # knn.ann.nprobe (0 = auto)
     ann_iters: int = 15                      # knn.ann.iters (k-means)
     ann_seed: int = 0                        # knn.ann.seed (build seed)
+    # knn.ann.live: queries go through the live index (models/live_ann.py):
+    # per-list overflow tails for appended rows, a background re-cluster
+    # and its swap. With no appends its results are the frozen index's
+    ann_live: bool = False                   # knn.ann.live
+    ann_live_tail_budget: int = 1024         # knn.ann.live.tail.budget
 
 
 def _num_cat_idx(table: EncodedTable):
@@ -184,6 +190,15 @@ def validate_config(config: KnnConfig) -> None:
         if config.ann_iters < 0:
             raise ValueError(
                 f"knn.ann.iters must be >= 0, got {config.ann_iters}")
+        if config.ann_live and config.ann_live_tail_budget < 8:
+            raise ValueError(
+                "knn.ann.live.tail.budget must be >= 8 (per-list "
+                f"overflow capacity), got "
+                f"{config.ann_live_tail_budget}")
+    elif config.ann_live:
+        raise ValueError(
+            "knn.ann.live is set but knn.ann=false; the live index IS "
+            "the IVF index plus append tails — set knn.ann=true")
     elif config.ann_nlist or config.ann_nprobe:
         raise ValueError(
             "knn.ann.nlist/knn.ann.nprobe are set but knn.ann=false; "
@@ -300,16 +315,29 @@ def _neighbors_ann(train: EncodedTable, test: EncodedTable,
                    config: KnnConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """IVF-indexed scoring: build or reuse the index of the train table,
     then each test chunk probes its ``n_probe`` nearest lists and runs the
-    quantized scan over their rows only."""
+    quantized scan over their rows only. ``knn.ann.live`` queries through
+    the live index of the one-slot live cache (rows appended to it in this
+    process are probed too; with none, the frozen index's result)."""
     _, n_probe = _resolved_ann_params(train, config)
-    index = _staged_ann_index(train, config)
+    if config.ann_live:
+        from avenir_tpu_torch.models import live_ann
+        live = live_ann.live_index_for(train, config)
 
-    def run(xn, xc):
-        return ivf.ann_topk(
-            index, xn, xc, k=config.top_match_count, n_probe=n_probe,
-            oversample=config.quantized_oversample,
-            qdtype=config.quantized_dtype,
-            distance_scale=config.distance_scale)
+        def run(xn, xc):
+            return live.query(
+                xn, xc, k=config.top_match_count, n_probe=n_probe,
+                oversample=config.quantized_oversample,
+                qdtype=config.quantized_dtype,
+                distance_scale=config.distance_scale)
+    else:
+        index = _staged_ann_index(train, config)
+
+        def run(xn, xc):
+            return ivf.ann_topk(
+                index, xn, xc, k=config.top_match_count, n_probe=n_probe,
+                oversample=config.quantized_oversample,
+                qdtype=config.quantized_dtype,
+                distance_scale=config.distance_scale)
 
     return _feed(run, test, config, train.device)
 

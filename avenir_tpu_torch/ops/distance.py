@@ -50,15 +50,18 @@ def encode_mixed(num: Optional[torch.Tensor], cat: Optional[torch.Tensor],
     if cat is not None and cat.shape[1]:
         rows, fc = cat.shape
         codes = cat.long()
-        # codes outside [0, n_cat_bins) encode as all-zero (one_hot drops them)
+        # codes outside [0, n_cat_bins) encode as all-zero (one_hot drops
+        # them): each (row, feature) writes one cell of its own block, 1
+        # for a valid code, 0 at the clamped cell for another (a scatter,
+        # not a mask: nothing is read back to the host)
         valid = (codes >= 0) & (codes < n_cat_bins)
         offsets = torch.arange(fc, device=cat.device).reshape(1, fc) \
             * n_cat_bins
         oh = torch.zeros((rows, fc * n_cat_bins), dtype=torch.float32,
                          device=cat.device)
-        row_idx = torch.arange(rows, device=cat.device).reshape(rows, 1) \
-            .expand(rows, fc)
-        oh[row_idx[valid], (codes + offsets)[valid]] = 1.0
+        cells = torch.clamp(codes, 0, max(n_cat_bins - 1, 0)) + offsets
+        if n_cat_bins:
+            oh.scatter_(1, cells, valid.to(torch.float32))
         parts.append(oh * _INV_SQRT2)
     if not parts:
         raise ValueError("no features")

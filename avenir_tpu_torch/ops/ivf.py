@@ -3,12 +3,12 @@
 Counterpart of ``avenir_tpu/ops/ivf.py`` (``default_nlist``,
 ``default_nprobe``, ``_seed_centroids``, ``_lloyd_step``,
 ``assign_counts``, ``_assign_rows``, ``train_coarse_quantizer``,
-``IvfIndex``, ``_build_lists``, ``build_ivf``, ``ann_core``,
-``ann_topk``) without what serves the live index (the warm start from
-given centroids, ``ann_core``'s overflow tails) and the sharded layout:
-later work. The train set is clustered once (a coarse
-quantizer of ``nlist`` centroids) and each query scans only the rows of
-its ``n_probe`` nearest lists:
+``IvfIndex``, ``_build_lists``, ``build_ivf``, ``ann_core`` with its
+overflow tails, ``ann_topk`` and the live index's query,
+:func:`live_ann_topk`) without the sharded layout, which the multi-device
+layer ports. The train set is clustered once (a coarse quantizer of
+``nlist`` centroids) and each query scans only the rows of its
+``n_probe`` nearest lists:
 
 - **Coarse quantizer**: k-means++ seeding on the host from a fixed seed
   (the JAX package's numpy code, so the same seed picks the same seeds),
@@ -31,6 +31,10 @@ its ``n_probe`` nearest lists:
   ``quantized``. With ``n_probe = nlist`` every row is a candidate and
   the int8 result IS ``quantized.quantized_topk``'s: same joint scale,
   integer metrics, the same (metric, id) rule.
+- **Overflow tails** (the live index, ``models/live_ann.py``): each list
+  also owns a fixed-width block of appended rows, ``tail_cap`` a list;
+  a probed list's tail goes through the same masked gather, the same
+  (metric, id) merge and the same exact re-rank as its main span.
 """
 
 from __future__ import annotations
@@ -163,23 +167,35 @@ def _assign_rows(y: torch.Tensor, cents: torch.Tensor) -> torch.Tensor:
 
 
 def train_coarse_quantizer(y: torch.Tensor, nlist: int, *, n_iters: int = 15,
-                           seed: int = 0) -> Tuple[torch.Tensor, np.ndarray]:
+                           seed: int = 0,
+                           init_centroids: Optional[np.ndarray] = None
+                           ) -> Tuple[torch.Tensor, np.ndarray]:
     """k-means over the encoded rows ``y`` [N, D] on their device: host
     k-means++ seeding on a sample of ≤ 64 · ``nlist`` rows, then up to
     ``n_iters`` Lloyd steps, stopping once no centroid moves. Returns
     (centroids [nlist, D] on ``y``'s device, final assignment [N] host
-    int32)."""
+    int32). ``init_centroids`` [nlist, D] starts Lloyd from them in place
+    of the seeding (the live index's rebuild)."""
     n = int(y.shape[0])
     if nlist < 1:
         raise ValueError(f"nlist must be >= 1, got {nlist}")
     if n_iters < 0:
         raise ValueError(f"n_iters must be >= 0, got {n_iters}")
-    rng = np.random.default_rng(seed)
-    y_host = y.cpu().numpy()
-    cap = max(nlist, min(n, _SEED_SAMPLE * nlist))
-    sample = (y_host if cap >= n
-              else y_host[rng.choice(n, cap, replace=False)])
-    cents = torch.from_numpy(_seed_centroids(sample, nlist, rng)).to(y.device)
+    if init_centroids is not None:
+        init = np.asarray(init_centroids, np.float32)
+        if init.shape != (nlist, int(y.shape[1])):
+            raise ValueError(
+                f"init_centroids shape {init.shape} does not match "
+                f"(nlist={nlist}, d={int(y.shape[1])})")
+        cents = torch.from_numpy(init.copy()).to(y.device)
+    else:
+        rng = np.random.default_rng(seed)
+        y_host = y.cpu().numpy()
+        cap = max(nlist, min(n, _SEED_SAMPLE * nlist))
+        sample = (y_host if cap >= n
+                  else y_host[rng.choice(n, cap, replace=False)])
+        cents = torch.from_numpy(
+            _seed_centroids(sample, nlist, rng)).to(y.device)
     for _ in range(n_iters):
         cents, _, shift = _lloyd_step(y, cents)
         if float(shift) < _TOL:
@@ -216,6 +232,10 @@ class IvfIndex:
     def device(self) -> torch.device:
         return self.flat.device
 
+    @property
+    def d(self) -> int:
+        return int(self.flat.shape[1])
+
 
 def _build_lists(encoded: np.ndarray, assign: np.ndarray, nlist: int
                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
@@ -248,10 +268,12 @@ def _build_lists(encoded: np.ndarray, assign: np.ndarray, nlist: int
 
 def build_ivf(y_num: Optional[ArrayLike], y_cat: Optional[ArrayLike] = None,
               *, n_cat_bins: int = 0, nlist: int = 0, n_iters: int = 15,
-              seed: int = 0, device: DeviceLike = "cuda") -> IvfIndex:
+              seed: int = 0, init_centroids: Optional[np.ndarray] = None,
+              device: DeviceLike = "cuda") -> IvfIndex:
     """The IVF index over normalized train features on ``device``.
     ``nlist=0`` sizes it to ~√N lists. The same ``seed`` gives the same
-    index."""
+    index; ``init_centroids`` starts the k-means from them (the live
+    index's rebuild)."""
     dev = resolve_device(device)
     y_num, y_cat = as_tensor(y_num, dev), as_tensor(y_cat, dev)
     y = encode_mixed(y_num, y_cat, n_cat_bins)
@@ -262,7 +284,8 @@ def build_ivf(y_num: Optional[ArrayLike], y_cat: Optional[ArrayLike] = None,
     if nlist == 0:
         nlist = default_nlist(n)
     cents, assign = train_coarse_quantizer(y, nlist, n_iters=n_iters,
-                                           seed=seed)
+                                           seed=seed,
+                                           init_centroids=init_centroids)
     encoded = y.cpu().numpy()
     flat, gids, offsets, lengths, probe_pad = _build_lists(
         encoded, assign, nlist)
@@ -291,11 +314,27 @@ def ann_core(x: torch.Tensor, cents: torch.Tensor, cvalid: torch.Tensor,
              gids: torch.Tensor, offsets: torch.Tensor,
              lengths: torch.Tensor, amax: torch.Tensor, *, n_probe: int,
              probe_pad: int, kprime: int, k_out: int, n_attrs: int,
-             qdtype: str) -> Tuple[torch.Tensor, torch.Tensor]:
+             qdtype: str, tail_flat: Optional[torch.Tensor] = None,
+             tail_qflat: Optional[torch.Tensor] = None,
+             tail_gids: Optional[torch.Tensor] = None,
+             tail_lengths: Optional[torch.Tensor] = None,
+             tail_cap: int = 0, in_range: Optional[bool] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Probe selection, the per-probe gathered candidate scan with the
     running (metric, id) top-k′, and the exact f32 re-rank. Returns the
     PRE-finalize sorted key: exact f32 metric with ``BIG`` sentinels,
-    train ids with ``INT_BIG`` sentinels, ``k_out`` columns."""
+    train ids with ``INT_BIG`` sentinels, ``k_out`` columns.
+
+    Overflow tails (``tail_cap > 0``): ``tail_flat`` / ``tail_qflat`` are
+    ``[L·tail_cap, D]``, list ``li``'s tail the rows ``[li·tail_cap,
+    (li+1)·tail_cap)``, ``tail_gids`` −1 on padding as the main spans,
+    ``tail_lengths[li]`` its real rows. A probed list's tail enters the
+    same merge as its main span; its positions ride as ``n_pad_rows +
+    tail row``, so the re-rank reads them from the tail table.
+    ``tail_cap = 0`` is the frozen index's query.
+
+    ``in_range`` (int8): whether ``max|x| <= amax``, known to a caller
+    that holds the queries on the host; None reads it from the card."""
     dev = x.device
     n_pad_rows = flat.shape[0]
     last_row = max(n_pad_rows - 1, 0)
@@ -309,15 +348,22 @@ def ann_core(x: torch.Tensor, cents: torch.Tensor, cvalid: torch.Tensor,
 
     # 2. candidate scan at the JOINT scale (train amax ∨ this chunk's):
     # while the chunk stays within the train's magnitudes the joint scale
-    # is the build scale and the prebuilt int8 table serves as it is
+    # is the build scale and the prebuilt int8 tables serve as they are
+    # (a live index keeps amax over its base and tail rows)
+    tail_q = tail_flat
     if qdtype == "int8":
         amax_x = x.abs().max() if x.numel() else torch.zeros_like(amax)
         s = int8_scale(torch.maximum(amax, amax_x))
         xq = _q8(x, s)
-        qflat = build_qflat if bool(amax_x <= amax) else _q8(flat, s)
+        if in_range is None:
+            in_range = bool(amax_x <= amax)
+        qflat = build_qflat if in_range else _q8(flat, s)
+        if tail_cap:
+            tail_q = tail_qflat if in_range else _q8(tail_flat, s)
     else:
         xq, qflat = x, flat          # bf16 rounding inside the metric
     iota = torch.arange(probe_pad, device=dev).reshape(1, -1)
+    t_iota = torch.arange(tail_cap, device=dev).reshape(1, -1)
     sentinel = order_key(torch.tensor(BIG, device=dev),
                          torch.tensor(INT_BIG, device=dev))
 
@@ -339,14 +385,31 @@ def ann_core(x: torch.Tensor, cents: torch.Tensor, cvalid: torch.Tensor,
             keys = torch.where(found,
                                order_key(metric, torch.clamp(g, min=0)),
                                sentinel)
+            if tail_cap:
+                tpos = pid.long().reshape(-1, 1) * tail_cap + t_iota
+                tg = tail_gids[tpos]
+                tmetric = gathered_candidate_metric(xq[r0:r1], tail_q[tpos],
+                                                    qdtype)
+                tfound = ((t_iota < tail_lengths[pid].reshape(-1, 1))
+                          & (tg >= 0))
+                tkeys = torch.where(
+                    tfound, order_key(tmetric, torch.clamp(tg, min=0)),
+                    sentinel)
+                keys = torch.cat([keys, tkeys], dim=1)
+                pos = torch.cat([pos, n_pad_rows + tpos], dim=1)
             best, at = merge_keys(best, keys, kprime)
             best_p = torch.gather(torch.cat([best_p, pos], dim=1), 1, at)
 
         # 3. exact f32 re-rank of the survivors, the flat-table position
-        # riding with each id
+        # riding with each id (past n_pad_rows: a tail row)
         cand_g = key_ids(best)
         found = best < sentinel
         yc = flat[torch.clamp(best_p, 0, last_row)]         # [rows, K', D]
+        if tail_cap:
+            in_tail = (best_p >= n_pad_rows).unsqueeze(-1)
+            tail_yc = tail_flat[torch.clamp(best_p - n_pad_rows, 0,
+                                            max(tail_flat.shape[0] - 1, 0))]
+            yc = torch.where(in_tail, tail_yc, yc)
         em = exact_candidate_metric(x[r0:r1], yc, n_attrs)
         em = torch.where(found, em, torch.full_like(em, BIG))
         gkey = torch.where(found, cand_g, torch.full_like(cand_g, INT_BIG))
@@ -354,12 +417,19 @@ def ann_core(x: torch.Tensor, cents: torch.Tensor, cvalid: torch.Tensor,
 
     # test rows in chunks of at most SLAB gathered elements
     parts = [scan(r0, r1) for r0, r1 in
-             row_chunks(x.shape[0], probe_pad * max(flat.shape[1], 1))]
+             row_chunks(x.shape[0],
+                        (probe_pad + tail_cap) * max(flat.shape[1], 1))]
     if not parts:
         empty = torch.empty((0, k_out), device=dev)
         return empty, empty.to(torch.int32)
     return (torch.cat([m for m, _ in parts]),
             torch.cat([g for _, g in parts]))
+
+
+def _k_sizes(n: int, k: int, oversample: int) -> Tuple[int, int]:
+    """(k_eff, kprime) for ``n`` indexed rows."""
+    k_eff = max(min(k, n), 1)
+    return k_eff, min(max(oversample * k_eff, k_eff), max(n, 1))
 
 
 def ann_topk(index: IvfIndex, x_num: Optional[ArrayLike],
@@ -381,13 +451,36 @@ def ann_topk(index: IvfIndex, x_num: Optional[ArrayLike],
             f"n_probe must be in [1, nlist={index.nlist}], got {n_probe}")
     x_num, x_cat = (as_tensor(a, index.device) for a in (x_num, x_cat))
     x = encode_mixed(x_num, x_cat, index.n_cat_bins)
-    n = index.n_real
-    k_eff = max(min(k, n), 1)
-    kprime = min(max(oversample * k_eff, k_eff), max(n, 1))
+    k_eff, kprime = _k_sizes(index.n_real, k, oversample)
     return finalize_quantized(
         *ann_core(x, index.centroids, index.cent_valid, index.flat,
                   index.qflat, index.gids, index.offsets, index.lengths,
                   index.amax, n_probe=n_probe, probe_pad=index.probe_pad,
                   kprime=kprime, k_out=k_eff, n_attrs=index.n_attrs,
                   qdtype=qdtype),
+        distance_scale)
+
+
+def live_ann_topk(index: IvfIndex, x: torch.Tensor, tail_flat: torch.Tensor,
+                  tail_qflat: torch.Tensor, tail_gids: torch.Tensor,
+                  tail_lengths: torch.Tensor, *, tail_cap: int, n_rows: int,
+                  k: int, n_probe: int, oversample: int = 4,
+                  qdtype: str = "int8", distance_scale: int = 1000,
+                  in_range: Optional[bool] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The live index's query (``_live_ann_query`` of the JAX package):
+    :func:`ann_topk` over the base index and its overflow tails, on
+    encoded queries ``x`` on the index's device. ``n_rows`` counts the
+    base and tail rows (k and k′ are sized by it); appended rows carry
+    ids ``n_real .. n_rows − 1``. With empty tails the result is the
+    frozen index's."""
+    k_eff, kprime = _k_sizes(n_rows, k, oversample)
+    return finalize_quantized(
+        *ann_core(x, index.centroids, index.cent_valid, index.flat,
+                  index.qflat, index.gids, index.offsets, index.lengths,
+                  index.amax, n_probe=n_probe, probe_pad=index.probe_pad,
+                  kprime=kprime, k_out=k_eff, n_attrs=index.n_attrs,
+                  qdtype=qdtype, tail_flat=tail_flat, tail_qflat=tail_qflat,
+                  tail_gids=tail_gids, tail_lengths=tail_lengths,
+                  tail_cap=tail_cap, in_range=in_range),
         distance_scale)

@@ -2,8 +2,8 @@
 while the host does the previous batch's queue I/O.
 
 Counterpart of ``avenir_tpu/stream/engine.py`` (``ServingEngine``,
-``AdmissionControl`` and what they use; not the grouped engine, nor the
-boosted-forest and live-ANN learners). ``OnlineLearnerLoop.run`` is
+``AdmissionControl``, ``AnnServingLearner`` and what they use; not the
+grouped engine, nor the boosted-forest learner). ``OnlineLearnerLoop.run`` is
 synchronous: drain rewards, select a micro-batch, wait for the card,
 write each action to the queue one broker round trip at a time. The
 engine takes apart what needed no waiting:
@@ -148,6 +148,96 @@ def warm_serving_paths(learner: Learner, rewards: bool = True) -> None:
     for extra in (1, 2, 3, 5, 9, 17, 33):
         learner.set_reward_batch(
             [(action, 0.0)] * (Learner._SCAN_BUCKET_MAX + extra))
+
+
+class AnnServingLearner:
+    """Similar-user lookup behind the engine's learner protocol: an event
+    is a "find users like this one" request, the action written back is
+    the nearest neighbor's row id, and the model served is a
+    :class:`~avenir_tpu_torch.models.live_ann.LiveAnnIndex`, so its recall
+    under appends rides the engine's dispatch-then-fetch, its gates and
+    its hot swap as any learner's.
+
+    A rebuilt index is not shaped as the one it replaces (its lists
+    depend on the grown table), so a swap goes through the learner's own
+    :meth:`install_state` (``lifecycle.swap.install_state`` hands it the
+    snapshot): the engine's swap protocol (batch boundary, the
+    ``lifecycle.swap`` span, the version gauges) is a bandit's, the
+    install is ``LiveAnnIndex.adopt`` with its tail replay. Appends
+    (``live.append``) happen outside the learner.
+
+    The query rows are a host ring: an n-event batch queries the next n
+    rows, padded to a power of two, and its dispatch reads nothing back
+    from the card."""
+
+    def __init__(self, live, q_num, q_cat=None, *, k: int = 5,
+                 n_probe: int = 0, batch_size: int = 1):
+        import types
+        import numpy as np
+        self.live = live
+        self.state = None         # swaps go through install_state
+        self.actions = ["similar-user"]
+        self.cfg = types.SimpleNamespace(batch_size=batch_size)
+        self._q_num = (None if q_num is None
+                       else np.asarray(q_num, np.float32))
+        self._q_cat = None if q_cat is None else np.asarray(q_cat)
+        self._rows = int((self._q_num if self._q_num is not None
+                          else self._q_cat).shape[0])
+        self._k = int(k)
+        self._n_probe = int(n_probe)
+        self._cursor = 0
+        self.reward_count = 0
+        self.reward_sum = 0.0
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        m = 1
+        while m < n:
+            m *= 2
+        return m
+
+    def install_state(self, payload) -> None:
+        """The swap hook ``lifecycle.swap.install_state`` delegates to:
+        ``payload`` is ``(leaves, extra)`` of a published ivf-index
+        snapshot; the index adopts it and replays the rows appended since
+        into its new tails."""
+        leaves, extra = payload
+        self.live.adopt(leaves, extra)
+
+    def warm(self, max_batch: int) -> None:
+        """Run each power-of-two batch up to ``max_batch`` once (a query
+        changes no state)."""
+        m = 1
+        while m <= self._bucket(max_batch):
+            self.resolve_action_batch(self.next_action_batch_async(m))
+            m *= 2
+
+    def _probe(self) -> int:
+        # an explicit n_probe holds across a rebuild that shrank nlist
+        if self._n_probe <= 0:
+            return 0
+        return min(self._n_probe, self.live.index.nlist)
+
+    def next_action_batch_async(self, n: int):
+        import numpy as np
+        m = self._bucket(n)
+        idx = (self._cursor + np.arange(m)) % self._rows
+        self._cursor = (self._cursor + n) % self._rows
+        xn = None if self._q_num is None else self._q_num[idx]
+        xc = None if self._q_cat is None else self._q_cat[idx]
+        handle = self.live.query(xn, xc, k=self._k, n_probe=self._probe())
+        return (handle, n)
+
+    def resolve_action_batch(self, handle) -> List[str]:
+        (_dist, ids), n = handle
+        return [str(int(g)) for g in ids[:n, 0].cpu().tolist()]
+
+    def set_reward_batch(self, pairs: Sequence[Tuple[str, float]]) -> None:
+        """Outcome feedback: the rebuild is the update, so rewards only
+        accumulate (the engine's DriftMonitor taps them)."""
+        for _action, reward in pairs:
+            self.reward_count += 1
+            self.reward_sum += float(reward)
 
 
 class AdmissionControl:
@@ -407,7 +497,16 @@ class ServingEngine:
         """Drain the queues (or serve ``max_events``), pipelined. An
         iteration: fold the drained rewards, pop the next micro-batch,
         queue its decisions, and only then read batch n-1's actions and
-        do its queue I/O, behind batch n's work on the card."""
+        do its queue I/O, behind batch n's work on the card.
+
+        Wrapped in the flight recorder's crash hook: with the live
+        observability layer armed, the ring's last windows land beside
+        the metrics file before an exception propagates."""
+        from avenir_tpu_torch.obs.timeseries import run_with_flight_dump
+        return run_with_flight_dump(
+            "engine", lambda: self._run_impl(max_events))
+
+    def _run_impl(self, max_events: Optional[int] = None) -> EngineStats:
         learner = self.learner
         batch_size = learner.cfg.batch_size
         processed = 0

@@ -741,7 +741,15 @@ class OnlineLearnerLoop:
         select in one batch (the bolt's drain-then-process pattern). With
         pre-filled queues the rewards each event sees are those of the
         per-event ``step`` calls; with a live reward producer, rewards
-        arriving mid-batch fold at the next batch boundary."""
+        arriving mid-batch fold at the next batch boundary.
+
+        Wrapped in the flight recorder's crash hook: with the live
+        observability layer armed, the ring's last windows land beside
+        the metrics file before an exception propagates."""
+        from avenir_tpu_torch.obs.timeseries import run_with_flight_dump
+        return run_with_flight_dump("loop", lambda: self._run(max_events))
+
+    def _run(self, max_events: Optional[int] = None) -> LoopStats:
         processed = 0
         batch_size = self.learner.cfg.batch_size
         event_cap = Learner._SCAN_BUCKET_MAX

@@ -384,6 +384,33 @@ Phases (one line each; any failure exits non-zero):
    on the same prefilled 1,024 events (UCB1, UCB2 256), its
    ``overlap_fraction`` and its host ms a batch waiting for the card and
    queueing its work.
+16. the live ANN index and the live observability layer (``live_phase``,
+   also runnable alone): a ``LiveAnnIndex`` (``models/live_ann.py``; K1
+   counts each appended batch into its lists through
+   ``ivf.assign_counts``, and each Lloyd step of a rebuild) over 1,048,576
+   rows of phase 6's width (nlist auto, 15 Lloyd steps) with a
+   ``RetrainDaemon`` thread bound to it; 32 appends of 4,096 rows into its
+   overflow tails (budget 512 a list, a wave requested at a tail fill of
+   0.125), each followed by 64 queries (k = 5) served through a
+   ``ServingEngine`` over an ``AnnServingLearner``, whose swap source
+   hands each published wave to ``install_state``, which delegates to
+   ``LiveAnnIndex.adopt``. Gates: no query error, a wave requested,
+   published and adopted mid-stream, no inline rebuild, the row count,
+   recall ≥ 0.98 on 512 rows against K2's exact top-k over the union,
+   full probing equal to a fresh build over the union, the
+   ``lifecycle.swap`` span's p99 ≤ 250 ms, no daemon error, every K1 call
+   exact against its plain version; with the append rate, the queries' ms
+   with a wave in flight and with none, and each wave's wall; K1 at the
+   append shape (chained, from graph replays reading HBM, plain,
+   ``bincount``, bytes bound). Then NearestNeighbor with
+   ``knn.ann.live=true`` on phase 3's elearn rows, its file byte-equal to
+   ``knn.ann.live=false``'s; phase 3's elearn job and the engine verb
+   (UCB2 on the first 1,024 of phase 14's ids) each in a fresh process
+   with ``--obs-port 0`` (the elearn one with ``--metrics-out`` and
+   ``alerts.enable=true``), ``/metrics`` and ``/healthz`` scraped while
+   they run, the engine's gauges among them, lines and files equal to the
+   unarmed jobs', the ``.prom`` and ``.alerts.jsonl`` written; and a job
+   that fails leaving ``<metrics-out>.flight.jsonl``.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -408,7 +435,9 @@ level shape's times in ``levels``; a seventh, K1 at the token shape
 vocabularies' times in ``vocabularies``; an eighth and a ninth, K1 at
 phase 12's stream-window and NB-shard shapes (``K1-stream``) and K4 at
 its MI-shard shape (``K4-shard``), with phase 12's launches and each
-shape's times in ``shapes``; K1's, K2's and K3's launches
+shape's times in ``shapes``; a tenth, K1 at the live-ANN append shape
+(``K1-live``), with the launches of phase 16's stream (the base build,
+the appends, the waves); K1's, K2's and K3's launches
 count phase 11's and phase 13's CLI jobs too (K2's and K3's ``launches`` are phase 3's
 jobs and phase 11's regression and replay jobs); K6-K12 add ``parent_ms``, the
 chained time of the CUDA-core body they replaced, in the same run; each
@@ -437,6 +466,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -4761,14 +4791,19 @@ def write_csv(path, rows):
 
 def run_cli(args):
     """Run one CLI job in-process; return its last stdout JSON line."""
+    lines = [line for line in cli_lines(args) if line.strip()]
+    return json.loads(lines[-1]) if lines else {}
+
+
+def cli_lines(args):
+    """Run one CLI job in-process; return its stdout lines."""
     from avenir_tpu_torch.cli.main import main
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(args)
     if rc != 0:
         raise AssertionError(f"CLI {args[0]} returned {rc}")
-    lines = [line for line in buf.getvalue().splitlines() if line.strip()]
-    return json.loads(lines[-1]) if lines else {}
+    return buf.getvalue().splitlines()
 
 
 @contextlib.contextmanager
@@ -6446,8 +6481,399 @@ def engine_rates(dev, actions, events, rewards) -> dict:
     return rates
 
 
+# --------------------------------------------------------------------------
+# phase 16: the live ANN index and the live observability layer
+# --------------------------------------------------------------------------
+
+LIVE_BASE_ROWS = SCALE_N      # phase 6's IVF at scale: nlist auto (1,024)
+LIVE_BATCHES, LIVE_BATCH_ROWS = 32, 4096
+LIVE_QUERIES, LIVE_RING, LIVE_RECALL_ROWS = 64, 4096, 512
+LIVE_TAIL_BUDGET, LIVE_REBUILD_FILL = 512, 0.125
+LIVE_MIN_RECALL, LIVE_SWAP_P99_MS = 0.98, 250.0
+
+
+def live_stream(dev):
+    """The live ANN index on the card: a base of ``LIVE_BASE_ROWS`` rows
+    (phase 6's width, nlist auto, 15 Lloyd steps) with a ``RetrainDaemon``
+    thread bound to it, then ``LIVE_BATCHES`` appends of
+    ``LIVE_BATCH_ROWS``, each followed by ``LIVE_QUERIES`` queries served
+    through a ``ServingEngine`` over an ``AnnServingLearner`` (k = 5),
+    whose swap source adopts each published wave. Gates: no query error,
+    a wave requested, published and adopted mid-stream, the row count,
+    recall against K2's exact top-k over the union, full probing equal to
+    a fresh build over the union, the swap's p99, no daemon error; every
+    K1 call held against its plain version. Returns K1's kernels-line
+    entry at the append shape."""
+    from avenir_tpu_torch.lifecycle.registry import SnapshotRegistry
+    from avenir_tpu_torch.lifecycle.retrain import RetrainDaemon
+    from avenir_tpu_torch.models.live_ann import (IVF_SNAPSHOT_KIND,
+                                                  LiveAnnIndex)
+    from avenir_tpu_torch.obs import exporters, telemetry
+    from avenir_tpu_torch.ops import cuda_distance as D
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.ops import ivf
+    from avenir_tpu_torch.stream.engine import (AnnServingLearner,
+                                                ServingEngine)
+    from avenir_tpu_torch.stream.loop import InProcQueues
+    rng = np.random.default_rng(SEED + 16)
+    d, k = BENCH_D, BENCH_K
+    base = rng.random((LIVE_BASE_ROWS, d), dtype=np.float32)
+    batches = [rng.random((LIVE_BATCH_ROWS, d), dtype=np.float32)
+               for _ in range(LIVE_BATCHES)]
+    ring_rows = rng.random((LIVE_RING, d), dtype=np.float32)
+    hub = exporters.hub()
+    enabled_here = not hub.enabled
+    hub.enable()
+    hub.reset()               # the phase's spans only
+    work = tempfile.mkdtemp(prefix="smoke-live-", dir=os.path.dirname(
+        os.path.abspath(__file__)))
+    registry = SnapshotRegistry(os.path.join(work, "registry"),
+                                max_to_keep=2)
+    watcher = registry.subscribe()
+    restore_ms, wave_s = [], []
+
+    def swap_source():
+        snap = watcher.poll()
+        if snap is None or snap.manifest.get("kind") != IVF_SNAPSHOT_KIND:
+            return None
+        t0 = time.perf_counter()
+        payload = (snap.restore(), snap.manifest.get("extra") or {})
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        return snap.version, payload
+
+    H.class_feature_bin_counts.launches = 0
+    calls = []
+    daemon = None
+    try:
+        with recording(calls):
+            build_ms, live = host_ms(lambda: LiveAnnIndex(
+                base, nlist=0, n_iters=15, seed=0,
+                tail_budget=LIVE_TAIL_BUDGET,
+                rebuild_tail_fill=LIVE_REBUILD_FILL, device=dev))
+            train = live.make_train_fn()
+
+            def timed_wave():
+                t0 = time.perf_counter()
+                out = train()
+                wave_s.append(time.perf_counter() - t0)
+                return out
+            daemon = RetrainDaemon(registry, timed_wave)
+            live.bind_daemon(daemon)
+            daemon.start()
+            learner = AnnServingLearner(live, ring_rows, k=k)
+            learner.warm(LIVE_QUERIES)
+            queues = InProcQueues()
+            engine = ServingEngine("", learner.actions, {}, queues,
+                                   learner=learner, min_batch=LIVE_QUERIES,
+                                   max_batch=LIVE_QUERIES,
+                                   swap_source=swap_source, device=dev)
+            append_s, q_wave_ms, q_quiet_ms = 0.0, [], []
+            errors, swap_batches, n_expected = 0, [], LIVE_BASE_ROWS
+            for bi, batch in enumerate(batches):
+                ms, _ = host_ms(lambda: live.append(batch))
+                append_s += ms / 1e3
+                n_expected += LIVE_BATCH_ROWS
+                in_flight = (live.rebuild_requests
+                             > live.swaps - live.inline_rebuilds)
+                swaps = engine.stats.swaps
+                for i in range(LIVE_QUERIES):
+                    queues.push_event(f"q{bi}-{i}")
+                ms, _ = host_ms(engine.run)
+                (q_wave_ms if in_flight else q_quiet_ms).append(ms)
+                got = [a for _, acts in list(queues.actions)[:LIVE_QUERIES]
+                       for a in acts]
+                queues.actions.clear()
+                if len(got) != LIVE_QUERIES or not all(
+                        0 <= int(a) < live.n_total for a in got):
+                    errors += 1
+                if engine.stats.swaps > swaps:
+                    swap_batches.append(bi)
+            # the daemon's wave in flight lands; an empty run adopts it
+            daemon.stop()
+            if registry.latest_version() != engine.stats.model_version:
+                engine.run()
+            torch.cuda.synchronize()
+        launches = H.class_feature_bin_counts.launches
+        report = hub.report()
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        if enabled_here:
+            hub.disable()
+        shutil.rmtree(work, ignore_errors=True)
+    held, _ = hold_k1_calls("phase 16 live ANN", calls)
+    if held != launches:
+        raise AssertionError(f"phase 16: {launches} K1 launches, {held} "
+                             "recorded")
+    if daemon.errors:
+        raise AssertionError(f"phase 16: a wave raised: "
+                             f"{daemon.last_error!r}")
+    if live.n_total != n_expected:
+        raise AssertionError(f"phase 16: n_total {live.n_total} != "
+                             f"{n_expected}")
+    if errors:
+        raise AssertionError(f"phase 16: {errors} query batches errored")
+    if live.inline_rebuilds:
+        raise AssertionError(f"phase 16: {live.inline_rebuilds} inline "
+                             "rebuilds (the tail budget is too small)")
+    if not (live.rebuild_requests and daemon.waves and live.swaps):
+        raise AssertionError(
+            f"phase 16: requests {live.rebuild_requests}, waves "
+            f"{daemon.waves}, swaps {live.swaps}")
+    if not [b for b in swap_batches if b < LIVE_BATCHES - 1]:
+        raise AssertionError(f"phase 16: no swap mid-stream "
+                             f"({swap_batches})")
+    swap_span = report["spans"].get("lifecycle.swap")
+    if not swap_span or swap_span["count"] < live.swaps:
+        raise AssertionError(f"phase 16: lifecycle.swap span {swap_span}")
+    if swap_span["p99_ms"] > LIVE_SWAP_P99_MS:
+        raise AssertionError(f"phase 16: swap p99 {swap_span['p99_ms']} "
+                             f"ms > {LIVE_SWAP_P99_MS}")
+
+    # recall against K2's exact top-k over the union, then full probing
+    # against a fresh build over the union (neither counts as the path)
+    union = np.concatenate([base] + batches)
+    union_dev = torch.from_numpy(union).to(dev)
+    xq = rng.random((LIVE_RECALL_ROWS, d), dtype=np.float32)
+    xq_dev = torch.from_numpy(xq).to(dev)
+    _, exact_ids = D.pairwise_topk_cuda(xq_dev, union_dev, k=k)
+    _, live_ids = live.query(xq, k=k)
+    exact_ids, live_ids = exact_ids.cpu().numpy(), live_ids.cpu().numpy()
+    recall = float(np.mean([len(set(a.tolist()) & set(b.tolist())) / k
+                            for a, b in zip(exact_ids, live_ids)]))
+    if recall < LIVE_MIN_RECALL:
+        raise AssertionError(f"phase 16: recall {recall:.4f} < "
+                             f"{LIVE_MIN_RECALL}")
+    nlist = live.index.nlist
+    fresh_ms, fresh = host_ms(lambda: ivf.build_ivf(
+        union_dev, nlist=nlist, n_iters=15, seed=0, device=dev))
+    full = live.query(xq[:LIVE_QUERIES], k=k, n_probe=nlist)
+    want = ivf.ann_topk(fresh, xq_dev[:LIVE_QUERIES], k=k, n_probe=nlist)
+    if not all(torch.equal(a, b) for a, b in zip(full, want)):
+        raise AssertionError("phase 16: full probing differs from a fresh "
+                             "build over the union")
+    del fresh, union_dev
+
+    # K1 at the append shape (one class, one feature, nlist bins)
+    append_calls = [a for n, a, _ in calls
+                    if n == "K1" and a["bins"].shape[0] == LIVE_BATCH_ROWS]
+    k1 = time_k1_at(dev, append_calls[-1])
+    rows = LIVE_BATCHES * LIVE_BATCH_ROWS
+    med = lambda v: statistics.median(v) if v else float("nan")  # noqa
+    log(f"phase 16 live ANN: base {LIVE_BASE_ROWS} rows x {d}, nlist "
+        f"{nlist}, built in {build_ms / 1e3:.2f} s; {LIVE_BATCHES} appends "
+        f"of {LIVE_BATCH_ROWS} rows, {rows / append_s:,.0f} rows/s "
+        f"(host clock, the card synchronized); tail budget "
+        f"{LIVE_TAIL_BUDGET}, rebuild at fill {LIVE_REBUILD_FILL}: "
+        f"{live.rebuild_requests} requests, {daemon.waves} waves "
+        f"({', '.join(f'{s:.2f}' for s in wave_s)} s each on the "
+        f"daemon's stream), {live.swaps} swaps after batches "
+        f"{swap_batches}, version {live.version}, tail cap "
+        f"{live.tail_cap}, n_total {live.n_total}; {LIVE_QUERIES} queries "
+        f"a batch through the engine, k={k}: median "
+        f"{med(q_wave_ms):.1f} ms with a wave in flight "
+        f"({len(q_wave_ms)} batches), {med(q_quiet_ms):.1f} ms with none "
+        f"({len(q_quiet_ms)}); lifecycle.swap p50 "
+        f"{swap_span['p50_ms']:.1f} / p99 {swap_span['p99_ms']:.1f} ms "
+        f"(bound {LIVE_SWAP_P99_MS:.0f}), the snapshot's restore "
+        f"{', '.join(f'{v:.1f}' for v in restore_ms)} ms before it; "
+        f"recall {recall:.4f} on {LIVE_RECALL_ROWS} rows against K2's "
+        f"exact top-k over the union (bar {LIVE_MIN_RECALL}); full probing "
+        f"equal to a fresh build over the union ({fresh_ms / 1e3:.2f} s)")
+    log(f"phase 16 K1: {held} launches on the path, each exact against "
+        f"plain; at the append shape {k1['shape']}: {k1['ms']:.4f} ms "
+        f"chained, {k1['graph_ms']:.4f} ms from graph replays reading HBM "
+        f"({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+        f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, "
+        f"bound {k1['bound_ms']:.7f} ms ({k1['bound_by']})")
+    return {"name": "cfb_counts (K1-live) at the live-ANN append shape (a "
+                    "batch's list counts, C = 1, F = 1, B = nlist)",
+            "route": "cuda", "source": "avenir_tpu_torch/csrc/hist.cu",
+            "replaces": "avenir_tpu/ops/pallas_histogram.py:57",
+            "launches": launches, "max_abs_err": 0.0,
+            **{key: k1[key] for key in ("ms", "graph_ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms", "shape")}}
+
+
+class ArmedJob:
+    """A CLI job in a fresh process with the scrape endpoint armed
+    (``--obs-port 0``), its endpoint scraped on a thread while it runs
+    (``/metrics``, parsed, and ``/healthz``); ``want_gauge`` names a
+    metric a scrape must find. :meth:`result` waits for it: (its stdout
+    lines after the port's, the scrape counts)."""
+
+    def __init__(self, label, args, want_gauge=None):
+        import threading
+        self.label, self.want_gauge = label, want_gauge
+        self.scrapes = {"metrics": 0, "healthz": 0, "gauge": 0}
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "avenir_tpu_torch"] + args
+            + ["--obs-port", "0", "--device", "cuda"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.out = self.err = None
+        self.thread = threading.Thread(target=self._scrape, daemon=True)
+        self.thread.start()
+
+    def _scrape(self):
+        from avenir_tpu_torch.obs.exporters import parse_prometheus_text
+        line = self.proc.stdout.readline()
+        try:
+            base = f"http://localhost:{json.loads(line)['obs_port']}"
+        except ValueError:
+            base = None
+        while base and self.proc.poll() is None:
+            try:
+                with urllib.request.urlopen(base + "/metrics",
+                                            timeout=5) as r:
+                    names = {n for n, _, _ in parse_prometheus_text(
+                        r.read().decode())}
+                self.scrapes["metrics"] += 1
+                self.scrapes["gauge"] += bool(self.want_gauge) and any(
+                    self.want_gauge in n for n in names)
+                with urllib.request.urlopen(base + "/healthz",
+                                            timeout=5) as r:
+                    self.scrapes["healthz"] += bool(json.loads(r.read())["ok"])
+            except OSError:
+                break                 # the job ended and closed its port
+            time.sleep(0.02)
+        self.out, self.err = self.proc.communicate(timeout=600)
+
+    def result(self):
+        self.thread.join(timeout=660)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.proc.returncode != 0:
+            raise AssertionError(f"phase 16 {self.label}: exit "
+                                 f"{self.proc.returncode}: "
+                                 f"{(self.err or '')[-2000:]}")
+        s = self.scrapes
+        if not (s["metrics"] and s["healthz"]
+                and (s["gauge"] or not self.want_gauge)):
+            raise AssertionError(f"phase 16 {self.label}: scrapes {s}")
+        return self.out.splitlines(), s
+
+
+def live_cli_jobs(dev, work):
+    """The live verb and the live observability layer through the CLI:
+    phase 3's elearn NearestNeighbor job and the engine verb
+    (``serving.engine=true``, UCB2 on the first ``ENGINE_SHORT_EVENTS`` of
+    phase 14's ids) each in a fresh process with the endpoint armed (the
+    elearn one also with ``--metrics-out`` and ``alerts.enable=true``),
+    ``/metrics`` and ``/healthz`` scraped while they run (the engine's
+    gauges among the metrics), beside this process's jobs:
+    NearestNeighbor with ``knn.ann.live=true`` at the elearn shape, its
+    file byte-equal to ``knn.ann.live=false``'s; the two jobs unarmed,
+    whose lines and files the armed ones' equal; a failing job, which
+    leaves ``<metrics-out>.flight.jsonl``."""
+    from avenir_tpu_torch.datagen import generators as G
+    from avenir_tpu_torch.models import live_ann
+    p = lambda name: os.path.join(work, name)  # noqa: E731
+    elearn = G.elearn_rows(ELEARN_TRAIN + ELEARN_TEST, seed=SEED)
+    write_csv(p("elearn_train.csv"), elearn[:ELEARN_TRAIN])
+    write_csv(p("elearn_test.csv"), elearn[ELEARN_TRAIN:])
+    with open(p("elearn.json"), "w") as fh:
+        json.dump(G.elearn_schema_json(), fh)
+    with open(p("knn.properties"), "w") as fh:
+        fh.write(f"field.delim.regex=,\n"
+                 f"feature.schema.file.path={p('elearn.json')}\n"
+                 f"train.data.path={p('elearn_train.csv')}\n"
+                 "top.match.count=5\nkernel.function=none\n"
+                 "distance.scale=1000\nvalidation.mode=true\n"
+                 "positive.class.value=fail\n")
+    events = os.path.join(work, "events.txt")
+    if not os.path.exists(os.path.join(work, "rl.properties")):
+        actions, events, rewards = online_inputs(work, ONLINE_EVENTS)
+        online_properties(work, actions, rewards)
+    short = p("events-live.txt")
+    with open(events) as fh:
+        ids = fh.read().split()[:ENGINE_SHORT_EVENTS]
+    with open(short, "w") as fh:
+        fh.write("".join(i + "\n" for i in ids))
+    knn = ["NearestNeighbor", p("elearn_test.csv")]
+    conf = ["--conf", p("knn.properties"), "--device", "cuda"]
+    ucb2 = "learner.type=upperConfidenceBoundTwo"
+    m = p("m.jsonl")
+    armed_knn = ArmedJob("armed NearestNeighbor", knn + [
+        p("armed.txt"), "--conf", p("knn.properties"), "--metrics-out", m,
+        "-D", "alerts.enable=true"])
+    # UCB2, the slowest learner: the scrapes see its batches
+    armed_rl = ArmedJob("armed engine", [
+        "ReinforcementLearnerTopology", short, p("rl_armed.txt"), "--conf",
+        p("rl.properties"), "-D", "serving.engine=true", "-D", ucb2],
+        want_gauge="engine_overlap_fraction")
+    walls = {}
+    for tag, live in (("frozen", "false"), ("live", "true")):
+        t0 = time.perf_counter()
+        run_cli(knn + [p(f"ann_{tag}.txt")] + conf
+                + ["-D", "knn.ann=true", "-D", f"knn.ann.live={live}"])
+        walls[tag] = time.perf_counter() - t0
+    same_bytes("phase 16 knn.ann.live=true", p("ann_live.txt"),
+               p("ann_frozen.txt"))
+    slot = live_ann.peek_live_index().describe()
+    live_ann._LIVE_SLOT.clear()
+    want = cli_lines(knn + [p("plain.txt")] + conf)
+    line = engine_verb(work, short, "rl_plain.txt", "cuda", ucb2)
+    # a failing job leaves its flight record
+    failed = False
+    try:
+        run_cli(knn + [p("fail.txt")] + conf
+                + ["-D", f"train.data.path={p('missing.csv')}", "-D",
+                   "obs.live=true", "--metrics-out", p("f.jsonl")])
+    except FileNotFoundError:
+        failed = True
+    with open(p("f.jsonl.flight.jsonl")) as fh:
+        meta = json.loads(fh.readline())
+    if not failed or meta.get("reason") != "crash:cli":
+        raise AssertionError(f"phase 16 failing job: {failed}, {meta}")
+
+    got, knn_scrapes = armed_knn.result()
+    if got != want:
+        raise AssertionError(f"phase 16 armed NearestNeighbor: {got} != "
+                             f"{want}")
+    same_bytes("phase 16 armed NearestNeighbor", p("armed.txt"),
+               p("plain.txt"))
+    for suffix in (".prom", ".alerts.jsonl"):
+        if not os.path.exists(m + suffix):
+            raise AssertionError(f"phase 16: no {m + suffix}")
+    got, rl_scrapes = armed_rl.result()
+    got = json.loads(got[-1])
+    # the share of the host's time that overlapped the card varies a run
+    if {**got, "overlap_fraction": 0} != {**line, "overlap_fraction": 0}:
+        raise AssertionError(f"phase 16 armed engine: {got} != {line}")
+    same_bytes("phase 16 armed engine", p("rl_armed.txt"),
+               p("rl_plain.txt"))
+    log(f"phase 16 NearestNeighbor knn.ann.live=true on elearn "
+        f"{ELEARN_TRAIN} / {ELEARN_TEST}: file byte-equal to "
+        f"knn.ann.live=false's ({walls['live']:.2f} s against "
+        f"{walls['frozen']:.2f}; the live slot {slot}); in fresh processes "
+        f"beside it, the elearn job armed (--obs-port 0, --metrics-out, "
+        f"alerts.enable=true): {knn_scrapes['metrics']} /metrics and "
+        f"{knn_scrapes['healthz']} /healthz scrapes while it ran, lines and "
+        f"file the unarmed job's, .prom and .alerts.jsonl written; the "
+        f"engine verb (UCB2, {ENGINE_SHORT_EVENTS} ids) armed: "
+        f"{rl_scrapes['gauge']} of {rl_scrapes['metrics']} scrapes named "
+        f"its engine gauges, its JSON line and file the unarmed run's; a "
+        f"failing job left <metrics-out>.flight.jsonl ({meta['reason']}, "
+        f"{meta['windows']} windows)")
+
+
+def live_phase(dev, work):
+    """Phase 16: the live ANN index (``live_stream``) and the live
+    observability layer through the CLI (``live_cli_jobs``). Returns K1's
+    kernels-line entry at the append shape."""
+    t_phase = time.perf_counter()
+    k1 = live_stream(dev)
+    live_cli_jobs(dev, work)
+    log(f"phase 16 wall: {time.perf_counter() - t_phase:.1f} s")
+    return k1
+
+
 #: the phases that run alone, ``python3 chip_smoke.py <name>``
-ALONE = {"online_phase": online_phase, "engine_phase": engine_phase}
+ALONE = {"online_phase": online_phase, "engine_phase": engine_phase,
+         "live_phase": live_phase}
 
 
 def main(argv=None) -> int:
@@ -6457,7 +6883,8 @@ def main(argv=None) -> int:
               "False)", file=sys.stderr)
         return 2
     if argv:
-        # one phase alone (it builds no kernel): its lines, no result
+        # one phase alone (it builds the kernels it launches): its lines,
+        # no result
         from avenir_tpu_torch.ops import _build
         from avenir_tpu_torch.utils.device import resolve_device
         if argv[0] not in ALONE:
@@ -6591,9 +7018,11 @@ def main(argv=None) -> int:
         online_phase(dev, work)
         mark("14")
         engine_phase(dev, work)
+        mark("15")
+        k1_live = live_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    mark("15")
+    mark("16")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name] + planned[name]
 
@@ -6615,6 +7044,7 @@ def main(argv=None) -> int:
     kernels.append(k1_boost)
     kernels.append(k1_text)
     kernels += batch
+    kernels.append(k1_live)
     log(f"phase walls (s, host clock): {walls}; total "
         f"{sum(walls.values()):.1f}")
     print(json.dumps({"kernels": kernels}))

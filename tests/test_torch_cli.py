@@ -116,10 +116,7 @@ def test_elearn_nearest_neighbor_matches(tmp_path, capsys, extra):
     assert json.loads(t_out.splitlines()[-1])["Validation.Accuracy"] > 0.8
 
 
-@pytest.mark.parametrize("key,value", [
-    ("knn.ann.live", "true"),
-    ("knn.ann.live.tail.budget", "64"), ("knn.sharded", "true"),
-    ("obs.live", "true"), ("alerts.enable", "true")])
+@pytest.mark.parametrize("key,value", [("knn.sharded", "true")])
 def test_knn_refuses_later_keys(tmp_path, key, value):
     """Keys at values that select work the port does not carry."""
     write_fixture(tmp_path, "elearn", 50, 10)
@@ -234,17 +231,63 @@ def test_quantized_and_ann_outputs_byte_identical(tmp_path, capsys, extra):
     assert json.loads(t_out.splitlines()[-1])["Validation.Accuracy"] > 0.8
 
 
-def test_live_ann_refused_by_its_roadmap_title(tmp_path):
-    write_fixture(tmp_path, "elearn", 50, 10)
+_ONCE_REFUSED = [
+    (["-D", "knn.ann.live=true", "-D", "knn.ann.nprobe=8"], "jax"),
+    (["-D", "knn.ann.live=true", "-D", "knn.ann.nprobe=8", "-D",
+      "knn.ann.live.tail.budget=64"], "jax"),
+    (["--obs-port", "0"], "jax"),
+    (["-D", "obs.http.port=0"], "jax"),
+    (["-D", "obs.live=true"], "jax"),
+    (["-D", "obs.flight.path=FLIGHT"], "unarmed"),
+    (["-D", "alerts.enable=true", "-D", "alerts.high.water=64"], "jax"),
+    (["--obs-port", "0", "-D", "alerts.enable=true", "-D",
+      "obs.slo.p99.ms=250", "--metrics-out", "METRICS"], "unarmed")]
+
+
+@pytest.mark.parametrize("extra,against", _ONCE_REFUSED,
+                         ids=["ann-live", "ann-live-tail-budget", "obs-port",
+                              "obs-http-port", "obs-live", "obs-flight-path",
+                              "alerts-enable", "armed-with-metrics-out"])
+def test_keys_and_flags_once_refused_now_run(tmp_path, capsys, extra,
+                                             against):
+    """The live ANN keys and the live observability flag and keys, which
+    this CLI refused before it carried them, run: the file and stdout are
+    the JAX CLI's with the same arguments (``knn.ann.live`` probing every
+    list), or the unarmed job's; an armed endpoint's port line comes
+    first on both CLIs and differs only in its numbers."""
+    write_fixture(tmp_path, "elearn", 1200, 300, seed=58)
     props = _props(tmp_path / "p.properties", **{
+        "field.delim.regex": ",",
         "feature.schema.file.path": tmp_path / "schema.json",
-        "train.data.path": tmp_path / "train.csv"})
-    with pytest.raises(ValueError, match=r"knn\.ann\.live=true .*ROADMAP "
-                       r"queue A, 'Live ANN'"):
-        tmain(["NearestNeighbor", str(tmp_path / "test.csv"),
-               str(tmp_path / "o.txt"), "--conf", props, "-D", "knn.ann=true",
-               "-D", "knn.ann.live=true", "--device", "cpu"])
-    assert not (tmp_path / "o.txt").exists()
+        "train.data.path": tmp_path / "train.csv",
+        "top.match.count": "5", "validation.mode": "true",
+        "positive.class.value": "fail", "output.class.distr": "true",
+        "knn.ann": "true", "knn.ann.nlist": "8"})
+    extra = [a.replace("FLIGHT", str(tmp_path / "flight.jsonl"))
+             .replace("METRICS", str(tmp_path / "m.jsonl")) for a in extra]
+    base = ["NearestNeighbor", str(tmp_path / "test.csv")]
+    if against == "jax":
+        jmain(base + [str(tmp_path / "want.txt"), "--conf", props, "-D",
+                      "plan.enable=false", "-D", "knn.ann.nprobe=8"] + extra)
+    else:
+        tmain(base + [str(tmp_path / "want.txt"), "--conf", props,
+                      "--device", "cpu"])
+    want = capsys.readouterr().out.splitlines()
+    tmain(base + [str(tmp_path / "got.txt"), "--conf", props, "--device",
+                  "cpu"] + extra)
+    got = capsys.readouterr().out.splitlines()
+    armed = "--obs-port" in extra or "obs.http.port=0" in extra
+    if armed:
+        port = json.loads(got.pop(0))
+        assert port["obs_port"] > 0 and port["pid"] == os.getpid()
+        if against == "jax":
+            assert set(json.loads(want.pop(0))) == set(port)
+    assert got == want
+    assert (tmp_path / "got.txt").read_bytes() == \
+        (tmp_path / "want.txt").read_bytes()
+    if "--metrics-out" in extra:
+        assert (tmp_path / "m.jsonl.alerts.jsonl").exists()
+        assert (tmp_path / "m.jsonl.prom").exists()
 
 
 @pytest.mark.parametrize("verb", ["BayesianDistribution",
@@ -325,25 +368,6 @@ def test_nb_streamed_and_sharded_keys_match_the_jax_cli(tmp_path, capsys,
         # the same model as the merged train's
         assert ((tmp_path / "t.txt").read_bytes()
                 == (tmp_path / "model.txt").read_bytes())
-
-
-_LIVE_OBS = "'Live observability layer'"
-
-
-@pytest.mark.parametrize("args,title", [
-    (["GradientBoostPredictor", "--obs-port", "0"], _LIVE_OBS),
-    (["NearestNeighbor", "--obs-port", "0"], _LIVE_OBS)])
-def test_cli_refuses_later_verbs_and_flags(tmp_path, args, title):
-    """The refusal names the verb, key or flag and the ROADMAP item by
-    title."""
-    props = _props(tmp_path / "p.properties", x="1",
-                   **{"learner.type": "softMax", "action.list": "a,b"})
-    name = args[-1] if args[1:2] == ["-D"] else (
-        args[1] if len(args) > 1 else args[0])
-    match = f"{re.escape(name)}.*ROADMAP queue A, {re.escape(title)}"
-    with pytest.raises(ValueError, match=match):
-        tmain([args[0], "in.csv", "out.txt", "--conf", props, *args[1:],
-               "--device", "cpu"])
 
 
 @pytest.mark.parametrize("verb", ["GradientBoostBuilder",
@@ -462,8 +486,7 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    for title in ("Live observability layer", "Multi-device layer",
-                  "Live ANN", "Bandits and streaming serving"):
+    for title in ("Multi-device layer", "Bandits and streaming serving"):
         assert title in named, title
     assert named <= titles, named - titles
     assert not by_number, by_number

@@ -95,9 +95,13 @@ def test_bit_parity_prefilled(learner_type, seed):
 
 def test_dispatch_reads_nothing_to_the_host(monkeypatch):
     """``next_action_batch_async`` on each learner (and two with min-trial
-    forcing, whose decisions all take the scalar steps), at 1, 64, 256
-    and 64 + 9 decisions, with every tensor-to-host read raising (the
-    CPU's stand-in for ``torch.cuda.set_sync_debug_mode("error")``)."""
+    forcing, whose decisions all take the scalar steps, and the live ANN
+    index's ``AnnServingLearner`` with appended rows in its tails, one of
+    them past the build's int8 scale), at 1, 64, 256 and 64 + 9
+    decisions, with every tensor-to-host read raising (the CPU's stand-in
+    for ``torch.cuda.set_sync_debug_mode("error")``)."""
+    from avenir_tpu_torch.models.live_ann import LiveAnnIndex
+    from avenir_tpu_torch.stream.engine import AnnServingLearner
     learners = [Learner(t, ACTIONS, dict(CONFIG, **{"min.trial": m}), 3,
                         device="cpu")
                 for t, m in [(t, -1) for t in TYPES]
@@ -105,6 +109,15 @@ def test_dispatch_reads_nothing_to_the_host(monkeypatch):
     for learner in learners:
         learner.set_reward_batch([(ACTIONS[i % 3], 40.0 + i)
                                   for i in range(12)])
+    rng = np.random.default_rng(5)
+    live = LiveAnnIndex(rng.random((600, 4), dtype=np.float32),
+                        rng.integers(0, 3, (600, 2)), n_cat_bins=3,
+                        nlist=8, n_iters=3, tail_budget=64, device="cpu")
+    live.append(rng.random((40, 4), dtype=np.float32) * 2,
+                rng.integers(0, 3, (40, 2)))
+    learners.append(AnnServingLearner(
+        live, rng.random((300, 4), dtype=np.float32) * 1.5,
+        rng.integers(0, 3, (300, 2)), k=5))
 
     def host_read(*args, **kwargs):
         raise AssertionError("a host read in the dispatch")
