@@ -108,7 +108,6 @@ _LATER_MI = {"train.sharded": _MULTI}
 
 # the JAX CLI's verbs this port does not carry yet -> the ROADMAP queue A
 # item that ports them (none: every verb runs)
-_BANDITS = roadmap_item("Bandits and streaming serving")
 _LATER_VERBS: Dict[str, str] = {}
 
 
@@ -1954,8 +1953,14 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
     no checkpoints; ``lifecycle.dir`` names a snapshot registry
     (``lifecycle/registry.py``) whose head it restores before serving and
     to which it publishes the state after (``lifecycle.max.keep``
-    prunes). ``broker.shards`` (the broker fleet) is refused by name;
-    the config errors the JAX CLI raises come first, with its messages."""
+    prunes).
+
+    ``broker.shards=host:port,...`` serves the job over a broker fleet
+    (``stream/fleet.py``; the engine only): the job's group
+    (``broker.group``, default ``g0``) hashes to one shard, whose queues
+    carry the events, actions and rewards with the pending ledger
+    armed; the JSON line gains ``broker_shard``. The config errors are
+    the JAX CLI's, with its messages."""
     from avenir_tpu_torch.stream.loop import InProcQueues, OnlineLearnerLoop
     learner_type = conf.get_required("learner.type")
     actions = conf.get_list("action.list")
@@ -1974,16 +1979,37 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
         raise ValueError(
             "lifecycle.dir is the engine's durability anchor; the loop "
             "path keeps checkpoint.dir (set serving.engine=true)")
-    if conf.get("broker.shards"):
+    event_ts = conf.get_bool("event.timestamps", False)
+    broker_spec = conf.get("broker.shards")
+    fleet = None
+    broker_shard = None
+    if broker_spec:
         if not use_engine:
             raise ValueError(
                 "broker.shards needs serving.engine=true — the fleet "
                 "transport is the engine's bulk protocol")
-        _refuse(f"serving.engine=true, broker.shards="
-                f"{conf.get('broker.shards')}",
-                f"the broker fleet ({_BANDITS})")
-    event_ts = conf.get_bool("event.timestamps", False)
-    queues = InProcQueues()
+        from avenir_tpu_torch.stream.fleet import (
+            BrokerFleet, consistent_route)
+        from avenir_tpu_torch.stream.loop import RedisQueues
+        group = conf.get("broker.group", "g0")
+        fleet = BrokerFleet(broker_spec)
+        broker_shard = consistent_route([group],
+                                        range(fleet.n_shards))[group]
+        bclient = fleet.client(broker_shard)
+        # the job owns its group's key family for the run: a residue an
+        # earlier (or crashed) job left on a persistent broker would
+        # re-fold its rewards under a fresh cursor and leak its actions
+        # into this job's file
+        bclient.delete(f"eventQueue:{group}", f"actionQueue:{group}",
+                       f"rewardQueue:{group}", f"pendingQueue:{group}")
+        queues = RedisQueues(event_queue=f"eventQueue:{group}",
+                             action_queue=f"actionQueue:{group}",
+                             reward_queue=f"rewardQueue:{group}",
+                             pending_queue=f"pendingQueue:{group}",
+                             field_delim=conf.get("field.delim", ","),
+                             client=bclient)
+    else:
+        queues = InProcQueues()
     delim_regex = conf.get("field.delim.regex", ",")
 
     def fill(resumed_events: int = 0) -> None:
@@ -1991,6 +2017,18 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
         reward_path = conf.get("reward.data.path")
         reward_rows = (read_csv_lines(reward_path, delim_regex)
                        if reward_path else [])
+        if fleet is not None:
+            # multi-value LPUSHes of 512 (one broker round trip a chunk;
+            # LPUSH appends left to right, as pushes one by one)
+            def bulk(queue, payloads, chunk=512):
+                for i in range(0, len(payloads), chunk):
+                    bclient.lpush(queue, *payloads[i:i + chunk])
+            bulk(queues.event_queue,
+                 [row[0] for row in event_rows[resumed_events:]])
+            bulk(queues.reward_queue,
+                 [queues.delim.join([row[0], str(float(row[1]))])
+                  for row in reward_rows])
+            return
         for row in event_rows[resumed_events:]:
             queues.push_event(row[0])
         for row in reward_rows:
@@ -2014,12 +2052,25 @@ def run_reinforcement_learner(conf: JobConfig, in_path: str, out_path: str,
             stats = loop.run()
     delim_out = conf.get("field.delim", ",")
     with open(out_path, "w") as fh:
-        while True:
-            entry = queues.pop_action()
-            if entry is None:
-                break
-            event_id, selections = entry
-            fh.write(delim_out.join([event_id] + selections) + "\n")
+        if fleet is not None:
+            # the answers came back through the job's shard: count-form
+            # RPOPs drain them oldest first, 512 a round trip
+            while True:
+                raws = bclient.rpop(queues.action_queue, 512)
+                if not raws:
+                    break
+                for raw in raws:
+                    fh.write(raw.decode() + "\n")
+        else:
+            while True:
+                entry = queues.pop_action()
+                if entry is None:
+                    break
+                event_id, selections = entry
+                fh.write(delim_out.join([event_id] + selections) + "\n")
+    if fleet is not None:
+        extra += f', "broker_shard": {broker_shard}'
+        fleet.close()
     print(f'{{"events": {stats.events}, "rewards": {stats.rewards}, '
           f'"actions": {stats.actions_written}{extra}}}')
 

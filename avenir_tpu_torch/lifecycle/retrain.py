@@ -14,7 +14,8 @@ around the commit), the ``lifecycle.model_version`` hub gauge, and the
 rule that a failed wave never takes serving down; the ``train_fn`` is
 the wave. It returns ``{"pytree": state}`` or ``{"file_path": path}``,
 with ``train_rows``, ``kind`` and ``extra`` where it has them.
-:func:`bandit_refit_train_fn` is the online path's own wave.
+:func:`bandit_refit_train_fn` is the online path's own wave,
+:func:`boost_refit_train_fn` boosted serving's.
 """
 
 from __future__ import annotations
@@ -51,6 +52,35 @@ def bandit_refit_train_fn(learner_type: str, actions, config: Dict[str, Any],
         return {"pytree": learner.state, "train_rows": len(pairs),
                 "kind": "learner-state",
                 "extra": {"learner_type": learner_type}}
+    return train
+
+
+def boost_refit_train_fn(table_source: Callable[[], Any],
+                         config) -> Callable[[], Dict[str, Any]]:
+    """A retrain wave of boosted-forest serving: a fresh boosted ensemble
+    (``models.boost.grow_boosted``, K1's integer mode on the table's
+    device) over whatever ``table_source()`` hands back (the gathered or
+    refreshed ``EncodedTable``), published as its
+    :func:`~avenir_tpu_torch.models.boost.serving_tables`. The budgets are
+    the config's own bounds, the round count and ``(max_depth + 1) ×
+    device_node_budget`` (no grown tree has more BFS nodes: the level
+    program caps every level at the node budget), so every wave's tables
+    have the same shapes and pass ``install_state``'s check however the
+    retrained trees differ. The snapshot's kind is
+    ``boost-serving-tables``, as the JAX package's."""
+    from avenir_tpu_torch.models import boost as _boost
+
+    def train() -> Dict[str, Any]:
+        table = table_source()
+        model = _boost.grow_boosted(table, config)
+        tables = _boost.serving_tables(
+            model, table, rounds_budget=config.n_rounds,
+            node_budget=((config.tree.max_depth + 1)
+                         * config.tree.device_node_budget))
+        return {"pytree": tables, "train_rows": int(table.n_rows),
+                "kind": "boost-serving-tables",
+                "extra": {"rounds": len(model.trees),
+                          "depth": config.tree.max_depth}}
     return train
 
 

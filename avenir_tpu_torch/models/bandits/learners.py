@@ -307,13 +307,17 @@ def _base_reward(state: LearnerState, action, reward,
 
 
 def _scaled_reward(state: LearnerState, action, reward,
-                   cfg: LearnerConfig) -> LearnerState:
+                   cfg: LearnerConfig, contract: bool = True
+                   ) -> LearnerState:
     """_base_reward of ``reward / reward.scale``: the product with the
     scale's reciprocal fused into the running sum's add, as XLA compiles
-    it alone and in the masked scan."""
+    it alone and in the masked scan; with ``contract`` False the product
+    is rounded apart, as XLA compiles the update mapped over two or more
+    contexts (a scatter whose update is computed outside it)."""
     inv = _f32(np.float32(1.0) / np.float32(cfg.reward_scale))
     hit = _arange(state) == action
-    total = fma(reward, inv, state.reward_sum)
+    total = (fma(reward, inv, state.reward_sum) if contract
+             else state.reward_sum + reward * inv)
     return state.replace(
         reward_sum=torch.where(hit, total, state.reward_sum),
         reward_count=torch.where(hit, state.reward_count + 1.0,
@@ -394,8 +398,8 @@ class upperConfidenceBoundOne:
     @staticmethod
     def set_reward(state, action, reward,
                    cfg: LearnerConfig = LearnerConfig(),
-                   masked: bool = False):
-        return _scaled_reward(state, action, reward, cfg)
+                   masked: bool = False, contract: bool = True):
+        return _scaled_reward(state, action, reward, cfg, contract)
 
 
 def _pow_f32(base: float, exponent: torch.Tensor) -> torch.Tensor:
@@ -463,8 +467,8 @@ class upperConfidenceBoundTwo:
     @staticmethod
     def set_reward(state, action, reward,
                    cfg: LearnerConfig = LearnerConfig(),
-                   masked: bool = False):
-        return _scaled_reward(state, action, reward, cfg)
+                   masked: bool = False, contract: bool = True):
+        return _scaled_reward(state, action, reward, cfg, contract)
 
 
 def _softmax_decay(scalar_a: torch.Tensor, rnd: torch.Tensor,

@@ -637,3 +637,175 @@ def model_from_payload(payload: dict, path: str = "<dict>") -> BoostedModel:
 def load_boosted(path: str) -> BoostedModel:
     with open(path) as fh:
         return model_from_payload(json.load(fh), path)
+
+
+# ---------------------------------------------------------------------------
+# engine serving: routing tables of a fixed shape and the batch's margins
+# ---------------------------------------------------------------------------
+
+def _serving_specs(table: EncodedTable):
+    """For each splittable attribute, in ordinal order (the serving column
+    order): (ordinal, feature position, is_cat, numeric grid or None,
+    n_bins). Shapes downstream depend on this alone, that is on the
+    schema, never on a fitted model."""
+    ord_to_pos = {f.ordinal: i for i, f in enumerate(table.feature_fields)}
+    specs = []
+    for attr in sorted(T.splittable_ordinals(table)):
+        pos = ord_to_pos[attr]
+        f = table.feature_fields[pos]
+        if f.is_categorical:
+            specs.append((attr, pos, True, None,
+                          len(table.bin_labels[pos])))
+        else:
+            grid = np.asarray(T.numeric_grid(f), np.float64)
+            specs.append((attr, pos, False, grid, int(grid.shape[0]) + 1))
+    return specs
+
+
+def serving_bins(table: EncodedTable) -> np.ndarray:
+    """[N, A] int32 bin ids in serving column order, on the host, by the
+    training catalog's rule: a numeric bin is the count of grid points
+    strictly below the f32 value, a categorical bin its vocabulary code."""
+    binned = table.binned.cpu().numpy()
+    numeric = table.numeric.cpu().numpy()
+    cols = []
+    for _attr, pos, is_cat, grid, _n_b in _serving_specs(table):
+        if is_cat:
+            cols.append(np.asarray(binned[:, pos], np.int32))
+        else:
+            col = np.asarray(numeric[:, pos], np.float32)
+            cols.append(np.sum(
+                col[:, None] > grid.astype(np.float32)[None, :],
+                axis=1).astype(np.int32))
+    return np.stack(cols, axis=1)
+
+
+def serving_tables(model: BoostedModel, table: EncodedTable, *,
+                   rounds_budget: Optional[int] = None,
+                   node_budget: Optional[int] = None
+                   ) -> Dict[str, torch.Tensor]:
+    """The ensemble flattened into a dict of tensors whose every shape is
+    a function of (schema, rounds_budget, node_budget) alone, so a
+    retrained model's tables pass ``install_state``'s structure and shape
+    check however its trees differ, and swap in between batches.
+    Routing goes by bins: for each node in BFS order, ``seg_of_bin`` maps
+    a row's bin id to the node's child segment and ``child`` maps the
+    segment to a child slot, −1 to stay (leaves, padding and segments
+    training never produced: the node's own value is then the host
+    predictor's fallback for an unseen segment). ``base`` and ``lr`` are
+    0-d f32 tensors. The tables live on the table's device."""
+    dev = table.device
+    specs = _serving_specs(table)
+    col_of_attr = {attr: a for a, (attr, *_rest) in enumerate(specs)}
+    b_max = max(n_b for *_head, n_b in specs)
+    sw = b_max  # numeric segments <= points + 1 <= n_bins; groups <= vocab
+
+    per_tree = []
+    for tree in model.trees:
+        nodes: List[TreeNode] = []
+        frontier = [tree]
+        while frontier:
+            nxt = []
+            for n in frontier:
+                nodes.append(n)
+                nxt.extend(v for _k, v in sorted(n.children.items()))
+            frontier = nxt
+        per_tree.append(nodes)
+
+    kt = F._pow2(rounds_budget if rounds_budget is not None
+                 else max(1, len(model.trees)))
+    if len(model.trees) > kt:
+        raise ValueError(
+            f"boosted model has {len(model.trees)} rounds but the serving "
+            f"rounds budget holds {kt}; raise rounds_budget")
+    nn = F._pow2(node_budget if node_budget is not None
+                 else max([1] + [len(ns) for ns in per_tree]))
+    if any(len(ns) > nn for ns in per_tree):
+        raise ValueError(
+            f"a boosted tree has {max(len(ns) for ns in per_tree)} nodes "
+            f"but the serving node budget holds {nn}; raise node_budget")
+
+    split_col = np.zeros((kt, nn), np.int32)
+    sob = np.zeros((kt, nn, b_max), np.int32)
+    child = np.full((kt, nn * sw), -1, np.int32)
+    value = np.zeros((kt, nn), np.float32)
+    valid = np.zeros(kt, np.float32)
+    for t_i, nodes in enumerate(per_tree):
+        valid[t_i] = 1.0
+        slot_of = {id(n): k for k, n in enumerate(nodes)}
+        for k, n in enumerate(nodes):
+            value[t_i, k] = np.float32(
+                0.0 if n.leaf_value is None else n.leaf_value)
+            if n.split_key is None:
+                continue
+            a = col_of_attr[n.attr_ordinal]
+            split_col[t_i, k] = a
+            _attr, _pos, is_cat, grid, n_b = specs[a]
+            if is_cat:
+                vocab = table.bin_labels[specs[a][1]]
+                for gi, grp in enumerate(
+                        T.parse_categorical_split_key(n.split_key)):
+                    for v in grp:
+                        sob[t_i, k, vocab.index(v)] = gi
+            else:
+                points = np.asarray(
+                    [int(p) for p in n.split_key.split(T.SPLIT_SEP)],
+                    np.float64)
+                edges = np.concatenate([[-np.inf], grid])
+                sob[t_i, k, :n_b] = np.sum(
+                    points[None, :] <= edges[:n_b, None], axis=1)
+            for seg, ch in n.children.items():
+                child[t_i, k * sw + int(seg)] = slot_of[id(ch)]
+    return {"split_col": torch.from_numpy(split_col).to(dev),
+            "seg_of_bin": torch.from_numpy(sob).to(dev),
+            "child": torch.from_numpy(child).to(dev),
+            "value": torch.from_numpy(value).to(dev),
+            "valid": torch.from_numpy(valid).to(dev),
+            "base": torch.tensor(np.float32(model.base_score), device=dev),
+            "lr": torch.tensor(np.float32(model.learning_rate), device=dev)}
+
+
+def _serve_margins(tables: Dict[str, torch.Tensor], bins: torch.Tensor, *,
+                   depth: int):
+    """[M, A] bin ids (a tensor on the tables' device) -> ([M] f32
+    margins, [M] int32 class indices), every tree of the batch routed
+    together by gathers, with nothing read back to the host. ``depth`` is
+    a cap, not the trees' depth: a step past a leaf reads child −1 and
+    stays, so one cap serves every retrained model whose trees fit under
+    it. The trees' values add in the order XLA's CPU code gives the padded
+    rounds axis ``kt`` in this program (read off its LLVM IR and held by
+    the tests): one by one up to 4 rounds, in 8 vector lanes halved
+    pairwise from 8 (for 16 rounds measured at batches of 1 and of 16 or
+    more). The margin is ``base + lr · sum`` rounded once, as that code
+    contracts it. So the margins equal the JAX package's bit for bit."""
+    split_col = tables["split_col"].long()                  # [kt, nn]
+    kt, nn = split_col.shape
+    b_max = tables["seg_of_bin"].shape[2]
+    sw = tables["child"].shape[1] // nn
+    sob_flat = tables["seg_of_bin"].reshape(kt, nn * b_max).long()
+    child = tables["child"].long()
+    bins_t = bins.long().t()                                # [A, M]
+    m = bins_t.shape[1]
+    node = torch.zeros((kt, m), dtype=torch.int64, device=bins_t.device)
+    for _ in range(depth):
+        a = torch.gather(split_col, 1, node)                # [kt, M]
+        b = torch.gather(bins_t, 0, a)                      # [kt, M]
+        seg = torch.gather(sob_flat, 1, node * b_max + b)
+        ch = torch.gather(child, 1, node * sw + seg)
+        node = torch.where(ch >= 0, ch, node)
+    vals = torch.gather(tables["value"], 1, node) \
+        * tables["valid"][:, None]                          # [kt, M]
+    if kt <= 4:
+        total = it.xla_sum(vals, 0)
+    else:
+        # XLA's loop vectorizer runs the rounds axis in 8 lanes (tree r
+        # into lane r % 8), then halves the lanes pairwise
+        acc = vals[:8]
+        for r in range(8, kt, 8):
+            acc = acc + vals[r:r + 8]
+        while acc.shape[0] > 1:
+            half = acc.shape[0] // 2
+            acc = acc[:half] + acc[half:]
+        total = acc[0]
+    margin = it.fma(tables["lr"], total, tables["base"])
+    return margin, (margin > 0).to(torch.int32)

@@ -62,7 +62,9 @@ def fma(a, b, c) -> torch.Tensor:
     the sum steps one float64 ulp toward the error first (its bits move by
     the sign of error × sum), so the tie breaks the way the exact value
     lies. A subnormal addend counts as a zero of its sign, as XLA's CPU
-    code reads it; a Python number stands for the f32 value it names."""
+    code reads it; a Python number stands for the f32 value it names.
+    Under ``torch.func.vmap`` the same bits come from ``_fma_round_mapped``,
+    which views no bits as another dtype."""
     a, b, c = _f64(a), _f64(b), _f64(c)
     if isinstance(c, torch.Tensor):
         c = c * (c.abs() >= _MIN_NORM)
@@ -70,10 +72,25 @@ def fma(a, b, c) -> torch.Tensor:
     s = torch.as_tensor(p + c)
     bp = s - c                                   # TwoSum: s + err == p + c
     err = (p - bp) + (c - (s - bp))
+    if _mapped(s):
+        return _fma_round_mapped(s, err)
     bits = s.view(torch.int64)
     tie = (bits & _F32_DROPPED) == _F32_HALF
     step = (tie * torch.sign(err * s)).to(torch.int64)
     return (bits + step).view(torch.float64).float()
+
+
+def _fma_round_mapped(s: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
+    """``fma``'s last rounding for tensors under ``torch.func.vmap``, which
+    has no rule for a dtype view on every torch; the same bits. The sum
+    lies midway between two f32 values iff its ``frexp`` mantissa times
+    2^25 is an odd integer, and the step is a ``nextafter``."""
+    tie = torch.remainder(torch.frexp(s)[0] * _F32_HALF_SCALE, 2.0) == 1.0
+    step = torch.sign(err * s)                  # +1 away from 0, -1 toward
+    away = torch.copysign(torch.full_like(s, math.inf), s)
+    moved = torch.nextafter(s, torch.where(step > 0, away,
+                                           torch.zeros_like(s)))
+    return torch.where(tie & (step != 0), moved, s).float()
 
 
 def _f64(x):
@@ -86,17 +103,28 @@ def _f64(x):
 
 # the float64 mantissa bits an f32 rounding drops, and their midpoint
 _F32_DROPPED, _F32_HALF = (1 << 29) - 1, 1 << 28
+# the midpoint as _fma_round_mapped reads it: the frexp mantissa (53 bits
+# in [0.5, 1)) times 2^25 is an odd integer
+_F32_HALF_SCALE = float(1 << 25)
+
+# a tensor that ``torch.func.vmap`` maps (its batched wrapper)
+_mapped = torch._C._functorch.is_batchedtensor
 
 
 def xla_log(x: torch.Tensor) -> torch.Tensor:
     """Natural log of positive normal f32 ``x``, bit for bit as XLA's CPU
     backend computes it: the mantissa in [sqrt(1/2), sqrt(2)) less one,
     a degree-8 polynomial in fused multiply-adds, the exponent added back
-    in two parts of ln 2."""
+    in two parts of ln 2. NaN and +inf come back as themselves, as XLA
+    gives them; a smaller ``x`` counts as the smallest normal f32."""
     x = torch.clamp(x.float(), min=_MIN_NORM)
-    bits = x.view(torch.int32)
-    e = ((bits >> 23) - 126).float()
-    m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)  # [0.5, 1)
+    if _mapped(x):
+        m, e = torch.frexp(x)               # m in [0.5, 1), x = m · 2^e
+        e = e.float()
+    else:
+        bits = x.view(torch.int32)
+        e = ((bits >> 23) - 126).float()
+        m = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
     low = m < torch.full((), _SQRTHF, dtype=torch.float32)
     e = e - low.float()
     m = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
@@ -109,7 +137,8 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     y = fma(fma(y, m3, y1), m3, y2)
     y = fma(y, m3, _LOG_Q1 * e)
     m = fma(-m2, 0.5, m)
-    return fma(_LOG_Q2, e, m + y)
+    out = fma(_LOG_Q2, e, m + y)
+    return torch.where(x < math.inf, out, x)
 
 
 # XLA's CPU exponential (the Cephes single-precision polynomial)
@@ -135,8 +164,29 @@ def _xla_exp_parts(x: torch.Tensor):
     for p in _EXP_P[1:]:
         y = fma(y, r, p)
     y = fma(y, r * r, r) + 1.0
+    if _mapped(fx):
+        # NaN (whose y is NaN) looks up 2^0
+        n = torch.nan_to_num(fx, nan=0.0) + 127.0
+        return y, _pow2_table(fx.device)[n.long()]
     pow2n = ((fx.to(torch.int32) << 23) + (127 << 23)).view(torch.float32)
     return y, pow2n
+
+
+_POW2: dict = {}
+
+
+def _pow2_table(device: torch.device) -> torch.Tensor:
+    """2^n for n in [-127, 127] as the f32 whose exponent field is n + 127
+    and whose mantissa is 0 (so 2^-127 is 0), on ``device``: the bits
+    ``_xla_exp_parts`` builds, looked up under ``torch.func.vmap``, which
+    has no rule for a dtype view on every torch."""
+    table = _POW2.get(device)
+    if table is None:
+        host = np.ldexp(np.float32(1.0), np.arange(-127, 128)).astype(
+            np.float32)
+        host[0] = 0.0
+        table = _POW2[device] = torch.from_numpy(host).to(device)
+    return table
 
 
 def xla_exp(x: torch.Tensor) -> torch.Tensor:

@@ -1,19 +1,38 @@
-"""Streaming serving: the online bandit loop, the serving engine and
-their queue adapters.
+"""Streaming serving: the online bandit loop, the serving engines, their
+queue adapters and the broker fleet.
 
-Counterpart of ``avenir_tpu/stream/``: ``OnlineLearnerLoop`` (the
-reference's ReinforcementLearnerBolt around one learner), ``LoopStats``,
-``ServingEngine`` (the pipelined bolt) with ``EngineStats`` and
-``AdmissionControl``, ``InProcQueues`` and the Redis-wire ``RedisQueues``
-(``miniredis`` is a broker and client that speak that wire). The grouped
-learner and engine, the broker fleet and the scale-out workers are not
-ported yet.
+Counterpart of ``avenir_tpu/stream/``:
+
+- ``loop``: ``OnlineLearnerLoop`` (the reference's
+  ReinforcementLearnerBolt around one learner), ``LoopStats``,
+  ``GroupedLearner`` (the multi-context ReinforcementLearnerGroup, one
+  batched step for every context), ``InProcQueues`` and the Redis-wire
+  ``RedisQueues``;
+- ``engine``: ``ServingEngine`` (the pipelined bolt) with ``EngineStats``
+  and ``AdmissionControl``, its ``BoostServingLearner`` and
+  ``AnnServingLearner``, and ``GroupedServingEngine``;
+- ``miniredis``: a broker and client that speak the Redis wire;
+- ``fleet``: the consistent-hash group-to-shard router, the
+  ``BrokerFleet`` client pool, the ``ShardedQueues`` fan-out transport
+  and ``migrate_group_queues``;
+- ``faultnet``: deterministic network fault injection over the MiniRedis
+  client.
+
+Not ported yet: the scale-out workers (``stream/scaleout.py``) and the
+ownership rebalancer (``stream/rebalance.py``).
 """
 
 from avenir_tpu_torch.stream.engine import (
-    AdmissionControl, EngineStats, ServingEngine)
+    AdmissionControl, BoostServingLearner, EngineStats,
+    GroupedServingEngine, ServingEngine)
+from avenir_tpu_torch.stream.faultnet import FaultNet
+from avenir_tpu_torch.stream.fleet import (
+    BrokerFleet, ShardedQueues, consistent_route)
 from avenir_tpu_torch.stream.loop import (
-    InProcQueues, LoopStats, OnlineLearnerLoop, RedisQueues)
+    GroupedLearner, InProcQueues, LoopStats, OnlineLearnerLoop, RedisQueues)
 
-__all__ = ["AdmissionControl", "EngineStats", "InProcQueues", "LoopStats",
-           "OnlineLearnerLoop", "RedisQueues", "ServingEngine"]
+__all__ = ["AdmissionControl", "BoostServingLearner", "BrokerFleet",
+           "EngineStats", "FaultNet", "GroupedLearner",
+           "GroupedServingEngine", "InProcQueues", "LoopStats",
+           "OnlineLearnerLoop", "RedisQueues", "ServingEngine",
+           "ShardedQueues", "consistent_route"]

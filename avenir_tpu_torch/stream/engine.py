@@ -1,12 +1,13 @@
 """The pipelined serving engine: a batch's decisions queued on the card
 while the host does the previous batch's queue I/O.
 
-Counterpart of ``avenir_tpu/stream/engine.py`` (``ServingEngine``,
-``AdmissionControl``, ``AnnServingLearner`` and what they use; not the
-grouped engine, nor the boosted-forest learner). ``OnlineLearnerLoop.run`` is
-synchronous: drain rewards, select a micro-batch, wait for the card,
-write each action to the queue one broker round trip at a time. The
-engine takes apart what needed no waiting:
+Counterpart of ``avenir_tpu/stream/engine.py``: ``ServingEngine``,
+``AdmissionControl``, ``BoostServingLearner``, ``AnnServingLearner`` and
+``GroupedServingEngine`` (the multi-context engine over one stacked
+``GroupedLearner``). ``OnlineLearnerLoop.run`` is synchronous: drain
+rewards, select a micro-batch, wait for the card, write each action to the
+queue one broker round trip at a time. The engine takes apart what needed
+no waiting:
 
 - **Dispatch, then fetch**: batch n+1's decisions are queued
   (``Learner.next_action_batch_async``, which reads nothing to the host)
@@ -148,6 +149,80 @@ def warm_serving_paths(learner: Learner, rewards: bool = True) -> None:
     for extra in (1, 2, 3, 5, 9, 17, 33):
         learner.set_reward_batch(
             [(action, 0.0)] * (Learner._SCAN_BUCKET_MAX + extra))
+
+
+class BoostServingLearner:
+    """Boosted-forest scoring behind the engine's learner protocol: the
+    dispatch-then-fetch loop, the pending-ledger transport, admission
+    control and the lifecycle's hot swap that serve bandits serve
+    gradient-boosted margins. An event is a scoring request; the action
+    written back is the predicted class label.
+
+    The state is :func:`models.boost.serving_tables`' dict of tensors,
+    every shape a function of (schema, rounds_budget, node_budget), so a
+    drift retrain's model passes ``install_state``'s structure and shape
+    check and swaps in between batches (``depth`` is a cap: a route past
+    a leaf stays, so one cap serves every model under it). The feature
+    rows are a ring of binned ids on the tables' device
+    (:func:`models.boost.serving_bins` order): an n-event batch scores
+    the next n rows, padded to a power of two, and
+    ``next_action_batch_async`` only queues the card's work, reading
+    nothing back, so the engine overlaps the read with its queue I/O as
+    it does a bandit's."""
+
+    def __init__(self, tables: Dict[str, Any], bins, class_values:
+                 Sequence[str], *, depth: int, batch_size: int = 1):
+        import types
+        import torch
+        self.state = tables
+        self.actions = list(class_values)
+        self.cfg = types.SimpleNamespace(batch_size=batch_size)
+        dev = tables["split_col"].device
+        self._bins = torch.as_tensor(bins, dtype=torch.int32).to(dev)
+        self._depth = int(depth)
+        self._cursor = 0
+        self.reward_count = 0
+        self.reward_sum = 0.0
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        m = 1
+        while m < n:
+            m *= 2
+        return m
+
+    def warm(self, max_batch: int) -> None:
+        """Run each power-of-two batch up to ``max_batch`` once, before
+        live traffic (scoring changes no state)."""
+        m = 1
+        while m <= self._bucket(max_batch):
+            self.resolve_action_batch(self.next_action_batch_async(m))
+            m *= 2
+
+    def next_action_batch_async(self, n: int):
+        import torch
+        from avenir_tpu_torch.models.boost import _serve_margins
+        m = self._bucket(n)
+        rows = self._bins.shape[0]
+        idx = (torch.arange(m, device=self._bins.device)
+               + self._cursor) % rows
+        self._cursor = (self._cursor + n) % rows
+        _margin, cls = _serve_margins(self.state,
+                                      self._bins.index_select(0, idx),
+                                      depth=self._depth)
+        return (cls, n)
+
+    def resolve_action_batch(self, handle) -> List[str]:
+        cls, n = handle
+        return [self.actions[c] for c in cls[:n].cpu().tolist()]
+
+    def set_reward_batch(self, pairs: Sequence[Tuple[str, float]]) -> None:
+        """Outcome feedback: boosting has no online update (the lifecycle's
+        retrain is the update), so rewards only accumulate, where the
+        engine's DriftMonitor taps them."""
+        for _action, reward in pairs:
+            self.reward_count += 1
+            self.reward_sum += float(reward)
 
 
 class AnnServingLearner:
@@ -575,4 +650,164 @@ class ServingEngine:
             _, last_folded = self._fold_rewards()
         self.stats.batch_cap = self._cap.cap
         self._publish_gauges()
+        return self.stats
+
+
+class GroupedServingEngine:
+    """Multi-context serving over one stacked ``GroupedLearner``.
+
+    Events are ``"<group>:<rest>"``; rewards are payloads
+    ``"<group>:<action>,<reward>"`` (the action id carries the group
+    prefix). A micro-batch is cut into waves, wave w holding the w-th
+    pending event of each context, and each wave is one batched
+    ``next_all_async`` step whose ``[G]`` actions stay on the card until
+    the next batch's waves are queued. Drained rewards fold through the
+    masked batched ``reward_masked`` step, a reward-wave at a time.
+
+    A documented deviation from serving each context with its own
+    ``OnlineLearnerLoop``, as in the JAX package: a batched step advances
+    every context, so in a wave where context g has no pending event, g's
+    learner still takes its step and its drawn action is dropped (never
+    written, never counted). Contexts with balanced traffic, the grouped
+    learner's deployment shape, see the sequence they would see alone.
+
+    ``run()`` is wrapped in the flight recorder's crash hook, as
+    ``ServingEngine.run()`` is."""
+
+    def __init__(self, learner_type: str, groups: Sequence[str],
+                 actions: Sequence[str], config: Dict[str, Any], queues, *,
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        from avenir_tpu_torch.stream.loop import GroupedLearner
+        self.groups = list(groups)
+        # group routing and reward resolution are dict lookups
+        self._group_index = {g: i for i, g in enumerate(self.groups)}
+        self.gl = GroupedLearner(learner_type, len(self.groups), actions,
+                                 config, seed, device=device)
+        self.queues = queues
+        self.stats = EngineStats()
+        self._cap = _AdaptiveCap(8, Learner._SCAN_BUCKET_MAX)
+        self._tel = telemetry.tracer()
+
+    def _split_group(self, payload: str) -> Tuple[int, str]:
+        group, _, rest = payload.partition(":")
+        idx = self._group_index.get(group)
+        if idx is None:
+            raise ValueError(f"unknown group {group!r} in {payload!r}")
+        return idx, rest
+
+    def _fold_rewards(self) -> None:
+        """Drain ``group:action`` rewards and fold them as masked batched
+        steps, one a reward-wave (a wave holds at most one reward of each
+        context), each context's rewards in their order."""
+        t0 = time.perf_counter()
+        pairs = self.queues.drain_rewards()
+        self.stats.io_ms += (time.perf_counter() - t0) * 1e3
+        if not pairs:
+            return
+        tel = self._tel.enabled
+        t_fold = time.perf_counter() if tel else 0.0
+        n = len(self.groups)
+        # wave w = the w-th reward of each context, by a counter a context
+        waves: List[Dict[int, Tuple[int, float]]] = []
+        depth: Dict[int, int] = {}
+        for action_id, reward in pairs:
+            gidx, action = self._split_group(action_id)
+            aidx = self.gl._resolve_action(action)
+            w = depth.get(gidx, 0)
+            depth[gidx] = w + 1
+            if w == len(waves):
+                waves.append({})
+            waves[w][gidx] = (aidx, reward)
+        for wave in waves:
+            idx = [0] * n
+            rew = [0.0] * n
+            mask = [False] * n
+            for gidx, (aidx, reward) in wave.items():
+                idx[gidx], rew[gidx], mask[gidx] = aidx, reward, True
+            self.gl.reward_masked(idx, rew, mask)
+        self.stats.rewards += len(pairs)
+        if tel:
+            from avenir_tpu_torch.stream.loop import record_reward_fold
+            record_reward_fold(self._tel, t_fold, len(pairs))
+        backlog = getattr(self.queues, "reward_backlog", None)
+        if backlog is not None:
+            self.stats.reward_backlog = int(backlog)
+
+    def _make_waves(self, events: List[str]) -> List[List[Tuple[str, int]]]:
+        """Wave w holds the w-th pending event of each context, in pop
+        order, as ``(event id, group index)``."""
+        waves: List[List[Tuple[str, int]]] = []
+        depth: Dict[int, int] = {}
+        for event_id in events:
+            gidx, _ = self._split_group(event_id)
+            w = depth.get(gidx, 0)
+            depth[gidx] = w + 1
+            if w == len(waves):
+                waves.append([])
+            waves[w].append((event_id, gidx))
+        return waves
+
+    def _complete(self, waves, handles, t_pop: float) -> None:
+        import torch
+        t0 = time.perf_counter()
+        # the blocking read: every wave's actions at once
+        resolved = (torch.stack(handles).cpu().tolist() if handles
+                    else [])
+        t1 = time.perf_counter()
+        entries = [(event_id, [self.gl.actions[actions[gidx]]])
+                   for wave, actions in zip(waves, resolved)
+                   for event_id, gidx in wave]
+        self.queues.write_and_ack(entries)
+        t2 = time.perf_counter()
+        n_events = len(entries)
+        self.stats.select_wait_ms += (t1 - t0) * 1e3
+        self.stats.io_ms += (t2 - t1) * 1e3
+        self.stats.events += n_events
+        self.stats.actions_written += n_events
+        self.stats.batches += 1
+        self.stats.note_cap(self._cap.cap)
+        if self._tel.enabled:
+            self._tel.record("engine.select", (t1 - t0) * 1e3)
+            self._tel.record("engine.io", (t2 - t1) * 1e3)
+            self._tel.record("engine.decision_latency",
+                             (t2 - t_pop) * 1e3, n_events)
+
+    def run(self, max_events: Optional[int] = None) -> EngineStats:
+        """Drain the queues (or serve ``max_events``): each iteration folds
+        the drained rewards, pops a micro-batch, queues its waves, and
+        only then reads the previous batch's actions and writes them."""
+        from avenir_tpu_torch.obs.timeseries import run_with_flight_dump
+        return run_with_flight_dump(
+            "engine", lambda: self._run_impl(max_events))
+
+    def _run_impl(self, max_events: Optional[int] = None) -> EngineStats:
+        processed = 0
+        pending = None
+        while True:
+            self._fold_rewards()
+            t0 = time.perf_counter()
+            cap = self._cap.cap
+            if max_events is not None:
+                cap = min(cap, max_events - processed)
+            events = self.queues.pop_events(cap)
+            self.stats.io_ms += (time.perf_counter() - t0) * 1e3
+            waves = self._make_waves(events)
+            t1 = time.perf_counter()
+            handles = [self.gl.next_all_async() for _ in waves]
+            self.stats.dispatch_ms += (time.perf_counter() - t1) * 1e3
+            if pending is not None:
+                self._complete(*pending)
+            if not events:
+                break
+            pending = (waves, handles, t0)
+            processed += len(events)
+            if max_events is None or processed < max_events:
+                self._cap.update(len(events))
+        while True:
+            before = self.stats.rewards
+            self._fold_rewards()
+            if self.stats.rewards == before:
+                break
+        self.stats.batch_cap = self._cap.cap
+        _publish_engine_gauges(self.stats)
         return self.stats

@@ -1,7 +1,7 @@
 """Online RL serving loop: the Storm topology around one learner.
 
-Counterpart of ``avenir_tpu/stream/loop.py`` (without ``GroupedLearner``,
-which goes with the grouped serving engine). The reference's always-on path is a
+Counterpart of ``avenir_tpu/stream/loop.py``, with ``GroupedLearner``
+(many contexts, one batched step). The reference's always-on path is a
 Storm topology (ReinforcementLearnerTopology.java:42-85): RedisSpout
 polls an event queue, shuffle-groups tuples to ReinforcementLearnerBolt
 instances which drain rewards, call ``learner.nextActions()`` and push
@@ -31,10 +31,15 @@ from collections import Counter, deque
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from avenir_tpu_torch.models.bandits.learners import Learner
+import torch
+
+from avenir_tpu_torch.models.bandits.learners import (
+    ALGORITHMS, FIELDS, Learner, LearnerConfig, LearnerState,
+    build_action_index, resolve_action_id)
 from avenir_tpu_torch.obs import telemetry
 from avenir_tpu_torch.obs import tracing as _tracing
-from avenir_tpu_torch.utils.device import DeviceLike
+from avenir_tpu_torch.utils import jrandom
+from avenir_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 def split_event_timestamp(payload: str) -> Tuple[str, Optional[float]]:
@@ -806,3 +811,114 @@ class OnlineLearnerLoop:
             self._maybe_checkpoint(events_before)
         self.refresh_latency_stats()
         return self.stats
+
+
+# --------------------------------------------------------------------------
+# the grouped (multi-context) learner: one batched step for every context
+# --------------------------------------------------------------------------
+
+class GroupedLearner:
+    """ReinforcementLearnerGroup as one stacked state and a batched step.
+
+    Every context shares one algorithm, config and action set; their
+    states are ``LearnerState``s whose tensors are stacked on a leading
+    axis ``[G, ...]``, so ``next_all`` and ``reward_all`` over all
+    contexts are one batched step each: the per-algorithm functions of
+    ``models/bandits/learners.py`` mapped over that axis
+    (``torch.func.vmap``). Each step writes its result into the stacked
+    buffers in place, as the JAX package donates them, so the state keeps
+    its storage across steps. ``next_all_async`` returns the ``[G]``
+    actions where the state lives with nothing read to the host: the
+    engine queues the next wave before it reads this one."""
+
+    def __init__(self, learner_type: str, n_groups: int,
+                 actions: Sequence[str], config: Dict[str, Any],
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        if learner_type not in ALGORITHMS:
+            raise ValueError(f"invalid learner type:{learner_type}")
+        self.algo = ALGORITHMS[learner_type]
+        self.actions = list(actions)
+        self._action_index = build_action_index(self.actions)
+        self.n_groups = n_groups
+        self.cfg = (config if isinstance(config, LearnerConfig)
+                    else LearnerConfig.from_dict(config))
+        self.device = resolve_device(device)
+        keys = jrandom.split(jrandom.prng_key(seed, self.device), n_groups)
+        self.states = _stack_states(
+            [self.algo.init(keys[g], len(self.actions), self.cfg)
+             for g in range(n_groups)])
+        # XLA compiles UCB's scaled reward over two or more contexts as a
+        # scatter of a product rounded apart; over one it fuses the two
+        self._reward_kw = (
+            {"contract": False} if n_groups > 1 and learner_type in (
+                "upperConfidenceBoundOne", "upperConfidenceBoundTwo")
+            else {})
+
+    def _step(self, fn, *args) -> Any:
+        """``fn(state, *args) -> (state[, out])`` mapped over the contexts;
+        the new state written into the stacked buffers."""
+        names = [name for name, _ in FIELDS]
+
+        def one(leaves, *xs):
+            out = fn(LearnerState(**dict(zip(names, leaves))), *xs)
+            state, rest = (out if isinstance(out, tuple) else (out, None))
+            leaves = tuple(getattr(state, name) for name in names)
+            return leaves if rest is None else (leaves, rest)
+
+        leaves = tuple(getattr(self.states, name) for name in names)
+        out = torch.func.vmap(one)(leaves, *args)
+        new, rest = (out if isinstance(out[0], tuple) else (out, None))
+        for old, value in zip(leaves, new):
+            old.copy_(value)
+        return rest
+
+    def next_all_async(self):
+        """One step for every context; the ``[G]`` actions where the state
+        lives, nothing read to the host."""
+        return self._step(lambda s: self.algo.next_action(s, self.cfg))
+
+    def resolve_actions(self, actions) -> List[str]:
+        """The blocking read of a ``next_all_async`` handle: action ids."""
+        return [self.actions[int(a)] for a in actions.cpu().tolist()]
+
+    def next_all(self) -> List[str]:
+        """One action per context, one batched step for all of them."""
+        return self.resolve_actions(self.next_all_async())
+
+    def _resolve_action(self, action_id: str) -> int:
+        return resolve_action_id(self._action_index, action_id)
+
+    def reward_all(self, action_ids: Sequence[str],
+                   rewards: Sequence[float]) -> None:
+        idx = torch.tensor([self._resolve_action(a) for a in action_ids],
+                           dtype=torch.int64, device=self.device)
+        rew = torch.tensor(rewards, dtype=torch.float32, device=self.device)
+        self._step(lambda s, a, r: self.algo.set_reward(
+            s, a, r, cfg=self.cfg, **self._reward_kw), idx, rew)
+
+    def reward_masked(self, action_idx, rewards, mask) -> None:
+        """Apply (action index, reward) to the contexts where ``mask`` is
+        True, in one batched step; the other contexts keep their state bit
+        for bit (the update is computed and dropped by a ``where`` on
+        every field)."""
+
+        def masked(s, a, r, m):
+            new = self.algo.set_reward(s, a, r, cfg=self.cfg,
+                                       **self._reward_kw)
+            return new.replace(**{
+                name: torch.where(m, getattr(new, name), getattr(s, name))
+                for name, _ in FIELDS})
+        self._step(masked,
+                   torch.as_tensor(action_idx, dtype=torch.int64).to(
+                       self.device),
+                   torch.as_tensor(rewards, dtype=torch.float32).to(
+                       self.device),
+                   torch.as_tensor(mask, dtype=torch.bool).to(self.device))
+
+
+def _stack_states(states):
+    """``LearnerState``s of one shape -> one of tensors stacked on a new
+    leading axis."""
+    return LearnerState(**{name: torch.stack([getattr(s, name)
+                                              for s in states])
+                           for name, _ in FIELDS})

@@ -112,6 +112,10 @@ def _read_command(rfile) -> Optional[List[bytes]]:
 class _Handler(socketserver.StreamRequestHandler):
     def handle(self) -> None:
         srv: "MiniRedisServer" = self.server.owner  # type: ignore[attr-defined]
+        # a pipeline's replies go out one write each: without NODELAY the
+        # second waits for the client's delayed ACK of the first (~40 ms
+        # a pipeline on Linux)
+        self.request.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         srv._client_connected()
         try:
             while True:
@@ -570,10 +574,9 @@ class MiniRedisClient:
         self.calls = 0
         self.reconnects = 0
         # deterministic network fault injection: an explicit injector
-        # (``on_connect(endpoint)``, ``on_op(endpoint, client)``); None is
-        # off, at one attribute check per op. The JAX package's
-        # environment-armed injector (``stream/faultnet.py``) is not
-        # ported.
+        # (``stream/faultnet.FaultNet``: ``on_connect(endpoint)``,
+        # ``on_op(endpoint, client)``); None is off, at one attribute
+        # check per op. Nothing arms it from the environment.
         self._faults = faults
         self._drop_reply = False
         self._connect()

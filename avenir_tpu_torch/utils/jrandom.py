@@ -26,6 +26,7 @@ its tensors live, and on the CPU it is the same function.
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple, Union
 
 import numpy as np
@@ -107,9 +108,10 @@ def random_bits(key: torch.Tensor, shape: Shape) -> torch.Tensor:
 
 def uniform(key: torch.Tensor, shape: Shape) -> torch.Tensor:
     """``jax.random.uniform(key, shape)``: f32 in [0, 1), the top 23 bits
-    as the mantissa of a float in [1, 2), less one."""
-    bits = (random_bits(key, shape) >> 9) | 0x3F800000
-    return bits.to(torch.int32).view(torch.float32) - 1.0
+    as the mantissa of a float in [1, 2), less one: exactly those 23 bits
+    times 2^-23 (computed so, with no dtype view, which
+    ``torch.func.vmap`` cannot map on every torch)."""
+    return (random_bits(key, shape) >> 9).to(torch.float32) * 2.0 ** -23
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int,
@@ -165,11 +167,14 @@ def choice(key: torch.Tensor, n: int, p: torch.Tensor) -> torch.Tensor:
     """``jax.random.choice(key, n, p=p)``, one draw with replacement (a
     0-d int64): the compiled f32 cumulative sum of ``p`` (XLA's order,
     ``ops.infotheory.xla_cumsum``), its last element times ``1 - u``, and
-    the count of cumulative sums below that (``searchsorted``, left)."""
+    the count of cumulative sums below that (``searchsorted``, left, in
+    JAX's sort order, where a NaN lies above every number: a NaN draw,
+    from a NaN probability, counts every sum that is not NaN; no sum of
+    probabilities is +inf)."""
     from avenir_tpu_torch.ops.infotheory import xla_cumsum
     if p.shape != (n,):
         raise ValueError(f"p must be a vector of {n} probabilities, "
                          f"got shape {tuple(p.shape)}")
     cum = xla_cumsum(p.float())
     r = cum[-1] * (1.0 - uniform(key, ()).to(cum.device))
-    return (cum < r).sum()
+    return (cum < torch.nan_to_num(r, nan=math.inf)).sum()

@@ -411,6 +411,29 @@ Phases (one line each; any failure exits non-zero):
    they run, the engine's gauges among them, lines and files equal to the
    unarmed jobs', the ``.prom`` and ``.alerts.jsonl`` written; and a job
    that fails leaving ``<metrics-out>.flight.jsonl``.
+17. boosted serving, the grouped engine and the broker fleet
+   (``serving_phase``, also runnable alone): (a) at phase 10's shape
+   (1,048,576 retarget rows, 8 rounds at depth 3, the budgets
+   ``boost_refit_train_fn`` pins), ``_serve_margins`` on the card bit-equal
+   to the CPU's at every power-of-two batch up to 64 and
+   ``BoostServingLearner``'s dispatch under
+   ``set_sync_debug_mode("error")``; then 65,536 events scored by a
+   ``ServingEngine`` over MiniRedis with a ``BoostServingLearner``, a
+   Page-Hinkley ``DriftMonitor`` over a reward regime shift requesting a
+   ``RetrainDaemon`` wave (K1's integer mode in ``grow_boosted``, each
+   call exact against plain) that swaps in mid-drain; gates: every event
+   answered once, the ledger empty, no daemon error, decision p99 under
+   500 ms; (b) ``GroupedLearner.next_all_async`` of the ten learners under
+   ``set_sync_debug_mode("error")``, and the ``GroupedServingEngine`` (16
+   groups, phase 14's 4,096 ids and 1,024 rewards) for each learner on
+   the card, its action queue equal to the CPU's (in a process beside
+   it), over in-process queues and, for softMax, ``RedisQueues`` on
+   MiniRedis; decisions/s beside phase 15's ``ServingEngine`` on the same
+   ids; (c) the verb's ``broker.shards`` over two MiniRedis brokers on
+   1,024 ids equal to the in-process engine's file, the grouped engine over
+   ``ShardedQueues`` (16 groups on two shards) equal to (b)'s answers, and
+   the groups re-routed over a third shard with ``migrate_group_queues``:
+   nothing lost, nothing left on the old side.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -429,8 +452,9 @@ the launches of phase 9's two forests at scale (its streamed growth's in
 shape's times in ``levels``; a sixth, K1's integer mode at the boosting
 shape (``K1-int``), with the launches of phase 10's two fits at scale
 (its streamed growth's in ``stream_launches``, its CLI jobs' in
-``cli_launches``), a round's time at each depth in ``round_ms`` and each
-level shape's times in ``levels``; a seventh, K1 at the token shape
+``cli_launches``) and of phase 17's refit waves (also in
+``serving_launches``), a round's time at each depth in ``round_ms`` and
+each level shape's times in ``levels``; a seventh, K1 at the token shape
 (``K1-text``), with the launches of phase 11's text jobs and both
 vocabularies' times in ``vocabularies``; an eighth and a ninth, K1 at
 phase 12's stream-window and NB-shard shapes (``K1-stream``) and K4 at
@@ -6871,9 +6895,582 @@ def live_phase(dev, work):
     return k1
 
 
+# --------------------------------------------------------------------------
+# phase 17: boosted serving, the grouped engine and the broker fleet
+# --------------------------------------------------------------------------
+
+SERVE_EVENTS = 65_536         # the boosted engine's scoring requests
+SERVE_REWARDS = SERVE_EVENTS // 4
+SERVE_DRAIN_MAX = 256         # rewards folded a batch: the shift streams in
+SERVE_P99_MS = 500.0          # scripts/boost_smoke.py's decision-p99 bar
+GROUPED_GROUPS = 16           # docs/TUTORIALS.md:768
+GROUPED_EVENTS = ONLINE_EVENTS
+GROUPED_WIRE_TYPES = ("softMax",)
+FLEET_IDS = ENGINE_SHORT_EVENTS
+
+
+def boost_serving_refit(dev, table):
+    """The refit wave of ``boost_refit_train_fn`` at phase 10's first
+    config on ``table``, timed (host clock, the card synchronized)."""
+    from avenir_tpu_torch.lifecycle.retrain import boost_refit_train_fn
+    rounds, depth = BOOST_RUNS[0]
+    train = boost_refit_train_fn(lambda: table, boost_config(rounds, depth))
+    wave_s = []
+
+    def timed_wave():
+        t0 = time.perf_counter()
+        out = train()
+        torch.cuda.synchronize()
+        wave_s.append(time.perf_counter() - t0)
+        return out
+    return timed_wave, wave_s
+
+
+def boost_serving_margins(dev, tables, bins, cap) -> str:
+    """``_serve_margins`` on the card against the CPU for each power-of-two
+    batch up to ``cap`` (bits of the margins, the classes), and
+    ``BoostServingLearner.next_action_batch_async`` at those sizes under
+    ``set_sync_debug_mode("error")``, its classes the CPU's."""
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.stream.engine import BoostServingLearner
+    cpu_tables = {k: v.cpu() for k, v in tables.items()}
+    depth = BOOST_RUNS[0][1]
+    sizes, m = [], 1
+    while m <= cap:
+        sizes.append(m)
+        m *= 2
+    rows = np.arange(bins.shape[0])
+    for m in sizes:
+        idx = (rows[:m] * 4099) % bins.shape[0]
+        card = B._serve_margins(tables, torch.from_numpy(bins[idx]).to(dev),
+                                depth=depth)
+        cpu = B._serve_margins(cpu_tables, torch.from_numpy(bins[idx]),
+                               depth=depth)
+        if not (card[0].cpu().numpy().tobytes()
+                == cpu[0].numpy().tobytes()
+                and torch.equal(card[1].cpu(), cpu[1])):
+            raise AssertionError(f"phase 17 margins at a batch of {m}: the "
+                                 "card's differ from the CPU's")
+    card = BoostServingLearner(tables, bins, ["no", "yes"], depth=depth)
+    cpu = BoostServingLearner(cpu_tables, bins, ["no", "yes"], depth=depth)
+    card.warm(cap)
+    cpu.warm(cap)
+    torch.cuda.synchronize()
+    handles = []
+    torch.cuda.set_sync_debug_mode("error")
+    t0 = time.perf_counter()
+    try:
+        for m in sizes:
+            handles.append(card.next_action_batch_async(m))
+    finally:
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.set_sync_debug_mode(0)
+    got = [card.resolve_action_batch(h) for h in handles]
+    if got != [cpu.resolve_action_batch(cpu.next_action_batch_async(m))
+               for m in sizes]:
+        raise AssertionError("phase 17 BoostServingLearner: the card's "
+                             "classes differ from the CPU's")
+    return (f"phase 17 _serve_margins on the card at batches {sizes}: "
+            "margins bit-equal to the CPU's, classes equal; "
+            "BoostServingLearner.next_action_batch_async at those sizes "
+            "under set_sync_debug_mode('error'): no synchronizing call, "
+            f"{host_ms:.1f} ms of host time to queue the {len(sizes)}")
+
+
+def boost_serving(dev, work):
+    """(a): boosted margins behind a ``ServingEngine`` over MiniRedis at
+    phase 10's tutorial shape (``retarget_big_table``, 8 rounds at depth
+    3, the budgets ``boost_refit_train_fn`` pins). A first refit wave
+    gives the served tables; a reward regime shift through a Page-Hinkley
+    ``DriftMonitor`` requests a second wave from the ``RetrainDaemon``
+    thread while ``SERVE_EVENTS`` events are scored, and the swap source
+    installs each published wave at a batch boundary. Gates: every event
+    answered, the pending ledger empty, a drift-requested wave published
+    and swapped in mid-drain, no daemon error, the decision p99 under
+    ``SERVE_P99_MS``, every K1 integer-mode call (the waves') exact
+    against its plain version. Returns (K1-int's launches on this path,
+    its lines)."""
+    from avenir_tpu_torch.lifecycle.drift import DriftMonitor, PageHinkley
+    from avenir_tpu_torch.lifecycle.registry import SnapshotRegistry
+    from avenir_tpu_torch.lifecycle.retrain import RetrainDaemon
+    from avenir_tpu_torch.models import boost as B
+    from avenir_tpu_torch.obs import exporters
+    from avenir_tpu_torch.ops import cuda_histogram as H
+    from avenir_tpu_torch.stream.engine import (BoostServingLearner,
+                                                ServingEngine)
+    from avenir_tpu_torch.stream.loop import RedisQueues
+    from avenir_tpu_torch.stream.miniredis import (MiniRedisClient,
+                                                   MiniRedisServer)
+    lines = []
+    table = retarget_big_table(dev)
+    bins = B.serving_bins(table)
+    classes = list(table.class_values)
+    registry = SnapshotRegistry(os.path.join(work, "boost-registry"))
+    wave, wave_s = boost_serving_refit(dev, table)
+    hub = exporters.hub()
+    enabled_here = not hub.enabled
+    hub.enable()
+    hub.reset()
+    daemon = None
+    server = MiniRedisServer("localhost", 0).start()
+    calls, batch_of_swap = [], []
+    try:
+        client = MiniRedisClient("localhost", server.port)
+        for i in range(0, SERVE_EVENTS, 4096):
+            client.lpush("eventQueue", *[f"s{j:06d}" for j in
+                                         range(i, min(i + 4096,
+                                                      SERVE_EVENTS))])
+        # the regime shifts after the first eighth of the rewards, which
+        # fold SERVE_DRAIN_MAX a batch: the monitor alarms within the
+        # first ~10 batches, and its wave lands while the drain goes on
+        rng = np.random.default_rng(SEED + 17)
+        shift = SERVE_REWARDS // 8
+        rewards = [f"{classes[i % 2]},"
+                   f"{float(i < shift) + 0.05 * rng.standard_normal()}"
+                   for i in range(SERVE_REWARDS)]
+        for i in range(0, SERVE_REWARDS, 4096):
+            client.lpush("rewardQueue", *rewards[i:i + 4096])
+        queues = RedisQueues(client=client, pending_queue="pendingQueue")
+        H.class_feature_bin_sums.launches = 0
+        with recording(calls):
+            daemon = RetrainDaemon(registry, wave)
+            if daemon.run_once() is None:
+                raise AssertionError(f"phase 17: the first refit wave "
+                                     f"failed: {daemon.last_error!r}")
+            head = registry.latest()
+            tables = head.restore(like=B.serving_tables(
+                B.BoostedModel([], classes, 0.0, 0.3), table,
+                rounds_budget=BOOST_RUNS[0][0],
+                node_budget=(BOOST_RUNS[0][1] + 1)
+                * boost_config(*BOOST_RUNS[0]).tree.device_node_budget))
+            lines.append(boost_serving_margins(dev, tables, bins, 64))
+            learner = BoostServingLearner(tables, bins, classes,
+                                          depth=BOOST_RUNS[0][1])
+            learner.warm(64)
+            monitor = DriftMonitor(
+                {"reward": PageHinkley(delta=0.005, threshold=5.0,
+                                       min_samples=30)},
+                on_drift=daemon.request, cooldown_s=0.0)
+            daemon.start()
+            watcher = registry.subscribe()
+            box = {}
+
+            def swap_source():
+                snap = watcher.poll()
+                if snap is None:
+                    return None
+                batch_of_swap.append(box["engine"].stats.batches)
+                return snap.version, snap.restore(
+                    like=box["engine"].learner.state)
+            engine = ServingEngine("boost", classes, {}, queues,
+                                   learner=learner, swap_source=swap_source,
+                                   drift_monitor=monitor,
+                                   drain_max=SERVE_DRAIN_MAX, device=dev)
+            box["engine"] = engine
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = engine.run()
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            published = daemon.wait_for_waves(2, timeout=120)
+            daemon.stop()
+            torch.cuda.synchronize()
+        launches = H.class_feature_bin_sums.launches
+        report = hub.report()
+        answered = client.llen("actionQueue")
+        pending = client.llen("pendingQueue")
+        ids = {raw.split(b",")[0] for raw in
+               client.lrange("actionQueue", 0, -1)}
+        client.close()
+    finally:
+        if daemon is not None:
+            daemon.stop()
+        if enabled_here:
+            hub.disable()
+        server.close()
+    held, _ = hold_k1_calls("phase 17 refit waves", calls, "K1-int")
+    per_wave = boost_k1_launches(table, boost_config(*BOOST_RUNS[0]))
+    if held != launches or launches != per_wave * daemon.waves:
+        raise AssertionError(f"phase 17: {launches} K1 integer-mode "
+                             f"launches, {held} recorded, {per_wave} a "
+                             f"wave x {daemon.waves} waves expected")
+    if daemon.errors or daemon.last_error is not None:
+        raise AssertionError(f"phase 17: a refit wave raised: "
+                             f"{daemon.last_error!r}")
+    if not published or monitor.alarms < 1:
+        raise AssertionError(f"phase 17: waves {daemon.waves}, drift "
+                             f"alarms {monitor.alarms}")
+    if (stats.events != SERVE_EVENTS or answered != SERVE_EVENTS
+            or len(ids) != SERVE_EVENTS or pending != 0):
+        raise AssertionError(f"phase 17: {stats.events} served, {answered} "
+                             f"answers ({len(ids)} ids), {pending} pending "
+                             f"of {SERVE_EVENTS}")
+    mid = [b for b in batch_of_swap if 0 < b < stats.batches]
+    if not mid:
+        raise AssertionError(f"phase 17: no swap mid-drain (swaps before "
+                             f"batches {batch_of_swap} of {stats.batches})")
+    lat = report["spans"].get("engine.decision_latency") or {}
+    swap = report["spans"].get("lifecycle.swap") or {}
+    if not lat or lat["p99_ms"] > SERVE_P99_MS:
+        raise AssertionError(f"phase 17: decision latency {lat}")
+    lines.append(
+        f"phase 17 boosted serving on {table.n_rows} retarget rows, "
+        f"{BOOST_RUNS[0][0]} rounds at depth {BOOST_RUNS[0][1]} "
+        f"({nvidia_smi_line()}; host clock): {SERVE_EVENTS} events over "
+        f"MiniRedis in {serve_s:.2f} s, {SERVE_EVENTS / serve_s:,.0f} "
+        f"decisions/s, {stats.batches} batches; decision p50 "
+        f"{lat['p50_ms']:.2f} / p99 {lat['p99_ms']:.2f} ms (bar "
+        f"{SERVE_P99_MS:.0f}); {monitor.alarms} drift alarms, "
+        f"{daemon.waves} refit waves ({', '.join(f'{s:.2f}' for s in wave_s)}"
+        f" s each, the second requested by the monitor, no error), "
+        f"{stats.swaps} swaps before batches {batch_of_swap}, "
+        f"lifecycle.swap p50 {swap.get('p50_ms', float('nan')):.2f} / p99 "
+        f"{swap.get('p99_ms', float('nan')):.2f} ms; every event answered "
+        f"once, the pending ledger empty")
+    widest = max((a for n, a, _ in calls if n == "K1-int"
+                  and a["n_classes"] == 2), key=lambda a: a["n_bins"])
+    del calls
+    k1 = time_k1_int(dev, widest)
+    lines.append(
+        f"phase 17 K1 integer mode in the refit waves: {launches} launches "
+        f"({per_wave} a wave), each exact against plain; at the widest "
+        f"level, {k1['shape']}: {k1['ms']:.4f} ms chained, "
+        f"{k1['graph_ms']:.4f} ms from graph replays reading HBM "
+        f"({k1['bound_ms'] / k1['graph_ms']:.1%} of bound), plain "
+        f"{k1['plain_ms']:.4f} ms, bincount {k1['library_ms']:.4f} ms, "
+        f"bound {k1['bound_ms']:.4f} ms ({k1['bound_by']})")
+    return launches, lines
+
+
+def grouped_files(work, on, types, queues_kind="inproc"):
+    """Each learner type's ``GroupedServingEngine`` on ``on`` over
+    ``GROUPED_GROUPS`` contexts: phase 14's event ids, event i in group
+    i mod 16, and its rewards, reward j in group j mod 16; the action
+    queue written to ``grouped-<type>-<on>-<queues_kind>.txt``. Returns
+    {type: (decisions/s of run() on the host clock, the engine's
+    batches)}."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    from avenir_tpu_torch.stream.engine import GroupedServingEngine
+    from avenir_tpu_torch.stream.loop import InProcQueues, RedisQueues
+    from avenir_tpu_torch.stream.miniredis import (MiniRedisClient,
+                                                   MiniRedisServer)
+    actions = LeadGenSimulator().actions
+    groups = [f"g{i}" for i in range(GROUPED_GROUPS)]
+    with open(os.path.join(work, "events.txt")) as fh:
+        ids = fh.read().split()[:GROUPED_EVENTS]
+    with open(os.path.join(work, "rewards.txt")) as fh:
+        pairs = [line.split(",") for line in fh.read().split()]
+    events = [f"{groups[i % len(groups)]}:{e}" for i, e in enumerate(ids)]
+    rewards = [(f"{groups[j % len(groups)]}:{a}", float(r))
+               for j, (a, r) in enumerate(pairs)]
+    out = {}
+    for t in types:
+        server = client = None
+        if queues_kind == "inproc":
+            queues = InProcQueues()
+            for e in events:
+                queues.push_event(e)
+            for a, r in rewards:
+                queues.push_reward(a, r)
+        else:
+            server = MiniRedisServer("localhost", 0).start()
+            client = MiniRedisClient("localhost", server.port)
+            queues = RedisQueues(client=client, pending_queue="pendingQueue")
+            for i in range(0, len(events), 512):
+                client.lpush("eventQueue", *events[i:i + 512])
+            client.lpush("rewardQueue", *[f"{a},{r}" for a, r in rewards])
+        try:
+            engine = GroupedServingEngine(
+                t, groups, actions, dict(ONLINE_CONF, **{"random.seed": 7}),
+                queues, seed=7, device=on)
+            if on != "cpu":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = engine.run()
+            if on != "cpu":
+                torch.cuda.synchronize()
+            rate = stats.events / (time.perf_counter() - t0)
+            if queues_kind == "inproc":
+                lines = [f"{e},{acts[0]}" for e, acts in drain_actions(queues)]
+            else:
+                lines = [raw.decode() for raw in
+                         reversed(client.lrange("actionQueue", 0, -1))]
+                if client.llen("pendingQueue"):
+                    raise AssertionError(f"phase 17 grouped {t}: ledger "
+                                         "entries left")
+        finally:
+            if client is not None:
+                client.close()
+            if server is not None:
+                server.close()
+        if stats.events != len(events) or len(lines) != len(events):
+            raise AssertionError(f"phase 17 grouped {t} on {on}: "
+                                 f"{stats.events} served, {len(lines)} "
+                                 f"answers of {len(events)}")
+        with open(os.path.join(work, f"grouped-{t}-{on}-{queues_kind}.txt"),
+                  "w") as fh:
+            fh.write("".join(line + "\n" for line in lines))
+        out[t] = (rate, stats.batches)
+    return out
+
+
+def grouped_dispatch_sync_free(dev) -> str:
+    """Each learner's ``GroupedLearner.next_all_async`` over
+    ``GROUPED_GROUPS`` contexts, four waves under
+    ``torch.cuda.set_sync_debug_mode("error")`` after a masked reward
+    fold: no synchronizing call, the actions the CPU's."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    from avenir_tpu_torch.stream.loop import GroupedLearner
+    actions = LeadGenSimulator().actions
+    n = GROUPED_GROUPS
+    idx = [g % len(actions) for g in range(n)]
+    rew = [float(10 * (g % 7)) for g in range(n)]
+    mask = [g % 3 != 0 for g in range(n)]
+    host_ms = {}
+    for t in ONLINE_TYPES:
+        learners = [GroupedLearner(t, n, actions, ONLINE_CONF, 7, device=on)
+                    for on in (dev, "cpu")]
+        for gl in learners:
+            gl.reward_masked(idx, rew, mask)
+        card, cpu = learners
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        t0 = time.perf_counter()
+        try:
+            handles = [card.next_all_async() for _ in range(4)]
+        finally:
+            host_ms[t] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.set_sync_debug_mode(0)
+        if [card.resolve_actions(h) for h in handles] != \
+                [cpu.next_all() for _ in range(4)]:
+            raise AssertionError(f"phase 17 grouped dispatch {t}: the "
+                                 "card's actions differ from the CPU's")
+    return ("phase 17 GroupedLearner.next_all_async, four waves of "
+            f"{n} contexts under set_sync_debug_mode('error'): no "
+            "synchronizing call in any of the ten learners, actions equal "
+            "to the CPU's; host ms to queue the four: " + ", ".join(
+                f"{t} {ms:.1f}" for t, ms in host_ms.items()))
+
+
+def grouped_engines(dev, work) -> str:
+    """(b): the grouped engine for each of the ten learners on the card
+    over in-process queues (the CPU's legs in a process beside it), each
+    action queue equal to the CPU's; and over ``RedisQueues`` on an
+    in-process MiniRedis for ``GROUPED_WIRE_TYPES``, equal to the
+    in-process files."""
+    child = subprocess.Popen(
+        [sys.executable, "-c", "import torch; torch.set_num_threads(2); "
+         "import json, chip_smoke; print(json.dumps(chip_smoke."
+         f"grouped_files({work!r}, 'cpu', chip_smoke.ONLINE_TYPES)))"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        card = grouped_files(work, dev.type, ONLINE_TYPES)
+        wire = grouped_files(work, dev.type, GROUPED_WIRE_TYPES, "redis")
+        out, err = child.communicate(timeout=600)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    if child.returncode != 0:
+        raise AssertionError(f"phase 17 grouped CPU legs: {err[-2000:]}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    # phase 15's ServingEngine (softMax) on the same ids, ungrouped
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    actions = LeadGenSimulator().actions
+    events = os.path.join(work, "events.txt")
+    rewards = os.path.join(work, "rewards.txt")
+    online_engine("softMax", actions, events, rewards, dev,
+                  n_events=64).run()
+    engine = online_engine("softMax", actions, events, rewards, dev,
+                           n_events=GROUPED_EVENTS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = engine.run().events
+    torch.cuda.synchronize()
+    single = served / (time.perf_counter() - t0)
+
+    def read(name):
+        with open(os.path.join(work, name)) as fh:
+            return fh.read()
+    for t in ONLINE_TYPES:
+        if read(f"grouped-{t}-{dev.type}-inproc.txt") != \
+                read(f"grouped-{t}-cpu-inproc.txt"):
+            raise AssertionError(f"phase 17 grouped {t}: the card's action "
+                                 "queue differs from the CPU's")
+    for t in GROUPED_WIRE_TYPES:
+        if read(f"grouped-{t}-{dev.type}-redis.txt") != \
+                read(f"grouped-{t}-{dev.type}-inproc.txt"):
+            raise AssertionError(f"phase 17 grouped {t} over RedisQueues: "
+                                 "differs from in-process")
+    return (f"phase 17 GroupedServingEngine, {GROUPED_GROUPS} groups, "
+            f"{GROUPED_EVENTS} events (phase 14's ids, event i in group i "
+            f"mod {GROUPED_GROUPS}) and {GROUPED_EVENTS // 4} rewards, ten "
+            "learners: action queues on the card equal to the CPU's; over "
+            f"RedisQueues on MiniRedis ({', '.join(GROUPED_WIRE_TYPES)}) "
+            "equal to in-process; decisions/s on the card (host clock; "
+            f"{nvidia_smi_line()}), in-process / Redis: " + "; ".join(
+                f"{t} {card[t][0]:,.0f}"
+                + (f" / {wire[t][0]:,.0f}" if t in wire else "")
+                for t in ONLINE_TYPES)
+            + "; on the CPU: " + ", ".join(
+                f"{t} {cpu[t][0]:,.0f}" for t in ONLINE_TYPES)
+            + f"; phase 15's ServingEngine, softMax, on the same "
+            f"{GROUPED_EVENTS} ids: {single:,.0f}")
+
+
+def fleet_legs(dev, work) -> str:
+    """(c): the verb's ``broker.shards`` over two in-process MiniRedis
+    brokers on the first ``FLEET_IDS`` of phase 14's ids, its actions file
+    equal to the in-process engine's; the grouped engine over
+    ``ShardedQueues`` (softMax, 16 groups routed over the two shards)
+    equal to (b)'s file; then the groups re-routed over three shards and
+    each moved group's queues migrated with ``migrate_group_queues``:
+    every entry on the new shard, none left on the old."""
+    from avenir_tpu_torch.datagen import LeadGenSimulator
+    from avenir_tpu_torch.stream.engine import GroupedServingEngine
+    from avenir_tpu_torch.stream.fleet import (
+        BrokerFleet, ShardedQueues, consistent_route, migrate_group_queues)
+    from avenir_tpu_torch.stream.miniredis import MiniRedisServer
+    short = os.path.join(work, "events-fleet.txt")
+    with open(os.path.join(work, "events.txt")) as fh:
+        ids = fh.read().split()
+    with open(short, "w") as fh:
+        fh.write("".join(i + "\n" for i in ids[:FLEET_IDS]))
+    servers = [MiniRedisServer("localhost", 0).start() for _ in range(3)]
+    fleet = None
+    try:
+        # one pipelined sweep of 64 pops, the engine's transport unit
+        probe = BrokerFleet([f"localhost:{servers[2].port}"]).client(0)
+        probe.lpush("probe", *[f"p{i}" for i in range(64 * 21)])
+        sweep_ms = []
+        for _ in range(21):
+            pipe = probe.pipeline()
+            for _ in range(64):
+                pipe.rpoplpush("probe", "probePending")
+            t0 = time.perf_counter()
+            pipe.execute()
+            sweep_ms.append((time.perf_counter() - t0) * 1e3)
+        probe.flushall()
+        probe.close()
+        spec = ",".join(f"localhost:{s.port}" for s in servers[:2])
+        t0 = time.perf_counter()
+        sharded = engine_verb(work, short, "fleet-verb.txt", dev.type,
+                              "learner.type=softMax",
+                              f"broker.shards={spec}")
+        verb_s = time.perf_counter() - t0
+        local = engine_verb(work, short, "fleet-local.txt", dev.type,
+                            "learner.type=softMax")
+        with open(os.path.join(work, "fleet-verb.txt")) as fh:
+            got = fh.read()
+        with open(os.path.join(work, "fleet-local.txt")) as fh:
+            want = fh.read()
+        sharded.pop("overlap_fraction")
+        local.pop("overlap_fraction")
+        shard = sharded.pop("broker_shard")
+        if got != want or sharded != local:
+            raise AssertionError("phase 17 broker.shards: the verb's file "
+                                 "or line differs from in-process")
+        # the grouped engine over the fan-out
+        groups = [f"g{i}" for i in range(GROUPED_GROUPS)]
+        routing = consistent_route(groups, range(2))
+        fleet = BrokerFleet([f"localhost:{s.port}" for s in servers])
+        fleet.flushall()
+        with open(os.path.join(work, "rewards.txt")) as fh:
+            pairs = [line.split(",") for line in fh.read().split()]
+        for i, e in enumerate(ids[:GROUPED_EVENTS]):
+            g = groups[i % len(groups)]
+            fleet.client(routing[g]).lpush(f"eventQueue:{g}", f"{g}:{e}")
+        for j, (a, r) in enumerate(pairs):
+            g = groups[j % len(groups)]
+            fleet.client(routing[g]).lpush(f"rewardQueue:{g}",
+                                           f"{a},{float(r)}")
+        queues = ShardedQueues(fleet, groups, routing)
+        engine = GroupedServingEngine(
+            "softMax", groups, LeadGenSimulator().actions,
+            dict(ONLINE_CONF, **{"random.seed": 7}), queues, seed=7,
+            device=dev)
+        t0 = time.perf_counter()
+        stats = engine.run()
+        torch.cuda.synchronize()
+        fan_s = time.perf_counter() - t0
+        answers = sorted(raw.decode() for s in (0, 1) for raw in
+                         fleet.client(s).lrange("actionQueue", 0, -1))
+        with open(os.path.join(
+                work, f"grouped-softMax-{dev.type}-inproc.txt")) as fh:
+            inproc = sorted(fh.read().split())
+        if (answers != inproc or queues.pending_left()
+                or stats.events != GROUPED_EVENTS):
+            raise AssertionError("phase 17 ShardedQueues: the grouped "
+                                 "engine's answers differ from (b)'s file")
+        queues.close()
+        # re-route over three shards and migrate each moved group
+        rerouted = consistent_route(groups, range(3))
+        moved = [g for g in groups if rerouted[g] != routing[g]]
+        if not moved:
+            raise AssertionError("phase 17: re-routing moved no group")
+        before, n_moved = {}, 0
+        for g in moved:
+            old = fleet.client(routing[g])
+            old.lpush(f"eventQueue:{g}", f"{g}:late0", f"{g}:late1")
+            old.rpoplpush(f"eventQueue:{g}", f"pendingQueue:{g}")
+            old.lpush(f"rewardQueue:{g}", "a,1.0")
+            before[g] = sorted(
+                old.lrange(f"eventQueue:{g}", 0, -1)
+                + old.lrange(f"pendingQueue:{g}", 0, -1)
+                + old.lrange(f"rewardQueue:{g}", 0, -1))
+            n_moved += migrate_group_queues(fleet, g, routing[g],
+                                            rerouted[g])
+        for g in moved:
+            old, new = fleet.client(routing[g]), fleet.client(rerouted[g])
+            left = sum(old.llen(f"{q}:{g}") for q in
+                       ("eventQueue", "pendingQueue", "rewardQueue"))
+            after = sorted(new.lrange(f"eventQueue:{g}", 0, -1)
+                           + new.lrange(f"rewardQueue:{g}", 0, -1))
+            if left or after != before[g]:
+                raise AssertionError(f"phase 17 migrate {g}: {left} left on "
+                                     "the old shard or entries lost")
+    finally:
+        if fleet is not None:
+            fleet.close()
+        for s in servers:
+            s.close()
+    return (f"phase 17 fleet: ReinforcementLearnerTopology broker.shards "
+            f"over two MiniRedis brokers (the job's group on shard {shard}) "
+            f"on {FLEET_IDS} ids in {verb_s:.2f} s: actions file and JSON "
+            "line equal to the in-process engine's; GroupedServingEngine "
+            f"over ShardedQueues, {GROUPED_GROUPS} groups on two shards, "
+            f"{GROUPED_EVENTS} events in {fan_s:.2f} s: answers equal to "
+            f"(b)'s, ledgers empty; {len(moved)} groups re-routed onto a "
+            f"third shard, {n_moved} entries migrated, none left on the old "
+            "side, none lost; a pipelined sweep of 64 RPOPLPUSHes on "
+            f"MiniRedis: median {statistics.median(sweep_ms[1:]):.2f} ms "
+            "(host clock)")
+
+
+def serving_phase(dev, work):
+    """Phase 17: boosted serving under the engine (``boost_serving``),
+    the grouped engine (``grouped_engines``) and the broker fleet
+    (``fleet_legs``). Run alone (``python3 chip_smoke.py
+    serving_phase``) it first writes phase 14's inputs (the kernels build
+    at the first K1 launch). Returns K1-int's launches on its path."""
+    t_phase = time.perf_counter()
+    if not os.path.exists(os.path.join(work, "rl.properties")):
+        actions, _, rewards = online_inputs(work, ONLINE_EVENTS)
+        online_properties(work, actions, rewards)
+    launches, lines = boost_serving(dev, work)
+    for line in lines:
+        log(line)
+    log(grouped_dispatch_sync_free(dev))
+    log(grouped_engines(dev, work))
+    log(fleet_legs(dev, work))
+    log(f"phase 17 wall: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 #: the phases that run alone, ``python3 chip_smoke.py <name>``
 ALONE = {"online_phase": online_phase, "engine_phase": engine_phase,
-         "live_phase": live_phase}
+         "live_phase": live_phase, "serving_phase": serving_phase}
 
 
 def main(argv=None) -> int:
@@ -7020,9 +7617,11 @@ def main(argv=None) -> int:
         engine_phase(dev, work)
         mark("15")
         k1_live = live_phase(dev, work)
+        mark("16")
+        serving_launches = serving_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    mark("16")
+    mark("17")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name] + planned[name]
 
@@ -7041,6 +7640,9 @@ def main(argv=None) -> int:
     kernels.append(k1_tree)
     kernels.append(k4_markov)
     kernels.append(k1_forest)
+    # the boosted engine's refit waves launch K1's integer mode too
+    k1_boost["launches"] += serving_launches
+    k1_boost["serving_launches"] = serving_launches
     kernels.append(k1_boost)
     kernels.append(k1_text)
     kernels += batch

@@ -5,8 +5,8 @@ files, and exponentialWeight's at the sizes where its reward folds take
 the fused path; the same with ``serving.engine=true`` (the JSON line but
 its ``overlap_fraction``), with the admission gate and with a snapshot
 registry (``lifecycle.dir``); the ``Lifecycle`` verb's five commands;
-the broker fleet refused by name; the JAX CLI's config errors with its
-messages."""
+the broker fleet's ``broker.shards`` run; the JAX CLI's config errors
+with its messages."""
 
 import json
 import os
@@ -112,20 +112,28 @@ def test_config_errors_carry_the_jax_clis_messages(tmp_path, keys, message):
                + [a for kv in args for a in ("-D", kv)] + dev)
 
 
-@pytest.mark.parametrize("extra", [["broker.shards=localhost:1"]])
-def test_the_engine_is_refused_by_name(tmp_path, extra):
-    write_inputs(tmp_path, n_events=4)
-    keys = ["learner.type=softMax", "serving.engine=true", *extra]
-    with pytest.raises(ValueError, match=(
-            r"serving\.engine=true.*ROADMAP queue A, 'Bandits and "
-            r"streaming serving'")) as err:
-        tmain(["ReinforcementLearnerTopology", str(tmp_path / "events.txt"),
-               str(tmp_path / "o.txt"), "--conf",
-               str(tmp_path / "p.properties"), "--device", "cpu"]
-              + [a for kv in keys for a in ("-D", kv)])
-    for key in extra:
-        assert key in str(err.value)
-    assert not (tmp_path / "o.txt").exists()
+def test_broker_shards_answers_as_the_in_process_engine(tmp_path, capsys):
+    """``broker.shards`` (one in-process MiniRedis here) runs the engine
+    over the routed shard, and its actions file holds the in-process
+    engine's answers (``tests/test_torch_fleet.py`` holds it against the
+    JAX CLI byte for byte)."""
+    from avenir_tpu_torch.stream.miniredis import MiniRedisServer
+    write_inputs(tmp_path, n_events=40)
+    keys = ["learner.type=softMax", "serving.engine=true"]
+    files = []
+    with MiniRedisServer() as srv:
+        for out, more in (("o.txt", [f"broker.shards={srv.host}:{srv.port}"]),
+                          ("local.txt", [])):
+            assert tmain(["ReinforcementLearnerTopology",
+                          str(tmp_path / "events.txt"), str(tmp_path / out),
+                          "--conf", str(tmp_path / "p.properties"),
+                          "--device", "cpu"]
+                         + [a for kv in keys + more for a in ("-D", kv)]) \
+                == 0
+            files.append((tmp_path / out).read_text().splitlines())
+    line = json.loads(capsys.readouterr().out.splitlines()[0])
+    assert line["broker_shard"] == 0 and line["events"] == 40
+    assert sorted(files[0]) == sorted(files[1]) and len(files[0]) == 40
 
 
 # -- serving.engine=true and the Lifecycle verb ------------------------------
