@@ -773,11 +773,11 @@ def _serve_margins(tables: Dict[str, torch.Tensor], bins: torch.Tensor, *,
     a cap, not the trees' depth: a step past a leaf reads child −1 and
     stays, so one cap serves every retrained model whose trees fit under
     it. The trees' values add in the order XLA's CPU code gives the padded
-    rounds axis ``kt`` in this program (read off its LLVM IR and held by
-    the tests): one by one up to 4 rounds, in 8 vector lanes halved
-    pairwise from 8 (for 16 rounds measured at batches of 1 and of 16 or
-    more). The margin is ``base + lr · sum`` rounded once, as that code
-    contracts it. So the margins equal the JAX package's bit for bit."""
+    rounds axis ``kt`` in this program (``_rounds_sum``). The margin is
+    ``base + lr · sum`` rounded once, as that code contracts it. So the
+    margins equal the JAX package's bit for bit at the padded rounds axes
+    the tests hold, ``kt`` = 4, 8, 16, 32, 64 and 128, at batches of 1 to
+    17, 32, 64, 100 and 256."""
     split_col = tables["split_col"].long()                  # [kt, nn]
     kt, nn = split_col.shape
     b_max = tables["seg_of_bin"].shape[2]
@@ -795,17 +795,40 @@ def _serve_margins(tables: Dict[str, torch.Tensor], bins: torch.Tensor, *,
         node = torch.where(ch >= 0, ch, node)
     vals = torch.gather(tables["value"], 1, node) \
         * tables["valid"][:, None]                          # [kt, M]
-    if kt <= 4:
-        total = it.xla_sum(vals, 0)
-    else:
-        # XLA's loop vectorizer runs the rounds axis in 8 lanes (tree r
-        # into lane r % 8), then halves the lanes pairwise
-        acc = vals[:8]
-        for r in range(8, kt, 8):
-            acc = acc + vals[r:r + 8]
-        while acc.shape[0] > 1:
-            half = acc.shape[0] // 2
-            acc = acc[:half] + acc[half:]
-        total = acc[0]
+    total = _rounds_sum(vals)
     margin = it.fma(tables["lr"], total, tables["base"])
     return margin, (margin > 0).to(torch.int32)
+
+
+def _rounds_sum(vals: torch.Tensor) -> torch.Tensor:
+    """[kt, M] tree values -> [M] f32 sums in the order XLA's CPU code adds
+    ``_serve_margins``' padded rounds axis (``kt`` a power of two), as its
+    LLVM IR shows it:
+
+    - ``kt`` ≤ 4: one by one;
+    - ``kt`` ≥ 64: the reduction rewritten into windows of 32, each summed
+      one by one, then the window sums one by one (``xla_sum``);
+    - ``kt`` = 8, or a batch of 9 or more: tree r into vector lane r % 8,
+      the lanes halved pairwise;
+    - ``kt`` of 16 or 32 at a batch of 1: two such vectors interleaved
+      (rounds 0-7 and 16-23 in one, 8-15 and 24-31 in the other), added,
+      then halved;
+    - ``kt`` of 16 or 32 at a batch of 2-8: all but the last 8 rounds in
+      the lanes and halved, then the last 8 one by one (the loop's scalar
+      epilogue)."""
+    kt, m = vals.shape
+    if kt <= 4 or kt > 32:
+        return it.xla_sum(vals, 0)
+    vec = kt if kt == 8 or m == 1 or m >= 9 else kt - 8
+    ways = 2 if kt > 8 and m == 1 else 1
+    acc = [vals[i * 8:(i + 1) * 8] for i in range(ways)]
+    for r in range(8 * ways, vec, 8 * ways):
+        acc = [a + vals[r + i * 8:r + (i + 1) * 8] for i, a in enumerate(acc)]
+    lanes = acc[0] if ways == 1 else acc[0] + acc[1]
+    while lanes.shape[0] > 1:
+        half = lanes.shape[0] // 2
+        lanes = lanes[:half] + lanes[half:]
+    total = lanes[0]
+    for r in range(vec, kt):
+        total = total + vals[r]
+    return total

@@ -795,9 +795,9 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
     as ``split_gains`` does: two candidates that split a node's rows into
     the same children in another segment order tie only up to that
     rounding, and the argmax then picks the candidate JAX picks. Bit for
-    bit at any class count with up to 32 segments (``_SEG_LANES``); from
-    33 segments on XLA's order over the segments is not reproduced and
-    the ratios agree within a few ulps."""
+    bit at any class count with up to 32 segments (``_SEG_LANES``) and,
+    where XLA cuts the segment sums into windows of 32 (``xla_sum``), at
+    the 33, 40, 48 and 64 segments the tests hold."""
     single = counts.dim() == 4
     if single:
         counts = counts[None]
@@ -836,6 +836,10 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
             if main == s_max and _needs_epilogue(k_nodes, n_classes):
                 main -= lanes
             acc = _vector_sum(seg_info, seg_n, lanes, main)
+        elif s_max > 32:
+            # XLA rewrites the reduction into windows of 32 over the
+            # products, each rounded on its own (``xla_sum``)
+            acc = it.xla_sum(seg_info * seg_n, -1)
         else:
             acc = torch.zeros_like(seg_n[:, 0])
             for s in range(s_max):
@@ -845,6 +849,8 @@ def _level_select(counts: torch.Tensor, *, algorithm: str,
         seg_x = xlog2x(seg_n / it._nonzero(seg_n.sum(dim=-1, keepdim=True)))
         if _INTR_LANES_FROM <= s_max <= 32:
             intr = -_vector_sum(seg_x, None, 8, s_max - s_max % 8)
+        elif s_max > 32:
+            intr = -it.xla_sum(seg_x, -1)
         else:
             intr = -it._sum(seg_x, -1)
         intr = intr.reshape(kt, t_total, k_nodes)

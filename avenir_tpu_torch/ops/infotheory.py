@@ -61,13 +61,28 @@ def fma(a, b, c) -> torch.Tensor:
     mantissa bits 1 then zeros) while its TwoSum error is nonzero: there
     the sum steps one float64 ulp toward the error first (its bits move by
     the sign of error × sum), so the tie breaks the way the exact value
-    lies. A subnormal addend counts as a zero of its sign, as XLA's CPU
-    code reads it; a Python number stands for the f32 value it names.
-    Under ``torch.func.vmap`` the same bits come from ``_fma_round_mapped``,
-    which views no bits as another dtype."""
-    a, b, c = _f64(a), _f64(b), _f64(c)
-    if isinstance(c, torch.Tensor):
-        c = c * (c.abs() >= _MIN_NORM)
+    lies. As XLA's CPU code runs (denormals are zero, flushed to zero), a
+    subnormal factor or addend counts as a zero of its sign, and a
+    subnormal result comes back as one; a Python number stands for the f32
+    value it names. Under ``torch.func.vmap`` the same bits come from
+    ``_fma_round_mapped``, which views no bits as another dtype."""
+    return ftz(_fma64(_daz(_f64(a)), _daz(_f64(b)), _daz(_f64(c))))
+
+
+def _fma_normal(a, b, c) -> torch.Tensor:
+    """``fma`` where every operand and the result are zero or normal f32
+    values, so that the flushes change nothing and are left out (a flush
+    costs three torch ops an operand): ``xla_log``'s polynomial, whose
+    reduced mantissa is 0 or at least 2^-24 in magnitude and whose other
+    operands are constants, the exponent and sums near them, and
+    ``xla_exp``'s, where a remainder left subnormal by a subnormal ``x``
+    only ever adds to one, as XLA's flushed zero does."""
+    return _fma64(_f64(a), _f64(b), _f64(c))
+
+
+def _fma64(a, b, c) -> torch.Tensor:
+    """``a * b + c`` of float64 operands holding f32 values, rounded once
+    to f32 (``fma``'s body)."""
     p = a * b
     s = torch.as_tensor(p + c)
     bp = s - c                                   # TwoSum: s + err == p + c
@@ -78,6 +93,14 @@ def fma(a, b, c) -> torch.Tensor:
     tie = (bits & _F32_DROPPED) == _F32_HALF
     step = (tie * torch.sign(err * s)).to(torch.int64)
     return (bits + step).view(torch.float64).float()
+
+
+def _daz(x):
+    """``x`` with a subnormal f32 value read as a zero of its sign
+    (``ftz``); a Python number costs no tensor op."""
+    if isinstance(x, torch.Tensor):
+        return ftz(x)
+    return math.copysign(0.0, x) if 0.0 < abs(x) < _MIN_NORM else x
 
 
 def _fma_round_mapped(s: torch.Tensor, err: torch.Tensor) -> torch.Tensor:
@@ -131,13 +154,13 @@ def xla_log(x: torch.Tensor) -> torch.Tensor:
     m2 = m * m
     m3 = m2 * m
     p = _LOG_P
-    y = fma(fma(m, p[0], p[1]), m, p[2])
-    y1 = fma(fma(m, p[3], p[4]), m, p[5])
-    y2 = fma(fma(m, p[6], p[7]), m, p[8])
-    y = fma(fma(y, m3, y1), m3, y2)
-    y = fma(y, m3, _LOG_Q1 * e)
-    m = fma(-m2, 0.5, m)
-    out = fma(_LOG_Q2, e, m + y)
+    y = _fma_normal(_fma_normal(m, p[0], p[1]), m, p[2])
+    y1 = _fma_normal(_fma_normal(m, p[3], p[4]), m, p[5])
+    y2 = _fma_normal(_fma_normal(m, p[6], p[7]), m, p[8])
+    y = _fma_normal(_fma_normal(y, m3, y1), m3, y2)
+    y = _fma_normal(y, m3, _LOG_Q1 * e)
+    m = _fma_normal(-m2, 0.5, m)
+    out = _fma_normal(_LOG_Q2, e, m + y)
     return torch.where(x < math.inf, out, x)
 
 
@@ -156,14 +179,14 @@ def _xla_exp_parts(x: torch.Tensor):
     remainder reduced in two parts of ln 2 and a degree-5 polynomial in
     fused multiply-adds, plus one."""
     x = torch.clamp(x.float(), min=_EXP_LO, max=_EXP_HI)
-    fx = torch.clamp(torch.floor(fma(x, _LOG2E, 0.5)), min=-127.0,
+    fx = torch.clamp(torch.floor(_fma_normal(x, _LOG2E, 0.5)), min=-127.0,
                      max=127.0)
-    r = fma(-fx, _EXP_C1, x)
-    r = fma(-fx, _EXP_C2, r)
+    r = _fma_normal(-fx, _EXP_C1, x)
+    r = _fma_normal(-fx, _EXP_C2, r)
     y = torch.full_like(r, _EXP_P[0])
     for p in _EXP_P[1:]:
-        y = fma(y, r, p)
-    y = fma(y, r * r, r) + 1.0
+        y = _fma_normal(y, r, p)
+    y = _fma_normal(y, r * r, r) + 1.0
     if _mapped(fx):
         # NaN (whose y is NaN) looks up 2^0
         n = torch.nan_to_num(fx, nan=0.0) + 127.0
@@ -311,8 +334,8 @@ def xla_sum(x: torch.Tensor, dim) -> torch.Tensor:
 def ftz(x: torch.Tensor) -> torch.Tensor:
     """``x`` with subnormal values flushed to a zero of their sign, as
     XLA's CPU code runs (its floating-point mode flushes every subnormal
-    result)."""
-    return torch.where(x.abs() < _MIN_NORM, x * 0.0, x)
+    result); NaN and the infinities stay."""
+    return x * (x.abs() >= _MIN_NORM)
 
 
 def _ftz_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

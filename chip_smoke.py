@@ -433,7 +433,29 @@ Phases (one line each; any failure exits non-zero):
    1,024 ids equal to the in-process engine's file, the grouped engine over
    ``ShardedQueues`` (16 groups on two shards) equal to (b)'s answers, and
    the groups re-routed over a third shard with ``migrate_group_queues``:
-   nothing lost, nothing left on the old side.
+   nothing lost, nothing left on the old side. (b)'s grouped legs run on
+   phase 15's first 1,024 ids;
+18. the scale-out tier (``scaleout_phase``, also runnable alone), worker
+   processes over one MiniRedis broker, which launch none of the port's
+   kernels: (a) one worker process on the card and one with ``--device
+   cpu`` for softMax and UCB1, through the step loop and through
+   ``--engine``, all eight started together, each over its own broker
+   prefilled with the same 64 events, 16 rewards and stop sentinels (8
+   groups, 4 actions), the card's action queue equal to the CPU's byte
+   for byte; (c) beside (a), ``run_chaos(2, n_events=400,
+   kill_after=100)`` on the card through the step loop and the engine:
+   nothing lost, the ledger empty, duplicates within 50 and 128; then (b)
+   ``run_scaleout`` on the card at the tutorial's width (8 groups, 4
+   actions, ``batch.size`` 8) and sizes, 1,000 throughput events and 200
+   paced at 100/s, through the step loop at 4 workers (each worker's own
+   rate from its heartbeats; no 1-worker leg, for the time limit) and
+   through the engine at 2 workers on 2,000: every event answered once,
+   ownership disjoint and total, heartbeats, with decisions/s, p50 and
+   p90 latency, ``best_action_fraction``, the stragglers and each
+   worker's seconds from spawn to its first heartbeat; (d) once
+   the 4 workers of (b) are up, the device memory taken since their spawn
+   and ``nvidia-smi --query-compute-apps``; (e) ``run_scaleout(2)`` with
+   ``device="cpu"`` for scale.
 
 Then one JSON line of per-kernel numbers (K1-K3's launches and K4's
 through ``pair_counts_multi`` from the CLI phase; K4's through
@@ -6904,7 +6926,7 @@ SERVE_REWARDS = SERVE_EVENTS // 4
 SERVE_DRAIN_MAX = 256         # rewards folded a batch: the shift streams in
 SERVE_P99_MS = 500.0          # scripts/boost_smoke.py's decision-p99 bar
 GROUPED_GROUPS = 16           # docs/TUTORIALS.md:768
-GROUPED_EVENTS = ONLINE_EVENTS
+GROUPED_EVENTS = ENGINE_SHORT_EVENTS  # phase 15's first ids
 GROUPED_WIRE_TYPES = ("softMax",)
 FLEET_IDS = ENGINE_SHORT_EVENTS
 
@@ -7305,7 +7327,7 @@ def grouped_engines(dev, work) -> str:
                                  "differs from in-process")
     return (f"phase 17 GroupedServingEngine, {GROUPED_GROUPS} groups, "
             f"{GROUPED_EVENTS} events (phase 14's ids, event i in group i "
-            f"mod {GROUPED_GROUPS}) and {GROUPED_EVENTS // 4} rewards, ten "
+            f"mod {GROUPED_GROUPS}) and {ONLINE_EVENTS // 4} rewards, ten "
             "learners: action queues on the card equal to the CPU's; over "
             f"RedisQueues on MiniRedis ({', '.join(GROUPED_WIRE_TYPES)}) "
             "equal to in-process; decisions/s on the card (host clock; "
@@ -7468,9 +7490,240 @@ def serving_phase(dev, work):
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 18: the scale-out tier (worker processes over one broker)
+# --------------------------------------------------------------------------
+
+# run_scaleout's width and the tutorial's sweep (docs/TUTORIALS.md:222-228,
+# :365): 8 groups, 4 actions, 1,000 throughput events and 200 paced at
+# 100/s; the engine form at 2,000 throughput events; run_chaos(2,
+# n_events=400, kill_after=100)
+SCALEOUT_EVENTS = 1000
+SCALEOUT_PACED = 200
+SCALEOUT_RATE = 100.0
+SCALEOUT_ENGINE_EVENTS = 2000
+SCALEOUT_GROUPS, SCALEOUT_ACTIONS = 8, 4
+SCALEOUT_CONF = {"current.decision.round": 1, "batch.size": 8}
+CHAOS_EVENTS, CHAOS_KILL_AFTER = 400, 100
+CHAOS_MAX_DUPLICATES = {False: 50, True: 128}
+# (a): prefilled events and rewards one worker serves on each device
+SCALEOUT_PARITY_EVENTS, SCALEOUT_PARITY_REWARDS = 64, 16
+SCALEOUT_PARITY_TYPES = ("softMax", "upperConfidenceBoundOne")
+
+
+def scaleout_parity(dev) -> str:
+    """(a): one worker subprocess on the card and one with ``--device
+    cpu`` for each learner of ``SCALEOUT_PARITY_TYPES``, through the step
+    loop and through the engine, all started together, each over an
+    in-process MiniRedis prefilled with the same events, rewards and stop
+    sentinels: the card's action queue equal to the CPU's byte for
+    byte."""
+    from avenir_tpu_torch.stream import scaleout as S
+    from avenir_tpu_torch.stream.miniredis import (MiniRedisClient,
+                                                   MiniRedisServer)
+    groups = [f"g{i}" for i in range(SCALEOUT_GROUPS)]
+    actions = [f"a{i}" for i in range(SCALEOUT_ACTIONS)]
+    rng = np.random.default_rng(SEED)
+    events = [f"{groups[i % len(groups)]}:{i}"
+              for i in range(SCALEOUT_PARITY_EVENTS)]
+    rewards = [(groups[j % len(groups)],
+                f"{actions[int(rng.integers(len(actions)))]},"
+                f"{float(rng.integers(0, 2))}")
+               for j in range(SCALEOUT_PARITY_REWARDS)]
+    legs = [(t, engine, on) for t in SCALEOUT_PARITY_TYPES
+            for engine in (False, True) for on in (dev.type, "cpu")]
+    servers, procs, queues = [], [], {}
+    t0 = time.perf_counter()
+    # a worker visits its groups in the order of a set of their names,
+    # which string hashing orders per process: two workers write their
+    # answers in one order only under one hash seed
+    hash_seed = os.environ.get("PYTHONHASHSEED")
+    os.environ["PYTHONHASHSEED"] = str(SEED % 1000)
+    try:
+        for t, engine, on in legs:
+            server = MiniRedisServer("localhost", 0).start()
+            servers.append(server)
+            client = MiniRedisClient("localhost", server.port)
+            for e in events:
+                client.lpush(f"eventQueue:{e.partition(':')[0]}", e)
+            for g, r in rewards:
+                client.lpush(f"rewardQueue:{g}", r)
+            for g in groups:
+                client.lpush(f"eventQueue:{g}", S.STOP_SENTINEL)
+            procs.append((client, S._spawn_worker(
+                "localhost", server.port, 0, 1, groups, t, actions,
+                SCALEOUT_CONF, SEED, engine=engine, device=on)))
+        for (t, engine, on), (client, p) in zip(legs, procs):
+            out, err = S._collect_worker(p, timeout=300)
+            if p.returncode != 0:
+                raise AssertionError(f"phase 18 (a) {t} worker on {on}: "
+                                     f"{err[-1500:]}")
+            stats = json.loads(out.splitlines()[-1])
+            queues[t, engine, on] = client.lrange("actionQueue", 0, -1)
+            if stats["events"] != len(events) or \
+                    len(queues[t, engine, on]) != len(events):
+                raise AssertionError(f"phase 18 (a) {t} on {on}: {stats}")
+    finally:
+        if hash_seed is None:
+            del os.environ["PYTHONHASHSEED"]
+        else:
+            os.environ["PYTHONHASHSEED"] = hash_seed
+        for client, p in procs:
+            if p.poll() is None:
+                p.kill()
+            client.close()
+        for server in servers:
+            server.close()
+
+    def by_group(lines):
+        out = collections.defaultdict(list)
+        for line in lines:
+            out[line.split(b":")[0]].append(line)
+        return out
+    for t, engine, on in legs:
+        card, cpu = queues[t, engine, on], queues[t, engine, "cpu"]
+        if on != "cpu" and card != cpu:
+            raise AssertionError(
+                f"phase 18 (a) {t} {'engine' if engine else 'step loop'}: "
+                "the card's action queue differs from the CPU's ("
+                + ("the same answers in another order" if
+                   by_group(card) == by_group(cpu) else
+                   "the answers differ") + ")")
+    return (f"phase 18 (a) one worker process on the card and one on the "
+            f"CPU, {SCALEOUT_PARITY_EVENTS} events and "
+            f"{SCALEOUT_PARITY_REWARDS} rewards prefilled over "
+            f"{SCALEOUT_GROUPS} groups, {', '.join(SCALEOUT_PARITY_TYPES)}, "
+            "step loop and engine (eight processes side by side, "
+            f"{time.perf_counter() - t0:.1f} s): action queues equal byte "
+            "for byte")
+
+
+def _compute_apps() -> dict:
+    """{pid: MiB} of the card's compute processes, as ``nvidia-smi
+    --query-compute-apps`` lists them (empty where a container hides
+    them)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    apps = {}
+    for line in out.stdout.strip().splitlines():
+        pid, _, mib = line.partition(",")
+        if pid.strip().isdigit() and mib.strip().isdigit():
+            apps[int(pid)] = int(mib)
+    return apps
+
+
+def scaleout_run(label, n_workers, on, contexts=None, **kw):
+    """One ``run_scaleout`` at the tutorial's width, its gates (every
+    event answered once, which the driver also raises on; ownership
+    disjoint and total; heartbeats) and its line. ``contexts``, a dict,
+    gets the card's memory once every worker is up."""
+    from avenir_tpu_torch.stream.scaleout import run_scaleout
+    events = kw.pop("throughput_events", SCALEOUT_EVENTS)
+    free_before = torch.cuda.mem_get_info()[0]
+
+    def up(start_s):
+        if contexts is not None:
+            contexts["start_s"] = start_s
+            contexts["apps"] = _compute_apps()
+            contexts["used_mib"] = (free_before
+                                    - torch.cuda.mem_get_info()[0]) / 2 ** 20
+    t0 = time.perf_counter()
+    r = run_scaleout(n_workers, n_groups=SCALEOUT_GROUPS,
+                     n_actions=SCALEOUT_ACTIONS, throughput_events=events,
+                     paced_events=SCALEOUT_PACED, paced_rate=SCALEOUT_RATE,
+                     seed=SEED % 1000, device=on, on_workers_up=up, **kw)
+    wall = time.perf_counter() - t0
+    total = sum(w["events"] for w in r.worker_stats)
+    owned = [set(w["groups"]) for w in r.worker_stats]
+    if total != 4 * SCALEOUT_GROUPS + events + SCALEOUT_PACED \
+            or sum(len(g) for g in owned) != SCALEOUT_GROUPS \
+            or len(set().union(*owned)) != SCALEOUT_GROUPS \
+            or r.heartbeats <= 0:
+        raise AssertionError(f"phase 18 {label}: {total} events, ownership "
+                             f"{owned}, {r.heartbeats} heartbeats")
+    return r, (f"{label} on {on}: {r.decisions_per_sec:,.1f} decisions/s "
+               f"({events} events; each worker's from its heartbeats "
+               + ", ".join(f"w{w} {t:.1f}" for w, t in
+                           sorted(r.worker_throughput.items()))
+               + f"), p50 {r.p50_latency_ms:.1f} / p90 "
+               f"{r.p90_latency_ms:.1f} ms ({SCALEOUT_PACED} at "
+               f"{SCALEOUT_RATE:.0f}/s), best_action_fraction "
+               f"{r.best_action_fraction:.3f}, stragglers {r.stragglers}, "
+               f"{r.heartbeats} heartbeats, start s "
+               + ", ".join(f"{s:.2f}" for _, s in
+                           sorted(r.worker_start_s.items()))
+               + f"; {wall:.1f} s")
+
+
+def scaleout_chaos(on, engine) -> str:
+    """(c): ``run_chaos`` at the tutorial's call: nothing lost after
+    dedup, the ledger empty, duplicates within the crash window."""
+    from avenir_tpu_torch.stream.scaleout import run_chaos
+    t0 = time.perf_counter()
+    r = run_chaos(2, n_events=CHAOS_EVENTS, kill_after=CHAOS_KILL_AFTER,
+                  engine=engine, device=on)
+    if r.unique_answered != r.n_events or r.pending_left != 0 \
+            or r.killed_at < CHAOS_KILL_AFTER \
+            or r.duplicates > CHAOS_MAX_DUPLICATES[engine]:
+        raise AssertionError(f"phase 18 (c) chaos engine={engine}: {r}")
+    return (f"{'engine' if engine else 'step loop'}: killed at "
+            f"{r.killed_at}, {r.unique_answered}/{r.n_events} answered, "
+            f"{r.duplicates} duplicates (bar "
+            f"{CHAOS_MAX_DUPLICATES[engine]}), {r.replayed} replayed, "
+            f"{r.pending_left} pending; {time.perf_counter() - t0:.1f} s")
+
+
+def scaleout_phase(dev, work):
+    """Phase 18: the scale-out tier (``stream/scaleout.py``) on the card,
+    which launches none of the port's kernels (the workers' learners are
+    torch ops): (a) ``scaleout_parity`` and (c) ``run_chaos`` through the
+    step loop and the engine, the three side by side (gates, timed only
+    as legs); then, one at a time, (b) ``run_scaleout`` through the step
+    loop at 4 workers and through the engine at 2 (2,000 throughput
+    events); (d) the card's memory and each worker's start once every
+    worker of (b)'s 4-worker run is up; (e) ``run_scaleout(2)`` with
+    ``device="cpu"`` for scale."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        chaos = [pool.submit(scaleout_chaos, dev.type, e)
+                 for e in (False, True)]
+        log(scaleout_parity(dev))
+        log("phase 18 (c) run_chaos(2, n_events=400, kill_after=100) on "
+            "the card, beside (a): " + "; ".join(f.result() for f in chaos))
+    contexts = {}
+    lines = []
+    for label, n, kw in (("4 workers", 4, {}),
+                         ("engine, 2 workers", 2, {
+                             "engine": True,
+                             "throughput_events": SCALEOUT_ENGINE_EVENTS})):
+        _, line = scaleout_run(label, n, dev.type,
+                               contexts if n == 4 else None, **kw)
+        lines.append(line)
+    log(f"phase 18 (b) run_scaleout, {SCALEOUT_GROUPS} groups, "
+        f"{SCALEOUT_ACTIONS} actions (host clock; {nvidia_smi_line()}): "
+        + "; ".join(lines))
+    apps = contexts["apps"]
+    workers = {pid: mib for pid, mib in apps.items() if pid != os.getpid()}
+    log(f"phase 18 (d) 4 workers up on the card ({nvidia_smi_line()}): "
+        f"device memory taken since their spawn "
+        f"{contexts['used_mib']:,.0f} MiB; nvidia-smi compute apps "
+        + (", ".join(f"pid {pid} {mib} MiB" for pid, mib in
+                     sorted(workers.items())) or "none listed")
+        + "; seconds from spawn to first heartbeat "
+        + ", ".join(f"w{w} {s:.2f}" for w, s in
+                    sorted(contexts["start_s"].items())))
+    _, line = scaleout_run("2 workers", 2, "cpu")
+    log(f"phase 18 (e) run_scaleout for scale: {line}")
+    log(f"phase 18 wall: {time.perf_counter() - t_phase:.1f} s")
+
+
 #: the phases that run alone, ``python3 chip_smoke.py <name>``
 ALONE = {"online_phase": online_phase, "engine_phase": engine_phase,
-         "live_phase": live_phase, "serving_phase": serving_phase}
+         "live_phase": live_phase, "serving_phase": serving_phase,
+         "scaleout_phase": scaleout_phase}
 
 
 def main(argv=None) -> int:
@@ -7619,9 +7872,11 @@ def main(argv=None) -> int:
         k1_live = live_phase(dev, work)
         mark("16")
         serving_launches = serving_phase(dev, work)
+        mark("17")
+        scaleout_phase(dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    mark("17")
+    mark("18")
     for name in ("K1", "K2", "K3"):
         launches[name] += modes[name] + planned[name]
 

@@ -1,8 +1,9 @@
 """Boosted serving in the port against the JAX package: the serving bins
 and every leaf of the serving tables of a JAX-grown model carried across
 (``model_from_payload``), the margins of ``_serve_margins`` bit for bit
-at depth caps 3 and 6 and every power-of-two batch up to 256 (and a few
-ragged ones), ``BoostServingLearner``'s action stream, the budget errors,
+at depth caps 3 and 6, at round counts whose padded rounds axis is 4 to
+128, at every power-of-two batch up to 256 (and 3 and 100) and at cap 3
+every batch of 1-17, ``BoostServingLearner``'s action stream, the budget errors,
 ``boost_refit_train_fn``'s snapshots restoring in the other package's
 registry both ways, and the engine over MiniRedis with a drift monitor
 and a retrain daemon: a swap lands mid-drain, every event is answered
@@ -36,6 +37,10 @@ torch.set_num_threads(2)
 
 ROUNDS, DEPTH, NODE_BUDGET = 8, 3, 64
 BUCKETS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 3, 100]
+# round counts whose padded rounds axis kt is 4, 8, 16 (10), 32 (30), 64
+# (40) and 128 (70): XLA sums each kt's trees in another order, and at
+# 16 and 32 the order changes between batches of 1, of 2-8 and of 9 on
+WIDE_ROUNDS = [3, ROUNDS, 10, 30, 40, 70]
 
 
 def _configs(rounds=ROUNDS):
@@ -53,16 +58,16 @@ def _budgets(cfg):
 
 @pytest.fixture(scope="module")
 def served(tmp_path_factory):
-    """(jax train, torch train, jax test, torch test, jax model, the same
-    model in the port, the JAX tables, the port's) at 8 rounds, and the
-    same for a 3-round model (its rounds axis padded to 4)."""
+    """(jax train, torch train, jax test, torch test), and for each round
+    count of ``WIDE_ROUNDS`` (jax model, the same model in the port, the
+    JAX tables, the port's), the rounds budget the round count."""
     rows = JG.retarget_rows(1500, seed=21)
     jfz, tfz = featurizers(JG._RETARGET_SCHEMA_JSON, rows[:1200])
     jt, tt = jfz.transform(rows[:1200]), tfz.transform(rows[:1200])
     jx, tx = jfz.transform(rows[1200:]), tfz.transform(rows[1200:])
     out = {"tables": (jt, tt, jx, tx)}
     path = str(tmp_path_factory.mktemp("boost") / "m.json")
-    for rounds in (ROUNDS, 3):
+    for rounds in WIDE_ROUNDS:
         jcfg, _ = _configs(rounds)
         jm = JB.grow_boosted(jt, jcfg)
         JB.save_boosted(jm, path)
@@ -89,12 +94,14 @@ def test_bins_and_every_table_leaf_equal(served, rounds):
 
 
 @pytest.mark.parametrize("cap", [3, 6])
-@pytest.mark.parametrize("rounds", [ROUNDS, 3])
+@pytest.mark.parametrize("rounds", WIDE_ROUNDS)
 def test_serve_margins_bit_equal(served, rounds, cap):
     _, _, jx, _ = served["tables"]
     jm, _, jtab, ttab = served[rounds]
     bins = JB.serving_bins(jx)
-    for m in BUCKETS:
+    # every batch of 1-17 at cap 3; the engine's power-of-two buckets at 6
+    ragged = list(range(1, 18)) if cap == 3 else []
+    for m in sorted(set(BUCKETS + ragged)):
         idx = (np.arange(m) * 7) % bins.shape[0]
         jmar, jcls = JB._serve_margins(jtab, jnp.asarray(bins[idx]),
                                        depth=cap)

@@ -486,7 +486,7 @@ def test_refusals_name_roadmap_items_that_exist():
                                 text))
         by_number += [f"{path.name}: {m}" for m in
                       re.findall(r"queue A,? item \d+", text)]
-    for title in ("Multi-device layer",):
+    for title in ("Multi-device layer", "Rebalance and the control plane"):
         assert title in named, title
     assert named <= titles, named - titles
     assert not by_number, by_number

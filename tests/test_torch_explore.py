@@ -5,6 +5,7 @@ mode."""
 
 import importlib.util
 import json
+import math
 from pathlib import Path
 
 import numpy as np
@@ -211,7 +212,7 @@ def test_mutual_information_sums_in_xla_order(shape):
 def test_fma_rounds_once_as_xla():
     """``fma`` is a correctly rounded f32 FMA (C13): where the float64 sum
     sits on an f32 midpoint, its TwoSum error breaks the tie, as XLA's
-    contracted ``a * b + c`` does."""
+    contracted ``a * b + c`` does; subnormals flush as XLA's do (C18)."""
     import jax
 
     f32 = np.float32
@@ -237,6 +238,20 @@ def test_fma_rounds_once_as_xla():
                         torch.from_numpy(za)).numpy()
         want = np.asarray(jfma(xa, ya, za))
         assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    # subnormal factors, addends and results read and come back as zero,
+    # as XLA's CPU code runs: inf·1e-40 + 0 is NaN, the rest 0
+    fa, fb, fc = (np.array(t, f32) for t in zip(
+        (np.inf, 1e-40, 0.0), (1e-40, 2.0, 0.0), (1e-20, 1e-20, 0.0),
+        (3e-39, 0.5, 1e-45), (-1e-20, 1e-20, 0.0)))
+    want = np.asarray(jfma(fa, fb, fc))
+    assert np.isnan(want[0]) and not want[1:].any()
+    got = tinfo.fma(torch.from_numpy(fa), torch.from_numpy(fb),
+                    torch.from_numpy(fc)).numpy()
+    assert np.isnan(got[0])
+    assert np.array_equal(got[1:].view(np.int32), want[1:].view(np.int32))
+    # a factor given as a Python number is flushed the same way
+    assert float(tinfo.fma(torch.tensor([2.0]), 1e-40, 0.0)) == 0.0
+    assert math.isnan(float(tinfo.fma(torch.tensor([math.inf]), 1e-40, 0.0)))
 
 
 # --------------------------------------------------------------------------

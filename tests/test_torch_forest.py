@@ -118,7 +118,9 @@ def test_forest_equals_jax(tables, name, growth):
                                    (20, 16, 3), (20, 16, 3, 3),
                                    (20, 17, 2, 3), (20, 21, 4),
                                    (20, 24, 1, 4), (20, 24, 2, 4),
-                                   (12, 32, 3), (12, 32, 5, 3)])
+                                   (12, 32, 3), (12, 32, 5, 3),
+                                   (6, 33, 2), (6, 40, 3, 3), (6, 48, 1, 4),
+                                   (6, 64, 5), (6, 64, 2, 3)])
 @pytest.mark.parametrize("weighted", [False, True])
 def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
     """The gain ratios of every (candidate, node) equal the JAX package's
@@ -130,7 +132,8 @@ def test_level_select_ratios_equal_compiled_jax(algorithm, shape, weighted):
     runs in 8 or 4 lanes, with a scalar epilogue where the counts' loads
     interleave with gaps (K = 3 at C = 2, K = 2 at C = 4) and without
     (C = 3 at K = 3, K = 1, K = 5), and the 32-segment denominator in 8
-    lanes."""
+    lanes; from 33 segments on XLA sums the products and the denominator
+    in windows of 32."""
     import jax
     import jax.numpy as jnp
     from functools import partial

@@ -222,9 +222,15 @@ def _fma_triples():
     one = np.float32(1.0 + 2.0 ** -12)          # one·one is a midpoint
     ties = [(s * one, one, t) for s in (1.0, -1.0)
             for t in (0.0, 2.0 ** -60, -2.0 ** -60, 2.0 ** -70, -2.0 ** -70)]
-    ta, tb, tc = (np.array(t, np.float32) for t in zip(*ties))
+    ta, tb, tc = (np.array(t, np.float32) for t in zip(*ties + _FLUSHED))
     return (np.concatenate([a, ta]), np.concatenate([b, tb]),
             np.concatenate([c, tc]))
+
+
+# XLA's CPU code reads subnormal operands as zero and flushes a subnormal
+# result: inf·1e-40 + 0 is NaN, and the other three come to 0
+_FLUSHED = [(np.inf, 1e-40, 0.0), (1e-40, 2.0, 0.0), (1e-20, 1e-20, 0.0),
+            (3e-39, 0.5, 1e-45)]
 
 
 @pytest.mark.parametrize("name", ["fma", "xla_log", "xla_exp",
@@ -232,9 +238,9 @@ def _fma_triples():
 def test_mapped_helpers_equal_the_views_on_special_values(name):
     """Under ``torch.func.vmap`` the helpers build their bits without a
     dtype view; they equal the plain calls, which view bits, on ±inf,
-    NaN, ±0, subnormals, the clamps' edges and fma's ties, and the
-    elementwise ones give JAX's compiled values there (log on its domain
-    and on NaN and +inf)."""
+    NaN, ±0, subnormals, the clamps' edges and fma's ties, and give JAX's
+    compiled values there (log on its domain and on NaN and +inf; fma on
+    every triple, subnormal operands and results flushed)."""
     import jax
     import jax.numpy as jnp
     from avenir_tpu_torch.ops import infotheory as it
@@ -247,10 +253,11 @@ def test_mapped_helpers_equal_the_views_on_special_values(name):
     mapped = torch.func.vmap(fn)(*(a.reshape(-1, 1) for a in args))
     assert _same_bits(plain.numpy(), mapped.reshape(-1).numpy())
     if name == "fma":
-        # the tie cases against JAX's contracted a * b + c
+        # every triple, the ties and the flushed ones, against JAX's
+        # contracted a * b + c
         want = jax.jit(lambda a, b, c: a * b + c)(
-            *(a.numpy()[-10:] for a in args))
-        assert _same_bits(plain.numpy()[-10:], want)
+            *(a.numpy() for a in args))
+        assert _same_bits(plain.numpy(), want)
         return
     x = _SPECIAL
     keep = np.ones(x.shape, bool)
